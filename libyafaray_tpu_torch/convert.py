@@ -1,0 +1,86 @@
+"""Carry a scene compiled by the JAX package across to the port.
+
+`scene_from_numpy(tree)` takes a `libyafaray_tpu` SceneData whose array
+leaves have been converted to numpy (for example with
+`jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
+SceneData with the same tables, on the CPU. It reads attributes only and
+imports nothing of JAX. Scenes that use features the port does not carry
+yet raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .scene_types import (LIGHT_AREA, MAT_SHINY_DIFFUSE, Background, Camera,
+                          Geometry, LightTable, MaterialTable, SceneData)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _require(ok: bool, feature: str) -> None:
+    if not ok:
+        raise NotImplementedError(
+            f"{feature} is not ported to libyafaray_tpu_torch yet")
+
+
+def scene_from_numpy(tree) -> SceneData:
+    g, m, lt = tree.geom, tree.materials, tree.lights
+    _require(tree.accel_kind == "brute", f"the {tree.accel_kind!r} accelerator")
+    _require(g.num_spheres == 0, "sphere primitives")
+    _require(not g.has_motion, "motion blur geometry")
+    _require(g.inst_mat is None, "instancing")
+    _require(g.num_faces == 0 or g.tri_table is not None,
+             "brute-force intersection without a packed table")
+    _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE},
+             f"material types {m.present_types}")
+    _require(not (m.has_oren or m.has_blend or m.has_mask or m.has_beer
+                  or m.has_sss), "Oren-Nayar, blend, mask or volume materials")
+    _require(set(lt.present_types) <= {LIGHT_AREA},
+             f"light types {lt.present_types}")
+    _require(lt.bg_light_idx < 0, "background lights")
+    _require(tree.background.kind == "constant",
+             f"background kind {tree.background.kind!r}")
+    cam = tree.camera
+    _require(cam.kind == "perspective", f"camera kind {cam.kind!r}")
+    _require(float(cam.aperture) == 0.0, "depth of field")
+    _require(tree.textures is None and tree.nodes is None
+             and tree.volumes is None, "textures, shader nodes and volumes")
+    _require(tree.fixed_wavelength is None, "render views")
+
+    geom = Geometry(
+        vertices=_t(g.vertices), normals=_t(g.normals), uvs=_t(g.uvs),
+        faces=_t(g.faces), face_uvs=_t(g.face_uvs), face_mat=_t(g.face_mat),
+        face_obj=_t(g.face_obj), face_smooth=_t(g.face_smooth),
+        face_light=_t(g.face_light), face_vis=_t(g.face_vis),
+        tri_table=_t(g.tri_table) if g.tri_table is not None else None,
+        num_faces=int(g.num_faces), num_spheres=0)
+    mats = MaterialTable(
+        mat_type=_t(m.mat_type), diffuse_color=_t(m.diffuse_color),
+        mirror_color=_t(m.mirror_color), emit_color=_t(m.emit_color),
+        specular_refl=_t(m.specular_refl), transparency=_t(m.transparency),
+        translucency=_t(m.translucency),
+        diffuse_reflect=_t(m.diffuse_reflect), ior=_t(m.ior),
+        mat_flags=_t(m.mat_flags), has_fresnel=bool(m.has_fresnel))
+    lights = LightTable(
+        light_type=_t(lt.light_type), position=_t(lt.position),
+        direction=_t(lt.direction), color=_t(lt.color), edge1=_t(lt.edge1),
+        edge2=_t(lt.edge2), area=_t(lt.area), flags=_t(lt.flags),
+        samples=_t(lt.samples), num_lights=int(lt.num_lights),
+        present_types=tuple(lt.present_types),
+        samples_static=tuple(lt.samples_static))
+    bg = tree.background
+    background = Background(kind="constant", color=_t(bg.color),
+                            power=_t(bg.power))
+    camera = Camera(kind="perspective", origin=_t(cam.origin),
+                    cam_x=_t(cam.cam_x), cam_y=_t(cam.cam_y),
+                    cam_z=_t(cam.cam_z), focal=_t(cam.focal),
+                    aspect=_t(cam.aspect), resx=int(cam.resx),
+                    resy=int(cam.resy))
+    return SceneData(
+        geom=geom, materials=mats, lights=lights, background=background,
+        camera=camera, shadow_bias=_t(tree.shadow_bias),
+        ray_min_dist=_t(tree.ray_min_dist), accel_kind="brute",
+        has_cam_invisible=bool(tree.has_cam_invisible))

@@ -1,0 +1,152 @@
+"""Ray-scene intersection over the brute-force accelerator.
+
+Counterpart of `libyafaray_tpu/ops/intersect.py`. Every triangle query goes
+through `accel.mt_intersect.mt_closest`: the CUDA kernel for tensors on the
+card, its plain PyTorch version for tensors on the CPU. Intersections carry
+no gradient, so the queries run under `torch.no_grad()` on detached inputs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..accel import mt_intersect as MT
+from ..math import vec
+from ..scene_types import Geometry, SceneData
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class Hit:
+    """Wavefront hit record (SoA)."""
+    valid: Tensor   # bool[N]
+    t: Tensor       # f32[N]
+    prim: Tensor    # i32[N] face index (0 on a miss)
+    uv: Tensor      # f32[N, 2] barycentrics
+
+
+def moller_trumbore(o: Tensor, d: Tensor, v0: Tensor, v1: Tensor, v2: Tensor,
+                    t_min, t_max, eps: float = 1e-10):
+    """Batched MT over broadcast shapes (o, d [N,1,3]; v* [1,C,3]).
+    Returns (hit_mask, t, u, v)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = vec.cross(d, e2)
+    det = vec.dot(e1, pvec)
+    ok = torch.abs(det) > eps
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
+    tvec = o - v0
+    u = vec.dot(tvec, pvec) * inv_det
+    qvec = vec.cross(tvec, e1)
+    v = vec.dot(d, qvec) * inv_det
+    t = vec.dot(e2, qvec) * inv_det
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t <= t_max)
+    return hit, t, u, v
+
+
+def intersect_sphere(o: Tensor, d: Tensor, center: Tensor, radius: Tensor,
+                     t_min, t_max):
+    """Batched analytic sphere; returns (hit, t) with the nearest root in
+    range."""
+    oc = o - center
+    b = vec.dot(oc, d)
+    c = vec.dot(oc, oc) - radius * radius
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    t0_in = (t0 > t_min) & (t0 <= t_max)
+    t1_in = (t1 > t_min) & (t1 <= t_max)
+    t = torch.where(t0_in, t0, t1)
+    return (disc >= 0.0) & (t0_in | t1_in), t
+
+
+def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
+                   t_max: Tensor, exclude_prim: Optional[Tensor] = None,
+                   shadow: bool = False) -> Hit:
+    if geom.num_spheres > 0:
+        raise NotImplementedError(
+            "sphere primitives are not ported to libyafaray_tpu_torch yet")
+    n = o.shape[0]
+    best_t = t_max
+    best_prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    best_uv = torch.zeros((n, 2), dtype=torch.float32, device=o.device)
+    if geom.num_faces > 0:
+        excl = (exclude_prim.to(torch.int32).contiguous()
+                if exclude_prim is not None else best_prim)
+        bt, bp, bu, bv = MT.mt_closest(
+            geom.tri_table, o.contiguous(), d.contiguous(),
+            t_min.contiguous(), t_max.contiguous(), excl, shadow=shadow)
+        best_t = torch.where(bp >= 0, bt, best_t)
+        best_prim = bp
+        best_uv = torch.stack([bu, bv], dim=-1)
+    return Hit(valid=best_prim >= 0, t=best_t,
+               prim=torch.clamp_min(best_prim, 0), uv=best_uv)
+
+
+def _brute_any(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
+               t_max: Tensor, exclude_prim: Optional[Tensor] = None) -> Tensor:
+    """Boolean shadow query: the closest-hit scan over shadow casters."""
+    return _brute_closest(geom, o, d, t_min, t_max, exclude_prim,
+                          shadow=True).valid
+
+
+def _query(o: Tensor, t_min, t_max):
+    """Ray extents as f32[N] tensors on the rays' device."""
+    shape = o.shape[:-1]
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                     device=o.device).expand(shape)
+    return as_t(t_min), as_t(t_max)
+
+
+def _check_accel(scene: SceneData) -> None:
+    if scene.accel_kind != "brute":
+        raise NotImplementedError(
+            f"the {scene.accel_kind!r} accelerator is not ported to "
+            "libyafaray_tpu_torch yet")
+
+
+@torch.no_grad()
+def closest_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
+                exclude_prim: Optional[Tensor] = None) -> Hit:
+    """Closest-hit query over the whole scene (Accelerator::intersect)."""
+    _check_accel(scene)
+    t_min, t_max = _query(o, t_min, t_max)
+    return _brute_closest(scene.geom, o.detach(), d.detach(), t_min.detach(),
+                          t_max.detach(), exclude_prim)
+
+
+@torch.no_grad()
+def camera_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max) -> Hit:
+    """First intersection of camera rays. Identical to closest_hit unless the
+    scene has primitives invisible to the camera (area lights with
+    visibility='invisible'): lanes whose first hit is such a primitive are
+    traced again past it; the other lanes get an empty t-range."""
+    hit = closest_hit(scene, o, d, t_min, t_max)
+    if not scene.has_cam_invisible:
+        return hit
+    nf = scene.geom.num_faces
+    is_tri = hit.prim < nf
+    fv = scene.geom.face_vis[torch.clamp_max(hit.prim, max(nf - 1, 0))]
+    inv = hit.valid & is_tri & ((fv & 4) != 0)
+    excl = torch.where(inv, hit.prim, -1)
+    _, t_max = _query(o, t_min, t_max)
+    hit2 = closest_hit(scene, o, d, t_min, torch.where(inv, t_max, -1.0),
+                       exclude_prim=excl)
+    return Hit(valid=torch.where(inv, hit2.valid, hit.valid),
+               t=torch.where(inv, hit2.t, hit.t),
+               prim=torch.where(inv, hit2.prim, hit.prim),
+               uv=torch.where(inv[..., None], hit2.uv, hit.uv))
+
+
+@torch.no_grad()
+def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
+            exclude_prim: Optional[Tensor] = None) -> Tensor:
+    """Binary shadow query (Accelerator::intersectS)."""
+    _check_accel(scene)
+    t_min, t_max = _query(o, t_min, t_max)
+    return _brute_any(scene.geom, o.detach(), d.detach(), t_min.detach(),
+                      t_max.detach(), exclude_prim)

@@ -1,0 +1,459 @@
+"""Host-side scene builder: named-entity registries and geometry streaming,
+compiled to the torch tables of `scene_types.py`.
+
+Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
+port carries so far: `shinydiffusemat` materials, triangle meshes, area
+lights (baked into the geometry as two emissive triangles), a perspective
+camera and a constant background. `compile()` builds the same tables as the
+JAX compile. Every other entity type or option raises `NotImplementedError`
+naming the feature.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import params as P
+from .accel.mt_intersect import MAX_TRIS, pack_tris
+from .backgrounds import make_background
+from .cameras import make_camera
+from .lights import FLAG_CAST_SHADOWS, FLAG_ENABLED, FLAG_PHOTON_ONLY
+from .materials.bsdf import FLAG_FRESNEL
+from .scene_types import (
+    LIGHT_AREA, MAT_SHINY_DIFFUSE, VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL,
+    VIS_SHADOW_ONLY, Background, Geometry, LightTable, MaterialTable,
+    SceneData,
+)
+
+# material and light types the JAX package knows; the ones not ported yet
+# raise NotImplementedError, unknown names raise KeyError as there
+_MAT_TYPES = ("shinydiffusemat", "glossy", "coated_glossy", "glass",
+              "rough_glass", "mirror", "null", "light_mat", "blend_mat",
+              "mask_mat")
+_LIGHT_TYPES = ("pointlight", "ieslight", "spotlight", "sunlight",
+                "directional", "arealight", "spherelight", "meshlight",
+                "objectlight", "bgPortalLight", "bglight")
+# accelerators other than the brute-force scan
+_ACCEL_BLOCKS = ("blocks", "yafaray-kdtree-original",
+                 "yafaray-kdtree-multi-thread")
+BLOCKS_MIN_FACES = 2048  # the JAX compile defaults to blocks from here on
+
+_VIS_BY_NAME = {
+    "normal": VIS_NORMAL,
+    "invisible": VIS_INVISIBLE,
+    "shadow_only": VIS_SHADOW_ONLY,
+    "no_shadows": VIS_NO_SHADOWS,
+}
+
+
+def _unsupported(feature: str):
+    return NotImplementedError(
+        f"{feature} is not ported to libyafaray_tpu_torch yet")
+
+
+@dataclass
+class _MeshObject:
+    """Staged mesh while streaming."""
+    name: str
+    obj_id: int
+    vertices: List = field(default_factory=list)
+    normals: List = field(default_factory=list)
+    uvs: List = field(default_factory=list)
+    faces: List = field(default_factory=list)     # (a,b,c, uva,uvb,uvc, mat)
+    visibility: int = VIS_NORMAL
+    smooth: bool = False
+
+
+class SceneBuilder:
+    """Stateful scene session (Interface + Scene analogue)."""
+
+    def __init__(self):
+        self.materials: Dict[str, P.ParamMap] = {}
+        self.material_order: List[str] = []
+        self.lights: Dict[str, P.ParamMap] = {}
+        self.light_order: List[str] = []
+        self.cameras: Dict[str, P.ParamMap] = {}
+        self.background_params: Optional[P.ParamMap] = None
+        self.objects: Dict[str, _MeshObject] = {}
+        self.object_order: List[str] = []
+        self.render_params = P.ParamMap()
+        self.current_object: Optional[_MeshObject] = None
+        self.current_material: int = 0
+
+    # --- entity creation ---
+
+    def create_material(self, name: str, pm: dict,
+                        node_list: Optional[List[dict]] = None) -> int:
+        pm = P.ParamMap(pm)
+        ty = pm.get_string("type")
+        if ty not in _MAT_TYPES:
+            raise KeyError(f"material: unknown type {ty!r}")
+        if ty != "shinydiffusemat":
+            raise _unsupported(f"material type {ty!r}")
+        if node_list:
+            raise _unsupported("shader nodes (material node_list)")
+        if pm.get_string("diffuse_brdf", "lambert") == "oren_nayar":
+            raise _unsupported("the Oren-Nayar diffuse BRDF")
+        if name not in self.materials:
+            self.material_order.append(name)
+        self.materials[name] = pm
+        return self.material_order.index(name)
+
+    def create_light(self, name: str, pm: dict) -> None:
+        pm = P.ParamMap(pm)
+        ty = pm.get_string("type")
+        if ty not in _LIGHT_TYPES:
+            raise KeyError(f"light: unknown type {ty!r}")
+        if ty != "arealight":
+            raise _unsupported(f"light type {ty!r}")
+        if name not in self.lights:
+            self.light_order.append(name)
+        self.lights[name] = pm
+
+    def create_camera(self, name: str, pm: dict) -> None:
+        self.cameras[name] = P.ParamMap(pm)
+
+    def create_background(self, pm: dict) -> None:
+        pm = P.ParamMap(pm)
+        if pm.get_bool("ibl", False) or pm.get_bool("add_sun", False):
+            raise _unsupported("background lights (ibl / add_sun)")
+        self.background_params = pm
+
+    def create_texture(self, name: str, pm: dict, image=None) -> None:
+        raise _unsupported("textures")
+
+    def create_volume_region(self, name: str, pm: dict) -> None:
+        raise _unsupported("volume regions")
+
+    def create_render_view(self, name: str, pm: dict) -> None:
+        raise _unsupported("render views")
+
+    def set_render_params(self, pm: dict) -> None:
+        self.render_params.update(pm)
+
+    # --- geometry streaming ---
+
+    def create_object(self, name: str, pm: Optional[dict] = None) -> None:
+        pm = P.ParamMap(pm or {})
+        ty = pm.get_string("type", "mesh")
+        if ty != "mesh":
+            raise _unsupported(f"object type {ty!r}")
+        if pm.get_bool("is_base_object", False):
+            raise _unsupported("instancing (is_base_object)")
+        obj = _MeshObject(name=name, obj_id=len(self.object_order))
+        obj.visibility = _VIS_BY_NAME[pm.get_string("visibility", "normal")]
+        self.objects[name] = obj
+        self.object_order.append(name)
+        self.current_object = obj
+
+    def set_current_material(self, name: str) -> None:
+        if name not in self.material_order:
+            raise KeyError(f"unknown material {name!r}")
+        self.current_material = self.material_order.index(name)
+
+    def add_vertex(self, x, y, z) -> int:
+        self.current_object.vertices.append((x, y, z))
+        return len(self.current_object.vertices) - 1
+
+    def add_normal(self, x, y, z) -> None:
+        self.current_object.normals.append((x, y, z))
+
+    def add_uv(self, u, v) -> int:
+        self.current_object.uvs.append((u, v))
+        return len(self.current_object.uvs) - 1
+
+    def add_triangle(self, a, b, c, uv=None) -> None:
+        uva, uvb, uvc = uv if uv is not None else (-1, -1, -1)
+        self.current_object.faces.append(
+            (a, b, c, uva, uvb, uvc, self.current_material))
+
+    def add_quad(self, a, b, c, d, uv=None) -> None:
+        if uv is not None:
+            ua, ub, uc, ud = uv
+            self.add_triangle(a, b, c, (ua, ub, uc))
+            self.add_triangle(a, c, d, (ua, uc, ud))
+        else:
+            self.add_triangle(a, b, c)
+            self.add_triangle(a, c, d)
+
+    def add_mesh_arrays(self, vertices, faces, uvs=None, face_uvs=None,
+                        normals=None, face_mats=None, orcos=None) -> None:
+        """Attach whole vertex / face arrays to the current object."""
+        if orcos is not None:
+            raise _unsupported("orco coordinates")
+        obj = self.current_object
+        vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
+        faces = np.asarray(faces, np.int32).reshape(-1, 3)
+        obj.vertices.extend(map(tuple, vertices))
+        if normals is not None:
+            obj.normals.extend(map(tuple, np.asarray(normals, np.float32)
+                                   .reshape(-1, 3)))
+        if uvs is not None:
+            obj.uvs.extend(map(tuple, np.asarray(uvs, np.float32)
+                               .reshape(-1, 2)))
+        fuv = (np.asarray(face_uvs, np.int32).reshape(-1, 3)
+               if face_uvs is not None
+               else np.full((len(faces), 3), -1, np.int32))
+        fmat = (np.asarray(face_mats, np.int32).reshape(-1)
+                if face_mats is not None
+                else np.full((len(faces),), self.current_material, np.int32))
+        for f, u, m in zip(faces, fuv, fmat):
+            obj.faces.append((int(f[0]), int(f[1]), int(f[2]),
+                              int(u[0]), int(u[1]), int(u[2]), int(m)))
+
+    def smooth_mesh(self, name: str = "", angle: float = 181.0) -> None:
+        obj = self.objects[name] if name else self.current_object
+        obj.smooth = True
+
+    def add_vertex_with_orco(self, *args) -> int:
+        raise _unsupported("orco coordinates")
+
+    def add_vertex_time_step(self, *args) -> None:
+        raise _unsupported("motion blur geometry")
+
+    def add_mesh_time_step(self, *args) -> None:
+        raise _unsupported("motion blur geometry")
+
+    def add_instance(self, *args) -> None:
+        raise _unsupported("instancing")
+
+    # ------------------------------------------------------------------
+    def compile(self, camera_name: Optional[str] = None) -> SceneData:
+        """Freeze the staged scene into SceneData (tensors on the CPU; move
+        them with `SceneData.to(device)`)."""
+        materials = self._build_materials()
+        g = self._build_geometry()
+        lights, g = self._build_lights(g)
+        geom = _geometry_tables(g)
+        background = (make_background(self.background_params)
+                      if self.background_params is not None
+                      else Background(kind="none"))
+        if background.kind == "none":
+            raise _unsupported("a scene without a background")
+        if camera_name is None and self.cameras:
+            camera_name = next(iter(self.cameras))
+        if not camera_name:
+            raise ValueError("compile needs a camera")
+        camera = make_camera(self.cameras[camera_name])
+        default = "blocks" if geom.num_faces >= BLOCKS_MIN_FACES else "brute"
+        accel = self.render_params.get_string("scene_accelerator", default)
+        if accel in _ACCEL_BLOCKS or accel == "bvh":
+            raise _unsupported(f"the {accel!r} accelerator "
+                               f"(scenes of {BLOCKS_MIN_FACES}+ faces)")
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        return SceneData(
+            geom=geom, materials=materials, lights=lights,
+            background=background, camera=camera, accel_kind="brute",
+            shadow_bias=f32(self.render_params.get_float("shadow_bias", 5e-4)),
+            ray_min_dist=f32(self.render_params.get_float("ray_min_dist",
+                                                          5e-5)),
+            has_cam_invisible=bool((g["face_vis"] & 4).any()))
+
+    # ------------------------------------------------------------------
+    def _build_materials(self) -> MaterialTable:
+        n = max(len(self.material_order), 1)
+        z = lambda: np.zeros((n,), np.float32)
+        z3 = lambda: np.zeros((n, 3), np.float32)
+        zi = lambda: np.zeros((n,), np.int32)
+        cols = dict(
+            mat_type=zi(), diffuse_color=z3(), mirror_color=z3(),
+            emit_color=z3(),
+            specular_refl=z(), transparency=z(), translucency=z(),
+            diffuse_reflect=z(), ior=z() + 1.5, mat_flags=zi())
+        if not self.material_order:
+            # default diffuse gray
+            cols["diffuse_color"][0] = (0.8, 0.8, 0.8)
+            cols["diffuse_reflect"][0] = 1.0
+        for i, name in enumerate(self.material_order):
+            pm = self.materials[name]
+            flags = 0
+            # material_shiny_diffuse.cc params
+            cols["mat_type"][i] = MAT_SHINY_DIFFUSE
+            cols["diffuse_color"][i] = pm.get_color("color", (0.8, 0.8, 0.8))[:3]
+            cols["mirror_color"][i] = pm.get_color("mirror_color", (1, 1, 1))[:3]
+            cols["specular_refl"][i] = pm.get_float("specular_reflect", 0.0)
+            cols["transparency"][i] = pm.get_float("transparency", 0.0)
+            cols["translucency"][i] = pm.get_float("translucency", 0.0)
+            cols["diffuse_reflect"][i] = pm.get_float("diffuse_reflect", 1.0)
+            cols["emit_color"][i] = (pm.get_float("emit", 0.0)
+                                     * pm.get_color("color", (0.8, 0.8, 0.8))[:3])
+            cols["ior"][i] = pm.get_float("IOR", 1.33)
+            if pm.get_bool("fresnel_effect", False):
+                flags |= FLAG_FRESNEL
+            cols["mat_flags"][i] = flags
+        return MaterialTable(
+            has_fresnel=bool(np.any(cols["mat_flags"] & FLAG_FRESNEL)),
+            **{k: torch.from_numpy(v) for k, v in cols.items()})
+
+    # ------------------------------------------------------------------
+    def _build_geometry(self) -> dict:
+        """Concatenate all meshes into flat numpy arrays."""
+        all_v, all_n, all_f, all_fuv = [], [], [], []
+        all_uv = [np.zeros((1, 2), np.float32)]
+        all_fmat, all_fobj, all_fsmooth, all_fvis = [], [], [], []
+        v_off, uv_off, f_count = 0, 1, 0
+        for name in self.object_order:
+            obj = self.objects[name]
+            if not obj.faces:
+                continue
+            v = np.asarray(obj.vertices, np.float32).reshape(-1, 3)
+            f = np.asarray([fc[:3] for fc in obj.faces], np.int32)
+            fuv = np.asarray([fc[3:6] for fc in obj.faces], np.int32)
+            fmat = np.asarray([fc[6] for fc in obj.faces], np.int32)
+            uv = (np.asarray(obj.uvs, np.float32).reshape(-1, 2)
+                  if obj.uvs else np.zeros((0, 2), np.float32))
+            if obj.normals and len(obj.normals) == len(obj.vertices):
+                n_arr = np.asarray(obj.normals, np.float32).reshape(-1, 3)
+                smooth_flag = True
+            elif obj.smooth:
+                n_arr = _smooth_normals(v, f)
+                smooth_flag = True
+            else:
+                n_arr = np.zeros_like(v)
+                smooth_flag = False
+            all_v.append(v)
+            all_n.append(n_arr)
+            if uv.size:
+                all_uv.append(uv)
+            all_f.append(f + v_off)
+            all_fuv.append(np.where(fuv >= 0, fuv + uv_off, 0))
+            all_fmat.append(fmat)
+            all_fobj.append(np.full((len(f),), obj.obj_id, np.int32))
+            all_fsmooth.append(np.full((len(f),), smooth_flag, bool))
+            all_fvis.append(np.full((len(f),), _vis_bits(obj.visibility),
+                                    np.int32))
+            v_off += len(v)
+            uv_off += len(uv)
+            f_count += len(f)
+        cat = lambda xs, empty: np.concatenate(xs) if xs else empty
+        return dict(
+            vertices=cat(all_v, np.zeros((1, 3), np.float32)),
+            normals=cat(all_n, np.zeros((1, 3), np.float32)),
+            uvs=np.concatenate(all_uv),
+            faces=cat(all_f, np.zeros((0, 3), np.int32)),
+            face_uvs=cat(all_fuv, np.zeros((0, 3), np.int32)),
+            face_mat=cat(all_fmat, np.zeros((0,), np.int32)),
+            face_obj=cat(all_fobj, np.zeros((0,), np.int32)),
+            face_smooth=cat(all_fsmooth, np.zeros((0,), bool)),
+            face_vis=cat(all_fvis, np.zeros((0,), np.int32)),
+            face_light=np.full((f_count,), -1, np.int32))
+
+    # ------------------------------------------------------------------
+    def _build_lights(self, g: dict):
+        """Parse the area lights into the LightTable and bake each one's
+        quad into the geometry, so BSDF-sampled rays can hit it (MIS)."""
+        n = max(len(self.light_order), 1)
+        z = lambda: np.zeros((n,), np.float32)
+        z3 = lambda: np.zeros((n, 3), np.float32)
+        zi = lambda v=0: np.full((n,), v, np.int32)
+        cols = dict(light_type=zi(), position=z3(), direction=z3(),
+                    color=z3(), edge1=z3(), edge2=z3(), area=z(), flags=zi(),
+                    samples=zi(1))
+        quads = []
+        for i, name in enumerate(self.light_order):
+            pm = self.lights[name]
+            flags = FLAG_ENABLED if pm.get_bool("light_enabled", True) else 0
+            if pm.get_bool("cast_shadows", True):
+                flags |= FLAG_CAST_SHADOWS
+            if pm.get_bool("photon_only", False):
+                flags |= FLAG_PHOTON_ONLY
+            col = pm.get_color("color", (1, 1, 1))[:3]
+            power = pm.get_float("power", 1.0)
+            cols["light_type"][i] = LIGHT_AREA
+            corner = pm.get_vector("corner")
+            p1 = pm.get_vector("point1")
+            p2 = pm.get_vector("point2")
+            e1 = p1 - corner
+            e2 = p2 - corner
+            nrm = np.cross(e1, e2)
+            area = float(np.linalg.norm(nrm))
+            cols["position"][i] = corner
+            cols["edge1"][i] = e1
+            cols["edge2"][i] = e2
+            cols["direction"][i] = nrm / max(area, 1e-12)
+            cols["area"][i] = area
+            # emitted radiance; with the solid-angle pdf of sample_light the
+            # net contribution is color*power*area*cos/d^2 as in the reference
+            cols["color"][i] = col * power
+            cols["samples"][i] = pm.get_int("samples", 4)
+            cam_vis = pm.get_string("visibility", "normal") != "invisible"
+            quads.append((i, corner, p1, p2, cam_vis))
+            cols["flags"][i] = flags
+        if not self.light_order:
+            cols["flags"][0] = 0  # disabled placeholder
+        if quads:
+            g = _append_light_quads(g, quads)
+        nl = len(self.light_order)
+        lights = LightTable(
+            num_lights=nl,
+            present_types=tuple(sorted({int(t) for t in
+                                        cols["light_type"][:nl]})),
+            samples_static=tuple(max(1, int(s)) for s in cols["samples"][:nl]),
+            **{k: torch.from_numpy(v) for k, v in cols.items()})
+        return lights, g
+
+
+def _append_light_quads(g: dict, quads) -> dict:
+    """Two emissive triangles per area light. They cast no shadows (vis bit
+    value 2 never set); value 4 hides them from camera rays only."""
+    v_off = len(g["vertices"])
+    new_v, new_f, new_light, new_vis = [], [], [], []
+    for li, corner, p1, p2, cam_vis in quads:
+        c = np.asarray(corner, np.float32)
+        e1 = np.asarray(p1, np.float32) - c
+        e2 = np.asarray(p2, np.float32) - c
+        base = v_off + len(new_v)
+        new_v += [c, c + e1, c + e1 + e2, c + e2]
+        new_f += [(base, base + 1, base + 2), (base, base + 2, base + 3)]
+        new_light += [li, li]
+        new_vis += [1 if cam_vis else 5] * 2
+    nv = np.asarray(new_v, np.float32)
+    nf = np.asarray(new_f, np.int32)
+    cnt = len(nf)
+    g["vertices"] = np.concatenate([g["vertices"], nv])
+    g["normals"] = np.concatenate([g["normals"], np.zeros_like(nv)])
+    g["faces"] = np.concatenate([g["faces"], nf]) if len(g["faces"]) else nf
+    g["face_uvs"] = np.concatenate([g["face_uvs"], np.zeros((cnt, 3), np.int32)])
+    g["face_mat"] = np.concatenate([g["face_mat"], np.zeros((cnt,), np.int32)])
+    g["face_obj"] = np.concatenate([g["face_obj"], np.full((cnt,), -1, np.int32)])
+    g["face_smooth"] = np.concatenate([g["face_smooth"], np.zeros((cnt,), bool)])
+    g["face_vis"] = np.concatenate([g["face_vis"], np.asarray(new_vis, np.int32)])
+    g["face_light"] = np.concatenate([g["face_light"],
+                                      np.asarray(new_light, np.int32)])
+    return g
+
+
+def _geometry_tables(g: dict) -> Geometry:
+    f = int(len(g["faces"]))
+    if f > MAX_TRIS:
+        raise _unsupported(f"brute-force intersection above {MAX_TRIS} faces")
+    geom = Geometry(num_faces=f, num_spheres=0,
+                    **{k: torch.from_numpy(v) for k, v in g.items()})
+    if f > 0:
+        # packed once here instead of per intersect call
+        fc = geom.faces.long()
+        v = geom.vertices
+        geom.tri_table = pack_tris(v[fc[:, 0]], v[fc[:, 1]], v[fc[:, 2]],
+                                   geom.face_vis)
+    return geom
+
+
+def _vis_bits(vis: int) -> int:
+    """Visibility enum -> (camera_visible | casts_shadow) bitmask."""
+    return {VIS_NORMAL: 3, VIS_INVISIBLE: 0, VIS_SHADOW_ONLY: 2,
+            VIS_NO_SHADOWS: 1}[vis]
+
+
+def _smooth_normals(v: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals (MeshObject::smoothNormals analogue)."""
+    e1 = v[f[:, 1]] - v[f[:, 0]]
+    e2 = v[f[:, 2]] - v[f[:, 0]]
+    fn = np.cross(e1, e2)
+    n = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(n, f[:, k], fn)
+    norm = np.linalg.norm(n, axis=-1, keepdims=True)
+    return (n / np.maximum(norm, 1e-20)).astype(np.float32)

@@ -1,0 +1,226 @@
+"""The port's SceneBuilder against the JAX compile: the same tables, and
+NotImplementedError for what the port does not carry yet."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import libyafaray_tpu_torch as P
+from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.scenes import cornell_builder as port_cornell
+from scenes import cornell_builder, glossy_cornell_builder
+
+GEOM = ("vertices", "normals", "uvs", "faces", "face_uvs", "face_mat",
+        "face_obj", "face_smooth", "face_light", "face_vis", "tri_table")
+MATS = ("mat_type", "diffuse_color", "mirror_color", "emit_color",
+        "specular_refl", "transparency", "translucency", "diffuse_reflect",
+        "ior", "mat_flags")
+LIGHTS = ("light_type", "position", "direction", "color", "edge1", "edge2",
+          "area", "flags", "samples")
+CAMERA = ("origin", "cam_x", "cam_y", "cam_z", "focal", "aspect")
+
+
+def _variant(b, name):
+    """Apply one variant to a Cornell builder (JAX or port: same API)."""
+    if name == "lamp_invisible":
+        b.lights["lamp"]["visibility"] = "invisible"
+    elif name == "materials":
+        b.create_material("shiny", {
+            "type": "shinydiffusemat", "color": (0.2, 0.4, 0.6),
+            "specular_reflect": 0.3, "transparency": 0.2,
+            "translucency": 0.25, "diffuse_reflect": 0.9, "emit": 0.5,
+            "fresnel_effect": True, "IOR": 1.6,
+            "mirror_color": (0.9, 0.8, 0.7),
+            "transmit_filter": (0.5, 0.6, 0.7),
+            "transmit_filter_strength": 0.5})
+        b.create_object("extra", {"visibility": "no_shadows"})
+        b.set_current_material("shiny")
+        verts = np.array([[0.1, 0.1, 0.2], [0.4, 0.1, 0.2], [0.4, 0.3, 0.5],
+                          [0.1, 0.3, 0.5]], np.float32)
+        normals = verts / np.linalg.norm(verts, axis=1, keepdims=True)
+        b.add_mesh_arrays(verts, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                          uvs=verts[:, :2], face_uvs=[[0, 1, 2], [0, 2, 3]],
+                          normals=normals)
+        b.create_object("smooth", {"visibility": "shadow_only"})
+        i = [b.add_vertex(*v) for v in ((0.6, 0.6, 0.1), (0.8, 0.6, 0.1),
+                                        (0.7, 0.8, 0.3))]
+        b.add_triangle(*i)
+        b.smooth_mesh()
+    elif name == "lights":
+        b.create_light("lamp2", {
+            "type": "arealight", "corner": (0.1, 0.1, 0.9),
+            "point1": (0.1, 0.3, 0.9), "point2": (0.3, 0.1, 0.9),
+            "color": (0.5, 0.5, 1.0), "power": 3.0, "samples": 4,
+            "cast_shadows": False, "light_enabled": False})
+        b.set_render_params({"shadow_bias": 1e-3, "ray_min_dist": 1e-4})
+        b.create_background({"type": "constant", "color": (0.1, 0.2, 0.3),
+                             "power": 2.0})
+        b.cameras["cam"].update({"resx": 40, "resy": 30, "fov": 50.0,
+                                 "aspect_ratio_factor": 1.2})
+    return b
+
+
+def _assert_same(got, want, fields, what):
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype, (what, f, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f"{what}.{f}")
+
+
+@pytest.mark.parametrize("variant", ["cornell", "lamp_invisible", "materials",
+                                     "lights"])
+def test_compile_matches_jax_tables(variant):
+    js = _variant(cornell_builder(), variant).compile("cam")
+    want = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    got = _variant(port_cornell(), variant).compile("cam")
+    _assert_same(got.geom, want.geom, GEOM, "geom")
+    _assert_same(got.materials, want.materials, MATS, "materials")
+    _assert_same(got.lights, want.lights, LIGHTS, "lights")
+    _assert_same(got.camera, want.camera, CAMERA, "camera")
+    _assert_same(got.background, want.background, ("color", "power"),
+                 "background")
+    _assert_same(got, want, ("shadow_bias", "ray_min_dist"), "scene")
+    for part, fields in (("geom", ("num_faces", "num_spheres")),
+                         ("materials", ("has_fresnel",)),
+                         ("lights", ("num_lights", "present_types",
+                                     "samples_static")),
+                         ("camera", ("kind", "resx", "resy")),
+                         ("background", ("kind",))):
+        for f in fields:
+            assert (getattr(getattr(got, part), f)
+                    == getattr(getattr(want, part), f)), (part, f)
+    assert got.accel_kind == want.accel_kind == "brute"
+    assert got.has_cam_invisible == want.has_cam_invisible
+    if variant == "cornell":
+        # 34 wall and box triangles plus the lamp's 2-triangle quad
+        assert got.geom.num_faces == 36
+        assert tuple(got.geom.tri_table.shape) == (64, 16)
+
+
+def test_scene_to_moves_every_tensor():
+    scene = port_cornell().compile("cam").to("meta")
+
+    def walk(obj):
+        for v in vars(obj).values():
+            if isinstance(v, torch.Tensor):
+                assert v.device.type == "meta"
+            elif hasattr(v, "__dataclass_fields__"):
+                walk(v)
+
+    walk(scene)
+    assert scene.geom.tri_table.device.type == "meta"
+
+
+def _add_glossy(b):
+    b.create_material("g", {"type": "glossy"})
+
+
+def _add_point(b):
+    b.create_light("p", {"type": "pointlight", "from": (0.5, 0.5, 0.9)})
+
+
+def _ortho_camera(b):
+    b.create_camera("cam", {"type": "orthographic"})
+    b.compile("cam")
+
+
+def _dof_camera(b):
+    b.cameras["cam"]["aperture"] = 0.1
+    b.compile("cam")
+
+
+def _gradient_bg(b):
+    b.create_background({"type": "gradientback"})
+    b.compile("cam")
+
+
+def _ibl(b):
+    b.create_background({"type": "constant", "ibl": True})
+
+
+def _oren(b):
+    b.create_material("o", {"type": "shinydiffusemat",
+                            "diffuse_brdf": "oren_nayar", "sigma": 0.3})
+
+
+def _bvh(b):
+    b.set_render_params({"scene_accelerator": "bvh"})
+    b.compile("cam")
+
+
+def _big_mesh(b):
+    b.create_object("grid")
+    n = 33
+    xs = np.linspace(0, 1, n, dtype=np.float32)
+    xx, yy = np.meshgrid(xs, xs)
+    verts = np.stack([xx, yy, np.zeros_like(xx)], -1).reshape(-1, 3)
+    i = np.arange(n * n).reshape(n, n)
+    a, b2, c, d = (i[:-1, :-1].ravel(), i[1:, :-1].ravel(),
+                   i[1:, 1:].ravel(), i[:-1, 1:].ravel())
+    faces = np.concatenate([np.stack([a, b2, c], -1), np.stack([a, c, d], -1)])
+    b.add_mesh_arrays(verts, faces)     # 2048 faces: the block accelerator
+    b.compile("cam")
+
+
+def _sphere(b):
+    b.create_object("ball", {"type": "sphere", "radius": 0.1})
+
+
+def _instance(b):
+    b.add_instance("box1", np.eye(4))
+
+
+def _motion(b):
+    b.add_vertex_time_step(0.0, 0.0, 0.0)
+
+
+def _texture(b):
+    b.create_texture("t", {"type": "image"}, image=np.zeros((2, 2, 3)))
+
+
+def _nodes(b):
+    b.create_material("n", {"type": "shinydiffusemat"},
+                      node_list=[{"name": "x", "type": "texture_mapper"}])
+
+
+def _photon(b):
+    P.make_integrator({"type": "photonmapping"})
+
+
+def _transp_shadows(b):
+    P.make_integrator({"type": "pathtracing", "transpShad": True})
+
+
+def _ao(b):
+    P.make_integrator({"type": "directlighting", "do_AO": True})
+
+
+@pytest.mark.parametrize("case", [
+    _add_glossy, _add_point, _ortho_camera, _dof_camera, _gradient_bg, _ibl,
+    _oren, _bvh, _big_mesh, _sphere, _instance, _motion, _texture, _nodes,
+    _photon, _transp_shadows, _ao], ids=lambda f: f.__name__[1:])
+def test_features_outside_the_port_raise(case):
+    with pytest.raises(NotImplementedError):
+        case(port_cornell())
+
+
+def test_unknown_types_raise_key_error():
+    b = port_cornell()
+    with pytest.raises(KeyError):
+        b.create_material("x", {"type": "no_such_material"})
+    with pytest.raises(KeyError):
+        b.create_light("x", {"type": "no_such_light"})
+    with pytest.raises(KeyError):
+        P.make_integrator({"type": "no_such_integrator"})
+
+
+def test_converting_an_unported_jax_scene_raises():
+    b = glossy_cornell_builder()
+    b.create_object("gbox")
+    b.set_current_material("gloss")
+    i = [b.add_vertex(*v) for v in ((0.2, 0.2, 0.2), (0.4, 0.2, 0.2),
+                                    (0.3, 0.4, 0.2))]
+    b.add_triangle(*i)
+    js = b.compile("cam")
+    with pytest.raises(NotImplementedError):
+        scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
