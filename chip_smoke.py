@@ -3,21 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases, each reporting on its own line:
+Phases, each reporting on its own lines:
   1. environment: torch and CUDA versions, nvcc, the card's name and power
      limit;
-  2. build: compiles the CUDA kernels from the package's sources;
-  3. kernel against its plain PyTorch version on the card: mt_closest vs
-     mt_closest_ref on a random 300-triangle table and the Cornell table
-     (closest and shadow, excluded ids, a ray count that is not a multiple
-     of the block), the exact-tie case and both motion-blur arms; prim ids
-     must be equal on every ray and t, u, v within rtol 1e-6;
-  4. the slice: the Cornell box at 1920x1080, 16 spp, 4 bounces through
-     `render(..., device="cuda")`, with every intersection query counted on
-     the kernel, plausibility checks on the image, ms per pass, camera
-     rays/s and the kernel's share of a pass (CUDA events);
-  5. kernel path against plain path end to end: 256x256, 2 spp, 4 bounces,
-     once through the kernel and once with the plain version swapped in.
+  2. build: compiles both CUDA sources of the package (one nvcc each, in
+     parallel), timed;
+  3. mt_closest against its plain version mt_closest_ref on the card: a
+     random 300-triangle table and the Cornell table (closest and shadow,
+     excluded ids, a ray count that is not a multiple of the block), the
+     exact-tie case and both motion-blur arms; prim ids equal on every ray
+     and t, u, v within rtol 1e-6; kernel and plain times at 1080p;
+ 3b. tile_walk (the tiles_traverse kernel) against tile_walk_ref on the
+     card, on sorted rays: the 203,522-triangle terrain table (1591 blocks
+     of 128) with camera rays and random rays, closest and shadow, excluded
+     ids, 1/7 dead rays, ray counts not a multiple of 128; any hit on the
+     same table; a 2,415,602-triangle terrain table (blocks of 1024, 8
+     sub-chunks, about 155 MB: above the TPU kernel's 96 MiB VMEM budget);
+     an exact tie inside a sub-chunk. Closest: prim ids equal on every ray,
+     t/u/v within rtol 1e-6; any hit: hit/miss equal on every ray. Kernel
+     and plain times per query on the camera and first shadow wavefronts;
+  4. the Cornell box at 1920x1080, 16 spp, 4 bounces through `render`, with
+     every intersection query counted on mt_closest, plausibility checks,
+     ms per pass, camera rays/s and the kernel's share of a pass;
+  5. Cornell kernel path against plain path end to end: 256x256, 2 spp;
+  6. the slice: the terrain of BASELINE config 3 (untextured, 203,522
+     triangles) at 720x720, 6 spp, 2 bounces through `render` with no
+     device argument, with the tile kernel's launches counted, image
+     checks, ms per pass, camera rays/s, one pass split by CUDA events
+     into kernel, tile_candidates, ray sort/unsort and the rest, and peak
+     device memory;
+  7. terrain kernel path against plain path end to end: 128x128, 1 spp.
 
 Then one JSON line listing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; the
@@ -25,17 +40,29 @@ script never falls back to the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 DEVICE = "cuda"
-WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 4   # the main path
+WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 4   # the Cornell path
 SMALL = 256                                      # phase 5 image side
 N_RANDOM, N_CORNELL, N_MOTION = 65_537, 2_073_601, 10_001
 LAMP = 12.0   # radiance of the Cornell lamp (power 12, colour max 1)
+TERRAIN_GRID = 320       # 2 * 319^2 = 203,522 triangles
+TERRAIN_RES, TERRAIN_SPP, TERRAIN_BOUNCES = 720, 6, 2   # the slice
+TERRAIN_SMALL = 128                              # phase 7 image side
+BIG_GRID = 1100          # 2 * 1099^2 = 2,415,602 triangles
+BIG_BLOCK, VMEM_BUDGET_MIB = 1024, 96   # its blocks; the TPU kernel's budget
+N_TILE_RANDOM, N_BIG = 100_003, 32_771
+SKY = (0.3, 0.4, 0.6)    # the terrain's constant background
+# H100 SXM data-sheet peaks (fp32 counts a fused multiply-add as 2 flops)
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+FLOPS_PER_PAIR = 45      # one Möller-Trumbore ray-triangle test
 
 
 def _cmd(*args: str) -> str:
@@ -57,6 +84,19 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound_ms(flops: float, nbytes: float):
+    """(least time in ms, what bounds it) for the work and the traffic."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+# ---------------------------------------------------------------- phase 3
+
 def _random_table(rng, f, motion=0):
     """Packed table of f random triangles with mixed visibility bits (and
     motion keyframes), as in tests/test_pallas_intersect.py."""
@@ -76,7 +116,9 @@ def _random_table(rng, f, motion=0):
     return [t.to(DEVICE) for t in tabs]
 
 
-def _rays(rng, n, lo=None, hi=None):
+def _rays(rng, n, lo=None, hi=None, n_prims=36, dead_every=0):
+    """Random rays (o, d, t_min, t_max, exclude) on the card; every 5th
+    excludes a random prim, every dead_every-th has an empty t-range."""
     import numpy as np
     import torch
     if lo is None:
@@ -86,13 +128,16 @@ def _rays(rng, n, lo=None, hi=None):
     d = rng.standard_normal((n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     excl = np.full(n, -1, np.int32)
-    excl[::5] = rng.integers(0, 36, excl[::5].shape)
+    excl[::5] = rng.integers(0, n_prims, excl[::5].shape)
+    t_max = np.full(n, 1e30, np.float32)
+    if dead_every:
+        t_max[::dead_every] = -1.0
     dev = lambda a: torch.from_numpy(a).to(DEVICE)
     return (dev(o), dev(d), torch.full((n,), 1e-4, device=DEVICE),
-            torch.full((n,), 1e30, device=DEVICE), dev(excl))
+            dev(t_max), dev(excl))
 
 
-def _compare(name, got, want, max_err):
+def _compare(name, got, want, max_err, phase="3"):
     """Kernel outputs against the plain version's: prim ids equal on every
     ray, t/u/v within rtol 1e-6. Returns the running max abs error."""
     import torch
@@ -106,40 +151,19 @@ def _compare(name, got, want, max_err):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0,
                                    msg=lambda m: f"{name} {label}: {m}")
         max_err = max(max_err, float((a - b).abs().max()))
-    print(f"phase 3: {name}: {p.numel()} rays, {int((p >= 0).sum())} hits, "
-          f"prim ids equal, max |diff| {max_err:.3g}")
+    print(f"phase {phase}: {name}: {p.numel()} rays, {int((p >= 0).sum())} "
+          f"hits, prim ids equal, max |diff| {max_err:.3g}")
     return max_err
 
 
-def main() -> int:
+def phase3_mt(cornell):
+    """mt_closest against mt_closest_ref; returns (max_err, times, bound)."""
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
-                         "this script runs only on a CUDA device")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from libyafaray_tpu_torch import film as F
-    from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import mt_intersect as MT
     from libyafaray_tpu_torch.cameras import shoot_rays
-    from libyafaray_tpu_torch.scenes import cornell_builder
-
-    # ---- phase 1: environment
-    smi = _cmd("nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader")
-    nvcc = _cmd(MT._nvcc(), "--version").splitlines()[-1]
-    print(f"phase 1: torch {torch.__version__}, torch CUDA "
-          f"{torch.version.cuda}, nvcc: {nvcc}")
-    print(smi)
-
-    # ---- phase 2: build
-    print(f"phase 2: built mt_intersect.cu in {MT.build():.2f} s "
-          f"({' '.join(MT.NVCC_FLAGS)})")
-
-    # ---- phase 3: kernel against its plain version on the card
     rng = np.random.default_rng(7)
     max_err = 0.0
-    cornell = cornell_builder().compile("cam").to(DEVICE)
     tab_c = cornell.geom.tri_table
     tab_r, = _random_table(rng, 300)
     for shadow in (False, True):
@@ -179,11 +203,10 @@ def main() -> int:
 
     # kernel and plain times at the main path's shape: 1080p camera rays
     # against the Cornell table
-    width, height, spp, bounces = WIDTH, HEIGHT, SPP, BOUNCES
-    n = width * height
+    n = WIDTH * HEIGHT
     pid = torch.arange(n, device=DEVICE)
-    px = (pid % width).float() + 0.5
-    py = (pid // width).float() + 0.5
+    px = (pid % WIDTH).float() + 0.5
+    py = (pid // WIDTH).float() + 0.5
     o, d, _ = shoot_rays(cornell.camera, px, py)
     q = (o.contiguous(), d.contiguous(), torch.full((n,), 5e-5, device=DEVICE),
          torch.full((n,), 1e30, device=DEVICE),
@@ -196,8 +219,202 @@ def main() -> int:
         print(f"phase 3: time at N={n}, 64-row table, shadow={shadow}: "
               f"mt_closest {times[shadow][0]:.4f} ms, "
               f"mt_closest_ref {times[shadow][1]:.4f} ms")
+    # least time for the closest query: the pairs with the scene's real
+    # triangles, and each input read and each output written once
+    faces = cornell.geom.num_faces
+    bound = _bound_ms(n * faces * FLOPS_PER_PAIR,
+                      _nbytes(*q, tab_c) + n * 16)
+    print(f"phase 3: mt_closest bound at N={n} x {faces} triangles: "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return max_err, times, bound
 
-    # ---- phase 4: the slice at full width
+
+# --------------------------------------------------------------- phase 3b
+
+def _sorted_query(acc, o, d, t_min, t_max, excl):
+    """The rays in the block accelerator's coherence order, prepared for the
+    tile walk: (n, rays, cand, ent, count)."""
+    import torch
+    from libyafaray_tpu_torch.accel import blocks as BL
+    from libyafaray_tpu_torch.accel import tiles as TL
+    perm = torch.sort(BL.sort_key(acc, o, d, t_min, t_max),
+                      stable=True).indices
+    o, d, t_min, t_max, excl = (x[perm].contiguous()
+                                for x in (o, d, t_min, t_max, excl))
+    return (o.shape[0],) + TL.prepare(acc.bmin, acc.bmax, o, d, t_min, t_max,
+                                      excl)
+
+
+def _walk_case(name, acc, query, shadow, any_hit, max_err):
+    """tile_walk against tile_walk_ref on one prepared query; returns
+    (kernel outputs, max_err)."""
+    import torch
+    from libyafaray_tpu_torch.accel import tiles as TL
+    n, *prep = query
+    got = TL.tile_walk(*prep, acc.tab, shadow=shadow, any_hit=any_hit)
+    want = TL.tile_walk_ref(*prep, acc.tab, shadow=shadow, any_hit=any_hit)
+    torch.cuda.synchronize()
+    label = f"{name} shadow={shadow} any_hit={any_hit}"
+    if any_hit:
+        mism = int(((got[1][:n] >= 0) != (want[1][:n] >= 0)).sum())
+        if mism:
+            raise AssertionError(f"phase 3b: {label}: hit/miss differs on "
+                                 f"{mism} rays")
+        print(f"phase 3b: {label}: {n} rays, {int((got[1][:n] >= 0).sum())} "
+              "hits, hit/miss equal")
+    else:
+        max_err = _compare(label, (got[0][:n], got[1][:n], got[2][:n],
+                                   got[3][:n]),
+                           tuple(x[:n] for x in want), max_err, phase="3b")
+    return got, max_err
+
+
+def _pairs_needed(query, got, any_hit, block_rows):
+    """Ray-triangle pair tests this query's data needs: every tile tests its
+    candidates whose entry bound is within reach of its final hits (closest:
+    the largest best t; any hit: the largest t_max of rays left unhit)."""
+    import torch
+    from libyafaray_tpu_torch.accel import tiles as TL
+    _, rays, cand, ent, count = query
+    t = count.shape[0]
+    best_t = got[0].view(t, TL.RAY_TILE)
+    if any_hit:
+        best_t = torch.where(got[1].view(t, TL.RAY_TILE) < 0, best_t,
+                             -torch.inf)
+    reach = best_t.amax(dim=1, keepdim=True)
+    cols = torch.arange(ent.shape[1], device=ent.device)
+    need = (cols < count[:, None]) & (ent <= reach)
+    return int(need.sum()) * TL.RAY_TILE * block_rows
+
+
+def phase3b_tiles(terrain):
+    """tile_walk against tile_walk_ref; returns (max_err, times, bound)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch.accel import blocks as BL
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.cameras import shoot_rays
+    from libyafaray_tpu_torch.scenes import bigmesh_grid
+    rng = np.random.default_rng(11)
+    acc = terrain.blocks
+    print(f"phase 3b: terrain table {acc.num_blocks} blocks x "
+          f"{acc.block_size} triangles, {_nbytes(acc.tab) / 2**20:.2f} MiB")
+    max_err = 0.0
+    # (i) camera rays (every pixel centre but the last) and random rays
+    res = TERRAIN_RES
+    n = res * res - 1
+    pid = torch.arange(n, device=DEVICE)
+    o, d, _ = shoot_rays(terrain.camera, (pid % res).float() + 0.5,
+                         (pid // res).float() + 0.5)
+    t_max = torch.full((n,), 1e30, device=DEVICE)
+    t_max[::7] = -1.0
+    excl = torch.full((n,), -1, dtype=torch.int32, device=DEVICE)
+    excl[::5] = torch.randint(0, terrain.geom.num_faces, excl[::5].shape,
+                              device=DEVICE, dtype=torch.int32)
+    cam = _sorted_query(acc, o.contiguous(), d.contiguous(),
+                        torch.full((n,), 5e-5, device=DEVICE), t_max, excl)
+    cam_hit, max_err = _walk_case("terrain camera", acc, cam, False, False,
+                                  max_err)
+    _, max_err = _walk_case("terrain camera", acc, cam, True, False, max_err)
+    rnd = _sorted_query(acc, *_rays(rng, N_TILE_RANDOM, [0, 0, -0.5],
+                                    [4, 4, 1.5], terrain.geom.num_faces, 7))
+    for shadow in (False, True):
+        _, max_err = _walk_case("terrain random", acc, rnd, shadow, False,
+                                max_err)
+    # (ii) any hit: the first shadow wavefront (camera hits toward the sun)
+    # and the random rays
+    _, rays_c, _, _, _ = cam
+    hit = cam_hit[1][:n] >= 0
+    p = rays_c[:n, 0:3] + rays_c[:n, 3:6] * cam_hit[0][:n, None]
+    to_sun = -terrain.lights.direction[0].to(DEVICE).expand(n, 3)
+    shadow_q = _sorted_query(
+        acc, (p + to_sun * 5e-4).contiguous(), to_sun.contiguous(),
+        torch.zeros((n,), device=DEVICE),
+        torch.where(hit, 1e30, -1.0).contiguous(),
+        torch.where(hit, cam_hit[1][:n].to(torch.int32), -1).contiguous())
+    sh_hit, max_err = _walk_case("terrain sun shadow", acc, shadow_q, True,
+                                 True, max_err)
+    _, max_err = _walk_case("terrain random", acc, rnd, True, True, max_err)
+    # (iii) 2.4M triangles: blocks of 1024, a table above 96 MiB
+    verts, faces, _, _ = bigmesh_grid(BIG_GRID)
+    vis = np.full(len(faces), 3, np.int32)
+    vis[::7] = 2
+    vis[::11] = 1
+    big = BL.build_blocks(types.SimpleNamespace(
+        vertices=torch.from_numpy(verts).to(DEVICE),
+        faces=torch.from_numpy(faces).to(DEVICE),
+        face_vis=torch.from_numpy(vis).to(DEVICE), num_faces=len(faces)))
+    mib = _nbytes(big.tab) / 2**20
+    print(f"phase 3b: big terrain {len(faces)} triangles, {big.num_blocks} "
+          f"blocks x {big.block_size}, {mib:.1f} MiB")
+    if big.block_size != BIG_BLOCK or mib <= VMEM_BUDGET_MIB:
+        raise AssertionError(f"the big table must have blocks of {BIG_BLOCK} "
+                             f"and exceed {VMEM_BUDGET_MIB} MiB")
+    o, d, t_min, t_max, excl = _rays(rng, N_BIG, [0, 0, 0.3], [4, 4, 1.5],
+                                     len(faces), 7)
+    d[: N_BIG // 2, 2] = -d[: N_BIG // 2, 2].abs()    # half look down
+    big_q = _sorted_query(big, o, d, t_min, t_max, excl)
+    for shadow in (False, True):
+        _, max_err = _walk_case("big terrain", big, big_q, shadow, False,
+                                max_err)
+    _, max_err = _walk_case("big terrain", big, big_q, True, True, max_err)
+    del big, big_q
+    # (iv) an exact tie inside one sub-chunk, prim ids not in lane order
+    tab = torch.zeros((1, 16, TL.SUB), device=DEVICE)
+    tab[0, 11] = -2.0
+    for lane, (tri, pid_) in enumerate((([0, -1, 1, 1, -1, 1, 0, 1, 1], 5.0),
+                                        ([0, -1, 1, 0, 1, 1, -1, -1, 1],
+                                         3.0))):
+        tab[0, 0:9, lane] = torch.tensor(tri, dtype=torch.float32)
+        tab[0, 9:12, lane] = torch.tensor([1.0, 1.0, pid_])
+    tie_acc = types.SimpleNamespace(
+        tab=tab, bmin=torch.tensor([[-1.0, -1.0, 1.0]], device=DEVICE),
+        bmax=torch.tensor([[1.0, 1.0, 1.0]], device=DEVICE))
+    tie_q = (1,) + TL.prepare(
+        tie_acc.bmin, tie_acc.bmax, torch.zeros((1, 3), device=DEVICE),
+        torch.tensor([[0.0, 0.0, 1.0]], device=DEVICE),
+        torch.tensor([1e-4], device=DEVICE), torch.tensor([1e30], device=DEVICE),
+        torch.tensor([-1], dtype=torch.int32, device=DEVICE))
+    got, max_err = _walk_case("tie", tie_acc, tie_q, False, False, max_err)
+    if int(got[1][0]) != 3 or abs(float(got[2][0]) - 0.5) > 1e-6:
+        raise AssertionError(f"tie: want prim 3 with u 0.5, got {got}")
+
+    # kernel and plain times per query at the slice's shape
+    times = {}
+    for label, q, shadow, any_hit in (("camera", cam, False, False),
+                                      ("sun shadow", shadow_q, True, True)):
+        _, *prep = q
+        times[label] = (
+            _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, shadow=shadow,
+                                          any_hit=any_hit), 10),
+            _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, shadow=shadow,
+                                              any_hit=any_hit), 1))
+        print(f"phase 3b: time per query, {label} wavefront ({q[0]} rays): "
+              f"tile_walk {times[label][0]:.4f} ms, tile_walk_ref "
+              f"{times[label][1]:.4f} ms")
+    pairs = _pairs_needed(cam, cam_hit, False, acc.block_size)
+    bound = _bound_ms(pairs * FLOPS_PER_PAIR,
+                      _nbytes(*cam[1:], acc.tab) + 4 * cam[1].shape[0] * 4)
+    sh_pairs = _pairs_needed(shadow_q, sh_hit, True, acc.block_size)
+    print(f"phase 3b: camera wavefront needs {pairs} pair tests: bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); sun shadow wavefront needs "
+          f"{sh_pairs} pair tests")
+    return max_err, times, bound
+
+
+# ---------------------------------------------------------- phases 4 and 5
+
+def phase4_cornell():
+    """The Cornell path: returns the mt_closest launches of its render."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    width, height, spp, bounces = WIDTH, HEIGHT, SPP, BOUNCES
+    n = width * height
     b = cornell_builder()
     b.cameras["cam"]["resx"] = width
     b.cameras["cam"]["resy"] = height
@@ -205,16 +422,17 @@ def main() -> int:
     cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
     render(scene, cfg, spp=1, device=DEVICE)        # warm-up pass
     torch.cuda.synchronize()
-    MT.launches = 0
+    MT.launches = TL.launches = 0
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=spp, device=DEVICE)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = MT.launches
+    launches, tile_launches = MT.launches, TL.launches
     want = spp * (bounces + 1) * 2
-    if launches < want:
+    if launches < want or tile_launches:
         raise AssertionError(f"mt_closest launched {launches} times, want at "
-                             f"least {want} (closest + shadow per bounce)")
+                             f"least {want} (closest + shadow per bounce); "
+                             f"tile kernel {tile_launches}, want 0")
     img = F.resolve(film)[..., :3].cpu().numpy()
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"bad image: shape {img.shape}, finite "
@@ -263,13 +481,32 @@ def main() -> int:
           f"walls left {left.round(4).tolist()} right "
           f"{right.round(4).tolist()}, max {float(img.max())}, mean "
           f"{float(img.mean()):.6f}")
+    return launches
 
-    # ---- phase 5: kernel path against plain path, end to end
+
+def _paths_agree(phase, img_k, img_p):
+    import numpy as np
+    close = np.isclose(img_k, img_p, rtol=1e-4, atol=1e-4).all(-1).mean()
+    rel_mean = abs(img_k.mean() - img_p.mean()) / abs(img_p.mean())
+    print(f"phase {phase}: {img_k.shape[1]}x{img_k.shape[0]}: "
+          f"{100 * close:.3f}% of pixels within 1e-4, mean rel diff "
+          f"{rel_mean:.3g}, max |diff| {np.abs(img_k - img_p).max():.3g}")
+    if close < 0.98 or rel_mean > 1e-3:
+        raise AssertionError(f"phase {phase}: kernel path and plain path "
+                             "renders disagree")
+
+
+def phase5_cornell_paths():
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.scenes import cornell_builder
     b = cornell_builder()
     b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = SMALL
     small = b.compile("cam")
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
     img_k = F.resolve(render(small, cfg, spp=2, device=DEVICE)).cpu().numpy()
-    before = MT.launches
+    before, real = MT.launches, MT.mt_closest
     MT.mt_closest = lambda *a, **k: MT.mt_closest_ref(*a, **k)
     try:
         img_p = F.resolve(render(small, cfg, spp=2, device=DEVICE)).cpu().numpy()
@@ -277,23 +514,182 @@ def main() -> int:
         MT.mt_closest = real
     if MT.launches != before:
         raise AssertionError("the plain-path render launched the kernel")
-    close = np.isclose(img_k, img_p, rtol=1e-4, atol=1e-4).all(-1).mean()
-    rel_mean = abs(img_k.mean() - img_p.mean()) / abs(img_p.mean())
-    print(f"phase 5: {SMALL}x{SMALL} 2 spp: {100 * close:.3f}% of pixels within "
-          f"1e-4, mean rel diff {rel_mean:.3g}, max |diff| "
-          f"{np.abs(img_k - img_p).max():.3g}")
-    if close < 0.98 or rel_mean > 1e-3:
-        raise AssertionError("kernel path and plain path renders disagree")
+    _paths_agree("5", img_k, img_p)
     if abs(float(img_k[..., :3].max()) - LAMP) > 1e-3:
         raise AssertionError(f"max {img_k[..., :3].max()} of the square "
                              f"render is not the lamp's radiance {LAMP}")
 
-    print(json.dumps({"kernels": [{
-        "name": "mt_closest", "route": "cuda",
-        "source": "libyafaray_tpu_torch/csrc/mt_intersect.cu",
-        "replaces": "libyafaray_tpu/accel/pallas_intersect.py:49",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": times[False][0], "plain_ms": times[False][1]}]}))
+
+# ---------------------------------------------------------- phases 6 and 7
+
+def phase6_terrain(terrain):
+    """The slice: returns the tile kernel launches of its render."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import blocks as BL
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    res, spp, bounces = TERRAIN_RES, TERRAIN_SPP, TERRAIN_BOUNCES
+    cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
+    render(terrain, cfg, spp=1)                     # warm-up pass
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MT.launches = TL.launches = 0
+    t0 = time.perf_counter()
+    film = render(terrain, cfg, spp=spp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, mt_launches = TL.launches, MT.launches
+    peak = torch.cuda.max_memory_allocated()
+    # per pass: camera + 2 bounces closest hits, sun + bg shadows at 3 depths
+    want = spp * (bounces + 1) * 3
+    if launches < want or mt_launches:
+        raise AssertionError(f"tile kernel launched {launches} times, want at "
+                             f"least {want}; mt_closest {mt_launches}, "
+                             "want 0")
+    img = F.resolve(film).cpu().numpy()
+    if img.shape != (res, res, 4) or not np.isfinite(img).all():
+        raise AssertionError(f"bad image: shape {img.shape}, finite "
+                             f"{np.isfinite(img).all()}")
+    # the top row looks past the terrain's far edge: every camera ray
+    # escapes, and at depth 0 the background's MIS weight is 1
+    top = img[0, :, :3]
+    if not np.allclose(top, np.broadcast_to(SKY, top.shape), rtol=1e-5,
+                       atol=0) or img[0, :, 3].any():
+        raise AssertionError(f"top row is not the background {SKY}: "
+                             f"{top.min(0)} .. {top.max(0)}")
+    alpha = float(img[..., 3].mean())
+    if not 0.2 < alpha < 0.95:
+        raise AssertionError(f"terrain covers {alpha} of the frame")
+    ms_pass = seconds * 1e3 / spp
+
+    # one pass split by CUDA events: kernel, candidates, query (the rest of
+    # a query is the ray sort/unsort and the packing), whole pass
+    spans = {"walk": [], "cand": [], "query": []}
+    real = {"walk": TL.tile_walk, "cand": TL.tile_candidates,
+            "query": BL.query}
+
+    def timed(key):
+        def fn(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real[key](*a, **k)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return fn
+
+    pass_ev = (torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+    TL.tile_walk, TL.tile_candidates, BL.query = (
+        timed("walk"), timed("cand"), timed("query"))
+    try:
+        pass_ev[0].record()
+        render(terrain, cfg, spp=1, start_sample=spp)
+        pass_ev[1].record()
+        torch.cuda.synchronize()
+    finally:
+        TL.tile_walk, TL.tile_candidates, BL.query = (
+            real["walk"], real["cand"], real["query"])
+    ms = {k: sum(a.elapsed_time(z) for a, z in v) for k, v in spans.items()}
+    pass_ms = pass_ev[0].elapsed_time(pass_ev[1])
+    sort_ms = ms["query"] - ms["walk"] - ms["cand"]
+    rest_ms = pass_ms - ms["query"]
+    share = lambda x: f"{x:.2f} ms ({100 * x / pass_ms:.1f}%)"
+    print(f"phase 6: terrain {res}x{res} {spp} spp {bounces} bounces, "
+          f"{terrain.geom.num_faces} triangles: {ms_pass:.2f} ms/pass, "
+          f"{res * res * spp / seconds:.4g} camera rays/s, {launches} "
+          f"kernel launches, peak device memory {peak / 2**30:.3f} GiB; "
+          f"alpha mean {alpha:.4f}, image mean {float(img.mean()):.6f}")
+    print(f"phase 6: one pass {pass_ms:.2f} ms, {len(spans['walk'])} "
+          f"queries: kernel {share(ms['walk'])}, tile_candidates "
+          f"{share(ms['cand'])}, ray sort/unsort and packing "
+          f"{share(sort_ms)}, the rest (camera, sampling, shading, film) "
+          f"{share(rest_ms)}")
+    per_query = lambda key: ", ".join(f"{a.elapsed_time(z):.2f}"
+                                      for a, z in spans[key])
+    print(f"phase 6: per query in pass order (closest hit, then the sun's "
+          f"and the background light's shadow rays, at each depth), ms: "
+          f"kernel [{per_query('walk')}]; tile_candidates "
+          f"[{per_query('cand')}]")
+    return launches
+
+
+def phase7_terrain_paths(terrain):
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.cameras import make_camera
+    from libyafaray_tpu_torch.params import ParamMap
+    from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
+    small = dataclasses.replace(terrain, camera=make_camera(ParamMap(dict(
+        TERRAIN_CAMERA, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    before, real = TL.launches, TL.tile_walk
+    TL.tile_walk = lambda *a, **k: TL.tile_walk_ref(*a, **k)
+    try:
+        img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    finally:
+        TL.tile_walk = real
+    if TL.launches != before:
+        raise AssertionError("the plain-path render launched the kernel")
+    _paths_agree("7", img_k, img_p)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script runs only on a CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from libyafaray_tpu_torch import csrc_build
+    from libyafaray_tpu_torch.scenes import bigmesh_builder, cornell_builder
+
+    # ---- phase 1: environment
+    smi = _cmd("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader")
+    nvcc = _cmd(csrc_build.nvcc(), "--version").splitlines()[-1]
+    print(f"phase 1: torch {torch.__version__}, torch CUDA "
+          f"{torch.version.cuda}, nvcc: {nvcc}")
+    print(smi)
+
+    # ---- phase 2: build both sources, one nvcc each, in parallel
+    names = ("mt_intersect", "tiles_traverse")
+    print(f"phase 2: built {', '.join(n + '.cu' for n in names)} in "
+          f"{csrc_build.build(*names):.2f} s ({' '.join(csrc_build.NVCC_FLAGS)})")
+
+    t0 = time.perf_counter()
+    terrain = bigmesh_builder(TERRAIN_GRID, textured=False).compile("cam")
+    print(f"phase 2: compiled the terrain scene on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cornell = cornell_builder().compile("cam").to(DEVICE)
+    mt_err, mt_times, mt_bound = phase3_mt(cornell)
+    tl_err, tl_times, tl_bound = phase3b_tiles(terrain.to(DEVICE))
+    mt_launches = phase4_cornell()
+    phase5_cornell_paths()
+    tl_launches = phase6_terrain(terrain)
+    phase7_terrain_paths(terrain)
+
+    print(json.dumps({"kernels": [
+        {"name": "mt_closest", "route": "cuda",
+         "source": "libyafaray_tpu_torch/csrc/mt_intersect.cu",
+         "replaces": "libyafaray_tpu/accel/pallas_intersect.py:49",
+         "launches": mt_launches, "max_abs_err": mt_err,
+         "ms": mt_times[False][0], "plain_ms": mt_times[False][1],
+         "bound_ms": mt_bound[0], "bound_by": mt_bound[1],
+         "library_ms": None},
+        {"name": "tiles_traverse", "route": "cuda",
+         "source": "libyafaray_tpu_torch/csrc/tiles_traverse.cu",
+         "replaces": "libyafaray_tpu/accel/tiles.py:277",
+         "launches": tl_launches, "max_abs_err": tl_err,
+         "ms": tl_times["camera"][0], "plain_ms": tl_times["camera"][1],
+         "bound_ms": tl_bound[0], "bound_by": tl_bound[1],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

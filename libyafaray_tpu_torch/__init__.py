@@ -1,10 +1,13 @@
 """libyafaray_tpu_torch: the PyTorch / CUDA port of libyafaray_tpu.
 
 A second package beside the JAX one, held against it module by module. It
-imports torch and numpy only. The forward path of the Cornell box renders
-under the `pathtracing` and `directlighting` integrators; every intersection
-query on a CUDA device runs the hand-written kernel of
-`csrc/mt_intersect.cu` (see `accel/mt_intersect.py`).
+imports torch and numpy only. The forward path renders the Cornell box and
+the 203k-triangle terrain of BASELINE config 3 (untextured) under the
+`pathtracing` and `directlighting` integrators; `render` runs on the CUDA
+card unless the caller names another device. On the card every
+intersection query runs a hand-written kernel: `csrc/mt_intersect.cu` on
+the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu` on
+the block accelerator (`accel/tiles.py`).
 """
 from .integrators.mc import IntegratorConfig, make_integrator
 from .render import render, render_pass_fn

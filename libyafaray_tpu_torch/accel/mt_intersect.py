@@ -8,20 +8,17 @@ is the JAX package's: f32[C, 16] with columns 0-8 the vertices v0|v1|v2,
 
 `mt_closest` takes tensors on one device. On the CPU it runs the plain
 version `mt_closest_ref`; on a CUDA device it launches the kernel (built
-from the package's sources with nvcc at first use, loaded with ctypes) or
-raises. It never falls back from the kernel to the plain version.
+from the package's sources with nvcc at first use by `csrc_build`, loaded
+with ctypes) or raises. It never falls back from the kernel to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time as _time
 from typing import Optional
 
 import torch
+
+from .. import csrc_build
 
 Tensor = torch.Tensor
 
@@ -34,12 +31,7 @@ _REF_PAIRS = 1 << 22
 # number of kernel launches, counted by mt_closest where it launches
 launches = 0
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "mt_intersect.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-_lib = None
+_fn = None
 
 
 def table_rows(f: int) -> int:
@@ -143,53 +135,17 @@ def mt_closest_ref(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
     return out_t, out_p, out_u, out_v
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME)")
-    return found
-
-
-def build() -> float:
-    """Compile csrc/mt_intersect.cu into the package's build directory (once
-    per source version) and load it. Returns the seconds spent."""
-    global _lib
-    start = _time.perf_counter()
-    if _lib is not None:
-        return 0.0
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"mt_intersect-{digest}.so")
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    fn = lib.mt_closest_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci,
-                   vp, vp, vp, vp, vp]
-    fn.restype = ci
-    _lib = lib
-    return _time.perf_counter() - start
-
-
-def _check(name: str, x: Tensor, dtype, shape, device) -> None:
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
-        raise ValueError(f"mt_closest: {name} must be {dtype} {tuple(shape)} on "
-                         f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"mt_closest: {name} must be contiguous")
+def _launcher():
+    """The kernel's C entry point, built and loaded at first use."""
+    global _fn
+    if _fn is None:
+        fn = csrc_build.library("mt_intersect").mt_closest_launch
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci,
+                       vp, vp, vp, vp, vp]
+        fn.restype = ci
+        _fn = fn
+    return _fn
 
 
 def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
@@ -207,34 +163,35 @@ def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
     dev = o.device
     n, c = o.shape[0], tris.shape[0]
     motion = _motion(time, tris_t1, tris_t2)
-    _check("tris", tris, torch.float32, (c, 16), dev)
+    check = lambda *a: csrc_build.check_arg("mt_closest", *a, dev)
+    check("tris", tris, torch.float32, (c, 16))
     if c % 32 != 0 or (c > TRI_CHUNK and c % TRI_CHUNK != 0):
         raise ValueError(f"triangle table rows ({c}) must be a multiple of 32 "
                          f"and, above {TRI_CHUNK}, of {TRI_CHUNK}; "
                          "use pack_tris to build the table")
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("t_min", t_min, torch.float32, (n,), dev)
-    _check("t_max", t_max, torch.float32, (n,), dev)
-    _check("exclude", exclude, torch.int32, (n,), dev)
+    check("o", o, torch.float32, (n, 3))
+    check("d", d, torch.float32, (n, 3))
+    check("t_min", t_min, torch.float32, (n,))
+    check("t_max", t_max, torch.float32, (n,))
+    check("exclude", exclude, torch.int32, (n,))
     if motion:
-        _check("time", time, torch.float32, (n,), dev)
-        _check("tris_t1", tris_t1, torch.float32, (c, 16), dev)
+        check("time", time, torch.float32, (n,))
+        check("tris_t1", tris_t1, torch.float32, (c, 16))
         if motion == 2:
-            _check("tris_t2", tris_t2, torch.float32, (c, 16), dev)
+            check("tris_t2", tris_t2, torch.float32, (c, 16))
     if dev.type == "cpu":
         return mt_closest_ref(tris, o, d, t_min, t_max, exclude, time,
                               tris_t1, tris_t2, shadow)
     if dev.type != "cuda":
         raise ValueError(f"mt_closest: no kernel for device {dev}")
-    build()
+    launch = _launcher()
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_p = torch.empty((n,), dtype=torch.int32, device=dev)
     out_u = torch.empty((n,), dtype=torch.float32, device=dev)
     out_v = torch.empty((n,), dtype=torch.float32, device=dev)
     ptr = lambda x: x.data_ptr() if x is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.mt_closest_launch(
+    err = launch(
         ptr(tris), ptr(tris_t1) if motion else None,
         ptr(tris_t2) if motion == 2 else None, c, int(bool(shadow)), motion,
         ptr(o), ptr(d), ptr(t_min), ptr(t_max), ptr(exclude),

@@ -1,0 +1,343 @@
+"""Tile traversal of the block accelerator: the CUDA kernel
+`csrc/tiles_traverse.cu` and its plain PyTorch version.
+
+Counterpart of `libyafaray_tpu/accel/tiles.py` for static scenes without
+instancing. Rays arrive sorted for coherence (`accel/blocks.py` query) and
+are cut into tiles of RAY_TILE rays. `tile_candidates` gives each tile the
+blocks that some of its rays enter, front to back by a lower bound of the
+entry distance. `tile_walk` then walks each tile's list: for every candidate
+block it runs Möller-Trumbore over the block's (16, B) slab, SUB triangles
+at a time, and stops once the next candidate's entry bound is beyond every
+ray's best hit (closest hit) or beyond every unhit ray's t_max (any hit).
+
+`tile_walk` on CPU tensors runs the plain version `tile_walk_ref`; on a
+CUDA device it launches the kernel (built at first use by `csrc_build`) or
+raises. It never falls back from the kernel to the plain version.
+`tiles_traverse` / `tiles_traverse_ref` pad and pack the rays, build the
+candidate lists and walk them.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import csrc_build
+
+Tensor = torch.Tensor
+
+RAY_TILE = 128     # rays per tile (one CUDA block, one thread per ray)
+SUB = 128          # triangles per Möller-Trumbore batch inside a block
+EPS_DET = 1e-10
+# candidate blocks walked between two exit tests, as the JAX package's
+# VMEM-resident kernel does (its default for closest and any hit alike). The
+# exit test runs before every group of UNROLL candidates; the candidates of
+# a group past the end of the list are skipped.
+UNROLL = 6
+# temporaries of the candidate prepass, per chunk of tiles (bytes)
+_CAND_BYTES = 64e6
+# tiles per step of the plain walk: [tiles, RAY_TILE, SUB] temporaries
+_REF_TILES = 128
+
+# number of kernel launches, counted by tile_walk where it launches
+launches = 0
+_fn = None
+
+
+def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
+                 t0: Tensor, t1: Tensor) -> Tensor:
+    """Exact slab test of a chunk of tiles' rays ([G, R, 3]) against every
+    block AABB; returns each block's entry distance per tile (the minimum
+    over the tile's rays that enter it within their t-range; inf if none),
+    f32[G, C]. Taken one axis at a time, which rounds as the JAX package's
+    [G, R, C, 3] form does (max and min are exact)."""
+    tn = tf = None
+    for k in range(3):
+        o_k = oc[..., k:k + 1]
+        i_k = ic[..., k:k + 1]
+        ta = (bmin[:, k] - o_k) * i_k          # [G, R, C]
+        tb = (bmax[:, k] - o_k) * i_k
+        lo = torch.minimum(ta, tb)
+        hi = torch.maximum(ta, tb)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    t0 = t0[..., None]
+    ok = (tn <= tf) & (tf >= t0) & (tn <= t1[..., None])
+    return torch.where(ok, torch.maximum(tn, t0), torch.inf).amin(dim=1)
+
+
+def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
+                    t_min: Tensor, t_max: Tensor):
+    """Per-tile candidate block lists (the JAX package's default branch:
+    one block per candidate, front-to-back order).
+
+    Rays must be sorted and padded to a RAY_TILE multiple. Returns
+    (cand i32[T, Cpad], ent f32[T, Cpad], count i32[T]): each tile's first
+    count[t] entries are the blocks some of its rays enter, sorted by entry
+    distance (stable, so ties keep block order); Cpad pads C to a multiple
+    of 128 with block 0 / inf.
+
+    Tiles are processed in chunks whose [G, R, C] temporaries stay near
+    64 MB, as in the JAX package. A chunk whose rays all have an empty
+    t-range gets no candidates; one host sync per call reads which chunks
+    are live."""
+    c = bmin.shape[0]
+    n = o.shape[0]
+    t = n // RAY_TILE
+    dev = o.device
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-12,
+                            torch.where(d < 0, -1e-12, 1e-12), d)
+    ot = o.reshape(t, RAY_TILE, 3)
+    it = inv.reshape(t, RAY_TILE, 3)
+    t0 = t_min.reshape(t, RAY_TILE)
+    t1 = t_max.reshape(t, RAY_TILE)
+    g = max(1, min(t, int(_CAND_BYTES / (RAY_TILE * c * 12))))
+    chunks = -(-t // g)
+    tile_live = (t1 >= t0).any(dim=1)
+    pad = chunks * g - t
+    if pad:
+        tile_live = torch.cat([tile_live, tile_live.new_zeros(pad)])
+    live = tile_live.reshape(chunks, g).any(dim=1).tolist()
+    key = torch.full((t, c), torch.inf, dtype=torch.float32, device=dev)
+    for k in range(chunks):
+        if live[k]:
+            s = slice(k * g, min(t, (k + 1) * g))
+            key[s] = _chunk_entry(bmin, bmax, ot[s], it[s], t0[s], t1[s])
+    overlap = torch.isfinite(key)
+    key = torch.where(overlap, key, torch.inf)
+    ent, cand = torch.sort(key, dim=1, stable=True)
+    count = overlap.sum(dim=1, dtype=torch.int32)
+    c_pad = -(-c // 128) * 128
+    cand = cand.to(torch.int32)
+    if c_pad != c:
+        ent = torch.cat([ent, torch.full((t, c_pad - c), torch.inf,
+                                         dtype=torch.float32, device=dev)], 1)
+        cand = torch.cat([cand, torch.zeros((t, c_pad - c), dtype=torch.int32,
+                                            device=dev)], 1)
+    return cand.contiguous(), ent.contiguous(), count
+
+
+def _mt_update(tr: Tensor, cols, carry, vis_col: int,
+               step_ok: Optional[Tensor]):
+    """Möller-Trumbore of a batch of (16, SUB) slabs (tr f32[G, 16, SUB])
+    against their tiles' rays (cols: ox..oz, dx..dz, t_min, exclude, each
+    [G, R, 1]); returns the updated (best_t, best_id, best_u, best_v), each
+    [G, R, 1]. The JAX package's `_mt_update` with the same arithmetic in
+    the same order: within the slab the hit at the lowest t wins, and among
+    hits at that t the lowest prim id; it replaces the best hit only on a
+    strictly lower t."""
+    ox, oy, oz, dx, dy, dz, t_min, excl = cols
+    best_t, best_id, best_u, best_v = carry
+
+    def row(r):
+        return tr[:, r:r + 1, :]                # [G, 1, SUB]
+
+    ax, ay, az = row(0), row(1), row(2)
+    bx, by, bz = row(3), row(4), row(5)
+    cx, cy, cz = row(6), row(7), row(8)
+    vis = row(vis_col)
+    pid = row(11)
+    e1x, e1y, e1z = bx - ax, by - ay, bz - az
+    e2x, e2y, e2z = cx - ax, cy - ay, cz - az
+    # pvec = d x e2
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = torch.abs(det) > EPS_DET
+    inv_det = torch.where(ok, 1.0, 0.0) / torch.where(ok, det, 1.0)
+    # tvec = o - v0
+    tvx, tvy, tvz = ox - ax, oy - ay, oz - az
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    # qvec = tvec x e1
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min) & (t <= best_t) & (vis > 0.5) & (pid != excl))
+    if step_ok is not None:
+        hit = hit & step_ok
+    t = torch.where(hit, t, torch.inf)
+    tc = t.amin(dim=2, keepdim=True)
+    better = tc < best_t
+    win = t <= tc
+    cid = torch.where(win, pid, torch.inf).amin(dim=2, keepdim=True)
+    sel = win & (pid == cid)
+    best_id = torch.where(better, cid, best_id)
+    best_u = torch.where(better, torch.where(sel, u, -torch.inf).amax(
+        dim=2, keepdim=True), best_u)
+    best_v = torch.where(better, torch.where(sel, v, -torch.inf).amax(
+        dim=2, keepdim=True), best_v)
+    best_t = torch.where(better, tc, best_t)
+    return best_t, best_id, best_u, best_v
+
+
+def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
+                  tab: Tensor, *, shadow: bool = False,
+                  any_hit: bool = False):
+    """Plain PyTorch version of the kernel: a loop over candidate steps,
+    vectorised across tiles. Before every group of UNROLL steps each tile
+    still walking takes the exit test; at step k a tile takes its k-th
+    candidate, masked by k < count. Returns (t, id, u, v), each f32[Npad]
+    (id -1 on a miss, t the ray's t_max)."""
+    t = count.shape[0]
+    r = rays.reshape(t, RAY_TILE, 16)
+    cols = [r[:, :, k:k + 1] for k in (0, 1, 2, 3, 4, 5, 6, 8)]
+    best_t = r[:, :, 7:8].clone()
+    best_id = torch.full_like(best_t, -1.0)
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    c_pad = cand.shape[1]
+    n_sub = tab.shape[2] // SUB
+    vis_col = 10 if shadow else 9
+    cnt = count.to(torch.int64)
+    walking = cnt > 0
+    c = 0
+    while True:
+        if any_hit:
+            reach = torch.where(best_id < 0.0, best_t, -torch.inf)
+        else:
+            reach = best_t
+        walking &= (c < cnt) & (ent[:, min(c, c_pad - 1)]
+                                <= reach.amax(dim=(1, 2)))
+        idx = walking.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        for s in range(0, idx.numel(), _REF_TILES):
+            sel = idx[s:s + _REF_TILES]
+            carry = (best_t[sel], best_id[sel], best_u[sel], best_v[sel])
+            cs = [x[sel] for x in cols]
+            for k in range(UNROLL):
+                ci = c + k
+                step_ok = (ci < cnt[sel]).view(-1, 1, 1) if k else None
+                blk = cand[sel, min(ci, c_pad - 1)].to(torch.int64)
+                for j in range(n_sub):
+                    tr = tab[blk, :, j * SUB:(j + 1) * SUB]
+                    carry = _mt_update(tr, cs, carry, vis_col, step_ok)
+            best_t[sel], best_id[sel], best_u[sel], best_v[sel] = carry
+        c += UNROLL
+    return (best_t.reshape(-1), best_id.reshape(-1), best_u.reshape(-1),
+            best_v.reshape(-1))
+
+
+def _launcher():
+    """The kernel's C entry point, built and loaded at first use."""
+    global _fn
+    if _fn is None:
+        fn = csrc_build.library("tiles_traverse").tiles_traverse_launch
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                       vp, vp, vp, vp, vp]
+        fn.restype = ci
+        _fn = fn
+    return _fn
+
+
+def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
+              tab: Tensor, *, shadow: bool = False, any_hit: bool = False):
+    """Walk each tile's candidate blocks (the kernel's wrapper).
+
+    rays f32[Npad, 16] (ox oy oz dx dy dz t_min t_max exclude, then zeros;
+    Npad = T * RAY_TILE); cand i32[T, Cpad]; ent f32[T, Cpad]; count i32[T];
+    tab f32[C, 16, B] with B a multiple of SUB. All contiguous, on one
+    device. Returns (t, id, u, v), each f32[Npad]."""
+    global launches
+    dev = rays.device
+    t, c_pad = cand.shape
+    npad = t * RAY_TILE
+    check = lambda *a: csrc_build.check_arg("tile_walk", *a, dev)
+    check("rays", rays, torch.float32, (npad, 16))
+    check("cand", cand, torch.int32, (t, c_pad))
+    check("ent", ent, torch.float32, (t, c_pad))
+    check("count", count, torch.int32, (t,))
+    if tab.dim() != 3 or tab.shape[1] != 16 or tab.shape[2] % SUB:
+        raise ValueError(f"tile_walk: tab must be f32[C, 16, B] with B a "
+                         f"multiple of {SUB}, got {tuple(tab.shape)}")
+    check("tab", tab, torch.float32, tuple(tab.shape))
+    if dev.type == "cpu":
+        return tile_walk_ref(rays, cand, ent, count, tab, shadow=shadow,
+                             any_hit=any_hit)
+    if dev.type != "cuda":
+        raise ValueError(f"tile_walk: no kernel for device {dev}")
+    launch = _launcher()
+    out = [torch.empty((npad,), dtype=torch.float32, device=dev)
+           for _ in range(4)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(rays.data_ptr(), cand.data_ptr(), ent.data_ptr(),
+                 count.data_ptr(), tab.data_ptr(), t, c_pad, tab.shape[2],
+                 10 if shadow else 9, int(bool(any_hit)), tab.shape[0],
+                 *(x.data_ptr() for x in out), stream)
+    if err != 0:
+        raise RuntimeError(f"tiles_traverse kernel launch failed (CUDA error "
+                           f"{err})")
+    launches += 1
+    return tuple(out)
+
+
+def prepare(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
+            t_max: Tensor, exclude: Tensor):
+    """Pad the rays to a RAY_TILE multiple (padding rays have an empty
+    t-range), pack them f32[Npad, 16] and build the candidate lists.
+    Returns (rays, cand, ent, count)."""
+    n = o.shape[0]
+    npad = -(-n // RAY_TILE) * RAY_TILE
+    dev = o.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    t_min = t_min.to(torch.float32).expand(n)
+    t_max = t_max.to(torch.float32).expand(n)
+    exclude = exclude.to(torch.float32).expand(n)
+    if npad != n:
+        k = npad - n
+        o = torch.cat([o, torch.zeros((k, 3), **f32)])
+        d = torch.cat([d, torch.ones((k, 3), **f32)])
+        t_min = torch.cat([t_min, torch.zeros((k,), **f32)])
+        t_max = torch.cat([t_max, torch.full((k,), -1.0, **f32)])
+        exclude = torch.cat([exclude, torch.full((k,), -1.0, **f32)])
+    rays = torch.cat([o, d, t_min[:, None], t_max[:, None], exclude[:, None],
+                      torch.zeros((npad, 7), **f32)], dim=1)
+    cand, ent, count = tile_candidates(bmin, bmax, o, d, t_min, t_max)
+    return rays, cand, ent, count
+
+
+def _traverse(walk, tab, bmin, bmax, o, d, t_min, t_max, exclude, shadow,
+              any_hit, extra):
+    if any(x is not None for x in extra.values()):
+        raise NotImplementedError(
+            "the motion-blur and instancing arms of the tile traversal ("
+            + ", ".join(k for k, x in extra.items() if x is not None)
+            + ") are not ported to libyafaray_tpu_torch yet")
+    n = o.shape[0]
+    rays, cand, ent, count = prepare(bmin, bmax, o, d, t_min, t_max, exclude)
+    bt, bid, bu, bv = walk(rays, cand, ent, count, tab, shadow=shadow,
+                           any_hit=any_hit)
+    return bt[:n], bid[:n].to(torch.int32), bu[:n], bv[:n]
+
+
+def tiles_traverse(tab: Tensor, bmin: Tensor, bmax: Tensor, o: Tensor,
+                   d: Tensor, t_min: Tensor, t_max: Tensor, exclude: Tensor,
+                   *, shadow: bool = False, any_hit: bool = False,
+                   blk_base=None, blk_minv=None, id_delta=None, inv_rows=None,
+                   tab_t1=None, tab_t2=None, time=None):
+    """Traverse sorted rays through the block table.
+
+    tab f32[C, 16, B] (BlockAccel.tab); bmin/bmax f32[C, 3]; o, d f32[N, 3];
+    t_min, t_max f32[N]; exclude i32[N]. Returns (t, prim i32 (-1 on a
+    miss), u, v), each [N]. The motion-blur and instancing arguments of the
+    JAX package raise NotImplementedError."""
+    return _traverse(tile_walk, tab, bmin, bmax, o, d, t_min, t_max, exclude,
+                     shadow, any_hit, dict(
+                         blk_base=blk_base, blk_minv=blk_minv,
+                         id_delta=id_delta, inv_rows=inv_rows, tab_t1=tab_t1,
+                         tab_t2=tab_t2, time=time))
+
+
+def tiles_traverse_ref(tab: Tensor, bmin: Tensor, bmax: Tensor, o: Tensor,
+                       d: Tensor, t_min: Tensor, t_max: Tensor,
+                       exclude: Tensor, *, shadow: bool = False,
+                       any_hit: bool = False):
+    """`tiles_traverse` through the plain walk, on any device."""
+    return _traverse(tile_walk_ref, tab, bmin, bmax, o, d, t_min, t_max,
+                     exclude, shadow, any_hit, {})

@@ -1,6 +1,9 @@
 """Backgrounds: `make_background` and `eval_background`, constant only.
 
-Counterpart of `libyafaray_tpu/backgrounds/__init__.py`."""
+Counterpart of `libyafaray_tpu/backgrounds/__init__.py`. A constant
+background with `ibl` also lights the scene: `SceneBuilder` then adds a
+background light (`lights.LIGHT_BACKGROUND`) sampled uniformly over the
+sphere."""
 from __future__ import annotations
 
 import torch

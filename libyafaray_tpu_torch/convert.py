@@ -3,7 +3,8 @@
 `scene_from_numpy(tree)` takes a `libyafaray_tpu` SceneData whose array
 leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
-SceneData with the same tables, on the CPU. It reads attributes only and
+SceneData with the same tables (the block accelerator's `tab`, `bmin`,
+`bmax` included), on the CPU. It reads attributes only and
 imports nothing of JAX. Scenes that use features the port does not carry
 yet raise NotImplementedError.
 """
@@ -12,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .scene_types import (LIGHT_AREA, MAT_SHINY_DIFFUSE, Background, Camera,
+from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_SUN,
+                          MAT_SHINY_DIFFUSE, Background, BlockAccel, Camera,
                           Geometry, LightTable, MaterialTable, SceneData)
 
 
@@ -28,21 +30,25 @@ def _require(ok: bool, feature: str) -> None:
 
 def scene_from_numpy(tree) -> SceneData:
     g, m, lt = tree.geom, tree.materials, tree.lights
-    _require(tree.accel_kind == "brute", f"the {tree.accel_kind!r} accelerator")
+    _require(tree.accel_kind in ("brute", "blocks"),
+             f"the {tree.accel_kind!r} accelerator")
     _require(g.num_spheres == 0, "sphere primitives")
     _require(not g.has_motion, "motion blur geometry")
     _require(g.inst_mat is None, "instancing")
-    _require(g.num_faces == 0 or g.tri_table is not None,
-             "brute-force intersection without a packed table")
+    if tree.accel_kind == "brute":
+        _require(g.num_faces == 0 or g.tri_table is not None,
+                 "brute-force intersection without a packed table")
     _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE},
              f"material types {m.present_types}")
     _require(not (m.has_oren or m.has_blend or m.has_mask or m.has_beer
                   or m.has_sss), "Oren-Nayar, blend, mask or volume materials")
-    _require(set(lt.present_types) <= {LIGHT_AREA},
+    _require(set(lt.present_types) <= {LIGHT_AREA, LIGHT_SUN,
+                                       LIGHT_BACKGROUND},
              f"light types {lt.present_types}")
-    _require(lt.bg_light_idx < 0, "background lights")
     _require(tree.background.kind == "constant",
              f"background kind {tree.background.kind!r}")
+    _require(tree.background.env_alias_prob is None,
+             "environment-map importance sampling")
     cam = tree.camera
     _require(cam.kind == "perspective", f"camera kind {cam.kind!r}")
     _require(float(cam.aperture) == 0.0, "depth of field")
@@ -68,7 +74,8 @@ def scene_from_numpy(tree) -> SceneData:
         light_type=_t(lt.light_type), position=_t(lt.position),
         direction=_t(lt.direction), color=_t(lt.color), edge1=_t(lt.edge1),
         edge2=_t(lt.edge2), area=_t(lt.area), flags=_t(lt.flags),
-        samples=_t(lt.samples), num_lights=int(lt.num_lights),
+        samples=_t(lt.samples), cos_start=_t(lt.cos_start),
+        num_lights=int(lt.num_lights), bg_light_idx=int(lt.bg_light_idx),
         present_types=tuple(lt.present_types),
         samples_static=tuple(lt.samples_static))
     bg = tree.background
@@ -79,8 +86,17 @@ def scene_from_numpy(tree) -> SceneData:
                     cam_z=_t(cam.cam_z), focal=_t(cam.focal),
                     aspect=_t(cam.aspect), resx=int(cam.resx),
                     resy=int(cam.resy))
+    blocks = None
+    if tree.accel_kind == "blocks":
+        bl = tree.blocks
+        _require(bl.blk_base is None, "instanced block tables")
+        _require(bl.tab_t1 is None, "motion-blur block tables")
+        blocks = BlockAccel(tab=_t(bl.tab), bmin=_t(bl.bmin),
+                            bmax=_t(bl.bmax), block_size=int(bl.block_size),
+                            num_blocks=int(bl.num_blocks))
     return SceneData(
         geom=geom, materials=mats, lights=lights, background=background,
         camera=camera, shadow_bias=_t(tree.shadow_bias),
-        ray_min_dist=_t(tree.ray_min_dist), accel_kind="brute",
+        ray_min_dist=_t(tree.ray_min_dist), accel_kind=tree.accel_kind,
+        blocks=blocks,
         has_cam_invisible=bool(tree.has_cam_invisible))

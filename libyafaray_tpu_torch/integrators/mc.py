@@ -13,10 +13,12 @@ from typing import Tuple
 
 import torch
 
+from .. import lights as L
 from .. import params as P
 from .. import sampler
 from ..backgrounds import eval_background
 from ..materials import bsdf as B
+from ..math import vec
 from ..ops import intersect as I
 from ..ops import surface as S
 from ..scene_types import SceneData
@@ -99,11 +101,16 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         sp = S.make_surface(scene, hit, o, d)
         wo = -d
 
-        # escaped rays: background
+        # escaped rays: background, MIS-weighted against the background
+        # light's samples when the background lights the scene (every light
+        # is sampled at each bounce, so the pick probability is 1)
         escaped = alive & ~hit.valid
-        bg_rad = eval_background(scene, d)
-        radiance = radiance + torch.where(escaped[..., None],
-                                          throughput * bg_rad, 0.0)
+        bg_add = throughput * eval_background(scene, d)
+        if scene.lights.bg_light_idx >= 0:
+            bg_mis = torch.where(prev_delta, 1.0, vec.power_heuristic(
+                prev_pdf, L.background_pdf(scene, d)))
+            bg_add = bg_add * bg_mis[..., None]
+        radiance = radiance + torch.where(escaped[..., None], bg_add, 0.0)
         alpha = torch.where(hit.valid & (depth == 0), 1.0, alpha)
         # lanes that bounced at least once keep alpha 1 when they escape
         if depth > 0:

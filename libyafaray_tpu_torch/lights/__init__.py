@@ -1,17 +1,23 @@
-"""Light table sampling and pdfs, for area lights.
+"""Light table sampling and pdfs: area lights, the sun and the background
+light.
 
-Counterpart of `libyafaray_tpu/lights/__init__.py` with the `LIGHT_AREA`
-arm, the only light type the port compiles so far. `sample_light` returns
-solid-angle pdfs; the `color` column holds the emitted radiance.
+Counterpart of `libyafaray_tpu/lights/__init__.py` with the `LIGHT_AREA`,
+`LIGHT_SUN` and `LIGHT_BACKGROUND` arms (a constant background sampled
+uniformly over the sphere), the light types the port compiles so far.
+Every present type is evaluated for the whole wavefront and selected per
+lane by its type, as in the JAX package. `sample_light` returns solid-angle
+pdfs; the `color` column holds the emitted radiance.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
+from ..backgrounds import eval_background
 from ..math import vec
-from ..scene_types import LIGHT_AREA, SceneData
+from ..scene_types import LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_SUN, SceneData
 
 Tensor = torch.Tensor
 
@@ -20,47 +26,97 @@ FLAG_ENABLED = 2
 FLAG_PHOTON_ONLY = 4
 FLAG_DOUBLE_SIDED = 8
 
+_PORTED = {LIGHT_AREA, LIGHT_SUN, LIGHT_BACKGROUND}
+
 
 @dataclass
 class LightSample:
     wi: Tensor        # f32[N,3] direction to the light
-    dist: Tensor      # f32[N] distance to the light sample
+    dist: Tensor      # f32[N] distance to the light sample (inf: infinite)
     pdf: Tensor       # f32[N] solid-angle pdf
     radiance: Tensor  # f32[N,3] incident radiance
-    is_dirac: Tensor  # bool[N] (false for area lights)
+    is_dirac: Tensor  # bool[N] (false for every ported type)
     valid: Tensor     # bool[N]
 
 
 def _check_types(lt) -> None:
-    if any(t != LIGHT_AREA for t in lt.present_types):
+    if not set(lt.present_types) <= _PORTED:
         raise NotImplementedError(
-            f"light types {lt.present_types} include types other than area "
-            "lights, which are not ported to libyafaray_tpu_torch yet")
+            f"light types {lt.present_types} include types other than area, "
+            "sun and background lights, which are not ported to "
+            "libyafaray_tpu_torch yet")
+
+
+def _has(lt, ty: int) -> bool:
+    """Light families absent from the scene are not evaluated (an empty
+    present_types means unknown)."""
+    return not lt.present_types or ty in lt.present_types
 
 
 def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
                  u1: Tensor, u2: Tensor) -> LightSample:
     """Light::illumSample for a per-lane light index `li` at shading points
-    `p`: a uniform point on the parallelogram corner + u1*e1 + u2*e2."""
+    `p`."""
     lt = scene.lights
     _check_types(lt)
     li = li.long()
+    ty = lt.light_type[li]
+    ldir = lt.direction[li]
+    col = lt.color[li]
+    n = p.shape[0]
+    f32 = dict(dtype=torch.float32, device=p.device)
+    wi = torch.zeros_like(p)
+    dist = torch.full((n,), torch.inf, **f32)
+    pdf = torch.ones((n,), **f32)
+    rad = torch.zeros_like(p)
+    valid = torch.ones((n,), dtype=torch.bool, device=p.device)
+
+    # sun: a cone around -direction (light_sun.cc)
+    if _has(lt, LIGHT_SUN):
+        m = ty == LIGHT_SUN
+        cos_max = lt.cos_start[li]
+        u_ax, v_ax = vec.orthonormal_basis(-ldir)
+        cone = vec.uniform_sample_cone(u1, u2, cos_max)
+        wi_sun = (u_ax * cone[..., 0:1] + v_ax * cone[..., 1:2]
+                  + (-ldir) * cone[..., 2:3])
+        pdf_sun = 1.0 / torch.clamp_min(2.0 * math.pi * (1.0 - cos_max), 1e-9)
+        wi = torch.where(m[..., None], wi_sun, wi)
+        pdf = torch.where(m, pdf_sun, pdf)
+        rad = torch.where(m[..., None], col, rad)
+
+    # area light: parallelogram corner + u1*e1 + u2*e2 (light_area.cc)
+    if _has(lt, LIGHT_AREA):
+        m = ty == LIGHT_AREA
+        lp = (lt.position[li] + lt.edge1[li] * u1[..., None]
+              + lt.edge2[li] * u2[..., None])
+        to_a = lp - p
+        d2a = torch.clamp_min(vec.dot(to_a, to_a), 1e-12)
+        dist_a = torch.sqrt(d2a)
+        wi_a = to_a / dist_a[..., None]
+        cos_l = vec.dot(-wi_a, ldir)
+        dbl = (lt.flags[li] & FLAG_DOUBLE_SIDED) != 0
+        cos_l = torch.where(dbl, torch.abs(cos_l), cos_l)
+        pdf_a = d2a / torch.clamp_min(
+            lt.area[li] * torch.clamp_min(cos_l, 1e-9), 1e-12)
+        wi = torch.where(m[..., None], wi_a, wi)
+        dist = torch.where(m, dist_a, dist)
+        pdf = torch.where(m, pdf_a, pdf)
+        rad = torch.where(m[..., None], col, rad)
+        valid = valid & torch.where(m, cos_l > 1e-6, True)
+
+    # background light, constant background: uniform over the sphere
+    # (light_background.cc)
+    if lt.bg_light_idx >= 0:
+        m = ty == LIGHT_BACKGROUND
+        wi_b = vec.uniform_sample_sphere(u1, u2)
+        wi = torch.where(m[..., None], wi_b, wi)
+        pdf = torch.where(m, 1.0 / (4.0 * math.pi), pdf)
+        rad = torch.where(m[..., None], eval_background(scene, wi_b), rad)
+
     flags = lt.flags[li]
-    lp = (lt.position[li] + lt.edge1[li] * u1[..., None]
-          + lt.edge2[li] * u2[..., None])
-    to_a = lp - p
-    d2 = torch.clamp_min(vec.dot(to_a, to_a), 1e-12)
-    dist = torch.sqrt(d2)
-    wi = to_a / dist[..., None]
-    cos_l = vec.dot(-wi, lt.direction[li])
-    dbl = (flags & FLAG_DOUBLE_SIDED) != 0
-    cos_l = torch.where(dbl, torch.abs(cos_l), cos_l)
-    pdf = d2 / torch.clamp_min(lt.area[li] * torch.clamp_min(cos_l, 1e-9),
-                               1e-12)
-    rad = lt.color[li]
     enabled = (flags & FLAG_ENABLED) != 0
     photon_only = (flags & FLAG_PHOTON_ONLY) != 0
-    valid = (cos_l > 1e-6) & enabled & ~photon_only & (vec.dot(rad, rad) > 0)
+    valid = valid & enabled & ~photon_only & (vec.dot(rad, rad) > 0)
     return LightSample(wi=wi, dist=dist, pdf=torch.clamp_min(pdf, 1e-12),
                        radiance=rad, is_dirac=torch.zeros_like(valid),
                        valid=valid)
@@ -69,13 +125,27 @@ def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
 def light_pdf_hit(scene: SceneData, light_id: Tensor, p_hit: Tensor,
                   n_hit: Tensor, p_from: Tensor) -> Tensor:
     """Solid-angle pdf with which `sample_light` would pick the direction
-    from p_from to p_hit on area light `light_id` (Light::illumPdf), for
-    BSDF-sample MIS."""
+    from p_from to p_hit on intersectable light `light_id` (Light::illumPdf),
+    for BSDF-sample MIS; 0 for lights that cannot be hit."""
     lt = scene.lights
     _check_types(lt)
+    light_id = light_id.long()
     to_h = p_hit - p_from
     d2 = torch.clamp_min(vec.dot(to_h, to_h), 1e-12)
     wi = to_h * torch.rsqrt(d2)[..., None]
     cos_l = torch.abs(vec.dot(-wi, n_hit))
-    return d2 / torch.clamp_min(
-        lt.area[light_id.long()] * torch.clamp_min(cos_l, 1e-9), 1e-12)
+    pdf = torch.zeros(p_from.shape[:-1], dtype=torch.float32,
+                      device=p_from.device)
+    if _has(lt, LIGHT_AREA):
+        m = lt.light_type[light_id] == LIGHT_AREA
+        pdf = torch.where(m, d2 / torch.clamp_min(
+            lt.area[light_id] * torch.clamp_min(cos_l, 1e-9), 1e-12), pdf)
+    return pdf
+
+
+def background_pdf(scene: SceneData, d: Tensor) -> Tensor:
+    """pdf of the background light generating direction d (env MIS)."""
+    f32 = dict(dtype=torch.float32, device=d.device)
+    if scene.lights.bg_light_idx < 0:
+        return torch.zeros(d.shape[:-1], **f32)
+    return torch.full(d.shape[:-1], 1.0 / (4.0 * math.pi), **f32)

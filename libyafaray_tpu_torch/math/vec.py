@@ -80,6 +80,23 @@ def cosine_sample_hemisphere(u1: Tensor, u2: Tensor) -> Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+def uniform_sample_sphere(u1: Tensor, u2: Tensor) -> Tensor:
+    """Uniform direction on the unit sphere (pdf = 1/(4 pi))."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = (2.0 * math.pi) * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_sample_cone(u1: Tensor, u2: Tensor, cos_max: Tensor) -> Tensor:
+    """Uniform direction in a cone around +z with half-angle cos >= cos_max."""
+    cos_t = 1.0 - u1 * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = (2.0 * math.pi) * u2
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t],
+                       dim=-1)
+
+
 def sample_triangle_uniform(u1: Tensor, u2: Tensor):
     """Uniform barycentric coordinates on a triangle (sqrt warp)."""
     su1 = torch.sqrt(u1)

@@ -1,9 +1,12 @@
-"""Ray-scene intersection over the brute-force accelerator.
+"""Ray-scene intersection over the brute-force and block accelerators.
 
-Counterpart of `libyafaray_tpu/ops/intersect.py`. Every triangle query goes
-through `accel.mt_intersect.mt_closest`: the CUDA kernel for tensors on the
-card, its plain PyTorch version for tensors on the CPU. Intersections carry
-no gradient, so the queries run under `torch.no_grad()` on detached inputs.
+Counterpart of `libyafaray_tpu/ops/intersect.py`. On the brute-force path
+every triangle query goes through `accel.mt_intersect.mt_closest`; on the
+block accelerator (`accel_kind == "blocks"`, scenes of 2048+ faces by
+default) through `accel.blocks`, whose traversal is `accel.tiles`. Each is a
+CUDA kernel for tensors on the card and its plain PyTorch version for
+tensors on the CPU. Intersections carry no gradient, so the queries run
+under `torch.no_grad()` on detached inputs.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..accel import blocks as BL
 from ..accel import mt_intersect as MT
 from ..math import vec
 from ..scene_types import Geometry, SceneData
@@ -102,21 +106,28 @@ def _query(o: Tensor, t_min, t_max):
     return as_t(t_min), as_t(t_max)
 
 
-def _check_accel(scene: SceneData) -> None:
+def _blocks(scene: SceneData) -> bool:
+    """True for the block accelerator; raises for accelerators the port
+    does not carry (the LBVH, "bvh")."""
+    if scene.accel_kind == "blocks" and scene.blocks is not None:
+        return True
     if scene.accel_kind != "brute":
         raise NotImplementedError(
             f"the {scene.accel_kind!r} accelerator is not ported to "
             "libyafaray_tpu_torch yet")
+    return False
 
 
 @torch.no_grad()
 def closest_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
                 exclude_prim: Optional[Tensor] = None) -> Hit:
     """Closest-hit query over the whole scene (Accelerator::intersect)."""
-    _check_accel(scene)
     t_min, t_max = _query(o, t_min, t_max)
-    return _brute_closest(scene.geom, o.detach(), d.detach(), t_min.detach(),
-                          t_max.detach(), exclude_prim)
+    args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
+            exclude_prim)
+    if _blocks(scene):
+        return BL.blocks_closest(scene, *args)
+    return _brute_closest(scene.geom, *args)
 
 
 @torch.no_grad()
@@ -146,7 +157,9 @@ def camera_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max) -> Hit:
 def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
             exclude_prim: Optional[Tensor] = None) -> Tensor:
     """Binary shadow query (Accelerator::intersectS)."""
-    _check_accel(scene)
     t_min, t_max = _query(o, t_min, t_max)
-    return _brute_any(scene.geom, o.detach(), d.detach(), t_min.detach(),
-                      t_max.detach(), exclude_prim)
+    args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
+            exclude_prim)
+    if _blocks(scene):
+        return BL.blocks_any(scene, *args)
+    return _brute_any(scene.geom, *args)

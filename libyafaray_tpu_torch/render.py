@@ -2,7 +2,8 @@
 
 Counterpart of `libyafaray_tpu/render.py` (`render`, `render_pass_fn`,
 `_render_ids`) for one AA pass of `spp` samples: the whole image is one
-batch of rays per sample, run eagerly on the device the caller names.
+batch of rays per sample, run eagerly on the card (or on the device the
+caller names).
 """
 from __future__ import annotations
 
@@ -53,9 +54,10 @@ def render_pass_fn(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
 
 
 def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
-           height: Optional[int] = None, spp: int = 16, *, device,
-           start_sample: int = 0) -> F.Film:
-    """Render `spp` samples per pixel on `device` and return the film.
+           height: Optional[int] = None, spp: int = 16, *,
+           device="cuda", start_sample: int = 0) -> F.Film:
+    """Render `spp` samples per pixel on `device` (the CUDA card unless the
+    caller names another device, such as "cpu") and return the film.
 
     width/height default to the camera's resx/resy; a different size renders
     a crop of the camera frame (the film addresses camera pixels 1:1)."""

@@ -3,13 +3,15 @@ compiled to the torch tables of `scene_types.py`.
 
 Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
 port carries so far: `shinydiffusemat` materials, triangle meshes, area
-lights (baked into the geometry as two emissive triangles), a perspective
-camera and a constant background. `compile()` builds the same tables as the
-JAX compile. Every other entity type or option raises `NotImplementedError`
-naming the feature.
+lights (baked into the geometry as two emissive triangles), sun lights, a
+perspective camera and a constant background (with `ibl`, lighting the
+scene), over the brute-force or the block accelerator. `compile()` builds
+the same tables as the JAX compile. Every other entity type or option
+raises `NotImplementedError` naming the feature.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -17,15 +19,16 @@ import numpy as np
 import torch
 
 from . import params as P
+from .accel.blocks import build_blocks
 from .accel.mt_intersect import MAX_TRIS, pack_tris
 from .backgrounds import make_background
 from .cameras import make_camera
 from .lights import FLAG_CAST_SHADOWS, FLAG_ENABLED, FLAG_PHOTON_ONLY
 from .materials.bsdf import FLAG_FRESNEL
 from .scene_types import (
-    LIGHT_AREA, MAT_SHINY_DIFFUSE, VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL,
-    VIS_SHADOW_ONLY, Background, Geometry, LightTable, MaterialTable,
-    SceneData,
+    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_SUN, MAT_SHINY_DIFFUSE, VIS_INVISIBLE,
+    VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background, Geometry,
+    LightTable, MaterialTable, SceneData,
 )
 
 # material and light types the JAX package knows; the ones not ported yet
@@ -36,7 +39,9 @@ _MAT_TYPES = ("shinydiffusemat", "glossy", "coated_glossy", "glass",
 _LIGHT_TYPES = ("pointlight", "ieslight", "spotlight", "sunlight",
                 "directional", "arealight", "spherelight", "meshlight",
                 "objectlight", "bgPortalLight", "bglight")
-# accelerators other than the brute-force scan
+_LIGHT_TYPES_PORTED = ("arealight", "sunlight")
+# names that select the block accelerator (the reference's kd-tree names
+# map to it, as in the JAX package)
 _ACCEL_BLOCKS = ("blocks", "yafaray-kdtree-original",
                  "yafaray-kdtree-multi-thread")
 BLOCKS_MIN_FACES = 2048  # the JAX compile defaults to blocks from here on
@@ -107,7 +112,7 @@ class SceneBuilder:
         ty = pm.get_string("type")
         if ty not in _LIGHT_TYPES:
             raise KeyError(f"light: unknown type {ty!r}")
-        if ty != "arealight":
+        if ty not in _LIGHT_TYPES_PORTED:
             raise _unsupported(f"light type {ty!r}")
         if name not in self.lights:
             self.light_order.append(name)
@@ -118,8 +123,8 @@ class SceneBuilder:
 
     def create_background(self, pm: dict) -> None:
         pm = P.ParamMap(pm)
-        if pm.get_bool("ibl", False) or pm.get_bool("add_sun", False):
-            raise _unsupported("background lights (ibl / add_sun)")
+        if pm.get_bool("add_sun", False):
+            raise _unsupported("the background's sun (add_sun)")
         self.background_params = pm
 
     def create_texture(self, name: str, pm: dict, image=None) -> None:
@@ -238,15 +243,24 @@ class SceneBuilder:
         if not camera_name:
             raise ValueError("compile needs a camera")
         camera = make_camera(self.cameras[camera_name])
+        # accelerator choice (scene_accelerator, as the JAX compile): blocks
+        # from BLOCKS_MIN_FACES faces on or by name, else brute force
         default = "blocks" if geom.num_faces >= BLOCKS_MIN_FACES else "brute"
         accel = self.render_params.get_string("scene_accelerator", default)
-        if accel in _ACCEL_BLOCKS or accel == "bvh":
-            raise _unsupported(f"the {accel!r} accelerator "
-                               f"(scenes of {BLOCKS_MIN_FACES}+ faces)")
+        blocks = None
+        if geom.num_faces > 0:
+            if accel == "bvh":
+                raise _unsupported("the 'bvh' accelerator")
+            if accel in _ACCEL_BLOCKS:
+                blocks = build_blocks(geom)
+            elif geom.tri_table is None:
+                raise _unsupported(f"brute-force intersection above "
+                                   f"{MAX_TRIS} faces")
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
         return SceneData(
             geom=geom, materials=materials, lights=lights,
-            background=background, camera=camera, accel_kind="brute",
+            background=background, camera=camera,
+            accel_kind="brute" if blocks is None else "blocks", blocks=blocks,
             shadow_bias=f32(self.render_params.get_float("shadow_bias", 5e-4)),
             ray_min_dist=f32(self.render_params.get_float("ray_min_dist",
                                                           5e-5)),
@@ -343,18 +357,26 @@ class SceneBuilder:
 
     # ------------------------------------------------------------------
     def _build_lights(self, g: dict):
-        """Parse the area lights into the LightTable and bake each one's
-        quad into the geometry, so BSDF-sampled rays can hit it (MIS)."""
-        n = max(len(self.light_order), 1)
+        """Parse the lights into the LightTable (plus the background light
+        when the background has `ibl`) and bake each area light's quad into
+        the geometry, so BSDF-sampled rays can hit it (MIS)."""
+        specs = [self.lights[name] for name in self.light_order]
+        bg = self.background_params
+        if bg is not None and bg.get_bool("ibl", False):
+            specs.append(P.ParamMap({
+                "type": "bglight", "samples": bg.get_int("ibl_samples", 16),
+                "cast_shadows": bg.get_bool("cast_shadows", True)}))
+        n = max(len(specs), 1)
         z = lambda: np.zeros((n,), np.float32)
         z3 = lambda: np.zeros((n, 3), np.float32)
         zi = lambda v=0: np.full((n,), v, np.int32)
         cols = dict(light_type=zi(), position=z3(), direction=z3(),
                     color=z3(), edge1=z3(), edge2=z3(), area=z(), flags=zi(),
-                    samples=zi(1))
+                    samples=zi(1), cos_start=z())
         quads = []
-        for i, name in enumerate(self.light_order):
-            pm = self.lights[name]
+        bg_light_idx = -1
+        for i, pm in enumerate(specs):
+            ty = pm.get_string("type")
             flags = FLAG_ENABLED if pm.get_bool("light_enabled", True) else 0
             if pm.get_bool("cast_shadows", True):
                 flags |= FLAG_CAST_SHADOWS
@@ -362,6 +384,24 @@ class SceneBuilder:
                 flags |= FLAG_PHOTON_ONLY
             col = pm.get_color("color", (1, 1, 1))[:3]
             power = pm.get_float("power", 1.0)
+            cols["flags"][i] = flags
+            if ty == "sunlight":
+                cols["light_type"][i] = LIGHT_SUN
+                d = pm.get_vector("direction", (0, 0, 1))
+                d = d / max(np.linalg.norm(d), 1e-12)
+                cols["direction"][i] = -d  # stored: direction light travels
+                cos_a = math.cos(pm.get_float("angle", 0.27) * math.pi / 180.0)
+                cols["cos_start"][i] = cos_a
+                # radiance so that irradiance matches power (light_sun.cc)
+                omega = 2 * math.pi * (1 - cos_a)
+                cols["color"][i] = col * power / max(omega, 1e-9)
+                cols["samples"][i] = pm.get_int("samples", 4)
+                continue
+            if ty == "bglight":
+                cols["light_type"][i] = LIGHT_BACKGROUND
+                bg_light_idx = i
+                cols["samples"][i] = pm.get_int("samples", 16)
+                continue
             cols["light_type"][i] = LIGHT_AREA
             corner = pm.get_vector("corner")
             p1 = pm.get_vector("point1")
@@ -381,14 +421,13 @@ class SceneBuilder:
             cols["samples"][i] = pm.get_int("samples", 4)
             cam_vis = pm.get_string("visibility", "normal") != "invisible"
             quads.append((i, corner, p1, p2, cam_vis))
-            cols["flags"][i] = flags
-        if not self.light_order:
+        if not specs:
             cols["flags"][0] = 0  # disabled placeholder
         if quads:
             g = _append_light_quads(g, quads)
-        nl = len(self.light_order)
+        nl = len(specs)
         lights = LightTable(
-            num_lights=nl,
+            num_lights=nl, bg_light_idx=bg_light_idx,
             present_types=tuple(sorted({int(t) for t in
                                         cols["light_type"][:nl]})),
             samples_static=tuple(max(1, int(s)) for s in cols["samples"][:nl]),
@@ -428,12 +467,11 @@ def _append_light_quads(g: dict, quads) -> dict:
 
 def _geometry_tables(g: dict) -> Geometry:
     f = int(len(g["faces"]))
-    if f > MAX_TRIS:
-        raise _unsupported(f"brute-force intersection above {MAX_TRIS} faces")
     geom = Geometry(num_faces=f, num_spheres=0,
                     **{k: torch.from_numpy(v) for k, v in g.items()})
-    if f > 0:
-        # packed once here instead of per intersect call
+    if 0 < f <= MAX_TRIS:
+        # the brute-force path's table, packed once here instead of per
+        # intersect call (as the JAX compile, also for block scenes)
         fc = geom.faces.long()
         v = geom.vertices
         geom.tri_table = pack_tris(v[fc[:, 0]], v[fc[:, 1]], v[fc[:, 2]],

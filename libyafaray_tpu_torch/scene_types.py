@@ -19,8 +19,10 @@ Tensor = torch.Tensor
 # --- material type enum (same values as the JAX package) ---
 MAT_SHINY_DIFFUSE = 0   # "shinydiffusemat"
 
-# --- light type enum ---
+# --- light type enum (the values the port compiles) ---
 LIGHT_AREA = 3          # "arealight"
+LIGHT_SUN = 4           # "sunlight"
+LIGHT_BACKGROUND = 6    # "bglight" (the background's ibl)
 
 # --- object visibility ---
 VIS_NORMAL = 0
@@ -86,15 +88,20 @@ class LightTable(_Table):
     """SoA light table."""
     light_type: Tensor      # i32[L]
     position: Tensor        # f32[L, 3] area light corner
-    direction: Tensor       # f32[L, 3] area light normal
-    color: Tensor           # f32[L, 3] radiance (color * power)
+    direction: Tensor       # f32[L, 3] area light normal; sun: the
+                            #   direction its light travels
+    color: Tensor           # f32[L, 3] radiance (area: color * power;
+                            #   sun: color * power / cone solid angle)
     edge1: Tensor           # f32[L, 3]
     edge2: Tensor           # f32[L, 3]
     area: Tensor            # f32[L]
     flags: Tensor           # i32[L] bit0 cast_shadows, bit1 enabled,
                             #        bit2 photon_only, bit3 double_sided
     samples: Tensor         # i32[L]
+    cos_start: Tensor       # f32[L] sun: cosine of the cone half-angle
     num_lights: int = 0
+    # index of the background light (the background's ibl), or -1
+    bg_light_idx: int = -1
     present_types: tuple = ()
     # per-light sample counts, honoured by the direct-lighting integrator
     samples_static: tuple = ()
@@ -123,6 +130,20 @@ class Camera(_Table):
 
 
 @dataclass
+class BlockAccel(_Table):
+    """Morton-block tables of the block accelerator (`accel/blocks.py`),
+    static scenes without instancing. tab[j] is block j's component-major
+    (16, B) slab: rows 0-8 the vertices v0|v1|v2 by component, 9 the
+    camera-visibility bit, 10 the shadow-visibility bit (0/1 floats), 11
+    the prim id (-2 on padding lanes, whose vertices are 0)."""
+    tab: Tensor            # f32[C, 16, B]
+    bmin: Tensor           # f32[C, 3] block AABB
+    bmax: Tensor           # f32[C, 3]
+    block_size: int = 128  # B
+    num_blocks: int = 0    # C
+
+
+@dataclass
 class SceneData(_Table):
     """Everything the integrator needs."""
     geom: Geometry
@@ -132,6 +153,7 @@ class SceneData(_Table):
     camera: Camera
     shadow_bias: Tensor      # f32[]
     ray_min_dist: Tensor     # f32[]
-    accel_kind: str = "brute"
+    accel_kind: str = "brute"       # "brute" | "blocks"
+    blocks: Optional[BlockAccel] = None
     # any primitive flagged invisible-to-camera (face_vis bit value 4)
     has_cam_invisible: bool = False

@@ -1,0 +1,287 @@
+"""The port's block accelerator against the JAX package: morton codes, the
+block tables, the tile candidate lists, the tile walk's plain version
+against the Pallas kernel in interpret mode, the scene-level queries, and
+the sun and background lights of the terrain scene (BASELINE config 3,
+untextured, at 2048 faces).
+
+Tolerances: morton codes, block tables and candidate lists exact (entry
+distances within rtol 1e-6). Hits: at least 99.9% of rays agree, a ray
+agreeing when its prim id is equal and its t, u, v are within rtol 1e-5
+(atol 1e-6 near 0): XLA's CPU code may contract products and sums into
+FMAs, so a ray grazing a triangle edge can land on the other side of it;
+the port's plain version rounds every operation on its own, as its CUDA
+kernel does. Any-hit queries agree on hit or miss (the prim they report
+depends on how many candidates were walked). Per-lane light sampling within
+1e-5.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from libyafaray_tpu import lights as JL
+from libyafaray_tpu.accel import blocks as JB
+from libyafaray_tpu.accel import morton as JM
+from libyafaray_tpu.accel import tiles as JT
+from libyafaray_tpu.ops import intersect as JI
+from libyafaray_tpu_torch import lights as L
+from libyafaray_tpu_torch.accel import blocks as BL
+from libyafaray_tpu_torch.accel import morton as M
+from libyafaray_tpu_torch.accel import tiles as TL
+from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.ops import intersect as I
+from libyafaray_tpu_torch.scene_types import Geometry
+from scenes import bigmesh_builder
+from test_pallas_intersect import _random_geom
+
+RES = 24
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _port_geom(g):
+    """The port's Geometry with the JAX Geometry's triangle arrays."""
+    names = ("vertices", "normals", "uvs", "faces", "face_uvs", "face_mat",
+             "face_obj", "face_smooth", "face_light", "face_vis")
+    return Geometry(num_faces=int(g.num_faces),
+                    **{k: T(getattr(g, k)) for k in names})
+
+
+def _rays(rng, n, lo=-2.0, hi=2.0):
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.full(n, 1e30, np.float32)
+    t_max[::7] = -1.0                       # dead rays: empty t-range
+    excl = np.full(n, -1, np.int32)
+    excl[::5] = rng.integers(0, 300, excl[::5].shape)
+    return o, d, t_min, t_max, excl
+
+
+def _agree(got, want):
+    """Rays whose prim ids are equal and t, u, v within rtol 1e-5."""
+    same = np.asarray(got[1]) == np.asarray(want[1])
+    for k in (0, 2, 3):
+        same &= np.isclose(np.asarray(got[k]), np.asarray(want[k]),
+                           rtol=1e-5, atol=1e-6)
+    return same
+
+
+@pytest.fixture(scope="module")
+def random_geom():
+    return _random_geom(np.random.default_rng(3), 300)
+
+
+@pytest.fixture(scope="module")
+def random_acc(random_geom):
+    """The JAX package's block tables of the random triangles."""
+    return jax.jit(JB.build_blocks)(random_geom)
+
+
+@pytest.fixture(scope="module")
+def terrain():
+    """The 2048-face terrain compiled by the JAX package, and carried across
+    to the port."""
+    b = bigmesh_builder(33, textured=False)
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = RES
+    js = b.compile("cam")
+    return js, scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+
+
+def test_morton3d_bit_exact(rng):
+    rel = rng.uniform(-0.1, 1.1, (4096, 3)).astype(np.float32)
+    rel[:8] = [[0, 0, 0], [1, 1, 1], [0.5, 0.25, 1 / 3], [1023 / 1024] * 3,
+               [-1, 2, 0], [0.999999, 0, 1], [1e-7, 0.5, 0.5], [0.1] * 3]
+    want = np.asarray(jax.jit(JM.morton3d)(rel)).astype(np.int64)
+    np.testing.assert_array_equal(M.morton3d(T(rel)).numpy(), want)
+
+
+@pytest.mark.parametrize("scene", ["random", "terrain"])
+def test_build_blocks_matches_jax(request, scene):
+    g = (request.getfixturevalue("random_geom") if scene == "random"
+         else request.getfixturevalue("terrain")[0].geom)
+    want = jax.jit(JB.build_blocks)(g)
+    got = BL.build_blocks(_port_geom(g))
+    assert (got.block_size, got.num_blocks) == (want.block_size,
+                                                want.num_blocks)
+    for f in ("tab", "bmin", "bmax"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+
+
+def test_tile_candidates_match(rng, random_acc):
+    """Tile 0 holds only dead rays. As in the JAX package, it still gets
+    candidates: the prepass skips only whole chunks of dead tiles, and a
+    dead ray whose slab interval straddles t_min passes the slab test."""
+    acc = random_acc
+    o, d, t_min, t_max, _ = _rays(rng, 1024)
+    t_max[:128] = -1.0
+    cand, ent, count = jax.jit(JT.tile_candidates)(acc.bmin, acc.bmax, o, d,
+                                                   t_min, t_max)
+    c, e, n = TL.tile_candidates(T(acc.bmin), T(acc.bmax), T(o), T(d),
+                                 T(t_min), T(t_max))
+    assert c.dtype == n.dtype == torch.int32 and n.shape == (8,)
+    np.testing.assert_array_equal(n.numpy(), np.asarray(count)[:, 0])
+    np.testing.assert_array_equal(c.numpy(), np.asarray(cand))
+    np.testing.assert_allclose(e.numpy(), np.asarray(ent), rtol=1e-6)
+    assert (n > 0).all()
+
+
+@pytest.mark.parametrize("case", ["closest", "shadow", "any_hit",
+                                  "tmax_short", "block_256"])
+def test_tile_walk_matches_pallas_interpret(rng, random_geom, random_acc,
+                                            case):
+    acc = random_acc
+    tab, bmin, bmax = acc.tab, acc.bmin, acc.bmax
+    if case == "block_256":
+        # two sub-chunks per block: the walk's sub-chunk loop
+        t = jax.jit(functools.partial(JB._tables_for, face_ids=None, b=256))(
+            random_geom)
+        tab, bmin, bmax = t["tab"], t["bmin"], t["bmax"]
+        got_tab, got_min, got_max = BL._tables_for(_port_geom(random_geom),
+                                                   256)
+        np.testing.assert_array_equal(got_tab.numpy(), np.asarray(tab))
+        assert tab.shape == (2, 16, 256)
+    n = 777 if case == "tmax_short" else 1024
+    o, d, t_min, t_max, excl = _rays(rng, n)
+    if case == "tmax_short":
+        t_max[t_max > 0] = 0.8               # many rays stop short
+    kw = dict(shadow=case in ("shadow", "any_hit"), any_hit=case == "any_hit")
+    want = JT.tiles_traverse(tab, bmin, bmax, o, d, t_min, t_max, excl,
+                             interpret=True, **kw)
+    got = TL.tiles_traverse_ref(T(tab), T(bmin), T(bmax), T(o), T(d),
+                                T(t_min), T(t_max), T(excl), **kw)
+    assert got[1].dtype == torch.int32 and got[0].shape == (n,)
+    hits = np.asarray(want[1]) >= 0
+    assert 0.1 < hits.mean() < 0.9
+    if case == "any_hit":
+        np.testing.assert_array_equal(got[1].numpy() >= 0, hits)
+    else:
+        assert _agree(got, want).mean() >= 0.999
+
+
+def _tie_table():
+    """One block whose lanes 0 and 1 hold two triangles sharing the edge
+    x = 0 in the plane z = 1, with prim ids 5 and 3 (not in lane order)."""
+    tab = np.zeros((1, 16, 128), np.float32)
+    tab[0, 11] = -2.0
+    tris = {0: ([0, -1, 1], [1, -1, 1], [0, 1, 1], 5.0),
+            1: ([0, -1, 1], [0, 1, 1], [-1, -1, 1], 3.0)}
+    for lane, (a, b, c, pid) in tris.items():
+        tab[0, 0:9, lane] = a + b + c
+        tab[0, 9:12, lane] = [1.0, 1.0, pid]
+    bmin = np.array([[-1, -1, 1]], np.float32)
+    bmax = np.array([[1, 1, 1]], np.float32)
+    return tab, bmin, bmax
+
+
+def test_tie_in_a_sub_chunk_takes_the_lowest_prim_id():
+    tab, bmin, bmax = _tie_table()
+    ray = (np.zeros((1, 3), np.float32), np.array([[0, 0, 1]], np.float32),
+           np.array([1e-4], np.float32), np.array([1e30], np.float32),
+           np.array([-1], np.int32))
+    want = JT.tiles_traverse(tab, bmin, bmax, *ray, interpret=True)
+    got = TL.tiles_traverse_ref(T(tab), T(bmin), T(bmax),
+                                *(T(x) for x in ray))
+    assert int(got[1][0]) == int(want[1][0]) == 3
+    np.testing.assert_allclose([float(x[0]) for x in (got[0], got[2], got[3])],
+                               [1.0, 0.5, 0.0], atol=1e-6)
+    np.testing.assert_allclose([float(x[0]) for x in got[::2]],
+                               [float(want[k][0]) for k in (0, 2)], atol=1e-6)
+
+
+def test_wrapper_routes_cpu_tensors_to_the_plain_version(rng, random_acc):
+    acc = random_acc
+    args = [T(x) for x in (acc.tab, acc.bmin, acc.bmax)
+            + _rays(rng, 300)]
+    before = TL.launches
+    got = TL.tiles_traverse(*args, shadow=True)
+    want = TL.tiles_traverse_ref(*args, shadow=True)
+    assert TL.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError):
+        TL.tiles_traverse(*args, tab_t1=args[0], time=args[6])
+    with pytest.raises(NotImplementedError):
+        TL.tiles_traverse(*args, blk_base=torch.zeros(3, dtype=torch.int32))
+    rays, cand, ent, count = TL.prepare(*args[1:])
+    with pytest.raises(ValueError):
+        TL.tile_walk(rays.to("meta"), cand.to("meta"), ent.to("meta"),
+                     count.to("meta"), args[0].to("meta"))
+    with pytest.raises(ValueError):
+        TL.tile_walk(rays, cand, ent, count, args[0][:, :, :100])
+
+
+def _scene_rays(rng, js, n=1024):
+    """Camera rays and rays from above the terrain, some excluding a prim."""
+    o = rng.uniform(0.0, 4.0, (n, 3)).astype(np.float32)
+    o[:, 2] = rng.uniform(0.2, 1.0, n)
+    o[: n // 2] = np.asarray(js.camera.origin)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d[: n // 2] = [0.0, 4.5, -2.2] + rng.uniform(-1.5, 1.5, (n // 2, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    excl = np.full(n, -1, np.int32)
+    excl[::9] = rng.integers(0, 2048, excl[::9].shape)
+    return o, d, excl
+
+
+@pytest.mark.parametrize("path", ["tiles", "query_chunk"])
+def test_scene_queries_match(rng, terrain, monkeypatch, path):
+    """closest_hit / any_hit on the compiled terrain against the JAX
+    package's, on its TPU path ("tiles": the ray sort and the tile kernel in
+    interpret mode) and on its CPU path ("query_chunk": the per-ray block
+    loop). Prim ids and t as everywhere; u and v within 1e-4: the terrain's
+    triangles are 0.125 wide and seen from about 6 units, so the barycentrics
+    lose about six bits to cancellation, and XLA's FMA contraction moves
+    them by up to 1.2e-5 (on about 1% of rays) on both paths."""
+    js, ts = terrain
+    assert ts.accel_kind == js.accel_kind == "blocks"
+    o, d, excl = _scene_rays(rng, js)
+    query = lambda s, o, d, e: (
+        JI.closest_hit(s, o, d, s.ray_min_dist, 1e30, exclude_prim=e),
+        JI.any_hit(s, o, d, 0.0, 1e30, exclude_prim=e))
+    if path == "tiles":
+        monkeypatch.setattr(JT, "use_tiles", lambda: True)
+        monkeypatch.setattr(JT, "tiles_traverse", functools.partial(
+            JT.tiles_traverse, interpret=True))
+    jhit, jany = jax.jit(query)(js, o, d, excl)
+    hit = I.closest_hit(ts, T(o), T(d), ts.ray_min_dist, 1e30,
+                        exclude_prim=T(excl))
+    np.testing.assert_array_equal(hit.valid.numpy(), np.asarray(jhit.valid))
+    assert 0.2 < hit.valid.numpy().mean() < 0.95
+    same = hit.prim.numpy() == np.asarray(jhit.prim)
+    same &= np.isclose(hit.t.numpy(), np.asarray(jhit.t), rtol=1e-5,
+                       atol=1e-6)
+    same &= np.isclose(hit.uv.numpy(), np.asarray(jhit.uv), rtol=0,
+                       atol=1e-4).all(-1)
+    assert same.mean() >= 0.999
+    anyh = I.any_hit(ts, T(o), T(d), 0.0, 1e30, exclude_prim=T(excl))
+    np.testing.assert_array_equal(anyh.numpy(), np.asarray(jany))
+
+
+def test_sun_and_background_light_sampling_match(rng, terrain):
+    js, ts = terrain
+    n = 2048
+    p = rng.uniform(0.0, 4.0, (n, 3)).astype(np.float32)
+    ns = np.tile(np.float32([0, 0, 1]), (n, 1))
+    u1, u2 = (rng.random(n).astype(np.float32) for _ in range(2))
+    li = (np.arange(n) % 2).astype(np.int32)     # 0 the sun, 1 the bg light
+    assert ts.lights.bg_light_idx == 1
+    jls = jax.jit(JL.sample_light)(js, li, p, ns, u1, u2)
+    ls = L.sample_light(ts, T(li), T(p), T(ns), T(u1), T(u2))
+    np.testing.assert_array_equal(ls.valid.numpy(), np.asarray(jls.valid))
+    np.testing.assert_array_equal(ls.is_dirac.numpy(),
+                                  np.asarray(jls.is_dirac))
+    for name in ("wi", "dist", "pdf", "radiance"):
+        np.testing.assert_allclose(getattr(ls, name).numpy(),
+                                   np.asarray(getattr(jls, name)), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    assert ls.valid.numpy().all()
+    jpdf = jax.jit(JL.background_pdf)(js, np.asarray(jls.wi))
+    np.testing.assert_allclose(L.background_pdf(ts, ls.wi).numpy(),
+                               np.asarray(jpdf), rtol=1e-6)

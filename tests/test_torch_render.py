@@ -10,6 +10,8 @@ mean within 1e-3 relative: a path whose floating-point noise tips a
 decision (Russian roulette, a triangle edge) goes its own way, and such
 lanes are allowed to be rare, not absent.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +37,9 @@ from libyafaray_tpu_torch.integrators.mc import integrate
 from libyafaray_tpu_torch.materials import bsdf as B
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.ops import surface as S
+from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.scenes import cornell_builder as port_cornell
-from scenes import cornell_builder
+from scenes import bigmesh_builder, cornell_builder
 
 RES, SPP, BOUNCES = 16, 2, 3
 
@@ -246,3 +249,39 @@ def test_port_compiled_scene_renders_the_same(cornell):
     a = F.resolve(render(own, cfg, spp=1, device="cpu"))
     c = F.resolve(render(ts, cfg, spp=1, device="cpu"))
     assert torch.equal(a, c)
+
+
+def test_render_runs_on_the_card_unless_told_otherwise():
+    assert inspect.signature(render).parameters["device"].default == "cuda"
+
+
+def test_terrain_render_matches_jax():
+    """The slice: BASELINE config 3 untextured, cut to 2048 faces and 24x24
+    (576 camera rays, so the block accelerator sorts them), 1 spp, 2 bounces,
+    under the sun and the background light, through both packages' render().
+    The JAX package runs its CPU path (the per-ray block loop); the port its
+    TPU path's plain version (the ray sort and the tile walk)."""
+    res = 24
+    b = bigmesh_builder(33, textured=False)
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = res
+    js = b.compile("cam")
+    ts = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    assert ts.accel_kind == "blocks" and ts.lights.bg_light_idx == 1
+    cfg = {"type": "pathtracing", "bounces": 2}
+    want = np.asarray(JF.resolve(jrender(js, jmake_integrator(cfg), res, res,
+                                         spp=1)))
+    before = TL.launches
+    img = F.resolve(render(ts, make_integrator(cfg), spp=1,
+                           device="cpu")).numpy()
+    assert TL.launches == before      # CPU tensors never launch the kernel
+    assert img.shape == want.shape == (res, res, 4)
+    assert np.isfinite(img).all()
+    _assert_mostly_close(img.reshape(-1, 4), want.reshape(-1, 4))
+    assert abs(img.mean() - want.mean()) <= 1e-3 * abs(want.mean())
+    # the top row looks past the terrain's far edge: the background, whose
+    # camera-ray MIS weight is 1; the terrain fills the middle of the frame
+    sky = img[0, :, :3]
+    np.testing.assert_allclose(sky, np.broadcast_to([0.3, 0.4, 0.6],
+                                                    sky.shape), rtol=1e-6)
+    assert img[res // 2, res // 2, 3] == 1.0
+    assert 0.2 < img[..., 3].mean() < 0.8

@@ -7,8 +7,9 @@ import torch
 
 import libyafaray_tpu_torch as P
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
 from libyafaray_tpu_torch.scenes import cornell_builder as port_cornell
-from scenes import cornell_builder, glossy_cornell_builder
+from scenes import bigmesh_builder, cornell_builder, glossy_cornell_builder
 
 GEOM = ("vertices", "normals", "uvs", "faces", "face_uvs", "face_mat",
         "face_obj", "face_smooth", "face_light", "face_vis", "tri_table")
@@ -16,7 +17,7 @@ MATS = ("mat_type", "diffuse_color", "mirror_color", "emit_color",
         "specular_refl", "transparency", "translucency", "diffuse_reflect",
         "ior", "mat_flags")
 LIGHTS = ("light_type", "position", "direction", "color", "edge1", "edge2",
-          "area", "flags", "samples")
+          "area", "flags", "samples", "cos_start")
 CAMERA = ("origin", "cam_x", "cam_y", "cam_z", "focal", "aspect")
 
 
@@ -97,6 +98,29 @@ def test_compile_matches_jax_tables(variant):
         assert tuple(got.geom.tri_table.shape) == (64, 16)
 
 
+def test_terrain_compile_matches_jax_tables():
+    """BASELINE config 3 untextured at 2048 faces: the block accelerator's
+    tables, the sun and the background light equal the JAX compile's."""
+    js = bigmesh_builder(33, textured=False).compile("cam")
+    want = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    got = port_bigmesh(33, textured=False).compile("cam")
+    _assert_same(got.geom, want.geom, GEOM, "geom")
+    _assert_same(got.materials, want.materials, MATS, "materials")
+    _assert_same(got.lights, want.lights, LIGHTS, "lights")
+    _assert_same(got.camera, want.camera, CAMERA, "camera")
+    _assert_same(got.background, want.background, ("color", "power"),
+                 "background")
+    _assert_same(got.blocks, want.blocks, ("tab", "bmin", "bmax"), "blocks")
+    assert got.accel_kind == want.accel_kind == "blocks"
+    for f in ("num_lights", "bg_light_idx", "present_types",
+              "samples_static"):
+        assert getattr(got.lights, f) == getattr(want.lights, f), f
+    assert (got.blocks.block_size, got.blocks.num_blocks) == (
+        want.blocks.block_size, want.blocks.num_blocks) == (128, 16)
+    assert got.geom.num_faces == 2048 and got.lights.bg_light_idx == 1
+    assert tuple(got.geom.tri_table.shape) == (2048, 16)
+
+
 def test_scene_to_moves_every_tensor():
     scene = port_cornell().compile("cam").to("meta")
 
@@ -109,6 +133,9 @@ def test_scene_to_moves_every_tensor():
 
     walk(scene)
     assert scene.geom.tri_table.device.type == "meta"
+    blocks = port_bigmesh(33, textured=False).compile("cam").to("meta").blocks
+    assert all(x.device.type == "meta"
+               for x in (blocks.tab, blocks.bmin, blocks.bmax))
 
 
 def _add_glossy(b):
@@ -135,7 +162,9 @@ def _gradient_bg(b):
 
 
 def _ibl(b):
-    b.create_background({"type": "constant", "ibl": True})
+    # image-based lighting from an environment texture
+    b.create_background({"type": "textureback", "ibl": True})
+    b.compile("cam")
 
 
 def _oren(b):
@@ -149,8 +178,10 @@ def _bvh(b):
 
 
 def _big_mesh(b):
+    # a mesh above the brute-force kernel's 16384 faces, forced onto it
+    b.set_render_params({"scene_accelerator": "brute"})
     b.create_object("grid")
-    n = 33
+    n = 92
     xs = np.linspace(0, 1, n, dtype=np.float32)
     xx, yy = np.meshgrid(xs, xs)
     verts = np.stack([xx, yy, np.zeros_like(xx)], -1).reshape(-1, 3)
@@ -158,7 +189,7 @@ def _big_mesh(b):
     a, b2, c, d = (i[:-1, :-1].ravel(), i[1:, :-1].ravel(),
                    i[1:, 1:].ravel(), i[:-1, 1:].ravel())
     faces = np.concatenate([np.stack([a, b2, c], -1), np.stack([a, c, d], -1)])
-    b.add_mesh_arrays(verts, faces)     # 2048 faces: the block accelerator
+    b.add_mesh_arrays(verts, faces)     # 16562 faces
     b.compile("cam")
 
 
@@ -183,6 +214,14 @@ def _nodes(b):
                       node_list=[{"name": "x", "type": "texture_mapper"}])
 
 
+def _textured_terrain(b):
+    port_bigmesh(33)
+
+
+def _sun_from_background(b):
+    b.create_background({"type": "sunsky", "add_sun": True})
+
+
 def _photon(b):
     P.make_integrator({"type": "photonmapping"})
 
@@ -198,7 +237,8 @@ def _ao(b):
 @pytest.mark.parametrize("case", [
     _add_glossy, _add_point, _ortho_camera, _dof_camera, _gradient_bg, _ibl,
     _oren, _bvh, _big_mesh, _sphere, _instance, _motion, _texture, _nodes,
-    _photon, _transp_shadows, _ao], ids=lambda f: f.__name__[1:])
+    _textured_terrain, _sun_from_background, _photon, _transp_shadows, _ao],
+    ids=lambda f: f.__name__[1:])
 def test_features_outside_the_port_raise(case):
     with pytest.raises(NotImplementedError):
         case(port_cornell())
