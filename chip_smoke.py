@@ -5,9 +5,11 @@
 
 Phases, each reporting on its own lines:
   1. environment: torch and CUDA versions, nvcc, the card's name and power
-     limit;
-  2. build: compiles both CUDA sources of the package (one nvcc each, in
-     parallel), timed;
+     limit; the shared-memory probe (kernel d): the largest dynamic shared
+     memory a launch takes must equal the card's opt-in limit per block, and
+     its output must be exactly 2.0;
+  2. build: compiles the three CUDA sources of the package (one nvcc each,
+     all started together) before phase 1 reports, timed;
   3. mt_closest against its plain version mt_closest_ref on the card: a
      random 300-triangle table and the Cornell table (closest and shadow,
      excluded ids, a ray count that is not a multiple of the block), the
@@ -21,7 +23,15 @@ Phases, each reporting on its own lines:
      sub-chunks, about 155 MB: above the TPU kernel's 96 MiB VMEM budget);
      an exact tie inside a sub-chunk. Closest: prim ids equal on every ray,
      t/u/v within rtol 1e-6; any hit: hit/miss equal on every ray. Kernel
-     and plain times per query on the camera and first shadow wavefronts;
+     and plain times per query on the camera and first shadow wavefronts,
+     and on the big table (the regime of the TPU's streaming kernel c);
+ 3c. the motion-blur and instancing arms of tile_walk against tile_walk_ref
+     on the card, on sorted rays with random shutter times: the terrain
+     table with synthetic keyframes (linear and quadratic) and the forest's
+     instanced table (instanced alone, and with its linear keyframes);
+     camera rays (closest, shadow and any hit, 1/7 dead, excluded ids) and
+     random rays; each arm's time per camera query beside the static arm's
+     on the same rays;
   4. the Cornell box at 1920x1080, 16 spp, 4 bounces through `render`, with
      every intersection query counted on mt_closest, plausibility checks,
      ms per pass, camera rays/s and the kernel's share of a pass;
@@ -32,7 +42,20 @@ Phases, each reporting on its own lines:
      checks, ms per pass, camera rays/s, one pass split by CUDA events
      into kernel, tile_candidates, ray sort/unsort and the rest, and peak
      device memory;
-  7. terrain kernel path against plain path end to end: 128x128, 1 spp.
+  7. terrain kernel path against plain path end to end: 128x128, 1 spp;
+  8. the slice: the forest (the terrain under 2,000 true instances of a
+     96-triangle rock and 16 moving baked ones) at 720x720, 6 spp, 2
+     bounces through `render` with no device argument: every tile-kernel
+     launch must be the instanced + linear-motion arm; image checks, ms per
+     pass, camera rays/s, the pass split by CUDA events, peak device
+     memory, the physical and virtual table bytes;
+  9. forest kernel path against plain path end to end: 128x128, 1 spp;
+ 10. the instanced cubes against the libYafaRay golden
+     tests/golden/instances_ref_160.hdr (160x160, 16 spp, directlighting,
+     image x pi), true instances (block accelerator, instancing arm) and
+     baked copies (brute force, mt_closest): global scale within 1%,
+     4x4-downsampled mean relative error < 0.01 and p99 < 0.04; the two
+     renders within 2e-3 of each other.
 
 Then one JSON line listing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; the
@@ -60,9 +83,16 @@ BIG_GRID = 1100          # 2 * 1099^2 = 2,415,602 triangles
 BIG_BLOCK, VMEM_BUDGET_MIB = 1024, 96   # its blocks; the TPU kernel's budget
 N_TILE_RANDOM, N_BIG = 100_003, 32_771
 SKY = (0.3, 0.4, 0.6)    # the terrain's constant background
+FOREST_INST, FOREST_MOVING = 2000, 16             # the forest's rocks
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "instances_ref_160.hdr")
+GOLDEN_RES, GOLDEN_SPP = 160, 16
 # H100 SXM data-sheet peaks (fp32 counts a fused multiply-add as 2 flops)
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 FLOPS_PER_PAIR = 45      # one Möller-Trumbore ray-triangle test
+# flops per pair with the keyframe blend (9 vertex rows, 3 or 5 flops each)
+FLOPS_PER_PAIR_MOTION = {0: 45, 1: 72, 2: 90}
+FLOPS_PER_TRANSFORM = 33  # an instance's ray transform, once per candidate
 
 
 def _cmd(*args: str) -> str:
@@ -231,9 +261,10 @@ def phase3_mt(cornell):
 
 # --------------------------------------------------------------- phase 3b
 
-def _sorted_query(acc, o, d, t_min, t_max, excl):
-    """The rays in the block accelerator's coherence order, prepared for the
-    tile walk: (n, rays, cand, ent, count)."""
+def _sorted_query(acc, o, d, t_min, t_max, excl, time=None):
+    """The rays (and their shutter times) in the block accelerator's
+    coherence order, prepared for the tile walk: (n, rays, cand, ent,
+    count)."""
     import torch
     from libyafaray_tpu_torch.accel import blocks as BL
     from libyafaray_tpu_torch.accel import tiles as TL
@@ -241,38 +272,44 @@ def _sorted_query(acc, o, d, t_min, t_max, excl):
                       stable=True).indices
     o, d, t_min, t_max, excl = (x[perm].contiguous()
                                 for x in (o, d, t_min, t_max, excl))
+    time = None if time is None else time[perm].contiguous()
     return (o.shape[0],) + TL.prepare(acc.bmin, acc.bmax, o, d, t_min, t_max,
-                                      excl)
+                                      excl, time)
 
 
-def _walk_case(name, acc, query, shadow, any_hit, max_err):
-    """tile_walk against tile_walk_ref on one prepared query; returns
-    (kernel outputs, max_err)."""
+def _walk_case(name, acc, query, shadow, any_hit, max_err, phase="3b",
+               **tabs):
+    """tile_walk against tile_walk_ref on one prepared query (`tabs`: the
+    keyframe and instancing tables of an arm); returns (kernel outputs,
+    max_err)."""
     import torch
     from libyafaray_tpu_torch.accel import tiles as TL
     n, *prep = query
-    got = TL.tile_walk(*prep, acc.tab, shadow=shadow, any_hit=any_hit)
-    want = TL.tile_walk_ref(*prep, acc.tab, shadow=shadow, any_hit=any_hit)
+    got = TL.tile_walk(*prep, acc.tab, shadow=shadow, any_hit=any_hit,
+                       **tabs)
+    want = TL.tile_walk_ref(*prep, acc.tab, shadow=shadow, any_hit=any_hit,
+                            **tabs)
     torch.cuda.synchronize()
     label = f"{name} shadow={shadow} any_hit={any_hit}"
     if any_hit:
         mism = int(((got[1][:n] >= 0) != (want[1][:n] >= 0)).sum())
         if mism:
-            raise AssertionError(f"phase 3b: {label}: hit/miss differs on "
-                                 f"{mism} rays")
-        print(f"phase 3b: {label}: {n} rays, {int((got[1][:n] >= 0).sum())} "
-              "hits, hit/miss equal")
+            raise AssertionError(f"phase {phase}: {label}: hit/miss differs "
+                                 f"on {mism} rays")
+        print(f"phase {phase}: {label}: {n} rays, "
+              f"{int((got[1][:n] >= 0).sum())} hits, hit/miss equal")
     else:
         max_err = _compare(label, (got[0][:n], got[1][:n], got[2][:n],
                                    got[3][:n]),
-                           tuple(x[:n] for x in want), max_err, phase="3b")
+                           tuple(x[:n] for x in want), max_err, phase=phase)
     return got, max_err
 
 
-def _pairs_needed(query, got, any_hit, block_rows):
-    """Ray-triangle pair tests this query's data needs: every tile tests its
-    candidates whose entry bound is within reach of its final hits (closest:
-    the largest best t; any hit: the largest t_max of rays left unhit)."""
+def _needed(query, got, any_hit):
+    """The candidate steps this query's data needs, bool[T, Cpad]: every
+    tile tests its candidates whose entry bound is within reach of its final
+    hits (closest: the largest best t; any hit: the largest t_max of rays
+    left unhit)."""
     import torch
     from libyafaray_tpu_torch.accel import tiles as TL
     _, rays, cand, ent, count = query
@@ -283,8 +320,26 @@ def _pairs_needed(query, got, any_hit, block_rows):
                              -torch.inf)
     reach = best_t.amax(dim=1, keepdim=True)
     cols = torch.arange(ent.shape[1], device=ent.device)
-    need = (cols < count[:, None]) & (ent <= reach)
-    return int(need.sum()) * TL.RAY_TILE * block_rows
+    return (cols < count[:, None]) & (ent <= reach)
+
+
+def _pairs_needed(query, got, any_hit, block_rows):
+    """Ray-triangle pair tests this query's data needs (see _needed)."""
+    from libyafaray_tpu_torch.accel import tiles as TL
+    return int(_needed(query, got, any_hit).sum()) * TL.RAY_TILE * block_rows
+
+
+def _mesh(verts, faces, vis, *keyframes):
+    """The fields of a Geometry that build_blocks reads, on the card (with
+    motion keyframes when given)."""
+    import torch
+    dev = lambda a: None if a is None else torch.from_numpy(a).to(DEVICE)
+    keyframes = keyframes + (None, None)
+    return types.SimpleNamespace(
+        vertices=dev(verts), faces=dev(faces), face_vis=dev(vis),
+        num_faces=len(faces), inst_mat=None,
+        has_motion=keyframes[0] is not None,
+        vertices_t1=dev(keyframes[0]), vertices_t2=dev(keyframes[1]))
 
 
 def phase3b_tiles(terrain):
@@ -340,10 +395,7 @@ def phase3b_tiles(terrain):
     vis = np.full(len(faces), 3, np.int32)
     vis[::7] = 2
     vis[::11] = 1
-    big = BL.build_blocks(types.SimpleNamespace(
-        vertices=torch.from_numpy(verts).to(DEVICE),
-        faces=torch.from_numpy(faces).to(DEVICE),
-        face_vis=torch.from_numpy(vis).to(DEVICE), num_faces=len(faces)))
+    big = BL.build_blocks(_mesh(verts, faces, vis))
     mib = _nbytes(big.tab) / 2**20
     print(f"phase 3b: big terrain {len(faces)} triangles, {big.num_blocks} "
           f"blocks x {big.block_size}, {mib:.1f} MiB")
@@ -354,11 +406,22 @@ def phase3b_tiles(terrain):
                                      len(faces), 7)
     d[: N_BIG // 2, 2] = -d[: N_BIG // 2, 2].abs()    # half look down
     big_q = _sorted_query(big, o, d, t_min, t_max, excl)
-    for shadow in (False, True):
-        _, max_err = _walk_case("big terrain", big, big_q, shadow, False,
-                                max_err)
+    for shadow in (True, False):
+        big_hit, max_err = _walk_case("big terrain", big, big_q, shadow,
+                                      False, max_err)
     _, max_err = _walk_case("big terrain", big, big_q, True, True, max_err)
-    del big, big_q
+    # the kernel's time in this regime (TPU kernel c's): closest hits
+    _, *prep = big_q
+    big_ms = (_cuda_ms(lambda: TL.tile_walk(*prep, big.tab), 10),
+              _cuda_ms(lambda: TL.tile_walk_ref(*prep, big.tab), 1))
+    pairs = _pairs_needed(big_q, big_hit, False, big.block_size)
+    big_bound = _bound_ms(pairs * FLOPS_PER_PAIR,
+                          _nbytes(*prep, big.tab) + 4 * prep[0].shape[0] * 4)
+    print(f"phase 3b: time per query, big terrain ({N_BIG} random rays, "
+          f"closest): tile_walk {big_ms[0]:.4f} ms, tile_walk_ref "
+          f"{big_ms[1]:.4f} ms; {pairs} pair tests needed: bound "
+          f"{big_bound[0]:.4f} ms ({big_bound[1]})")
+    del big, big_q, prep, big_hit
     # (iv) an exact tie inside one sub-chunk, prim ids not in lane order
     tab = torch.zeros((1, 16, TL.SUB), device=DEVICE)
     tab[0, 11] = -2.0
@@ -399,7 +462,119 @@ def phase3b_tiles(terrain):
     print(f"phase 3b: camera wavefront needs {pairs} pair tests: bound "
           f"{bound[0]:.4f} ms ({bound[1]}); sun shadow wavefront needs "
           f"{sh_pairs} pair tests")
-    return max_err, times, bound
+    return max_err, times, bound, dict(ms=big_ms[0], plain_ms=big_ms[1],
+                                       bound_ms=big_bound[0],
+                                       bound_by=big_bound[1])
+
+
+# --------------------------------------------------------------- phase 3c
+
+# the arms of phase 3c: (name, motion keyframes, instanced)
+ARMS = (("instanced", 0, True), ("motion1", 1, False), ("motion2", 2, False),
+        ("instanced+motion1", 1, True))
+
+
+def _arm_tables(acc, motion, instanced):
+    """tile_walk's keyword arguments for one arm of the kernel."""
+    kw = {}
+    if motion:
+        kw["tab_t1"] = acc.tab_t1
+    if motion == 2:
+        kw["tab_t2"] = acc.tab_t2
+    if instanced:
+        kw.update(blk_base=acc.blk_base, blk_minv=acc.blk_minv,
+                  id_delta=acc.id_delta, inv_rows=acc.inv_rows)
+    return kw
+
+
+def _arm_bound(acc, query, got, any_hit, motion, instanced, tabs):
+    """(bound ms, what bounds it) of one query of an arm: the needed pair
+    tests at the arm's flops per pair, plus one ray transform per needed
+    candidate step of an instance block; every input read once."""
+    from libyafaray_tpu_torch.accel import tiles as TL
+    need = _needed(query, got, any_hit)
+    flops = (int(need.sum()) * TL.RAY_TILE * acc.block_size
+             * FLOPS_PER_PAIR_MOTION[motion])
+    if instanced:
+        inst = acc.blk_minv[query[2].long()] > 0
+        flops += int((need & inst).sum()) * TL.RAY_TILE * FLOPS_PER_TRANSFORM
+    nbytes = (_nbytes(*query[1:], acc.tab, *tabs.values())
+              + 4 * query[1].shape[0] * 4)
+    return _bound_ms(flops, nbytes)
+
+
+def phase3c_arms(forest, static_cam_ms):
+    """The motion and instancing arms of tile_walk against tile_walk_ref;
+    returns (max_err, {arm: dict(ms, plain_ms, bound_ms, bound_by)})."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch.accel import blocks as BL
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.cameras import shoot_rays
+    from libyafaray_tpu_torch.scenes import bigmesh_grid
+    rng = np.random.default_rng(13)
+    # the terrain with two synthetic keyframes: every vertex moves by up to
+    # 0.02 per axis and keyframe
+    verts, faces, _, _ = bigmesh_grid(TERRAIN_GRID)
+    vis = np.full(len(faces), 3, np.int32)
+    vis[::7] = 2
+    vis[::11] = 1
+    keys = [verts + rng.uniform(-0.02, 0.02, verts.shape).astype(np.float32)
+            for _ in range(2)]
+    moving = BL.build_blocks(_mesh(verts, faces, vis, *keys))
+    print(f"phase 3c: terrain with keyframes: {moving.num_blocks} blocks x "
+          f"{moving.block_size}, {_nbytes(moving.tab) / 2**20:.2f} MiB per "
+          f"keyframe; forest: {forest.blocks.num_blocks} virtual blocks over "
+          f"{forest.blocks.tab.shape[0]} physical")
+    res = TERRAIN_RES
+    n = res * res - 1
+    pid = torch.arange(n, device=DEVICE)
+    o, d, _ = shoot_rays(forest.camera, (pid % res).float() + 0.5,
+                         (pid // res).float() + 0.5)
+    o, d = o.contiguous(), d.contiguous()
+    t_max = torch.full((n,), 1e30, device=DEVICE)
+    t_max[::7] = -1.0
+    excl = torch.full((n,), -1, dtype=torch.int32, device=DEVICE)
+    excl[::5] = torch.randint(0, forest.geom.num_faces, excl[::5].shape,
+                              device=DEVICE, dtype=torch.int32)
+    t_min = torch.full((n,), 5e-5, device=DEVICE)
+    time_cam = torch.rand((n,), device=DEVICE)
+    max_err, out = 0.0, {}
+    for arm, motion, instanced in ARMS:
+        acc = forest.blocks if instanced else moving
+        tabs = _arm_tables(acc, motion, instanced)
+        tt = time_cam if motion else None
+        cam = _sorted_query(acc, o, d, t_min, t_max, excl, tt)
+        cam_hit, max_err = _walk_case(f"{arm} camera", acc, cam, False,
+                                      False, max_err, "3c", **tabs)
+        _, max_err = _walk_case(f"{arm} camera", acc, cam, True, False,
+                                max_err, "3c", **tabs)
+        _, max_err = _walk_case(f"{arm} camera", acc, cam, True, True,
+                                max_err, "3c", **tabs)
+        ro, rd, rt0, rt1, rex = _rays(rng, N_TILE_RANDOM, [0, 0, -0.5],
+                                      [4, 4, 1.5], forest.geom.num_faces, 7)
+        rt = (torch.rand((N_TILE_RANDOM,), device=DEVICE) if motion
+              else None)
+        rnd = _sorted_query(acc, ro, rd, rt0, rt1, rex, rt)
+        _, max_err = _walk_case(f"{arm} random", acc, rnd, False, False,
+                                max_err, "3c", **tabs)
+        _, *prep = cam
+        ms = _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, **tabs), 10)
+        plain_ms = _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, **tabs),
+                            1)
+        bound = _arm_bound(acc, cam, cam_hit, False, motion, instanced, tabs)
+        same = ""
+        if not instanced:      # the static arm on the same table and rays
+            same = (f"; the static arm on the same rays and table "
+                    f"{_cuda_ms(lambda: TL.tile_walk(*prep, acc.tab), 10):.4f}"
+                    " ms")
+        print(f"phase 3c: {arm}: time per camera query ({n} rays): "
+              f"tile_walk {ms:.4f} ms, tile_walk_ref {plain_ms:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}){same}; the static arm "
+              f"on the same rays over the terrain {static_cam_ms:.4f} ms")
+        out[arm] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                        bound_by=bound[1])
+    return max_err, out
 
 
 # ---------------------------------------------------------- phases 4 and 5
@@ -520,10 +695,15 @@ def phase5_cornell_paths():
                              f"render is not the lamp's radiance {LAMP}")
 
 
-# ---------------------------------------------------------- phases 6 and 7
+# ---------------------------------------------------- phases 6 to 9
 
-def phase6_terrain(terrain):
-    """The slice: returns the tile kernel launches of its render."""
+def _slice_render(phase, scene, spp, bounces):
+    """Render `scene` at its camera's size through `render` with no device
+    argument: one warm-up pass, then `spp` passes with the kernel counts
+    set to 0 just before and read just after, then one more pass split by
+    CUDA events into the tile kernel, tile_candidates, the rest of the
+    queries (ray sort / unsort and packing) and the rest of the pass.
+    Returns (image, launches, launches per arm, mt_closest launches)."""
     import numpy as np
     import torch
     from libyafaray_tpu_torch import film as F
@@ -531,42 +711,26 @@ def phase6_terrain(terrain):
     from libyafaray_tpu_torch.accel import blocks as BL
     from libyafaray_tpu_torch.accel import mt_intersect as MT
     from libyafaray_tpu_torch.accel import tiles as TL
-    res, spp, bounces = TERRAIN_RES, TERRAIN_SPP, TERRAIN_BOUNCES
+    res = scene.camera.resx
     cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
-    render(terrain, cfg, spp=1)                     # warm-up pass
+    render(scene, cfg, spp=1)                       # warm-up pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     MT.launches = TL.launches = 0
+    TL.arm_launches.clear()
     t0 = time.perf_counter()
-    film = render(terrain, cfg, spp=spp)
+    film = render(scene, cfg, spp=spp)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, mt_launches = TL.launches, MT.launches
+    launches, arms, mt_launches = TL.launches, dict(TL.arm_launches), \
+        MT.launches
     peak = torch.cuda.max_memory_allocated()
-    # per pass: camera + 2 bounces closest hits, sun + bg shadows at 3 depths
-    want = spp * (bounces + 1) * 3
-    if launches < want or mt_launches:
-        raise AssertionError(f"tile kernel launched {launches} times, want at "
-                             f"least {want}; mt_closest {mt_launches}, "
-                             "want 0")
     img = F.resolve(film).cpu().numpy()
-    if img.shape != (res, res, 4) or not np.isfinite(img).all():
+    if img.shape != (scene.camera.resy, res, 4) or not np.isfinite(img).all():
         raise AssertionError(f"bad image: shape {img.shape}, finite "
                              f"{np.isfinite(img).all()}")
-    # the top row looks past the terrain's far edge: every camera ray
-    # escapes, and at depth 0 the background's MIS weight is 1
-    top = img[0, :, :3]
-    if not np.allclose(top, np.broadcast_to(SKY, top.shape), rtol=1e-5,
-                       atol=0) or img[0, :, 3].any():
-        raise AssertionError(f"top row is not the background {SKY}: "
-                             f"{top.min(0)} .. {top.max(0)}")
-    alpha = float(img[..., 3].mean())
-    if not 0.2 < alpha < 0.95:
-        raise AssertionError(f"terrain covers {alpha} of the frame")
     ms_pass = seconds * 1e3 / spp
 
-    # one pass split by CUDA events: kernel, candidates, query (the rest of
-    # a query is the ray sort/unsort and the packing), whole pass
     spans = {"walk": [], "cand": [], "query": []}
     real = {"walk": TL.tile_walk, "cand": TL.tile_candidates,
             "query": BL.query}
@@ -588,7 +752,7 @@ def phase6_terrain(terrain):
         timed("walk"), timed("cand"), timed("query"))
     try:
         pass_ev[0].record()
-        render(terrain, cfg, spp=1, start_sample=spp)
+        render(scene, cfg, spp=1, start_sample=spp)
         pass_ev[1].record()
         torch.cuda.synchronize()
     finally:
@@ -599,34 +763,94 @@ def phase6_terrain(terrain):
     sort_ms = ms["query"] - ms["walk"] - ms["cand"]
     rest_ms = pass_ms - ms["query"]
     share = lambda x: f"{x:.2f} ms ({100 * x / pass_ms:.1f}%)"
-    print(f"phase 6: terrain {res}x{res} {spp} spp {bounces} bounces, "
-          f"{terrain.geom.num_faces} triangles: {ms_pass:.2f} ms/pass, "
-          f"{res * res * spp / seconds:.4g} camera rays/s, {launches} "
-          f"kernel launches, peak device memory {peak / 2**30:.3f} GiB; "
-          f"alpha mean {alpha:.4f}, image mean {float(img.mean()):.6f}")
-    print(f"phase 6: one pass {pass_ms:.2f} ms, {len(spans['walk'])} "
+    print(f"phase {phase}: {res}x{scene.camera.resy} {spp} spp {bounces} "
+          f"bounces, {scene.geom.num_faces} triangles: {ms_pass:.2f} ms/pass, "
+          f"{res * scene.camera.resy * spp / seconds:.4g} camera rays/s, "
+          f"{launches} kernel launches {arms}, peak device memory "
+          f"{peak / 2**30:.3f} GiB; alpha mean {float(img[..., 3].mean()):.4f}"
+          f", image mean {float(img.mean()):.6f}")
+    print(f"phase {phase}: one pass {pass_ms:.2f} ms, {len(spans['walk'])} "
           f"queries: kernel {share(ms['walk'])}, tile_candidates "
           f"{share(ms['cand'])}, ray sort/unsort and packing "
           f"{share(sort_ms)}, the rest (camera, sampling, shading, film) "
           f"{share(rest_ms)}")
     per_query = lambda key: ", ".join(f"{a.elapsed_time(z):.2f}"
                                       for a, z in spans[key])
-    print(f"phase 6: per query in pass order (closest hit, then the sun's "
-          f"and the background light's shadow rays, at each depth), ms: "
-          f"kernel [{per_query('walk')}]; tile_candidates "
+    print(f"phase {phase}: per query in pass order (closest hit, then the "
+          f"sun's and the background light's shadow rays, at each depth), "
+          f"ms: kernel [{per_query('walk')}]; tile_candidates "
           f"[{per_query('cand')}]")
-    return launches
+    # per pass: camera + 2 bounces closest hits, sun + bg shadows at 3 depths
+    want = spp * (bounces + 1) * 3
+    if launches < want or mt_launches:
+        raise AssertionError(f"tile kernel launched {launches} times, want at "
+                             f"least {want}; mt_closest {mt_launches}, "
+                             "want 0")
+    return img, launches, arms
 
 
-def phase7_terrain_paths(terrain):
+def phase6_terrain(terrain):
+    """The terrain: returns (image, tile kernel launches of its render)."""
+    import numpy as np
+    img, launches, arms = _slice_render("6", terrain, TERRAIN_SPP,
+                                        TERRAIN_BOUNCES)
+    if set(arms) != {"static"}:
+        raise AssertionError(f"the terrain ran the arms {arms}")
+    # the top row looks past the terrain's far edge: every camera ray
+    # escapes, and at depth 0 the background's MIS weight is 1
+    top = img[0, :, :3]
+    if not np.allclose(top, np.broadcast_to(SKY, top.shape), rtol=1e-5,
+                       atol=0) or img[0, :, 3].any():
+        raise AssertionError(f"top row is not the background {SKY}: "
+                             f"{top.min(0)} .. {top.max(0)}")
+    alpha = float(img[..., 3].mean())
+    if not 0.2 < alpha < 0.95:
+        raise AssertionError(f"terrain covers {alpha} of the frame")
+    return img, launches
+
+
+def phase8_forest(forest, terrain_img):
+    """The slice: returns (tile kernel launches, launches per arm)."""
+    import numpy as np
+    acc = forest.blocks
+    phys = _nbytes(acc.tab, acc.tab_t1)
+    virt = acc.num_blocks * 16 * acc.block_size * 4 * 2
+    print(f"phase 8: forest {forest.geom.num_faces} virtual triangles over "
+          f"{forest.geom.num_base_faces} physical, {acc.num_blocks} virtual "
+          f"blocks x {acc.block_size} over {acc.tab.shape[0]} physical; "
+          f"physical tables (tab + tab_t1) {phys / 2**20:.2f} MiB, the same "
+          f"blocks baked {virt / 2**20:.2f} MiB; "
+          f"{_nbytes(acc.blk_base, acc.blk_minv, acc.id_delta, acc.inv_rows, acc.bmin, acc.bmax) / 2**20:.3f}"
+          " MiB of virtual block tables")
+    if (acc.block_size != 128 or acc.blk_base is None or acc.tab_t1 is None
+            or not forest.geom.has_motion or forest.geom.inst_mat is None):
+        raise AssertionError("the forest must compile to true instances with "
+                             "keyframes, in blocks of 128")
+    img, launches, arms = _slice_render("8", forest, TERRAIN_SPP,
+                                        TERRAIN_BOUNCES)
+    if set(arms) != {"instanced+motion1"}:
+        raise AssertionError(f"every query must run the instanced + motion "
+                             f"arm, ran {arms}")
+    # non-trivial: the same camera sees the terrain and, on it, the rocks
+    alpha = float(img[..., 3].mean())
+    changed = float((np.abs(img[..., :3] - terrain_img[..., :3]).max(-1)
+                     > 1e-2).mean())
+    print(f"phase 8: alpha mean {alpha:.4f}; {100 * changed:.2f}% of pixels "
+          "differ from the bare terrain's by more than 1e-2")
+    if not 0.2 < alpha < 0.95 or not 0.01 < changed < 0.9:
+        raise AssertionError("the forest image is not plausible")
+    return launches, arms
+
+
+def _kernel_vs_plain(phase, scene, camera):
+    """The scene at a small camera, kernel path against plain path."""
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import tiles as TL
     from libyafaray_tpu_torch.cameras import make_camera
     from libyafaray_tpu_torch.params import ParamMap
-    from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
-    small = dataclasses.replace(terrain, camera=make_camera(ParamMap(dict(
-        TERRAIN_CAMERA, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
+    small = dataclasses.replace(scene, camera=make_camera(ParamMap(dict(
+        camera, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
     cfg = make_integrator({"type": "pathtracing",
                            "bounces": TERRAIN_BOUNCES})
     img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
@@ -638,7 +862,83 @@ def phase7_terrain_paths(terrain):
         TL.tile_walk = real
     if TL.launches != before:
         raise AssertionError("the plain-path render launched the kernel")
-    _paths_agree("7", img_k, img_p)
+    _paths_agree(phase, img_k, img_p)
+
+
+# ---------------------------------------------------------------- phase 10
+
+def phase10_golden():
+    """The instanced cubes against the libYafaRay golden, true and baked."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.io import load_hdr
+    from libyafaray_tpu_torch.scenes import instances_builder
+    ref = load_hdr(GOLDEN)[..., :3]
+    down = lambda x: x.reshape(GOLDEN_RES // 4, 4, GOLDEN_RES // 4, 4,
+                               3).mean(axis=(1, 3))
+    films = {}
+    for mode in ("true", "baked"):
+        b = instances_builder()
+        if mode == "true":
+            b.set_render_params({"instancing": "true",
+                                 "scene_accelerator": "blocks"})
+        scene = b.compile("cam")
+        if (scene.geom.inst_mat is not None) != (mode == "true"):
+            raise AssertionError(f"mode {mode}: wrong instancing")
+        MT.launches = TL.launches = 0
+        TL.arm_launches.clear()
+        film = render(scene, make_integrator({"type": "directlighting"}),
+                      GOLDEN_RES, GOLDEN_RES, spp=GOLDEN_SPP)
+        torch.cuda.synchronize()
+        counts = dict(mt_closest=MT.launches, **TL.arm_launches)
+        if mode == "true" and (MT.launches or set(TL.arm_launches)
+                               != {"instanced"}):
+            raise AssertionError(f"true instances ran {counts}")
+        if mode == "baked" and (TL.launches or not MT.launches):
+            raise AssertionError(f"baked instances ran {counts}")
+        films[mode] = F.resolve(film).cpu().numpy()
+        img = films[mode][..., :3] * np.pi
+        scale = img.mean() / ref.mean()
+        rd, od = down(ref), down(img)
+        lit = rd.max(-1) > 0.02
+        reld = np.abs(od - rd).max(-1)[lit] / rd.max(-1)[lit]
+        p99 = float(np.percentile(reld, 99))
+        print(f"phase 10: instances {mode} ({counts}): global scale "
+              f"{scale:.6f}, downsampled mean rel {reld.mean():.5f}, p99 "
+              f"{p99:.5f}")
+        if not (np.isfinite(img).all() and abs(scale - 1.0) < 0.01
+                and reld.mean() < 0.01 and p99 < 0.04):
+            raise AssertionError(f"phase 10: mode {mode} misses the golden")
+    diff = float(np.abs(films["true"] - films["baked"]).max())
+    print(f"phase 10: true and baked renders: max |diff| {diff:.3g}")
+    if diff > 2e-3:
+        raise AssertionError("phase 10: true and baked instances disagree")
+
+
+def _probe():
+    """Phase 1's probe of shared memory (kernel d); returns its numbers."""
+    import torch
+    from libyafaray_tpu_torch.accel import probe_smem as PR
+    out, nbytes = PR.probe_smem(DEVICE)
+    torch.cuda.synchronize()
+    limit = PR.optin_limit(DEVICE)
+    err = float((out - 2.0).abs().max())
+    print(f"phase 1: shared-memory probe: the largest launch took {nbytes} "
+          f"bytes ({nbytes // 1024} KiB) of dynamic shared memory; the card's "
+          f"opt-in limit per block is {limit} bytes; output max |x - 2| {err}")
+    if nbytes != limit or err != 0.0:
+        raise AssertionError("the probe disagrees with the card's limit or "
+                             "its output is not exactly 2.0")
+    ms = _cuda_ms(lambda: PR.launch(nbytes, DEVICE), 20)
+    plain_ms = _cuda_ms(lambda: PR.probe_smem_ref(DEVICE), 20)
+    # the output written once; 2 x 1024 stores and 1024 additions
+    bound = _bound_ms(8 * 128, 8 * 128 * 4)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1])
 
 
 def main() -> int:
@@ -648,33 +948,59 @@ def main() -> int:
                          "this script runs only on a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from libyafaray_tpu_torch import csrc_build
-    from libyafaray_tpu_torch.scenes import bigmesh_builder, cornell_builder
+    from libyafaray_tpu_torch.accel import probe_smem as PR
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.scenes import (bigmesh_builder, cornell_builder,
+                                             forest_builder)
 
-    # ---- phase 1: environment
+    # phase 2's build runs first: phase 1's probe launches a kernel
+    names = ("mt_intersect", "tiles_traverse", "probe_smem")
+    build_s = csrc_build.build(*names)
+
+    # ---- phase 1: environment and the shared-memory probe
     smi = _cmd("nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader")
     nvcc = _cmd(csrc_build.nvcc(), "--version").splitlines()[-1]
     print(f"phase 1: torch {torch.__version__}, torch CUDA "
           f"{torch.version.cuda}, nvcc: {nvcc}")
     print(smi)
+    probe = _probe()
 
-    # ---- phase 2: build both sources, one nvcc each, in parallel
-    names = ("mt_intersect", "tiles_traverse")
+    # ---- phase 2: the three sources, one nvcc each, all started together
     print(f"phase 2: built {', '.join(n + '.cu' for n in names)} in "
-          f"{csrc_build.build(*names):.2f} s ({' '.join(csrc_build.NVCC_FLAGS)})")
-
+          f"{build_s:.2f} s ({' '.join(csrc_build.NVCC_FLAGS)})")
     t0 = time.perf_counter()
     terrain = bigmesh_builder(TERRAIN_GRID, textured=False).compile("cam")
-    print(f"phase 2: compiled the terrain scene on the host in "
+    print(f"phase 2: compiled the terrain scene in "
           f"{time.perf_counter() - t0:.2f} s")
-    cornell = cornell_builder().compile("cam").to(DEVICE)
+    t0 = time.perf_counter()
+    forest = forest_builder(FOREST_INST, FOREST_MOVING,
+                            TERRAIN_GRID).compile("cam")
+    print(f"phase 2: compiled the forest scene in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cornell = cornell_builder().compile("cam")
     mt_err, mt_times, mt_bound = phase3_mt(cornell)
-    tl_err, tl_times, tl_bound = phase3b_tiles(terrain.to(DEVICE))
+    tl_err, tl_times, tl_bound, big = phase3b_tiles(terrain)
+    arm_err, arm_times = phase3c_arms(forest, tl_times["camera"][0])
     mt_launches = phase4_cornell()
     phase5_cornell_paths()
-    tl_launches = phase6_terrain(terrain)
-    phase7_terrain_paths(terrain)
+    terrain_img, terrain_launches = phase6_terrain(terrain)
+    from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
+    _kernel_vs_plain("7", terrain, TERRAIN_CAMERA)
+    forest_launches, forest_arms = phase8_forest(forest, terrain_img)
+    _kernel_vs_plain("9", forest, TERRAIN_CAMERA)
+    phase10_golden()
 
+    main_arm = "instanced+motion1"
+    arms = [dict(arm="static", launches=terrain_launches,
+                 ms=tl_times["camera"][0], plain_ms=tl_times["camera"][1],
+                 bound_ms=tl_bound[0], bound_by=tl_bound[1],
+                 path="terrain, phase 6")]
+    arms += [dict(arm=a, launches=forest_arms.get(a, 0), **arm_times[a],
+                  path="forest, phase 8" if a == main_arm else "phase 3c")
+             for a, _, _ in ARMS]
+    arms.append(dict(arm="static, blocks of 1024", launches=0, **big,
+                     path="phase 3b, the regime of TPU kernel c"))
     print(json.dumps({"kernels": [
         {"name": "mt_closest", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/mt_intersect.cu",
@@ -686,9 +1012,16 @@ def main() -> int:
         {"name": "tiles_traverse", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/tiles_traverse.cu",
          "replaces": "libyafaray_tpu/accel/tiles.py:277",
-         "launches": tl_launches, "max_abs_err": tl_err,
-         "ms": tl_times["camera"][0], "plain_ms": tl_times["camera"][1],
-         "bound_ms": tl_bound[0], "bound_by": tl_bound[1],
+         "launches": forest_launches, "max_abs_err": max(tl_err, arm_err),
+         "ms": arm_times[main_arm]["ms"],
+         "plain_ms": arm_times[main_arm]["plain_ms"],
+         "bound_ms": arm_times[main_arm]["bound_ms"],
+         "bound_by": arm_times[main_arm]["bound_by"],
+         "library_ms": None, "arms": arms},
+        {"name": "probe_smem", "route": "cuda",
+         "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
+         "replaces": "tools/probe_traversal.py:27",
+         "launches": 0, "probe_launches": PR.launches, **probe,
          "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

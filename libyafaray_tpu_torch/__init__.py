@@ -1,13 +1,16 @@
 """libyafaray_tpu_torch: the PyTorch / CUDA port of libyafaray_tpu.
 
 A second package beside the JAX one, held against it module by module. It
-imports torch and numpy only. The forward path renders the Cornell box and
-the 203k-triangle terrain of BASELINE config 3 (untextured) under the
-`pathtracing` and `directlighting` integrators; `render` runs on the CUDA
-card unless the caller names another device. On the card every
+imports torch and numpy only. The forward path renders the Cornell box, the
+203k-triangle terrain of BASELINE config 3 (untextured) and the forest (the
+terrain under true instances, some of them moving) under the `pathtracing`
+and `directlighting` integrators; `SceneBuilder.compile` and `render` run
+on the CUDA card unless the caller names another device. On the card every
 intersection query runs a hand-written kernel: `csrc/mt_intersect.cu` on
-the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu` on
-the block accelerator (`accel/tiles.py`).
+the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
+(static, motion-blur and instancing arms) on the block accelerator
+(`accel/tiles.py`); `csrc/probe_smem.cu` (`accel/probe_smem.py`) probes
+the card's shared memory per block.
 """
 from .integrators.mc import IntegratorConfig, make_integrator
 from .render import render, render_pass_fn

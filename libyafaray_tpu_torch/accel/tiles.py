@@ -1,14 +1,26 @@
 """Tile traversal of the block accelerator: the CUDA kernel
 `csrc/tiles_traverse.cu` and its plain PyTorch version.
 
-Counterpart of `libyafaray_tpu/accel/tiles.py` for static scenes without
-instancing. Rays arrive sorted for coherence (`accel/blocks.py` query) and
-are cut into tiles of RAY_TILE rays. `tile_candidates` gives each tile the
-blocks that some of its rays enter, front to back by a lower bound of the
-entry distance. `tile_walk` then walks each tile's list: for every candidate
-block it runs Möller-Trumbore over the block's (16, B) slab, SUB triangles
-at a time, and stops once the next candidate's entry bound is beyond every
-ray's best hit (closest hit) or beyond every unhit ray's t_max (any hit).
+Counterpart of `libyafaray_tpu/accel/tiles.py`. Rays arrive sorted for
+coherence (`accel/blocks.py` query) and are cut into tiles of RAY_TILE
+rays. `tile_candidates` gives each tile the blocks that some of its rays
+enter, front to back by a lower bound of the entry distance. `tile_walk`
+then walks each tile's list: for every candidate block it runs
+Möller-Trumbore over the block's (16, B) slab, SUB triangles at a time, and
+stops once the next candidate's entry bound is beyond every ray's best hit
+(closest hit) or beyond every unhit ray's t_max (any hit).
+
+Two arms extend the static walk, alone or together, as in the JAX
+package's resident kernel:
+  * motion blur (`tab_t1`, and `tab_t2` for the quadratic b-spline): each
+    ray blends the slab's vertex rows with the weights of its own time
+    (packed in ray column 9), row = v*w0 + t1*w1 [+ t2*w2];
+  * true instancing (`blk_base`, `blk_minv`, `id_delta`, `inv_rows`): a
+    candidate is a virtual block; its slab is the physical row
+    blk_base[j], the rays are transformed object<-world by the 3x4 matrix
+    inv_rows[blk_minv[j]] (row 0, the identity, is skipped) and the prim
+    ids are rebased by id_delta[j] (as floats) before the exclude test and
+    the tie-break.
 
 `tile_walk` on CPU tensors runs the plain version `tile_walk_ref`; on a
 CUDA device it launches the kernel (built at first use by `csrc_build`) or
@@ -18,6 +30,7 @@ candidate lists and walk them.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -40,8 +53,10 @@ _CAND_BYTES = 64e6
 # tiles per step of the plain walk: [tiles, RAY_TILE, SUB] temporaries
 _REF_TILES = 128
 
-# number of kernel launches, counted by tile_walk where it launches
+# number of kernel launches, counted by tile_walk where it launches, in
+# all and per specialisation (`arm`)
 launches = 0
+arm_launches = collections.Counter()
 _fn = None
 
 
@@ -119,25 +134,37 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
 
 
 def _mt_update(tr: Tensor, cols, carry, vis_col: int,
-               step_ok: Optional[Tensor]):
+               step_ok: Optional[Tensor], delta: Optional[Tensor] = None,
+               motion=None):
     """Möller-Trumbore of a batch of (16, SUB) slabs (tr f32[G, 16, SUB])
     against their tiles' rays (cols: ox..oz, dx..dz, t_min, exclude, each
     [G, R, 1]); returns the updated (best_t, best_id, best_u, best_v), each
     [G, R, 1]. The JAX package's `_mt_update` with the same arithmetic in
     the same order: within the slab the hit at the lowest t wins, and among
     hits at that t the lowest prim id; it replaces the best hit only on a
-    strictly lower t."""
+    strictly lower t. `delta` ([G, 1, 1]) rebases the prim ids of instanced
+    blocks; `motion` = (tr1, tr2 or None, w0, w1, w2) blends the vertex
+    rows per ray (weights [G, R, 1])."""
     ox, oy, oz, dx, dy, dz, t_min, excl = cols
     best_t, best_id, best_u, best_v = carry
 
     def row(r):
-        return tr[:, r:r + 1, :]                # [G, 1, SUB]
+        v = tr[:, r:r + 1, :]                   # [G, 1, SUB]
+        if motion is None:
+            return v
+        tr1, tr2, w0, w1, w2 = motion
+        v = v * w0 + tr1[:, r:r + 1, :] * w1    # [G, R, SUB]
+        if tr2 is not None:
+            v = v + tr2[:, r:r + 1, :] * w2
+        return v
 
     ax, ay, az = row(0), row(1), row(2)
     bx, by, bz = row(3), row(4), row(5)
     cx, cy, cz = row(6), row(7), row(8)
-    vis = row(vis_col)
-    pid = row(11)
+    vis = tr[:, vis_col:vis_col + 1, :]
+    pid = tr[:, 11:12, :]
+    if delta is not None:
+        pid = pid + delta
     e1x, e1y, e1z = bx - ax, by - ay, bz - az
     e2x, e2y, e2z = cx - ax, cy - ay, cz - az
     # pvec = d x e2
@@ -175,9 +202,35 @@ def _mt_update(tr: Tensor, cols, carry, vis_col: int,
     return best_t, best_id, best_u, best_v
 
 
+def _motion_weights(tt: Tensor, quadratic: bool):
+    """Per-ray keyframe weights (w0, w1, w2) of shutter times tt."""
+    if quadratic:               # the b-spline's three control points
+        tc = 1.0 - tt
+        return tc * tc, 2.0 * tt * tc, tt * tt
+    return 1.0 - tt, tt, tt     # two keyframes, linear
+
+
+def _instance_cols(cols, m: Tensor):
+    """The ray columns transformed by 3x4 matrices m ([G, 12]), in the
+    Pallas kernel's order (left to right, no fused operations)."""
+    ox, oy, oz, dx, dy, dz, tmn, exc = cols
+    m = [m[:, i].view(-1, 1, 1) for i in range(12)]
+    return (m[0] * ox + m[1] * oy + m[2] * oz + m[3],
+            m[4] * ox + m[5] * oy + m[6] * oz + m[7],
+            m[8] * ox + m[9] * oy + m[10] * oz + m[11],
+            m[0] * dx + m[1] * dy + m[2] * dz,
+            m[4] * dx + m[5] * dy + m[6] * dz,
+            m[8] * dx + m[9] * dy + m[10] * dz, tmn, exc)
+
+
 def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
                   tab: Tensor, *, shadow: bool = False,
-                  any_hit: bool = False):
+                  any_hit: bool = False, tab_t1: Optional[Tensor] = None,
+                  tab_t2: Optional[Tensor] = None,
+                  blk_base: Optional[Tensor] = None,
+                  blk_minv: Optional[Tensor] = None,
+                  id_delta: Optional[Tensor] = None,
+                  inv_rows: Optional[Tensor] = None):
     """Plain PyTorch version of the kernel: a loop over candidate steps,
     vectorised across tiles. Before every group of UNROLL steps each tile
     still walking takes the exit test; at step k a tile takes its k-th
@@ -186,6 +239,8 @@ def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     t = count.shape[0]
     r = rays.reshape(t, RAY_TILE, 16)
     cols = [r[:, :, k:k + 1] for k in (0, 1, 2, 3, 4, 5, 6, 8)]
+    weights = (None if tab_t1 is None else
+               _motion_weights(r[:, :, 9:10], tab_t2 is not None))
     best_t = r[:, :, 7:8].clone()
     best_id = torch.full_like(best_t, -1.0)
     best_u = torch.zeros_like(best_t)
@@ -210,13 +265,29 @@ def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
             sel = idx[s:s + _REF_TILES]
             carry = (best_t[sel], best_id[sel], best_u[sel], best_v[sel])
             cs = [x[sel] for x in cols]
+            ws = None if weights is None else [w[sel] for w in weights]
             for k in range(UNROLL):
                 ci = c + k
                 step_ok = (ci < cnt[sel]).view(-1, 1, 1) if k else None
                 blk = cand[sel, min(ci, c_pad - 1)].to(torch.int64)
+                delta, cols_k = None, cs
+                if blk_base is not None:
+                    mi = blk_minv[blk].to(torch.int64)
+                    delta = id_delta[blk].to(torch.float32).view(-1, 1, 1)
+                    moved = _instance_cols(cs, inv_rows[mi])
+                    inst = (mi > 0).view(-1, 1, 1)
+                    cols_k = [torch.where(inst, a, b)
+                              for a, b in zip(moved, cs)]
+                    blk = blk_base[blk].to(torch.int64)
                 for j in range(n_sub):
-                    tr = tab[blk, :, j * SUB:(j + 1) * SUB]
-                    carry = _mt_update(tr, cs, carry, vis_col, step_ok)
+                    sub = slice(j * SUB, (j + 1) * SUB)
+                    motion = None
+                    if ws is not None:
+                        motion = (tab_t1[blk, :, sub],
+                                  None if tab_t2 is None
+                                  else tab_t2[blk, :, sub], *ws)
+                    carry = _mt_update(tab[blk, :, sub], cols_k, carry,
+                                       vis_col, step_ok, delta, motion)
             best_t[sel], best_id[sel], best_u[sel], best_v[sel] = carry
         c += UNROLL
     return (best_t.reshape(-1), best_id.reshape(-1), best_u.reshape(-1),
@@ -229,21 +300,38 @@ def _launcher():
     if _fn is None:
         fn = csrc_build.library("tiles_traverse").tiles_traverse_launch
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                       ci, ci, ci, ci, ci, ci, ci, ci, ci,
                        vp, vp, vp, vp, vp]
         fn.restype = ci
         _fn = fn
     return _fn
 
 
+def arm(motion: int, instanced: bool) -> str:
+    """Name of a specialisation of the kernel: "static", "motion1"
+    (linear), "motion2" (quadratic), "instanced", "instanced+motion1"..."""
+    parts = (["instanced"] if instanced else []) + (
+        [f"motion{motion}"] if motion else [])
+    return "+".join(parts) or "static"
+
+
 def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
-              tab: Tensor, *, shadow: bool = False, any_hit: bool = False):
+              tab: Tensor, *, shadow: bool = False, any_hit: bool = False,
+              tab_t1: Optional[Tensor] = None,
+              tab_t2: Optional[Tensor] = None,
+              blk_base: Optional[Tensor] = None,
+              blk_minv: Optional[Tensor] = None,
+              id_delta: Optional[Tensor] = None,
+              inv_rows: Optional[Tensor] = None):
     """Walk each tile's candidate blocks (the kernel's wrapper).
 
-    rays f32[Npad, 16] (ox oy oz dx dy dz t_min t_max exclude, then zeros;
-    Npad = T * RAY_TILE); cand i32[T, Cpad]; ent f32[T, Cpad]; count i32[T];
-    tab f32[C, 16, B] with B a multiple of SUB. All contiguous, on one
-    device. Returns (t, id, u, v), each f32[Npad]."""
+    rays f32[Npad, 16] (ox oy oz dx dy dz t_min t_max exclude time, then
+    zeros; Npad = T * RAY_TILE); cand i32[T, Cpad]; ent f32[T, Cpad]; count
+    i32[T]; tab f32[C_phys, 16, B] with B a multiple of SUB. Motion blur:
+    tab_t1 (and tab_t2) shaped as tab. Instancing: blk_base, blk_minv,
+    id_delta i32[C] and inv_rows f32[K+1, 12], all four or none. All
+    contiguous, on one device. Returns (t, id, u, v), each f32[Npad]."""
     global launches
     dev = rays.device
     t, c_pad = cand.shape
@@ -257,31 +345,55 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
         raise ValueError(f"tile_walk: tab must be f32[C, 16, B] with B a "
                          f"multiple of {SUB}, got {tuple(tab.shape)}")
     check("tab", tab, torch.float32, tuple(tab.shape))
+    if tab_t2 is not None and tab_t1 is None:
+        raise ValueError("tile_walk: tab_t2 needs tab_t1")
+    for name, x in (("tab_t1", tab_t1), ("tab_t2", tab_t2)):
+        if x is not None:
+            check(name, x, torch.float32, tuple(tab.shape))
+    inst = (blk_base, blk_minv, id_delta, inv_rows)
+    instanced = blk_base is not None
+    if any((x is None) == instanced for x in inst):
+        raise ValueError("tile_walk: blk_base, blk_minv, id_delta and "
+                         "inv_rows go together")
+    if instanced:
+        c_virt = blk_base.shape[0]
+        for name, x in zip(("blk_base", "blk_minv", "id_delta"), inst):
+            check(name, x, torch.int32, (c_virt,))
+        check("inv_rows", inv_rows, torch.float32, (inv_rows.shape[0], 12))
+    kw = dict(shadow=shadow, any_hit=any_hit, tab_t1=tab_t1, tab_t2=tab_t2,
+              blk_base=blk_base, blk_minv=blk_minv, id_delta=id_delta,
+              inv_rows=inv_rows)
     if dev.type == "cpu":
-        return tile_walk_ref(rays, cand, ent, count, tab, shadow=shadow,
-                             any_hit=any_hit)
+        return tile_walk_ref(rays, cand, ent, count, tab, **kw)
     if dev.type != "cuda":
         raise ValueError(f"tile_walk: no kernel for device {dev}")
     launch = _launcher()
+    motion = 0 if tab_t1 is None else (2 if tab_t2 is not None else 1)
     out = [torch.empty((npad,), dtype=torch.float32, device=dev)
            for _ in range(4)]
+    ptr = lambda x: None if x is None else x.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = launch(rays.data_ptr(), cand.data_ptr(), ent.data_ptr(),
-                 count.data_ptr(), tab.data_ptr(), t, c_pad, tab.shape[2],
-                 10 if shadow else 9, int(bool(any_hit)), tab.shape[0],
+                 count.data_ptr(), tab.data_ptr(), ptr(tab_t1), ptr(tab_t2),
+                 *(ptr(x) for x in inst), t, c_pad, tab.shape[2],
+                 10 if shadow else 9, int(bool(any_hit)), motion,
+                 blk_base.shape[0] if instanced else tab.shape[0],
+                 tab.shape[0], inv_rows.shape[0] if instanced else 0,
                  *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError(f"tiles_traverse kernel launch failed (CUDA error "
                            f"{err})")
     launches += 1
+    arm_launches[arm(motion, instanced)] += 1
     return tuple(out)
 
 
 def prepare(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
-            t_max: Tensor, exclude: Tensor):
+            t_max: Tensor, exclude: Tensor, time: Optional[Tensor] = None):
     """Pad the rays to a RAY_TILE multiple (padding rays have an empty
-    t-range), pack them f32[Npad, 16] and build the candidate lists.
-    Returns (rays, cand, ent, count)."""
+    t-range), pack them f32[Npad, 16] (the shutter time in column 9, 0
+    without one) and build the candidate lists. Returns
+    (rays, cand, ent, count)."""
     n = o.shape[0]
     npad = -(-n // RAY_TILE) * RAY_TILE
     dev = o.device
@@ -289,6 +401,8 @@ def prepare(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
     t_min = t_min.to(torch.float32).expand(n)
     t_max = t_max.to(torch.float32).expand(n)
     exclude = exclude.to(torch.float32).expand(n)
+    time = (torch.zeros((n,), **f32) if time is None
+            else time.to(torch.float32).expand(n))
     if npad != n:
         k = npad - n
         o = torch.cat([o, torch.zeros((k, 3), **f32)])
@@ -296,23 +410,25 @@ def prepare(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
         t_min = torch.cat([t_min, torch.zeros((k,), **f32)])
         t_max = torch.cat([t_max, torch.full((k,), -1.0, **f32)])
         exclude = torch.cat([exclude, torch.full((k,), -1.0, **f32)])
+        time = torch.cat([time, torch.zeros((k,), **f32)])
     rays = torch.cat([o, d, t_min[:, None], t_max[:, None], exclude[:, None],
-                      torch.zeros((npad, 7), **f32)], dim=1)
+                      time[:, None], torch.zeros((npad, 6), **f32)], dim=1)
     cand, ent, count = tile_candidates(bmin, bmax, o, d, t_min, t_max)
     return rays, cand, ent, count
 
 
 def _traverse(walk, tab, bmin, bmax, o, d, t_min, t_max, exclude, shadow,
-              any_hit, extra):
-    if any(x is not None for x in extra.values()):
-        raise NotImplementedError(
-            "the motion-blur and instancing arms of the tile traversal ("
-            + ", ".join(k for k, x in extra.items() if x is not None)
-            + ") are not ported to libyafaray_tpu_torch yet")
+              any_hit, blk_base, blk_minv, id_delta, inv_rows, tab_t1,
+              tab_t2, time):
+    if tab_t1 is None or time is None:     # no motion: the keyframes idle
+        tab_t1 = tab_t2 = time = None
     n = o.shape[0]
-    rays, cand, ent, count = prepare(bmin, bmax, o, d, t_min, t_max, exclude)
+    rays, cand, ent, count = prepare(bmin, bmax, o, d, t_min, t_max, exclude,
+                                     time)
     bt, bid, bu, bv = walk(rays, cand, ent, count, tab, shadow=shadow,
-                           any_hit=any_hit)
+                           any_hit=any_hit, tab_t1=tab_t1, tab_t2=tab_t2,
+                           blk_base=blk_base, blk_minv=blk_minv,
+                           id_delta=id_delta, inv_rows=inv_rows)
     return bt[:n], bid[:n].to(torch.int32), bu[:n], bv[:n]
 
 
@@ -323,21 +439,24 @@ def tiles_traverse(tab: Tensor, bmin: Tensor, bmax: Tensor, o: Tensor,
                    tab_t1=None, tab_t2=None, time=None):
     """Traverse sorted rays through the block table.
 
-    tab f32[C, 16, B] (BlockAccel.tab); bmin/bmax f32[C, 3]; o, d f32[N, 3];
-    t_min, t_max f32[N]; exclude i32[N]. Returns (t, prim i32 (-1 on a
-    miss), u, v), each [N]. The motion-blur and instancing arguments of the
-    JAX package raise NotImplementedError."""
+    tab f32[C_phys, 16, B] (BlockAccel.tab); bmin/bmax f32[C, 3] per
+    virtual block; o, d f32[N, 3]; t_min, t_max f32[N]; exclude i32[N].
+    Instanced scenes pass blk_base / blk_minv / id_delta i32[C] and
+    inv_rows f32[K+1, 12]; motion blur passes tab_t1 (and tab_t2) with the
+    rays' shutter times `time` f32[N]. Returns (t, prim i32 (-1 on a miss),
+    u, v), each [N]."""
     return _traverse(tile_walk, tab, bmin, bmax, o, d, t_min, t_max, exclude,
-                     shadow, any_hit, dict(
-                         blk_base=blk_base, blk_minv=blk_minv,
-                         id_delta=id_delta, inv_rows=inv_rows, tab_t1=tab_t1,
-                         tab_t2=tab_t2, time=time))
+                     shadow, any_hit, blk_base, blk_minv, id_delta, inv_rows,
+                     tab_t1, tab_t2, time)
 
 
 def tiles_traverse_ref(tab: Tensor, bmin: Tensor, bmax: Tensor, o: Tensor,
                        d: Tensor, t_min: Tensor, t_max: Tensor,
                        exclude: Tensor, *, shadow: bool = False,
-                       any_hit: bool = False):
+                       any_hit: bool = False, blk_base=None, blk_minv=None,
+                       id_delta=None, inv_rows=None, tab_t1=None, tab_t2=None,
+                       time=None):
     """`tiles_traverse` through the plain walk, on any device."""
     return _traverse(tile_walk_ref, tab, bmin, bmax, o, d, t_min, t_max,
-                     exclude, shadow, any_hit, {})
+                     exclude, shadow, any_hit, blk_base, blk_minv, id_delta,
+                     inv_rows, tab_t1, tab_t2, time)

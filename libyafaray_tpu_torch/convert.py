@@ -3,8 +3,8 @@
 `scene_from_numpy(tree)` takes a `libyafaray_tpu` SceneData whose array
 leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
-SceneData with the same tables (the block accelerator's `tab`, `bmin`,
-`bmax` included), on the CPU. It reads attributes only and
+SceneData with the same tables (the motion keyframes, the true-instancing
+tables and the block accelerator's included), on the CPU. It reads attributes only and
 imports nothing of JAX. Scenes that use features the port does not carry
 yet raise NotImplementedError.
 """
@@ -13,13 +13,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_SUN,
-                          MAT_SHINY_DIFFUSE, Background, BlockAccel, Camera,
+from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT,
+                          LIGHT_SUN, MAT_SHINY_DIFFUSE, Background, BlockAccel, Camera,
                           Geometry, LightTable, MaterialTable, SceneData)
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
+
+
+def _opt(tree, names) -> dict:
+    """The named optional array leaves of `tree` as tensors (None stays)."""
+    return {k: None if getattr(tree, k) is None else _t(getattr(tree, k))
+            for k in names}
 
 
 def _require(ok: bool, feature: str) -> None:
@@ -33,8 +39,6 @@ def scene_from_numpy(tree) -> SceneData:
     _require(tree.accel_kind in ("brute", "blocks"),
              f"the {tree.accel_kind!r} accelerator")
     _require(g.num_spheres == 0, "sphere primitives")
-    _require(not g.has_motion, "motion blur geometry")
-    _require(g.inst_mat is None, "instancing")
     if tree.accel_kind == "brute":
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
@@ -42,7 +46,7 @@ def scene_from_numpy(tree) -> SceneData:
              f"material types {m.present_types}")
     _require(not (m.has_oren or m.has_blend or m.has_mask or m.has_beer
                   or m.has_sss), "Oren-Nayar, blend, mask or volume materials")
-    _require(set(lt.present_types) <= {LIGHT_AREA, LIGHT_SUN,
+    _require(set(lt.present_types) <= {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN,
                                        LIGHT_BACKGROUND},
              f"light types {lt.present_types}")
     _require(tree.background.kind == "constant",
@@ -61,8 +65,12 @@ def scene_from_numpy(tree) -> SceneData:
         faces=_t(g.faces), face_uvs=_t(g.face_uvs), face_mat=_t(g.face_mat),
         face_obj=_t(g.face_obj), face_smooth=_t(g.face_smooth),
         face_light=_t(g.face_light), face_vis=_t(g.face_vis),
-        tri_table=_t(g.tri_table) if g.tri_table is not None else None,
-        num_faces=int(g.num_faces), num_spheres=0)
+        num_faces=int(g.num_faces), num_spheres=0,
+        has_motion=bool(g.has_motion), num_base_faces=int(g.num_base_faces),
+        **_opt(g, ("tri_table", "tri_table_t1", "tri_table_t2", "vertices_t1",
+                   "vertices_t2", "inst_mat", "inst_inv", "inst_nrm",
+                   "inst_face_base", "inst_face_off", "inst_obj",
+                   "inst_vis")))
     mats = MaterialTable(
         mat_type=_t(m.mat_type), diffuse_color=_t(m.diffuse_color),
         mirror_color=_t(m.mirror_color), emit_color=_t(m.emit_color),
@@ -89,11 +97,11 @@ def scene_from_numpy(tree) -> SceneData:
     blocks = None
     if tree.accel_kind == "blocks":
         bl = tree.blocks
-        _require(bl.blk_base is None, "instanced block tables")
-        _require(bl.tab_t1 is None, "motion-blur block tables")
         blocks = BlockAccel(tab=_t(bl.tab), bmin=_t(bl.bmin),
                             bmax=_t(bl.bmax), block_size=int(bl.block_size),
-                            num_blocks=int(bl.num_blocks))
+                            num_blocks=int(bl.num_blocks),
+                            **_opt(bl, ("tab_t1", "tab_t2", "blk_base",
+                                        "blk_minv", "id_delta", "inv_rows")))
     return SceneData(
         geom=geom, materials=mats, lights=lights, background=background,
         camera=camera, shadow_bias=_t(tree.shadow_bias),

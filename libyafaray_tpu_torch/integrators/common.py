@@ -20,21 +20,24 @@ Tensor = torch.Tensor
 
 
 def trace_shadow(scene: SceneData, p: Tensor, prim: Tensor, wi: Tensor,
-                 dist: Tensor, needed: Optional[Tensor] = None) -> Tensor:
+                 dist: Tensor, needed: Optional[Tensor] = None,
+                 time: Optional[Tensor] = None) -> Tensor:
     """Binary shadow transmittance [N,1] along p -> p + wi*dist
-    (intersectS analogue). Rays where the result is not `needed` get an
-    empty t-range."""
+    (intersectS analogue) at the rays' shutter `time`. Rays where the
+    result is not `needed` get an empty t-range."""
     bias = scene.shadow_bias
     o = p + wi * bias
     t_max = torch.where(torch.isinf(dist), 1e30, dist - 2.0 * bias)
     if needed is not None:
         t_max = torch.where(needed, t_max, -1.0)
-    blocked = I.any_hit(scene, o, wi, 0.0, t_max, exclude_prim=prim)
+    blocked = I.any_hit(scene, o, wi, 0.0, t_max, exclude_prim=prim,
+                        time=time)
     return torch.where(blocked[..., None], 0.0, 1.0)
 
 
 def estimate_one_light(scene: SceneData, sp, wo: Tensor, li: Tensor,
-                       u1: Tensor, u2: Tensor) -> Tensor:
+                       u1: Tensor, u2: Tensor,
+                       time: Optional[Tensor] = None) -> Tensor:
     """One-sample NEE toward light index `li` with MIS against BSDF sampling
     (areaLightSampleLight analogue). Returns the contribution [N,3]."""
     ls = L.sample_light(scene, li, sp.p, sp.n, u1, u2)
@@ -44,7 +47,7 @@ def estimate_one_light(scene: SceneData, sp, wo: Tensor, li: Tensor,
     casts = (scene.lights.flags[li.long()] & L.FLAG_CAST_SHADOWS) != 0
     shadow_needed = potential & casts
     tr = trace_shadow(scene, sp.p, sp.prim, ls.wi, ls.dist,
-                      needed=shadow_needed)
+                      needed=shadow_needed, time=time)
     tr = torch.where((potential & ~shadow_needed)[..., None], 1.0, tr)
     mis_w = torch.where(ls.is_dirac, 1.0,
                         vec.power_heuristic(ls.pdf, bsdf_pdf))

@@ -4,7 +4,9 @@ Counterpart of `libyafaray_tpu/integrators/mc.py` for the `combined` layer:
 the whole batch of camera rays marches through the bounce loop with masked
 lanes; dead lanes carry zero throughput and an empty t-range. NEE with MIS
 every bounce, BSDF sampling and Russian roulette after a minimum bounce
-count, drawn from the same counter-based samples as the JAX package.
+count, drawn from the same counter-based samples as the JAX package. In a
+motion-blurred scene every path carries one shutter time, drawn per sample,
+which its camera, bounce and shadow queries share.
 """
 from __future__ import annotations
 
@@ -87,16 +89,20 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
     prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)  # camera rays
     prev_p = ray_o
+    # per-sample shutter time for motion blur
+    ray_time = (sampler.rand1(pixel_id, sample_idx, 0, 556)
+                if scene.geom.has_motion else None)
 
     max_depth = cfg.bounces + 1
     for depth in range(max_depth):
         # dead paths get an empty t-range
         t_far = torch.where(alive, 1e30, -1.0)
         if depth == 0:
-            hit = I.camera_hit(scene, o, d, scene.ray_min_dist, t_far)
+            hit = I.camera_hit(scene, o, d, scene.ray_min_dist, t_far,
+                               time=ray_time)
         else:
             hit = I.closest_hit(scene, o, d, scene.ray_min_dist, t_far,
-                                exclude_prim=prev_prim)
+                                exclude_prim=prev_prim, time=ray_time)
         hit.valid = hit.valid & alive
         sp = S.make_surface(scene, hit, o, d)
         wo = -d
@@ -137,7 +143,8 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             for k in range(ns):
                 u1, u2 = sampler.rand2(pixel_id, sample_idx, depth,
                                        10 + 2 * li_static + 100 * k)
-                c = common.estimate_one_light(scene, sp, wo, li, u1, u2)
+                c = common.estimate_one_light(scene, sp, wo, li, u1, u2,
+                                              time=ray_time)
                 radiance = radiance + torch.where(
                     alive[..., None], throughput * c * (1.0 / ns), 0.0)
 

@@ -1,9 +1,10 @@
-"""Light table sampling and pdfs: area lights, the sun and the background
-light.
+"""Light table sampling and pdfs: point lights, area lights, the sun and the
+background light.
 
-Counterpart of `libyafaray_tpu/lights/__init__.py` with the `LIGHT_AREA`,
-`LIGHT_SUN` and `LIGHT_BACKGROUND` arms (a constant background sampled
-uniformly over the sphere), the light types the port compiles so far.
+Counterpart of `libyafaray_tpu/lights/__init__.py` with the `LIGHT_POINT`,
+`LIGHT_AREA`, `LIGHT_SUN` and `LIGHT_BACKGROUND` arms (a constant background
+sampled uniformly over the sphere), the light types the port compiles so
+far.
 Every present type is evaluated for the whole wavefront and selected per
 lane by its type, as in the JAX package. `sample_light` returns solid-angle
 pdfs; the `color` column holds the emitted radiance.
@@ -17,7 +18,8 @@ import torch
 
 from ..backgrounds import eval_background
 from ..math import vec
-from ..scene_types import LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_SUN, SceneData
+from ..scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT,
+                           LIGHT_SUN, SceneData)
 
 Tensor = torch.Tensor
 
@@ -26,7 +28,7 @@ FLAG_ENABLED = 2
 FLAG_PHOTON_ONLY = 4
 FLAG_DOUBLE_SIDED = 8
 
-_PORTED = {LIGHT_AREA, LIGHT_SUN, LIGHT_BACKGROUND}
+_PORTED = {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN, LIGHT_BACKGROUND}
 
 
 @dataclass
@@ -35,15 +37,15 @@ class LightSample:
     dist: Tensor      # f32[N] distance to the light sample (inf: infinite)
     pdf: Tensor       # f32[N] solid-angle pdf
     radiance: Tensor  # f32[N,3] incident radiance
-    is_dirac: Tensor  # bool[N] (false for every ported type)
+    is_dirac: Tensor  # bool[N] (point lights)
     valid: Tensor     # bool[N]
 
 
 def _check_types(lt) -> None:
     if not set(lt.present_types) <= _PORTED:
         raise NotImplementedError(
-            f"light types {lt.present_types} include types other than area, "
-            "sun and background lights, which are not ported to "
+            f"light types {lt.present_types} include types other than point, "
+            "area, sun and background lights, which are not ported to "
             "libyafaray_tpu_torch yet")
 
 
@@ -70,6 +72,18 @@ def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
     pdf = torch.ones((n,), **f32)
     rad = torch.zeros_like(p)
     valid = torch.ones((n,), dtype=torch.bool, device=p.device)
+    dirac = torch.zeros((n,), dtype=torch.bool, device=p.device)
+
+    # point light: a Dirac delta at its position (light_point.cc)
+    if _has(lt, LIGHT_POINT):
+        m = ty == LIGHT_POINT
+        to_l = lt.position[li] - p
+        d2 = torch.clamp_min(vec.dot(to_l, to_l), 1e-12)
+        dist_pt = torch.sqrt(d2)
+        wi = torch.where(m[..., None], to_l / dist_pt[..., None], wi)
+        dist = torch.where(m, dist_pt, dist)
+        rad = torch.where(m[..., None], col / d2[..., None], rad)
+        dirac = dirac | m
 
     # sun: a cone around -direction (light_sun.cc)
     if _has(lt, LIGHT_SUN):
@@ -118,8 +132,7 @@ def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
     photon_only = (flags & FLAG_PHOTON_ONLY) != 0
     valid = valid & enabled & ~photon_only & (vec.dot(rad, rad) > 0)
     return LightSample(wi=wi, dist=dist, pdf=torch.clamp_min(pdf, 1e-12),
-                       radiance=rad, is_dirac=torch.zeros_like(valid),
-                       valid=valid)
+                       radiance=rad, is_dirac=dirac, valid=valid)
 
 
 def light_pdf_hit(scene: SceneData, light_id: Tensor, p_hit: Tensor,

@@ -6,7 +6,9 @@ block accelerator (`accel_kind == "blocks"`, scenes of 2048+ faces by
 default) through `accel.blocks`, whose traversal is `accel.tiles`. Each is a
 CUDA kernel for tensors on the card and its plain PyTorch version for
 tensors on the CPU. Intersections carry no gradient, so the queries run
-under `torch.no_grad()` on detached inputs.
+under `torch.no_grad()` on detached inputs. Motion-blurred scenes
+(`geom.has_motion`) take each ray's shutter `time`; the queries pass it on
+only for such scenes, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -70,7 +72,12 @@ def intersect_sphere(o: Tensor, d: Tensor, center: Tensor, radius: Tensor,
 
 def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
                    t_max: Tensor, exclude_prim: Optional[Tensor] = None,
-                   shadow: bool = False) -> Hit:
+                   shadow: bool = False, time: Optional[Tensor] = None) -> Hit:
+    if geom.inst_mat is not None:
+        raise NotImplementedError(
+            "brute-force intersection does not expand true instances; "
+            "instanced scenes compile with the block accelerator (set "
+            "instancing: 'baked' to force geometry duplication)")
     if geom.num_spheres > 0:
         raise NotImplementedError(
             "sphere primitives are not ported to libyafaray_tpu_torch yet")
@@ -81,9 +88,15 @@ def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
     if geom.num_faces > 0:
         excl = (exclude_prim.to(torch.int32).contiguous()
                 if exclude_prim is not None else best_prim)
+        motion = {}
+        if geom.has_motion and time is not None:
+            motion = dict(time=time.to(torch.float32).contiguous(),
+                          tris_t1=geom.tri_table_t1,
+                          tris_t2=geom.tri_table_t2)
         bt, bp, bu, bv = MT.mt_closest(
             geom.tri_table, o.contiguous(), d.contiguous(),
-            t_min.contiguous(), t_max.contiguous(), excl, shadow=shadow)
+            t_min.contiguous(), t_max.contiguous(), excl, shadow=shadow,
+            **motion)
         best_t = torch.where(bp >= 0, bt, best_t)
         best_prim = bp
         best_uv = torch.stack([bu, bv], dim=-1)
@@ -92,10 +105,11 @@ def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
 
 
 def _brute_any(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
-               t_max: Tensor, exclude_prim: Optional[Tensor] = None) -> Tensor:
+               t_max: Tensor, exclude_prim: Optional[Tensor] = None,
+               time: Optional[Tensor] = None) -> Tensor:
     """Boolean shadow query: the closest-hit scan over shadow casters."""
     return _brute_closest(geom, o, d, t_min, t_max, exclude_prim,
-                          shadow=True).valid
+                          shadow=True, time=time).valid
 
 
 def _query(o: Tensor, t_min, t_max):
@@ -118,35 +132,46 @@ def _blocks(scene: SceneData) -> bool:
     return False
 
 
+def _time(scene: SceneData, time: Optional[Tensor]) -> Optional[Tensor]:
+    """The rays' shutter times, for motion-blurred scenes only."""
+    return time.detach() if time is not None and scene.geom.has_motion \
+        else None
+
+
 @torch.no_grad()
 def closest_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
-                exclude_prim: Optional[Tensor] = None) -> Hit:
+                exclude_prim: Optional[Tensor] = None,
+                time: Optional[Tensor] = None) -> Hit:
     """Closest-hit query over the whole scene (Accelerator::intersect)."""
     t_min, t_max = _query(o, t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
     if _blocks(scene):
-        return BL.blocks_closest(scene, *args)
-    return _brute_closest(scene.geom, *args)
+        return BL.blocks_closest(scene, *args, time=_time(scene, time))
+    return _brute_closest(scene.geom, *args, time=_time(scene, time))
 
 
 @torch.no_grad()
-def camera_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max) -> Hit:
+def camera_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
+               time: Optional[Tensor] = None) -> Hit:
     """First intersection of camera rays. Identical to closest_hit unless the
     scene has primitives invisible to the camera (area lights with
     visibility='invisible'): lanes whose first hit is such a primitive are
     traced again past it; the other lanes get an empty t-range."""
-    hit = closest_hit(scene, o, d, t_min, t_max)
+    hit = closest_hit(scene, o, d, t_min, t_max, time=time)
     if not scene.has_cam_invisible:
         return hit
     nf = scene.geom.num_faces
     is_tri = hit.prim < nf
-    fv = scene.geom.face_vis[torch.clamp_max(hit.prim, max(nf - 1, 0))]
+    # a virtual (instance) prim id lies past the physical face arrays: the
+    # JAX package's gather clamps it to the last physical face
+    last = max(scene.geom.face_vis.shape[0] - 1, 0)
+    fv = scene.geom.face_vis[torch.clamp_max(hit.prim, last)]
     inv = hit.valid & is_tri & ((fv & 4) != 0)
     excl = torch.where(inv, hit.prim, -1)
     _, t_max = _query(o, t_min, t_max)
     hit2 = closest_hit(scene, o, d, t_min, torch.where(inv, t_max, -1.0),
-                       exclude_prim=excl)
+                       exclude_prim=excl, time=time)
     return Hit(valid=torch.where(inv, hit2.valid, hit.valid),
                t=torch.where(inv, hit2.t, hit.t),
                prim=torch.where(inv, hit2.prim, hit.prim),
@@ -155,11 +180,12 @@ def camera_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max) -> Hit:
 
 @torch.no_grad()
 def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
-            exclude_prim: Optional[Tensor] = None) -> Tensor:
+            exclude_prim: Optional[Tensor] = None,
+            time: Optional[Tensor] = None) -> Tensor:
     """Binary shadow query (Accelerator::intersectS)."""
     t_min, t_max = _query(o, t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
     if _blocks(scene):
-        return BL.blocks_any(scene, *args)
-    return _brute_any(scene.geom, *args)
+        return BL.blocks_any(scene, *args, time=_time(scene, time))
+    return _brute_any(scene.geom, *args, time=_time(scene, time))

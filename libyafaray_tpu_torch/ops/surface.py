@@ -1,7 +1,11 @@
 """SurfacePoint construction: gather and interpolate the shading context.
 
 Counterpart of `libyafaray_tpu/ops/surface.py` for triangle meshes (sphere
-primitives and instancing are not ported yet and are rejected at compile).
+primitives are not ported yet and are rejected at compile). A true
+instance's virtual face id resolves to its base face and instance: the
+vertices move world<-object and the normals by the inverse transpose. A
+moving triangle takes its frame from its shutter-open vertices, as in the
+JAX package (the hit point itself is o + t d).
 """
 from __future__ import annotations
 
@@ -10,7 +14,8 @@ from dataclasses import dataclass
 import torch
 
 from ..math import vec
-from ..scene_types import SceneData
+from ..scene_types import (SceneData, inst_transform_normal,
+                           inst_transform_point, resolve_prim)
 from .intersect import Hit
 
 Tensor = torch.Tensor
@@ -41,16 +46,20 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
     if g.num_spheres > 0:
         raise NotImplementedError(
             "sphere primitives are not ported to libyafaray_tpu_torch yet")
-    tri = torch.where(hit.prim < g.num_faces, hit.prim, 0).long()
+    tri = torch.where(hit.prim < g.num_faces, hit.prim, 0)
     # invalid lanes carry t = t_max (possibly 1e30): clamp before forming
     # positions so no huge values enter downstream math
     t_safe = torch.where(hit.valid, hit.t, 1.0)
     p = ray_o + ray_d * t_safe[..., None]
 
+    tri, inst = resolve_prim(g, tri)
+    tri = tri.long()
     fidx = g.faces[tri].long()                  # [N,3]
     v0 = g.vertices[fidx[:, 0]]
     v1 = g.vertices[fidx[:, 1]]
     v2 = g.vertices[fidx[:, 2]]
+    if inst is not None:
+        v0, v1, v2 = (inst_transform_point(g, inst, x) for x in (v0, v1, v2))
     e1 = v1 - v0
     e2 = v2 - v0
     ng = vec.normalize(vec.cross(e1, e2))
@@ -61,6 +70,8 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
     n0 = g.normals[fidx[:, 0]]
     n1 = g.normals[fidx[:, 1]]
     n2 = g.normals[fidx[:, 2]]
+    if inst is not None:
+        n0, n1, n2 = (inst_transform_normal(g, inst, x) for x in (n0, n1, n2))
     n_smooth = vec.normalize(w[:, None] * n0 + u[:, None] * n1 + v[:, None] * n2)
     n = torch.where(g.face_smooth[tri][:, None], n_smooth, ng)
     # texture uv interpolation
@@ -88,11 +99,15 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
     nu = vec.normalize(dp_du - n * vec.dot(dp_du, n, keepdim=True))
     nv = vec.cross(n, nu)
     valid = hit.valid
+    obj = g.face_obj[tri]
+    if inst is not None:
+        obj = torch.where(inst >= 0,
+                          g.inst_obj[torch.clamp_min(inst, 0).long()], obj)
     return SurfacePoint(
         valid=valid, p=p, n=n, ng=ng, nu=nu, nv=nv, uv=uv,
         dp_du=dp_du, dp_dv=dp_dv,
         mat_id=torch.where(valid, g.face_mat[tri], 0),
-        obj_id=torch.where(valid, g.face_obj[tri], 0),
+        obj_id=torch.where(valid, obj, 0),
         light_id=torch.where(valid, g.face_light[tri], -1),
         prim=torch.where(valid, hit.prim, -1),
         t=hit.t, bary=hit.uv)

@@ -2,12 +2,15 @@
 compiled to the torch tables of `scene_types.py`.
 
 Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
-port carries so far: `shinydiffusemat` materials, triangle meshes, area
-lights (baked into the geometry as two emissive triangles), sun lights, a
-perspective camera and a constant background (with `ibl`, lighting the
-scene), over the brute-force or the block accelerator. `compile()` builds
-the same tables as the JAX compile. Every other entity type or option
-raises `NotImplementedError` naming the feature.
+port carries so far: `shinydiffusemat` materials, triangle meshes with
+motion-blur keyframes, instances (baked into copies, or true instances over
+the block accelerator), point lights, area lights (baked into the geometry
+as two emissive triangles), sun lights, a perspective camera and a
+constant background (with `ibl`, lighting the scene), over the brute-force
+or the block accelerator. `compile()` builds the same tables as the JAX
+compile, on the CUDA card unless the caller names another device. Every
+other entity type or option raises `NotImplementedError` naming the
+feature.
 """
 from __future__ import annotations
 
@@ -26,9 +29,9 @@ from .cameras import make_camera
 from .lights import FLAG_CAST_SHADOWS, FLAG_ENABLED, FLAG_PHOTON_ONLY
 from .materials.bsdf import FLAG_FRESNEL
 from .scene_types import (
-    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_SUN, MAT_SHINY_DIFFUSE, VIS_INVISIBLE,
-    VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background, Geometry,
-    LightTable, MaterialTable, SceneData,
+    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT, LIGHT_SUN, MAT_SHINY_DIFFUSE,
+    VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background,
+    Geometry, LightTable, MaterialTable, SceneData,
 )
 
 # material and light types the JAX package knows; the ones not ported yet
@@ -39,7 +42,7 @@ _MAT_TYPES = ("shinydiffusemat", "glossy", "coated_glossy", "glass",
 _LIGHT_TYPES = ("pointlight", "ieslight", "spotlight", "sunlight",
                 "directional", "arealight", "spherelight", "meshlight",
                 "objectlight", "bgPortalLight", "bglight")
-_LIGHT_TYPES_PORTED = ("arealight", "sunlight")
+_LIGHT_TYPES_PORTED = ("arealight", "pointlight", "sunlight")
 # names that select the block accelerator (the reference's kd-tree names
 # map to it, as in the JAX package)
 _ACCEL_BLOCKS = ("blocks", "yafaray-kdtree-original",
@@ -65,11 +68,15 @@ class _MeshObject:
     name: str
     obj_id: int
     vertices: List = field(default_factory=list)
+    vertices_t1: List = field(default_factory=list)  # motion keyframe 1
+    vertices_t2: List = field(default_factory=list)  # keyframe 2 (b-spline)
     normals: List = field(default_factory=list)
     uvs: List = field(default_factory=list)
     faces: List = field(default_factory=list)     # (a,b,c, uva,uvb,uvc, mat)
     visibility: int = VIS_NORMAL
     smooth: bool = False
+    # is_base_object: exists only to be instanced, its own copy never renders
+    is_base: bool = False
 
 
 class SceneBuilder:
@@ -84,6 +91,7 @@ class SceneBuilder:
         self.background_params: Optional[P.ParamMap] = None
         self.objects: Dict[str, _MeshObject] = {}
         self.object_order: List[str] = []
+        self.instances: List = []      # (base object name, [4x4 matrices])
         self.render_params = P.ParamMap()
         self.current_object: Optional[_MeshObject] = None
         self.current_material: int = 0
@@ -146,10 +154,9 @@ class SceneBuilder:
         ty = pm.get_string("type", "mesh")
         if ty != "mesh":
             raise _unsupported(f"object type {ty!r}")
-        if pm.get_bool("is_base_object", False):
-            raise _unsupported("instancing (is_base_object)")
         obj = _MeshObject(name=name, obj_id=len(self.object_order))
         obj.visibility = _VIS_BY_NAME[pm.get_string("visibility", "normal")]
+        obj.is_base = pm.get_bool("is_base_object", False)
         self.objects[name] = obj
         self.object_order.append(name)
         self.current_object = obj
@@ -216,23 +223,45 @@ class SceneBuilder:
     def add_vertex_with_orco(self, *args) -> int:
         raise _unsupported("orco coordinates")
 
-    def add_vertex_time_step(self, *args) -> None:
-        raise _unsupported("motion blur geometry")
+    def add_vertex_time_step(self, x, y, z) -> None:
+        """Motion-blur position of a vertex at a later time step. The first
+        full keyframe fills time step 1 (linear motion); a second one fills
+        step 2 (the quadratic b-spline over three control points)."""
+        obj = self.current_object
+        if len(obj.vertices_t1) < len(obj.vertices):
+            obj.vertices_t1.append((x, y, z))
+        else:
+            obj.vertices_t2.append((x, y, z))
 
-    def add_mesh_time_step(self, *args) -> None:
-        raise _unsupported("motion blur geometry")
+    def add_mesh_time_step(self, vertices_kf) -> None:
+        """A whole motion-blur keyframe of the current object (time step 1,
+        then 2)."""
+        arr = np.asarray(vertices_kf, np.float32).reshape(-1, 3)
+        obj = self.current_object
+        if len(obj.vertices_t1) < len(obj.vertices):
+            obj.vertices_t1.extend(map(tuple, arr))
+        else:
+            obj.vertices_t2.extend(map(tuple, arr))
 
-    def add_instance(self, *args) -> None:
-        raise _unsupported("instancing")
+    def add_instance(self, base_name: str, matrix) -> None:
+        """An instance of a mesh object: one row-major 4x4 world<-object
+        matrix (translation in column 3), or a list of them, one per
+        shutter time step (a moving instance)."""
+        if base_name not in self.objects:
+            raise KeyError(f"unknown object {base_name!r}")
+        m = np.asarray(matrix, np.float32)
+        self.instances.append((base_name, list(m.reshape(-1, 4, 4))))
 
     # ------------------------------------------------------------------
-    def compile(self, camera_name: Optional[str] = None) -> SceneData:
-        """Freeze the staged scene into SceneData (tensors on the CPU; move
-        them with `SceneData.to(device)`)."""
+    def compile(self, camera_name: Optional[str] = None, *,
+                device="cuda") -> SceneData:
+        """Freeze the staged scene into SceneData on `device` (the CUDA card
+        unless the caller names another device, such as "cpu"); the block
+        accelerator is built there."""
         materials = self._build_materials()
         g = self._build_geometry()
         lights, g = self._build_lights(g)
-        geom = _geometry_tables(g)
+        geom = _geometry_tables(g).to(device)
         background = (make_background(self.background_params)
                       if self.background_params is not None
                       else Background(kind="none"))
@@ -253,7 +282,7 @@ class SceneBuilder:
                 raise _unsupported("the 'bvh' accelerator")
             if accel in _ACCEL_BLOCKS:
                 blocks = build_blocks(geom)
-            elif geom.tri_table is None:
+            elif geom.tri_table is None and geom.inst_mat is None:
                 raise _unsupported(f"brute-force intersection above "
                                    f"{MAX_TRIS} faces")
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
@@ -264,7 +293,7 @@ class SceneBuilder:
             shadow_bias=f32(self.render_params.get_float("shadow_bias", 5e-4)),
             ray_min_dist=f32(self.render_params.get_float("ray_min_dist",
                                                           5e-5)),
-            has_cam_invisible=bool((g["face_vis"] & 4).any()))
+            has_cam_invisible=bool((g["face_vis"] & 4).any())).to(device)
 
     # ------------------------------------------------------------------
     def _build_materials(self) -> MaterialTable:
@@ -304,16 +333,37 @@ class SceneBuilder:
 
     # ------------------------------------------------------------------
     def _build_geometry(self) -> dict:
-        """Concatenate all meshes into flat numpy arrays."""
-        all_v, all_n, all_f, all_fuv = [], [], [], []
+        """Concatenate all meshes, and the instances baked into copies, into
+        flat numpy arrays; true instances go to the `__inst__` entry (the
+        JAX compile's `_build_geometry`, for meshes)."""
+        all_v, all_v1, all_v2, all_n, all_f, all_fuv = [], [], [], [], [], []
         all_uv = [np.zeros((1, 2), np.float32)]
         all_fmat, all_fobj, all_fsmooth, all_fvis = [], [], [], []
-        v_off, uv_off, f_count = 0, 1, 0
-        for name in self.object_order:
-            obj = self.objects[name]
+        obj_face_ranges = {}
+        v_off, uv_off, f_count = 0, 1, 0   # uv 0 is the unused-uv slot
+
+        def emit_mesh(obj: _MeshObject, matrix):
+            nonlocal v_off, uv_off, f_count
             if not obj.faces:
-                continue
+                return
             v = np.asarray(obj.vertices, np.float32).reshape(-1, 3)
+            v1_arr = (np.asarray(obj.vertices_t1, np.float32).reshape(-1, 3)
+                      if obj.vertices_t1
+                      and len(obj.vertices_t1) == len(obj.vertices) else v)
+            v2_arr = (np.asarray(obj.vertices_t2, np.float32).reshape(-1, 3)
+                      if obj.vertices_t2
+                      and len(obj.vertices_t2) == len(obj.vertices)
+                      else v1_arr)
+            if matrix is not None:
+                # one matrix per shutter time step: [0] at shutter open,
+                # the later ones move the motion keyframes
+                m0 = matrix[0]
+                m1 = matrix[min(1, len(matrix) - 1)]
+                m2 = matrix[min(2, len(matrix) - 1)]
+                v = v @ m0[:3, :3].T + m0[:3, 3]
+                v1_arr = v1_arr @ m1[:3, :3].T + m1[:3, 3]
+                v2_arr = v2_arr @ m2[:3, :3].T + m2[:3, 3]
+                matrix = m0   # normals use the shutter-open matrix
             f = np.asarray([fc[:3] for fc in obj.faces], np.int32)
             fuv = np.asarray([fc[3:6] for fc in obj.faces], np.int32)
             fmat = np.asarray([fc[6] for fc in obj.faces], np.int32)
@@ -321,6 +371,10 @@ class SceneBuilder:
                   if obj.uvs else np.zeros((0, 2), np.float32))
             if obj.normals and len(obj.normals) == len(obj.vertices):
                 n_arr = np.asarray(obj.normals, np.float32).reshape(-1, 3)
+                if matrix is not None:
+                    n_arr = n_arr @ np.linalg.inv(matrix[:3, :3])
+                    n_arr /= np.maximum(
+                        np.linalg.norm(n_arr, axis=-1, keepdims=True), 1e-20)
                 smooth_flag = True
             elif obj.smooth:
                 n_arr = _smooth_normals(v, f)
@@ -329,6 +383,8 @@ class SceneBuilder:
                 n_arr = np.zeros_like(v)
                 smooth_flag = False
             all_v.append(v)
+            all_v1.append(v1_arr)
+            all_v2.append(v2_arr)
             all_n.append(n_arr)
             if uv.size:
                 all_uv.append(uv)
@@ -337,14 +393,48 @@ class SceneBuilder:
             all_fmat.append(fmat)
             all_fobj.append(np.full((len(f),), obj.obj_id, np.int32))
             all_fsmooth.append(np.full((len(f),), smooth_flag, bool))
-            all_fvis.append(np.full((len(f),), _vis_bits(obj.visibility),
-                                    np.int32))
+            # a base object (is_base_object) exists only to be instanced:
+            # its own copy is invisible, its instances carry its bits
+            vis_bits = (0 if matrix is None and obj.is_base
+                        else _vis_bits(obj.visibility))
+            all_fvis.append(np.full((len(f),), vis_bits, np.int32))
+            if matrix is None:
+                obj_face_ranges[obj.name] = (f_count, len(f))
             v_off += len(v)
             uv_off += len(uv)
             f_count += len(f)
+
+        for name in self.object_order:
+            emit_mesh(self.objects[name], None)
+
+        # true instances (virtual faces, O(base) memory) in scenes the block
+        # accelerator carries; baked copies for moving instances, small
+        # scenes (mode "auto") and when "baked" is asked for
+        mode = self.render_params.get_string("instancing", "auto")
+        accel = self.render_params.get_string("scene_accelerator", "")
+        inst_faces = sum(len(self.objects[b_].faces)
+                         for b_, _ in self.instances)
+        small = f_count + inst_faces < BLOCKS_MIN_FACES
+        blocks_ok = accel in ("",) + _ACCEL_BLOCKS
+        true_inst, moving = [], False
+        for base, mats in self.instances:
+            motion = len(mats) > 1
+            if (mode == "baked" or motion or not blocks_ok
+                    or (mode == "auto" and small)):
+                emit_mesh(self.objects[base], mats)
+                moving = moving or motion
+            else:
+                true_inst.append((base, mats[0]))
+
+        has_motion = moving or any(self.objects[n].vertices_t1
+                                   for n in self.object_order)
+        has_motion2 = has_motion and any(self.objects[n].vertices_t2
+                                         for n in self.object_order)
         cat = lambda xs, empty: np.concatenate(xs) if xs else empty
-        return dict(
+        g = dict(
             vertices=cat(all_v, np.zeros((1, 3), np.float32)),
+            vertices_t1=cat(all_v1, None) if has_motion else None,
+            vertices_t2=cat(all_v2, None) if has_motion2 else None,
             normals=cat(all_n, np.zeros((1, 3), np.float32)),
             uvs=np.concatenate(all_uv),
             faces=cat(all_f, np.zeros((0, 3), np.int32)),
@@ -354,6 +444,28 @@ class SceneBuilder:
             face_smooth=cat(all_fsmooth, np.zeros((0,), bool)),
             face_vis=cat(all_fvis, np.zeros((0,), np.int32)),
             face_light=np.full((f_count,), -1, np.int32))
+        if true_inst:
+            mats4 = np.stack([m for _, m in true_inst])
+            counts = np.asarray([obj_face_ranges[b_][1]
+                                 for b_, _ in true_inst], np.int32)
+            g["__inst__"] = dict(
+                inst_mat=mats4[:, :3, :].astype(np.float32),
+                inst_inv=np.stack([np.linalg.inv(m) for m in mats4]
+                                  )[:, :3, :].astype(np.float32),
+                inst_nrm=np.stack([np.linalg.inv(m[:3, :3]).T for m in mats4]
+                                  ).astype(np.float32),
+                inst_face_base=np.asarray([obj_face_ranges[b_][0]
+                                           for b_, _ in true_inst], np.int32),
+                # virtual ids start after the faces emitted so far; area
+                # light quads appended later share that range, as in the
+                # JAX compile (ROADMAP section 3)
+                inst_face_off=np.concatenate(
+                    [[f_count], f_count + np.cumsum(counts)]).astype(np.int32),
+                inst_obj=np.asarray([self.objects[b_].obj_id
+                                     for b_, _ in true_inst], np.int32),
+                inst_vis=np.asarray([_vis_bits(self.objects[b_].visibility)
+                                     for b_, _ in true_inst], np.int32))
+        return g
 
     # ------------------------------------------------------------------
     def _build_lights(self, g: dict):
@@ -385,6 +497,11 @@ class SceneBuilder:
             col = pm.get_color("color", (1, 1, 1))[:3]
             power = pm.get_float("power", 1.0)
             cols["flags"][i] = flags
+            if ty == "pointlight":
+                cols["light_type"][i] = LIGHT_POINT
+                cols["position"][i] = pm.get_vector("from")
+                cols["color"][i] = col * power
+                continue
             if ty == "sunlight":
                 cols["light_type"][i] = LIGHT_SUN
                 d = pm.get_vector("direction", (0, 0, 1))
@@ -453,6 +570,9 @@ def _append_light_quads(g: dict, quads) -> dict:
     nf = np.asarray(new_f, np.int32)
     cnt = len(nf)
     g["vertices"] = np.concatenate([g["vertices"], nv])
+    for key in ("vertices_t1", "vertices_t2"):
+        if g[key] is not None:
+            g[key] = np.concatenate([g[key], nv])
     g["normals"] = np.concatenate([g["normals"], np.zeros_like(nv)])
     g["faces"] = np.concatenate([g["faces"], nf]) if len(g["faces"]) else nf
     g["face_uvs"] = np.concatenate([g["face_uvs"], np.zeros((cnt, 3), np.int32)])
@@ -466,16 +586,27 @@ def _append_light_quads(g: dict, quads) -> dict:
 
 
 def _geometry_tables(g: dict) -> Geometry:
-    f = int(len(g["faces"]))
-    geom = Geometry(num_faces=f, num_spheres=0,
-                    **{k: torch.from_numpy(v) for k, v in g.items()})
-    if 0 < f <= MAX_TRIS:
-        # the brute-force path's table, packed once here instead of per
+    inst = g.pop("__inst__", None)
+    f0 = int(len(g["faces"]))
+    f = int(inst["inst_face_off"][-1]) if inst else f0
+    tensors = {k: torch.from_numpy(v)
+               for k, v in {**g, **(inst or {})}.items() if v is not None}
+    geom = Geometry(num_faces=f, num_base_faces=f0, num_spheres=0,
+                    has_motion=g["vertices_t1"] is not None, **tensors)
+    if 0 < f <= MAX_TRIS and inst is None:
+        # the brute-force path's tables, packed once here instead of per
         # intersect call (as the JAX compile, also for block scenes)
         fc = geom.faces.long()
-        v = geom.vertices
-        geom.tri_table = pack_tris(v[fc[:, 0]], v[fc[:, 1]], v[fc[:, 2]],
-                                   geom.face_vis)
+
+        def table(v):
+            return pack_tris(v[fc[:, 0]], v[fc[:, 1]], v[fc[:, 2]],
+                             geom.face_vis)
+
+        geom.tri_table = table(geom.vertices)
+        if geom.has_motion:
+            geom.tri_table_t1 = table(geom.vertices_t1)
+            if geom.vertices_t2 is not None:
+                geom.tri_table_t2 = table(geom.vertices_t2)
     return geom
 
 

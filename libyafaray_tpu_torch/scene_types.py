@@ -20,6 +20,7 @@ Tensor = torch.Tensor
 MAT_SHINY_DIFFUSE = 0   # "shinydiffusemat"
 
 # --- light type enum (the values the port compiles) ---
+LIGHT_POINT = 0         # "pointlight"
 LIGHT_AREA = 3          # "arealight"
 LIGHT_SUN = 4           # "sunlight"
 LIGHT_BACKGROUND = 6    # "bglight" (the background's ibl)
@@ -46,7 +47,11 @@ class _Table:
 
 @dataclass
 class Geometry(_Table):
-    """Flat triangle soup with per-face attribute arrays."""
+    """Flat triangle soup with per-face attribute arrays.
+
+    With true instancing the per-face arrays cover only the
+    F0 = num_base_faces physical faces; instances add virtual face ids in
+    [F0, num_faces) that `resolve_prim` maps to (base face, instance)."""
     vertices: Tensor        # f32[V, 3]
     normals: Tensor         # f32[V, 3] per-vertex smooth normals
     uvs: Tensor             # f32[U, 2] uv pool
@@ -62,8 +67,58 @@ class Geometry(_Table):
     # packed f32[C, 16] table for the closest-hit kernel
     # (accel/mt_intersect.py pack_tris), built once at scene compile
     tri_table: Optional[Tensor] = None
+    # motion blur: vertex keyframes; rays carry a time in [0, 1]. One extra
+    # keyframe interpolates linearly, two follow the quadratic b-spline
+    # p(t) = (1-t)^2 p0 + 2t(1-t) p1 + t^2 p2. None when static.
+    vertices_t1: Optional[Tensor] = None    # f32[V, 3]
+    vertices_t2: Optional[Tensor] = None    # f32[V, 3]
+    tri_table_t1: Optional[Tensor] = None   # f32[C, 16] keyframe tables
+    tri_table_t2: Optional[Tensor] = None
+    # true instancing (None when every instance is baked)
+    inst_mat: Optional[Tensor] = None        # f32[K, 3, 4] world<-object
+    inst_inv: Optional[Tensor] = None        # f32[K, 3, 4] object<-world
+    inst_nrm: Optional[Tensor] = None        # f32[K, 3, 3] inverse transpose
+    inst_face_base: Optional[Tensor] = None  # i32[K] base face range start
+    inst_face_off: Optional[Tensor] = None   # i32[K+1] virtual offsets
+    inst_obj: Optional[Tensor] = None        # i32[K] instance object id
+    inst_vis: Optional[Tensor] = None        # i32[K] instance visibility bits
     num_faces: int = 0
     num_spheres: int = 0
+    has_motion: bool = False
+    # physical per-face array length (num_faces unless true instancing)
+    num_base_faces: int = 0
+
+
+def resolve_prim(geom: Geometry, prim: Tensor):
+    """Virtual face id -> (base face id, instance id | -1); the instance is
+    None when the scene has no true instances."""
+    if geom.inst_mat is None:
+        return prim, None
+    is_inst = prim >= geom.num_base_faces
+    off = geom.inst_face_off.to(prim.dtype)
+    k = torch.searchsorted(off[1:], prim, right=True)
+    k = torch.clamp(k, 0, geom.inst_face_base.shape[0] - 1)
+    base = torch.where(
+        is_inst, geom.inst_face_base[k] + prim - off[k], prim)
+    inst = torch.where(is_inst, k.to(torch.int32), -1)
+    return base.to(prim.dtype), inst
+
+
+def inst_transform_point(geom: Geometry, inst: Tensor, p: Tensor) -> Tensor:
+    """Apply the instance matrix (world <- object) where inst >= 0."""
+    m = geom.inst_mat[torch.clamp_min(inst, 0).long()]      # [N, 3, 4]
+    q = (m[:, :, 0] * p[:, 0:1] + m[:, :, 1] * p[:, 1:2]
+         + m[:, :, 2] * p[:, 2:3] + m[:, :, 3])
+    return torch.where((inst >= 0)[..., None], q, p)
+
+
+def inst_transform_normal(geom: Geometry, inst: Tensor, n: Tensor) -> Tensor:
+    """Rotate normals by the instance's inverse transpose, renormalised."""
+    m = geom.inst_nrm[torch.clamp_min(inst, 0).long()]      # [N, 3, 3]
+    q = m[:, :, 0] * n[:, 0:1] + m[:, :, 1] * n[:, 1:2] + m[:, :, 2] * n[:, 2:3]
+    q = q / torch.clamp_min(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                            1e-20)
+    return torch.where((inst >= 0)[..., None], q, n)
 
 
 @dataclass
@@ -131,14 +186,25 @@ class Camera(_Table):
 
 @dataclass
 class BlockAccel(_Table):
-    """Morton-block tables of the block accelerator (`accel/blocks.py`),
-    static scenes without instancing. tab[j] is block j's component-major
-    (16, B) slab: rows 0-8 the vertices v0|v1|v2 by component, 9 the
-    camera-visibility bit, 10 the shadow-visibility bit (0/1 floats), 11
-    the prim id (-2 on padding lanes, whose vertices are 0)."""
-    tab: Tensor            # f32[C, 16, B]
+    """Morton-block tables of the block accelerator (`accel/blocks.py`).
+    tab[j] is physical block j's component-major (16, B) slab: rows 0-8 the
+    vertices v0|v1|v2 by component, 9 the camera-visibility bit, 10 the
+    shadow-visibility bit (0/1 floats), 11 the prim id (-2 on padding
+    lanes, whose vertices are 0). Motion blur adds the keyframe slabs
+    tab_t1 (and tab_t2) with the same rows 9-11; block AABBs are unions
+    over all control points. With true instancing the C virtual blocks
+    (bmin/bmax in world space) index physical rows through blk_base, rays
+    are transformed object<-world by inv_rows[blk_minv] (row 0 the
+    identity) and prim ids rebased by id_delta."""
+    tab: Tensor            # f32[C_phys, 16, B]
     bmin: Tensor           # f32[C, 3] block AABB
     bmax: Tensor           # f32[C, 3]
+    tab_t1: Optional[Tensor] = None     # f32[C_phys, 16, B]
+    tab_t2: Optional[Tensor] = None     # f32[C_phys, 16, B]
+    blk_base: Optional[Tensor] = None   # i32[C] physical row of block j
+    blk_minv: Optional[Tensor] = None   # i32[C] row of inv_rows
+    id_delta: Optional[Tensor] = None   # i32[C] virtual - physical prim id
+    inv_rows: Optional[Tensor] = None   # f32[K+1, 12] object<-world 3x4
     block_size: int = 128  # B
     num_blocks: int = 0    # C
 

@@ -1,5 +1,8 @@
 """Built-in scenes, made with the port's own SceneBuilder: the Cornell box
-and the terrain of BASELINE config 3 (copies of `tests/scenes.py`)."""
+and the terrain of BASELINE config 3 (copies of `tests/scenes.py`), the
+forest (the terrain under 2,000 instanced rocks, some of them moving) and
+the instanced cubes of the libYafaRay golden `tests/golden/
+instances_ref_160.hdr` (the scene of `tools/refparity/instances_ref.c`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -84,15 +87,20 @@ TERRAIN_CAMERA = {"type": "perspective", "from": (2.0, -2.5, 2.2),
                   "resx": 720, "resy": 720, "fov": 55.0}
 
 
+def terrain_height(x, y):
+    """Height of the terrain surface of `bigmesh_grid` at (x, y)."""
+    return (0.35 * np.sin(x * 2.3) * np.cos(y * 1.7)
+            + 0.12 * np.sin(x * 9.1 + 1.0) * np.sin(y * 8.3)
+            + 0.04 * np.sin(x * 31.0) * np.cos(y * 29.0))
+
+
 def bigmesh_grid(res: int):
     """The displaced terrain grid of `bigmesh_builder` as numpy arrays:
     (vertices f32[res*res, 3], faces i32[2*(res-1)^2, 3], xx, yy)."""
     xs = np.linspace(0.0, 4.0, res, dtype=np.float32)
     ys = np.linspace(0.0, 4.0, res, dtype=np.float32)
     xx, yy = np.meshgrid(xs, ys, indexing="ij")
-    zz = (0.35 * np.sin(xx * 2.3) * np.cos(yy * 1.7)
-          + 0.12 * np.sin(xx * 9.1 + 1.0) * np.sin(yy * 8.3)
-          + 0.04 * np.sin(xx * 31.0) * np.cos(yy * 29.0)).astype(np.float32)
+    zz = terrain_height(xx, yy).astype(np.float32)
     verts = np.stack([xx, yy, zz], axis=-1).reshape(-1, 3)
     i = np.arange(res * res).reshape(res, res)
     a = i[:-1, :-1].ravel(); b2 = i[1:, :-1].ravel()
@@ -124,4 +132,108 @@ def bigmesh_builder(res: int = 320, textured: bool = True) -> SceneBuilder:
     b.create_camera("cam", dict(TERRAIN_CAMERA))
     b.create_background({"type": "constant", "color": (0.3, 0.4, 0.6),
                          "ibl": True, "ibl_samples": 2})
+    return b
+
+
+def _rot_z(a: float) -> np.ndarray:
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, 0, 0], [s, c, 0, 0],
+                     [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+
+
+def _rock(b: SceneBuilder) -> None:
+    """The base rock: a radius-0.3 sphere fan of 8 x 6 quads, 96 triangles
+    (the base blob of `tests/test_instancing.py`)."""
+    nu, nv = 8, 6
+    idx = np.zeros((nu + 1, nv + 1), np.int32)
+    for iu in range(nu + 1):
+        for iv in range(nv + 1):
+            th = np.pi * iv / nv
+            ph = 2 * np.pi * iu / nu
+            idx[iu, iv] = b.add_vertex(0.3 * np.sin(th) * np.cos(ph),
+                                       0.3 * np.sin(th) * np.sin(ph),
+                                       0.3 * np.cos(th))
+    for iu in range(nu):
+        for iv in range(nv):
+            a_, b_, c_, d_ = (idx[iu, iv], idx[iu + 1, iv],
+                              idx[iu + 1, iv + 1], idx[iu, iv + 1])
+            b.add_triangle(a_, b_, c_)
+            b.add_triangle(a_, c_, d_)
+
+
+def forest_builder(n_inst: int = 2000, n_moving: int = 16,
+                   grid: int = 320) -> SceneBuilder:
+    """The terrain of `bigmesh_builder(grid, textured=False)` under
+    n_inst + n_moving instances of one is_base_object rock (96 triangles):
+    rigid transforms with a z rotation, a uniform scale in [0.05, 0.15] and
+    x, y uniform in [0.2, 3.8], set on the terrain surface, drawn from
+    numpy.random.default_rng(5). The last n_moving instances carry a second
+    matrix, 0.1 further along x at shutter close: they are baked into
+    copies (as in the JAX compile), so the scene moves and every block gets
+    a keyframe table, while the others stay true instances (grid=320: about
+    397k virtual triangles over 205k physical ones)."""
+    b = bigmesh_builder(grid, textured=False)
+    b.create_material("rock", {"type": "shinydiffusemat",
+                               "color": (0.45, 0.42, 0.4)})
+    b.create_object("rock", {"is_base_object": True})
+    b.set_current_material("rock")
+    _rock(b)
+    rng = np.random.default_rng(5)
+    for k in range(n_inst + n_moving):
+        x, y = rng.uniform(0.2, 3.8, 2)
+        s = rng.uniform(0.05, 0.15)
+        m = _rot_z(rng.uniform(0.0, 2.0 * np.pi))
+        m[:3, :3] *= s
+        m[0, 3], m[1, 3], m[2, 3] = x, y, terrain_height(x, y)
+        if k < n_inst:
+            b.add_instance("rock", m)
+        else:
+            m1 = m.copy()
+            m1[0, 3] += 0.1
+            b.add_instance("rock", [m, m1])
+    return b
+
+
+def instances_builder() -> SceneBuilder:
+    """Five instances of an is_base_object cube, with distinct translation,
+    scale and z rotation, over a floor under a point light (the scene of
+    `tools/refparity/instances_ref.c`, rendered by libYafaRay into
+    `tests/golden/instances_ref_160.hdr`; `tests/test_refparity.py`
+    `_instances_builder`). Its 74 faces compile to copies and the
+    brute-force path unless `instancing: "true"` and the block accelerator
+    are asked for."""
+    b = SceneBuilder()
+    b.create_material("white", {"type": "shinydiffusemat",
+                                "color": (0.7, 0.7, 0.7)})
+    b.create_material("blue", {"type": "shinydiffusemat",
+                               "color": (0.3, 0.4, 0.7)})
+    b.create_object("floor")
+    b.set_current_material("white")
+    ids = [b.add_vertex(*p) for p in [(-4, -4, 0), (4, -4, 0),
+                                      (4, 4, 0), (-4, 4, 0)]]
+    b.add_quad(*ids)
+    b.create_object("cube", {"is_base_object": True})
+    b.set_current_material("blue")
+    p = [b.add_vertex(0.5 if i & 1 else -0.5, 0.5 if i & 2 else -0.5,
+                      0.5 if i & 4 else -0.5) for i in range(8)]
+    for q in [(0, 2, 3, 1), (4, 5, 7, 6), (0, 1, 5, 4),
+              (2, 6, 7, 3), (0, 4, 6, 2), (1, 3, 7, 5)]:
+        b.add_quad(*[p[i] for i in q])
+    xs = [-2.0, -0.9, 0.3, 1.6, 0.1]
+    ys = [-0.6, 0.9, -0.2, 0.6, 2.0]
+    ss = [0.8, 1.2, 0.6, 1.0, 0.9]
+    for k in range(5):
+        s = ss[k]
+        a = 0.5 * k
+        c = np.cos(a) * s
+        sn = np.sin(a) * s
+        m = np.array([[c, -sn, 0, xs[k]], [sn, c, 0, ys[k]],
+                      [0, 0, s, 0.5 * s], [0, 0, 0, 1]], np.float32)
+        b.add_instance("cube", m)
+    b.create_light("lamp", {"type": "pointlight", "from": (1.0, -1.5, 4.0),
+                            "color": (1, 1, 1), "power": 20.0})
+    b.create_background({"type": "constant", "color": (0, 0, 0)})
+    b.create_camera("cam", {"type": "perspective", "from": (0.0, -5.5, 3.5),
+                            "to": (0.0, 0.0, 0.4), "up": (0.0, -5.5, 4.5),
+                            "resx": 160, "resy": 160, "fov": 50.0})
     return b

@@ -35,6 +35,7 @@ from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.scene_types import Geometry
 from scenes import bigmesh_builder
 from test_pallas_intersect import _random_geom
+from test_torch_foundations import one_torch_thread  # noqa: F401
 
 RES = 24
 
@@ -143,8 +144,7 @@ def test_tile_walk_matches_pallas_interpret(rng, random_geom, random_acc,
         t = jax.jit(functools.partial(JB._tables_for, face_ids=None, b=256))(
             random_geom)
         tab, bmin, bmax = t["tab"], t["bmin"], t["bmax"]
-        got_tab, got_min, got_max = BL._tables_for(_port_geom(random_geom),
-                                                   256)
+        got_tab = BL._tables_for(_port_geom(random_geom), 256)["tab"]
         np.testing.assert_array_equal(got_tab.numpy(), np.asarray(tab))
         assert tab.shape == (2, 16, 256)
     n = 777 if case == "tmax_short" else 1024
@@ -205,9 +205,15 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version(rng, random_acc):
     assert TL.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        TL.tiles_traverse(*args, tab_t1=args[0], time=args[6])
-    with pytest.raises(NotImplementedError):
+    # the motion arm on CPU tensors also runs the plain version
+    time = torch.rand(300, generator=torch.Generator().manual_seed(0))
+    got = TL.tiles_traverse(*args, tab_t1=args[0], time=time)
+    want = TL.tiles_traverse_ref(*args, tab_t1=args[0], time=time)
+    assert TL.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the instancing tables go together
+    with pytest.raises(ValueError):
         TL.tiles_traverse(*args, blk_base=torch.zeros(3, dtype=torch.int32))
     rays, cand, ent, count = TL.prepare(*args[1:])
     with pytest.raises(ValueError):

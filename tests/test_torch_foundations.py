@@ -23,6 +23,20 @@ from libyafaray_tpu_torch.math import vec as TV
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per test process for the port's test modules (they
+    import this fixture): the port's tensors here are small, and when the
+    suite runs in parallel workers the idle OpenMP threads of torch's pool
+    spin on the cores that the JAX side of every test needs (measured on
+    the two instancing and motion files with 5 workers: 132 s with the
+    default pool, 38 s with one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 # uint32 values at the edges of the range and of the hash constants
 EDGES = np.array([0, 1, 2, 0xFFFF, 0x10000, 2**31 - 1, 2**31, 2**32 - 2,
                   2**32 - 1, 0x9E3779B9, 0x9E3779B8, 0x9E3779BA, 1664525,
@@ -188,11 +202,23 @@ def test_package_imports_and_builds_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "import libyafaray_tpu_torch as P\n"
-        "from libyafaray_tpu_torch import convert, film\n"
+        "from libyafaray_tpu_torch import convert, film, io\n"
+        "from libyafaray_tpu_torch.accel import probe_smem\n"
+        "from libyafaray_tpu_torch.scenes import forest_builder\n"
+        "from libyafaray_tpu_torch.scenes import instances_builder\n"
+        "true = {'instancing': 'true', 'scene_accelerator': 'blocks'}\n"
+        "fb = forest_builder(n_inst=3, n_moving=1, grid=8)\n"
+        "fb.set_render_params(true)\n"
+        "fs = fb.compile('cam', device='cpu')\n"
+        "assert fs.geom.has_motion and fs.blocks.blk_base is not None\n"
+        "ib = instances_builder()\n"
+        "ib.set_render_params(true)\n"
+        "assert ib.compile('cam', device='cpu').geom.inst_mat is not None\n"
+        "assert probe_smem.probe_smem('cpu')[0].sum() == 2048\n"
         "from libyafaray_tpu_torch.scenes import cornell_builder\n"
         "b = cornell_builder()\n"
         "b.cameras['cam']['resx'] = b.cameras['cam']['resy'] = 4\n"
-        "scene = b.compile('cam')\n"
+        "scene = b.compile('cam', device='cpu')\n"
         "assert scene.geom.num_faces == 36, scene.geom.num_faces\n"
         "f = P.render(scene, P.make_integrator({'bounces': 1}), spp=1,\n"
         "             device='cpu')\n"

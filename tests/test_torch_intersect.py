@@ -21,6 +21,7 @@ from libyafaray_tpu_torch.accel import mt_intersect as MT
 from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.ops import intersect as TI
 from scenes import cornell_builder
+from test_torch_foundations import one_torch_thread  # noqa: F401
 
 
 def T(a):

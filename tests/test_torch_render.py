@@ -40,6 +40,7 @@ from libyafaray_tpu_torch.ops import surface as S
 from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.scenes import cornell_builder as port_cornell
 from scenes import bigmesh_builder, cornell_builder
+from test_torch_foundations import one_torch_thread  # noqa: F401
 
 RES, SPP, BOUNCES = 16, 2, 3
 
@@ -244,7 +245,7 @@ def test_port_compiled_scene_renders_the_same(cornell):
     _, ts = cornell
     b = port_cornell()
     b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = RES
-    own = b.compile("cam")
+    own = b.compile("cam", device="cpu")
     cfg = make_integrator({"type": "directlighting", "bounces": 1})
     a = F.resolve(render(own, cfg, spp=1, device="cpu"))
     c = F.resolve(render(ts, cfg, spp=1, device="cpu"))

@@ -1,5 +1,7 @@
 """The port's SceneBuilder against the JAX compile: the same tables, and
 NotImplementedError for what the port does not carry yet."""
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
 from libyafaray_tpu_torch.scenes import cornell_builder as port_cornell
 from scenes import bigmesh_builder, cornell_builder, glossy_cornell_builder
+from test_torch_foundations import one_torch_thread  # noqa: F401
 
 GEOM = ("vertices", "normals", "uvs", "faces", "face_uvs", "face_mat",
         "face_obj", "face_smooth", "face_light", "face_vis", "tri_table")
@@ -73,7 +76,7 @@ def _assert_same(got, want, fields, what):
 def test_compile_matches_jax_tables(variant):
     js = _variant(cornell_builder(), variant).compile("cam")
     want = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
-    got = _variant(port_cornell(), variant).compile("cam")
+    got = _variant(port_cornell(), variant).compile("cam", device="cpu")
     _assert_same(got.geom, want.geom, GEOM, "geom")
     _assert_same(got.materials, want.materials, MATS, "materials")
     _assert_same(got.lights, want.lights, LIGHTS, "lights")
@@ -103,7 +106,7 @@ def test_terrain_compile_matches_jax_tables():
     tables, the sun and the background light equal the JAX compile's."""
     js = bigmesh_builder(33, textured=False).compile("cam")
     want = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
-    got = port_bigmesh(33, textured=False).compile("cam")
+    got = port_bigmesh(33, textured=False).compile("cam", device="cpu")
     _assert_same(got.geom, want.geom, GEOM, "geom")
     _assert_same(got.materials, want.materials, MATS, "materials")
     _assert_same(got.lights, want.lights, LIGHTS, "lights")
@@ -122,7 +125,7 @@ def test_terrain_compile_matches_jax_tables():
 
 
 def test_scene_to_moves_every_tensor():
-    scene = port_cornell().compile("cam").to("meta")
+    scene = port_cornell().compile("cam", device="cpu").to("meta")
 
     def walk(obj):
         for v in vars(obj).values():
@@ -133,38 +136,58 @@ def test_scene_to_moves_every_tensor():
 
     walk(scene)
     assert scene.geom.tri_table.device.type == "meta"
-    blocks = port_bigmesh(33, textured=False).compile("cam").to("meta").blocks
+    blocks = port_bigmesh(33, textured=False).compile(
+        "cam", device="cpu").to("meta").blocks
     assert all(x.device.type == "meta"
                for x in (blocks.tab, blocks.bmin, blocks.bmax))
+
+
+def test_compile_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    """compile() with no device asks for "cuda" (the `.to` target is
+    recorded and answered on the CPU, so this runs without a card)."""
+    asked = []
+    real_to = P.scene_types._Table.to
+
+    def to(self, device):
+        asked.append(device)
+        return real_to(self, "cpu")
+
+    monkeypatch.setattr(P.scene_types._Table, "to", to)
+    scene = port_cornell().compile("cam")
+    # the nested tables are moved by the recorded call itself, to "cpu"
+    assert {a for a in asked if a != "cpu"} == {"cuda"}
+    assert scene.geom.vertices.device.type == "cpu"
+    assert inspect.signature(P.SceneBuilder.compile).parameters[
+        "device"].default == "cuda"
 
 
 def _add_glossy(b):
     b.create_material("g", {"type": "glossy"})
 
 
-def _add_point(b):
-    b.create_light("p", {"type": "pointlight", "from": (0.5, 0.5, 0.9)})
+def _spot_light(b):
+    b.create_light("s", {"type": "spotlight", "from": (0.5, 0.5, 0.9)})
 
 
 def _ortho_camera(b):
     b.create_camera("cam", {"type": "orthographic"})
-    b.compile("cam")
+    b.compile("cam", device="cpu")
 
 
 def _dof_camera(b):
     b.cameras["cam"]["aperture"] = 0.1
-    b.compile("cam")
+    b.compile("cam", device="cpu")
 
 
 def _gradient_bg(b):
     b.create_background({"type": "gradientback"})
-    b.compile("cam")
+    b.compile("cam", device="cpu")
 
 
 def _ibl(b):
     # image-based lighting from an environment texture
     b.create_background({"type": "textureback", "ibl": True})
-    b.compile("cam")
+    b.compile("cam", device="cpu")
 
 
 def _oren(b):
@@ -174,7 +197,7 @@ def _oren(b):
 
 def _bvh(b):
     b.set_render_params({"scene_accelerator": "bvh"})
-    b.compile("cam")
+    b.compile("cam", device="cpu")
 
 
 def _big_mesh(b):
@@ -190,19 +213,26 @@ def _big_mesh(b):
                    i[1:, 1:].ravel(), i[:-1, 1:].ravel())
     faces = np.concatenate([np.stack([a, b2, c], -1), np.stack([a, c, d], -1)])
     b.add_mesh_arrays(verts, faces)     # 16562 faces
-    b.compile("cam")
+    b.compile("cam", device="cpu")
 
 
 def _sphere(b):
     b.create_object("ball", {"type": "sphere", "radius": 0.1})
 
 
-def _instance(b):
+def _true_instances_on_the_brute_path(b):
+    # 36 + 12 faces compile to the brute-force path, which does not expand
+    # true instances (nor does the JAX package's)
+    b.set_render_params({"instancing": "true"})
     b.add_instance("box1", np.eye(4))
+    scene = b.compile("cam", device="cpu")
+    assert scene.accel_kind == "brute" and scene.geom.inst_mat is not None
+    P.ops.intersect.closest_hit(scene, torch.zeros((1, 3)),
+                                torch.tensor([[0.0, 1.0, 0.0]]), 1e-4, 1e30)
 
 
-def _motion(b):
-    b.add_vertex_time_step(0.0, 0.0, 0.0)
+def _orco(b):
+    b.add_vertex_with_orco(0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
 
 def _texture(b):
@@ -235,8 +265,9 @@ def _ao(b):
 
 
 @pytest.mark.parametrize("case", [
-    _add_glossy, _add_point, _ortho_camera, _dof_camera, _gradient_bg, _ibl,
-    _oren, _bvh, _big_mesh, _sphere, _instance, _motion, _texture, _nodes,
+    _add_glossy, _spot_light, _ortho_camera, _dof_camera, _gradient_bg, _ibl,
+    _oren, _bvh, _big_mesh, _sphere, _true_instances_on_the_brute_path,
+    _orco, _texture, _nodes,
     _textured_terrain, _sun_from_background, _photon, _transp_shadows, _ao],
     ids=lambda f: f.__name__[1:])
 def test_features_outside_the_port_raise(case):
