@@ -24,14 +24,18 @@ Phases, each reporting on its own lines:
      an exact tie inside a sub-chunk. Closest: prim ids equal on every ray,
      t/u/v within rtol 1e-6; any hit: hit/miss equal on every ray. Kernel
      and plain times per query on the camera and first shadow wavefronts,
-     and on the big table (the regime of the TPU's streaming kernel c);
+     and on the big table (the regime of the TPU's streaming kernel c),
+     each beside the pair tests its data needs and its bound;
  3c. the motion-blur and instancing arms of tile_walk against tile_walk_ref
      on the card, on sorted rays with random shutter times: the terrain
      table with synthetic keyframes (linear and quadratic) and the forest's
      instanced table (instanced alone, and with its linear keyframes);
      camera rays (closest, shadow and any hit, 1/7 dead, excluded ids) and
      random rays; each arm's time per camera query beside the static arm's
-     on the same rays;
+     on the same rays; then two incoherent wavefronts captured from a
+     forest pass (the background light's shadow rays at depth 0, any hit,
+     and the first bounce, closest hit), checked the same way and timed
+     beside their bounds;
   4. the Cornell box at 1920x1080, 16 spp, 4 bounces through `render`, with
      every intersection query counted on mt_closest, plausibility checks,
      ms per pass, camera rays/s and the kernel's share of a pass;
@@ -40,15 +44,17 @@ Phases, each reporting on its own lines:
      triangles) at 720x720, 6 spp, 2 bounces through `render` with no
      device argument, with the tile kernel's launches counted, image
      checks, ms per pass, camera rays/s, one pass split by CUDA events
-     into kernel, tile_candidates, ray sort/unsort and the rest, and peak
-     device memory;
+     into kernel, tile_candidates, ray sort/unsort and the rest, each of
+     its nine kernel launches beside the pair tests its query needs and
+     its bound, and peak device memory;
   7. terrain kernel path against plain path end to end: 128x128, 1 spp;
   8. the slice: the forest (the terrain under 2,000 true instances of a
      96-triangle rock and 16 moving baked ones) at 720x720, 6 spp, 2
      bounces through `render` with no device argument: every tile-kernel
      launch must be the instanced + linear-motion arm; image checks, ms per
-     pass, camera rays/s, the pass split by CUDA events, peak device
-     memory, the physical and virtual table bytes;
+     pass, camera rays/s, the pass split by CUDA events (with each launch's
+     bound, as in phase 6), peak device memory, the physical and virtual
+     table bytes;
   9. forest kernel path against plain path end to end: 128x128, 1 spp;
  10. the instanced cubes against the libYafaRay golden
      tests/golden/instances_ref_160.hdr (160x160, 16 spp, directlighting,
@@ -64,6 +70,7 @@ script never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -277,20 +284,20 @@ def _sorted_query(acc, o, d, t_min, t_max, excl, time=None):
                                       excl, time)
 
 
-def _walk_case(name, acc, query, shadow, any_hit, max_err, phase="3b",
-               **tabs):
-    """tile_walk against tile_walk_ref on one prepared query (`tabs`: the
-    keyframe and instancing tables of an arm); returns (kernel outputs,
+def _walk_case(name, query, tab, kw, max_err, phase="3b"):
+    """tile_walk against tile_walk_ref on one prepared query (n, rays, cand,
+    ent, count) over `tab`, with tile_walk's keywords `kw` (shadow, any_hit
+    and the keyframe and instancing tables of an arm): prim ids, t, u, v
+    on closest hits, hit/miss on any hits. Returns (kernel outputs,
     max_err)."""
     import torch
     from libyafaray_tpu_torch.accel import tiles as TL
     n, *prep = query
-    got = TL.tile_walk(*prep, acc.tab, shadow=shadow, any_hit=any_hit,
-                       **tabs)
-    want = TL.tile_walk_ref(*prep, acc.tab, shadow=shadow, any_hit=any_hit,
-                            **tabs)
+    got = TL.tile_walk(*prep, tab, **kw)
+    want = TL.tile_walk_ref(*prep, tab, **kw)
     torch.cuda.synchronize()
-    label = f"{name} shadow={shadow} any_hit={any_hit}"
+    any_hit = bool(kw.get("any_hit"))
+    label = f"{name} shadow={bool(kw.get('shadow'))} any_hit={any_hit}"
     if any_hit:
         mism = int(((got[1][:n] >= 0) != (want[1][:n] >= 0)).sum())
         if mism:
@@ -305,14 +312,13 @@ def _walk_case(name, acc, query, shadow, any_hit, max_err, phase="3b",
     return got, max_err
 
 
-def _needed(query, got, any_hit):
+def _needed(cand, ent, count, got, any_hit):
     """The candidate steps this query's data needs, bool[T, Cpad]: every
     tile tests its candidates whose entry bound is within reach of its final
     hits (closest: the largest best t; any hit: the largest t_max of rays
     left unhit)."""
     import torch
     from libyafaray_tpu_torch.accel import tiles as TL
-    _, rays, cand, ent, count = query
     t = count.shape[0]
     best_t = got[0].view(t, TL.RAY_TILE)
     if any_hit:
@@ -323,10 +329,26 @@ def _needed(query, got, any_hit):
     return (cols < count[:, None]) & (ent <= reach)
 
 
-def _pairs_needed(query, got, any_hit, block_rows):
-    """Ray-triangle pair tests this query's data needs (see _needed)."""
+def _walk_bound(prep, got, kw):
+    """(pair tests needed, bound ms, what bounds it) of one tile_walk call
+    (prep: rays, cand, ent, count, tab; kw: its keywords; got: its
+    outputs): the needed pair tests at the arm's flops per pair, plus one
+    ray transform per needed candidate step of an instance block; every
+    input read once and the four outputs written once."""
+    import torch
     from libyafaray_tpu_torch.accel import tiles as TL
-    return int(_needed(query, got, any_hit).sum()) * TL.RAY_TILE * block_rows
+    rays, cand, ent, count, tab = prep
+    motion = (0 if kw.get("tab_t1") is None
+              else 2 if kw.get("tab_t2") is not None else 1)
+    need = _needed(cand, ent, count, got, bool(kw.get("any_hit")))
+    pairs = int(need.sum()) * TL.RAY_TILE * tab.shape[2]
+    flops = pairs * FLOPS_PER_PAIR_MOTION[motion]
+    if kw.get("blk_minv") is not None:
+        inst = kw["blk_minv"][cand.long()] > 0
+        flops += int((need & inst).sum()) * TL.RAY_TILE * FLOPS_PER_TRANSFORM
+    tabs = [x for x in kw.values() if isinstance(x, torch.Tensor)]
+    nbytes = _nbytes(*prep, *tabs) + 4 * rays.shape[0] * 4
+    return (pairs,) + _bound_ms(flops, nbytes)
 
 
 def _mesh(verts, faces, vis, *keyframes):
@@ -368,14 +390,15 @@ def phase3b_tiles(terrain):
                               device=DEVICE, dtype=torch.int32)
     cam = _sorted_query(acc, o.contiguous(), d.contiguous(),
                         torch.full((n,), 5e-5, device=DEVICE), t_max, excl)
-    cam_hit, max_err = _walk_case("terrain camera", acc, cam, False, False,
+    closest, shadow, any_hit = (dict(shadow=False), dict(shadow=True),
+                                dict(shadow=True, any_hit=True))
+    cam_hit, max_err = _walk_case("terrain camera", cam, acc.tab, closest,
                                   max_err)
-    _, max_err = _walk_case("terrain camera", acc, cam, True, False, max_err)
+    _, max_err = _walk_case("terrain camera", cam, acc.tab, shadow, max_err)
     rnd = _sorted_query(acc, *_rays(rng, N_TILE_RANDOM, [0, 0, -0.5],
                                     [4, 4, 1.5], terrain.geom.num_faces, 7))
-    for shadow in (False, True):
-        _, max_err = _walk_case("terrain random", acc, rnd, shadow, False,
-                                max_err)
+    for kw in (closest, shadow):
+        _, max_err = _walk_case("terrain random", rnd, acc.tab, kw, max_err)
     # (ii) any hit: the first shadow wavefront (camera hits toward the sun)
     # and the random rays
     _, rays_c, _, _, _ = cam
@@ -387,9 +410,9 @@ def phase3b_tiles(terrain):
         torch.zeros((n,), device=DEVICE),
         torch.where(hit, 1e30, -1.0).contiguous(),
         torch.where(hit, cam_hit[1][:n].to(torch.int32), -1).contiguous())
-    sh_hit, max_err = _walk_case("terrain sun shadow", acc, shadow_q, True,
-                                 True, max_err)
-    _, max_err = _walk_case("terrain random", acc, rnd, True, True, max_err)
+    sh_hit, max_err = _walk_case("terrain sun shadow", shadow_q, acc.tab,
+                                 any_hit, max_err)
+    _, max_err = _walk_case("terrain random", rnd, acc.tab, any_hit, max_err)
     # (iii) 2.4M triangles: blocks of 1024, a table above 96 MiB
     verts, faces, _, _ = bigmesh_grid(BIG_GRID)
     vis = np.full(len(faces), 3, np.int32)
@@ -406,21 +429,20 @@ def phase3b_tiles(terrain):
                                      len(faces), 7)
     d[: N_BIG // 2, 2] = -d[: N_BIG // 2, 2].abs()    # half look down
     big_q = _sorted_query(big, o, d, t_min, t_max, excl)
-    for shadow in (True, False):
-        big_hit, max_err = _walk_case("big terrain", big, big_q, shadow,
-                                      False, max_err)
-    _, max_err = _walk_case("big terrain", big, big_q, True, True, max_err)
+    for kw in (shadow, closest):
+        big_hit, max_err = _walk_case("big terrain", big_q, big.tab, kw,
+                                      max_err)
+    _, max_err = _walk_case("big terrain", big_q, big.tab, any_hit, max_err)
     # the kernel's time in this regime (TPU kernel c's): closest hits
     _, *prep = big_q
     big_ms = (_cuda_ms(lambda: TL.tile_walk(*prep, big.tab), 10),
               _cuda_ms(lambda: TL.tile_walk_ref(*prep, big.tab), 1))
-    pairs = _pairs_needed(big_q, big_hit, False, big.block_size)
-    big_bound = _bound_ms(pairs * FLOPS_PER_PAIR,
-                          _nbytes(*prep, big.tab) + 4 * prep[0].shape[0] * 4)
+    pairs, *big_bound = _walk_bound((*prep, big.tab), big_hit, closest)
     print(f"phase 3b: time per query, big terrain ({N_BIG} random rays, "
           f"closest): tile_walk {big_ms[0]:.4f} ms, tile_walk_ref "
           f"{big_ms[1]:.4f} ms; {pairs} pair tests needed: bound "
-          f"{big_bound[0]:.4f} ms ({big_bound[1]})")
+          f"{big_bound[0]:.4f} ms ({big_bound[1]}), the kernel at "
+          f"{100 * big_bound[0] / big_ms[0]:.1f}% of it")
     del big, big_q, prep, big_hit
     # (iv) an exact tie inside one sub-chunk, prim ids not in lane order
     tab = torch.zeros((1, 16, TL.SUB), device=DEVICE)
@@ -438,33 +460,27 @@ def phase3b_tiles(terrain):
         torch.tensor([[0.0, 0.0, 1.0]], device=DEVICE),
         torch.tensor([1e-4], device=DEVICE), torch.tensor([1e30], device=DEVICE),
         torch.tensor([-1], dtype=torch.int32, device=DEVICE))
-    got, max_err = _walk_case("tie", tie_acc, tie_q, False, False, max_err)
+    got, max_err = _walk_case("tie", tie_q, tie_acc.tab, closest, max_err)
     if int(got[1][0]) != 3 or abs(float(got[2][0]) - 0.5) > 1e-6:
         raise AssertionError(f"tie: want prim 3 with u 0.5, got {got}")
 
     # kernel and plain times per query at the slice's shape
-    times = {}
-    for label, q, shadow, any_hit in (("camera", cam, False, False),
-                                      ("sun shadow", shadow_q, True, True)):
+    times, bounds = {}, {}
+    for label, q, hits, kw in (("camera", cam, cam_hit, closest),
+                               ("sun shadow", shadow_q, sh_hit, any_hit)):
         _, *prep = q
         times[label] = (
-            _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, shadow=shadow,
-                                          any_hit=any_hit), 10),
-            _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, shadow=shadow,
-                                              any_hit=any_hit), 1))
+            _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, **kw), 10),
+            _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, **kw), 1))
+        pairs, *bounds[label] = _walk_bound((*prep, acc.tab), hits, kw)
         print(f"phase 3b: time per query, {label} wavefront ({q[0]} rays): "
               f"tile_walk {times[label][0]:.4f} ms, tile_walk_ref "
-              f"{times[label][1]:.4f} ms")
-    pairs = _pairs_needed(cam, cam_hit, False, acc.block_size)
-    bound = _bound_ms(pairs * FLOPS_PER_PAIR,
-                      _nbytes(*cam[1:], acc.tab) + 4 * cam[1].shape[0] * 4)
-    sh_pairs = _pairs_needed(shadow_q, sh_hit, True, acc.block_size)
-    print(f"phase 3b: camera wavefront needs {pairs} pair tests: bound "
-          f"{bound[0]:.4f} ms ({bound[1]}); sun shadow wavefront needs "
-          f"{sh_pairs} pair tests")
-    return max_err, times, bound, dict(ms=big_ms[0], plain_ms=big_ms[1],
-                                       bound_ms=big_bound[0],
-                                       bound_by=big_bound[1])
+              f"{times[label][1]:.4f} ms; {pairs} pair tests needed: bound "
+              f"{bounds[label][0]:.4f} ms ({bounds[label][1]}), the kernel "
+              f"at {100 * bounds[label][0] / times[label][0]:.1f}% of it")
+    return max_err, times, bounds["camera"], dict(
+        ms=big_ms[0], plain_ms=big_ms[1], bound_ms=big_bound[0],
+        bound_by=big_bound[1])
 
 
 # --------------------------------------------------------------- phase 3c
@@ -487,25 +503,33 @@ def _arm_tables(acc, motion, instanced):
     return kw
 
 
-def _arm_bound(acc, query, got, any_hit, motion, instanced, tabs):
-    """(bound ms, what bounds it) of one query of an arm: the needed pair
-    tests at the arm's flops per pair, plus one ray transform per needed
-    candidate step of an instance block; every input read once."""
+def _capture_walks(scene, keep):
+    """The tile_walk calls at the positions `keep` (in pass order) of one
+    pass of `scene` at its camera's size (sample 0, TERRAIN_BOUNCES), each
+    as ((rays, cand, ent, count, tab), keywords)."""
+    from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import tiles as TL
-    need = _needed(query, got, any_hit)
-    flops = (int(need.sum()) * TL.RAY_TILE * acc.block_size
-             * FLOPS_PER_PAIR_MOTION[motion])
-    if instanced:
-        inst = acc.blk_minv[query[2].long()] > 0
-        flops += int((need & inst).sum()) * TL.RAY_TILE * FLOPS_PER_TRANSFORM
-    nbytes = (_nbytes(*query[1:], acc.tab, *tabs.values())
-              + 4 * query[1].shape[0] * 4)
-    return _bound_ms(flops, nbytes)
+    position, kept, real = itertools.count(), {}, TL.tile_walk
+
+    def keep_call(*a, **k):
+        i = next(position)
+        if i in keep:
+            kept[i] = (a, k)
+        return real(*a, **k)
+
+    TL.tile_walk = keep_call
+    try:
+        render(scene, make_integrator({"type": "pathtracing",
+                                       "bounces": TERRAIN_BOUNCES}), spp=1)
+    finally:
+        TL.tile_walk = real
+    return [kept[i] for i in keep]
 
 
 def phase3c_arms(forest, static_cam_ms):
-    """The motion and instancing arms of tile_walk against tile_walk_ref;
-    returns (max_err, {arm: dict(ms, plain_ms, bound_ms, bound_by)})."""
+    """The motion and instancing arms of tile_walk against tile_walk_ref,
+    and two incoherent wavefronts of a forest pass; returns (max_err, {arm:
+    dict(ms, plain_ms, bound_ms, bound_by)})."""
     import numpy as np
     import torch
     from libyafaray_tpu_torch.accel import blocks as BL
@@ -545,24 +569,23 @@ def phase3c_arms(forest, static_cam_ms):
         tabs = _arm_tables(acc, motion, instanced)
         tt = time_cam if motion else None
         cam = _sorted_query(acc, o, d, t_min, t_max, excl, tt)
-        cam_hit, max_err = _walk_case(f"{arm} camera", acc, cam, False,
-                                      False, max_err, "3c", **tabs)
-        _, max_err = _walk_case(f"{arm} camera", acc, cam, True, False,
-                                max_err, "3c", **tabs)
-        _, max_err = _walk_case(f"{arm} camera", acc, cam, True, True,
-                                max_err, "3c", **tabs)
+        cam_hit, max_err = _walk_case(f"{arm} camera", cam, acc.tab, tabs,
+                                      max_err, "3c")
+        for kw in (dict(shadow=True), dict(shadow=True, any_hit=True)):
+            _, max_err = _walk_case(f"{arm} camera", cam, acc.tab,
+                                    dict(tabs, **kw), max_err, "3c")
         ro, rd, rt0, rt1, rex = _rays(rng, N_TILE_RANDOM, [0, 0, -0.5],
                                       [4, 4, 1.5], forest.geom.num_faces, 7)
         rt = (torch.rand((N_TILE_RANDOM,), device=DEVICE) if motion
               else None)
         rnd = _sorted_query(acc, ro, rd, rt0, rt1, rex, rt)
-        _, max_err = _walk_case(f"{arm} random", acc, rnd, False, False,
-                                max_err, "3c", **tabs)
+        _, max_err = _walk_case(f"{arm} random", rnd, acc.tab, tabs,
+                                max_err, "3c")
         _, *prep = cam
         ms = _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, **tabs), 10)
         plain_ms = _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, **tabs),
                             1)
-        bound = _arm_bound(acc, cam, cam_hit, False, motion, instanced, tabs)
+        _, *bound = _walk_bound((*prep, acc.tab), cam_hit, tabs)
         same = ""
         if not instanced:      # the static arm on the same table and rays
             same = (f"; the static arm on the same rays and table "
@@ -574,6 +597,24 @@ def phase3c_arms(forest, static_cam_ms):
               f"on the same rays over the terrain {static_cam_ms:.4f} ms")
         out[arm] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                         bound_by=bound[1])
+    # the incoherent wavefronts of a forest pass, where the kernel spends
+    # most of its time: the background light's shadow rays at depth 0 (any
+    # hit) and the first bounce's closest hits
+    for label, (prep, kw) in zip(("background shadow", "bounce"),
+                                 _capture_walks(forest, (2, 3))):
+        if bool(kw.get("any_hit")) != (label == "background shadow"):
+            raise AssertionError(f"the pass's queries are not in the order "
+                                 f"closest hit, sun, background: {label}")
+        query = (prep[0].shape[0], *prep[:4])
+        got, max_err = _walk_case(f"forest {label}", query, prep[4], kw,
+                                  max_err, "3c")
+        ms = _cuda_ms(lambda: TL.tile_walk(*prep, **kw), 10)
+        pairs, *bound = _walk_bound(prep, got, kw)
+        print(f"phase 3c: forest {label} wavefront ({query[0]} rays, "
+              f"{int((prep[3] > 0).sum())} tiles with candidates): tile_walk "
+              f"{ms:.4f} ms; {pairs} pair tests needed: bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), the kernel at "
+              f"{100 * bound[0] / ms:.1f}% of it")
     return max_err, out
 
 
@@ -702,8 +743,9 @@ def _slice_render(phase, scene, spp, bounces):
     argument: one warm-up pass, then `spp` passes with the kernel counts
     set to 0 just before and read just after, then one more pass split by
     CUDA events into the tile kernel, tile_candidates, the rest of the
-    queries (ray sort / unsort and packing) and the rest of the pass.
-    Returns (image, launches, launches per arm, mt_closest launches)."""
+    queries (ray sort / unsort and packing) and the rest of the pass, with
+    each kernel launch's time beside the pair tests its query needs and its
+    bound. Returns (image, launches, launches per arm)."""
     import numpy as np
     import torch
     from libyafaray_tpu_torch import film as F
@@ -734,6 +776,7 @@ def _slice_render(phase, scene, spp, bounces):
     spans = {"walk": [], "cand": [], "query": []}
     real = {"walk": TL.tile_walk, "cand": TL.tile_candidates,
             "query": BL.query}
+    walks = []     # each kernel launch's (arguments, keywords, outputs)
 
     def timed(key):
         def fn(*a, **k):
@@ -743,6 +786,8 @@ def _slice_render(phase, scene, spp, bounces):
             out = real[key](*a, **k)
             ev[1].record()
             spans[key].append(ev)
+            if key == "walk":
+                walks.append((a, k, out))
             return out
         return fn
 
@@ -780,6 +825,14 @@ def _slice_render(phase, scene, spp, bounces):
           f"sun's and the background light's shadow rays, at each depth), "
           f"ms: kernel [{per_query('walk')}]; tile_candidates "
           f"[{per_query('cand')}]")
+    for i, ((a, k, out), (e0, e1)) in enumerate(zip(walks, spans["walk"])):
+        ms_i = e0.elapsed_time(e1)
+        pairs, bound_ms, bound_by = _walk_bound(a, out, k)
+        print(f"phase {phase}: query {i} (depth {i // 3}, "
+              f"{'any' if k.get('any_hit') else 'closest'} hit): {pairs} pair "
+              f"tests needed, bound {bound_ms:.4f} ms ({bound_by}), kernel "
+              f"{ms_i:.4f} ms, at {100 * bound_ms / ms_i:.1f}% of the bound")
+    del walks
     # per pass: camera + 2 bounces closest hits, sun + bg shadows at 3 depths
     want = spp * (bounces + 1) * 3
     if launches < want or mt_launches:

@@ -40,7 +40,7 @@ from .. import csrc_build
 
 Tensor = torch.Tensor
 
-RAY_TILE = 128     # rays per tile (one CUDA block, one thread per ray)
+RAY_TILE = 128     # rays per tile (one CUDA block, eight threads a ray)
 SUB = 128          # triangles per Möller-Trumbore batch inside a block
 EPS_DET = 1e-10
 # candidate blocks walked between two exit tests, as the JAX package's
@@ -331,7 +331,12 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     i32[T]; tab f32[C_phys, 16, B] with B a multiple of SUB. Motion blur:
     tab_t1 (and tab_t2) shaped as tab. Instancing: blk_base, blk_minv,
     id_delta i32[C] and inv_rows f32[K+1, 12], all four or none. All
-    contiguous, on one device. Returns (t, id, u, v), each f32[Npad]."""
+    contiguous, on one device; tab, tab_t1 and tab_t2 start on a 16-byte
+    boundary (the kernel stages them with 16-byte asynchronous copies).
+    Returns (t, id, u, v), each f32[Npad]. For a closest hit they are the
+    ray's nearest hit; for any hit only hit/miss is defined: the kernel
+    stops testing a warp's rays once each has a hit, so the t, id, u, v it
+    reports may come from an earlier triangle than `tile_walk_ref`'s."""
     global launches
     dev = rays.device
     t, c_pad = cand.shape
@@ -344,12 +349,14 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     if tab.dim() != 3 or tab.shape[1] != 16 or tab.shape[2] % SUB:
         raise ValueError(f"tile_walk: tab must be f32[C, 16, B] with B a "
                          f"multiple of {SUB}, got {tuple(tab.shape)}")
-    check("tab", tab, torch.float32, tuple(tab.shape))
     if tab_t2 is not None and tab_t1 is None:
         raise ValueError("tile_walk: tab_t2 needs tab_t1")
-    for name, x in (("tab_t1", tab_t1), ("tab_t2", tab_t2)):
+    for name, x in (("tab", tab), ("tab_t1", tab_t1), ("tab_t2", tab_t2)):
         if x is not None:
             check(name, x, torch.float32, tuple(tab.shape))
+            if x.data_ptr() % 16:
+                raise ValueError(f"tile_walk: {name} must start on a 16-byte "
+                                 "boundary")
     inst = (blk_base, blk_minv, id_delta, inv_rows)
     instanced = blk_base is not None
     if any((x is None) == instanced for x in inst):

@@ -223,6 +223,23 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version(rng, random_acc):
         TL.tile_walk(rays, cand, ent, count, args[0][:, :, :100])
 
 
+def test_wrapper_refuses_a_table_off_a_16_byte_boundary(rng, random_acc):
+    """The kernel stages the tables with 16-byte copies: a table view that
+    starts 4 bytes into its storage is refused, on the CPU too."""
+    args = [T(x) for x in (random_acc.tab, random_acc.bmin, random_acc.bmax)
+            + _rays(rng, 300)]
+    rays, cand, ent, count = TL.prepare(*args[1:])
+    tab = args[0]
+    shifted = torch.empty(tab.numel() + 1)[1:].view(tab.shape)
+    shifted.copy_(tab)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    for kw in (dict(tab=shifted), dict(tab=tab, tab_t1=shifted),
+               dict(tab=tab, tab_t1=tab, tab_t2=shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            TL.tile_walk(rays, cand, ent, count, **kw)
+    TL.tile_walk(rays, cand, ent, count, tab)
+
+
 def _scene_rays(rng, js, n=1024):
     """Camera rays and rays from above the terrain, some excluding a prim."""
     o = rng.uniform(0.0, 4.0, (n, 3)).astype(np.float32)
