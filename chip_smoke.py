@@ -10,11 +10,21 @@ Phases, each reporting on its own lines:
      its output must be exactly 2.0;
   2. build: compiles the three CUDA sources of the package (one nvcc each,
      all started together) before phase 1 reports, timed;
-  3. mt_closest against its plain version mt_closest_ref on the card: a
-     random 300-triangle table and the Cornell table (closest and shadow,
-     excluded ids, a ray count that is not a multiple of the block), the
-     exact-tie case and both motion-blur arms; prim ids equal on every ray
-     and t, u, v within rtol 1e-6; kernel and plain times at 1080p;
+  3. mt_closest against its plain version mt_closest_ref on the card, bit
+     for bit (prim ids equal on every ray, max |diff| of t, u and v 0): the
+     kernel's edge cases (`mt_edge_cases`: a table without shadow casters,
+     visible and invisible rows interleaved across a chunk boundary, an
+     exact tie across an invisible row, dead rays among live ones and whole
+     dead warps); the Cornell table with random rays; random tables of 300,
+     2,047 and 16,384 triangles (384, 2,048 and 16,384 rows) and both
+     motion-blur arms at 200 triangles, closest and shadow, excluded ids,
+     ray counts not a multiple of the block; the exact-tie case; the ten
+     queries of one Cornell pass at 1920x1080 (sample 0, 4 bounces) and the
+     ten of one pass of the golden's baked cubes (96 rows, directlighting)
+     at the same size, captured as they reach mt_closest. Each timed query
+     is printed with its live rays (t_max > t_min), the rows its
+     visibility bit keeps, its bound and the kernel's time; kernel and
+     plain times for 1080p camera rays against the Cornell table;
  3b. tile_walk (the tiles_traverse kernel) against tile_walk_ref on the
      card, on sorted rays: the 203,522-triangle terrain table (1591 blocks
      of 128) with camera rays and random rays, closest and shadow, excluded
@@ -81,7 +91,9 @@ import types
 DEVICE = "cuda"
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 4   # the Cornell path
 SMALL = 256                                      # phase 5 image side
-N_RANDOM, N_CORNELL, N_MOTION = 65_537, 2_073_601, 10_001
+N_RANDOM, N_CORNELL = 65_537, 2_073_601
+N_TABLE = 262_147                 # random rays per random table of phase 3
+TABLE_FACES, MOTION_FACES = (300, 2047, 16384), 200
 LAMP = 12.0   # radiance of the Cornell lamp (power 12, colour max 1)
 TERRAIN_GRID = 320       # 2 * 319^2 = 203,522 triangles
 TERRAIN_RES, TERRAIN_SPP, TERRAIN_BOUNCES = 720, 6, 2   # the slice
@@ -134,7 +146,7 @@ def _nbytes(*xs) -> int:
 
 # ---------------------------------------------------------------- phase 3
 
-def _random_table(rng, f, motion=0):
+def _random_table(rng, f, motion=0, device=None):
     """Packed table of f random triangles with mixed visibility bits (and
     motion keyframes), as in tests/test_pallas_intersect.py."""
     import numpy as np
@@ -150,10 +162,10 @@ def _random_table(rng, f, motion=0):
         vk = vtx + rng.standard_normal(vtx.shape).astype(np.float32) * 0.3
         tabs.append(pack_tris(*(torch.from_numpy(vk[k::3]) for k in range(3)),
                               vis_t))
-    return [t.to(DEVICE) for t in tabs]
+    return [t.to(device or DEVICE) for t in tabs]
 
 
-def _rays(rng, n, lo=None, hi=None, n_prims=36, dead_every=0):
+def _rays(rng, n, lo=None, hi=None, n_prims=36, dead_every=0, device=None):
     """Random rays (o, d, t_min, t_max, exclude) on the card; every 5th
     excludes a random prim, every dead_every-th has an empty t-range."""
     import numpy as np
@@ -169,14 +181,16 @@ def _rays(rng, n, lo=None, hi=None, n_prims=36, dead_every=0):
     t_max = np.full(n, 1e30, np.float32)
     if dead_every:
         t_max[::dead_every] = -1.0
-    dev = lambda a: torch.from_numpy(a).to(DEVICE)
-    return (dev(o), dev(d), torch.full((n,), 1e-4, device=DEVICE),
+    device = device or DEVICE
+    dev = lambda a: torch.from_numpy(a).to(device)
+    return (dev(o), dev(d), torch.full((n,), 1e-4, device=device),
             dev(t_max), dev(excl))
 
 
-def _compare(name, got, want, max_err, phase="3"):
+def _compare(name, got, want, max_err, phase="3", exact=False):
     """Kernel outputs against the plain version's: prim ids equal on every
-    ray, t/u/v within rtol 1e-6. Returns the running max abs error."""
+    ray, t/u/v within rtol 1e-6 (equal bit for bit with `exact`). Returns
+    the running max abs error."""
     import torch
     t, p, u, v = got
     rt, rp, ru, rv = want
@@ -185,7 +199,8 @@ def _compare(name, got, want, max_err, phase="3"):
     if mism:
         raise AssertionError(f"{name}: prim ids differ on {mism} rays")
     for label, a, b in (("t", t, rt), ("u", u, ru), ("v", v, rv)):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0,
+        torch.testing.assert_close(a, b, rtol=0.0 if exact else 1e-6,
+                                   atol=0.0, equal_nan=exact,
                                    msg=lambda m: f"{name} {label}: {m}")
         max_err = max(max_err, float((a - b).abs().max()))
     print(f"phase {phase}: {name}: {p.numel()} rays, {int((p >= 0).sum())} "
@@ -193,7 +208,176 @@ def _compare(name, got, want, max_err, phase="3"):
     return max_err
 
 
-def phase3_mt(cornell):
+def mt_edge_cases(rng, device, n):
+    """The cases the kernel's design must get right, as [(name, table, (o,
+    d, t_min, t_max, exclude), shadow, the prim ids wanted or None)]: a
+    table without shadow casters (every shadow ray misses); 200 stacked
+    planes whose camera and shadow bits interleave across the 128-row chunk
+    boundary, hit from below past random t_min; an exact tie at t = 1
+    between rows 0 and 2 with a camera-invisible copy of row 2 between
+    them; and n rays against 300 random triangles where every third ray,
+    every seventh from the second on (t_max = t_min), two whole warps and a
+    whole block of 128 are dead."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch.accel.mt_intersect import pack_tris
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    cases = []
+    tab, = _random_table(rng, 200, device=device)
+    tab[:, 10] = 0.0
+    cases.append(("no shadow casters", tab,
+                  _rays(rng, n, n_prims=200, device=device), True,
+                  torch.full((n,), -1, dtype=torch.int32, device=device)))
+    # planes z = 10 + 0.01 k behind, z = 0.05 + 0.01 (k - 100) in front
+    k = np.arange(200)
+    z = np.where(k < 100, 10.0 + 0.01 * k, 0.05 + 0.01 * (k - 100))
+    corner = lambda x, y: np.stack([np.full(200, x), np.full(200, y), z], 1)
+    tab = pack_tris(f32(corner(-2.0, -2.0)), f32(corner(6.0, -2.0)),
+                    f32(corner(-2.0, 6.0)),
+                    torch.tensor([3, 2, 1, 0], dtype=torch.int32)[k % 4]
+                    ).to(device)
+    o = np.concatenate([rng.uniform(-1, 1, (n, 2)), np.zeros((n, 1))], 1)
+    d = np.concatenate([rng.uniform(-0.05, 0.05, (n, 2)), np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    excl = np.full(n, -1, np.int32)
+    excl[::5] = rng.integers(100, 200, excl[::5].shape)
+    planes = (dev(o.astype(np.float32)), dev(d.astype(np.float32)),
+              dev(rng.uniform(0.0, 0.6, n).astype(np.float32)),
+              torch.full((n,), 1e30, device=device), dev(excl))
+    for shadow in (False, True):
+        cases.append((f"stacked planes across a chunk boundary "
+                      f"shadow={shadow}", tab, planes, shadow, None))
+    # rows 0 and 2 share the edge x = 0 of the plane z = 1; row 1 is row 2
+    # again, cast as a shadow only
+    tab = pack_tris(f32([[0, -1, 1], [0, -1, 1], [0, -1, 1]]),
+                    f32([[0, 1, 1], [1, -1, 1], [1, -1, 1]]),
+                    f32([[-1, -1, 1], [0, 1, 1], [0, 1, 1]]),
+                    torch.tensor([3, 2, 3], dtype=torch.int32)).to(device)
+    tie = (torch.zeros((4, 3), device=device),
+           f32([[0, 0, 1]] * 4).to(device),
+           torch.full((4,), 1e-4, device=device),
+           torch.full((4,), 1e30, device=device),
+           torch.tensor([-1, 0, 2, 1], dtype=torch.int32, device=device))
+    for shadow, want in ((False, [0, 2, 0, 0]), (True, [0, 1, 0, 0])):
+        cases.append((f"tie across an invisible row shadow={shadow}", tab,
+                      tie, shadow, torch.tensor(want, dtype=torch.int32,
+                                                device=device)))
+    tab, = _random_table(rng, 300, device=device)
+    o, d, t_min, t_max, excl = _rays(rng, 4099, n_prims=300, device=device)
+    t_max[::3] = -1.0
+    t_max[1::7] = t_min[1::7]
+    t_max[1024:1088] = -1.0      # two whole warps
+    t_max[2048:2176] = -1.0      # a whole block
+    for shadow in (False, True):
+        cases.append((f"dead rays shadow={shadow}", tab,
+                      (o, d, t_min, t_max, excl), shadow, None))
+    return cases
+
+
+def assert_mt_case(name, got, rays, want_prim=None):
+    """What every answer of a case must show: rays with an empty range
+    (not t_max > t_min) miss with t = t_max and u = v = 0, and the prim ids
+    are the wanted ones where the case names them."""
+    import torch
+    t, p, u, v = got
+    _, _, t_min, t_max, _ = rays
+    dead = ~(t_max > t_min)
+    if bool((p[dead] != -1).any() | (t[dead] != t_max[dead]).any()
+            | (u[dead] != 0).any() | (v[dead] != 0).any()):
+        raise AssertionError(f"{name}: a ray with an empty range hit")
+    if want_prim is not None and not torch.equal(p, want_prim):
+        raise AssertionError(f"{name}: prim ids {p.tolist()[:8]}, want "
+                             f"{want_prim.tolist()[:8]}")
+
+
+def capture_mt(scene, cfg):
+    """The mt_closest calls of one pass of `scene` at its camera's size
+    (sample 0), in pass order, each as (arguments, keywords) with its
+    tensors cloned."""
+    import torch
+    from libyafaray_tpu_torch import render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    kept, real = [], MT.mt_closest
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def keep_call(*a, **k):
+        kept.append((tuple(copy(x) for x in a),
+                     {key: copy(x) for key, x in k.items()}))
+        return real(*a, **k)
+
+    MT.mt_closest = keep_call
+    try:
+        render(scene, cfg, spp=1)
+    finally:
+        MT.mt_closest = real
+    return kept
+
+
+def mt_bound(args, kw):
+    """(live rays, rows kept, bound ms, what bounds it) of one mt_closest
+    call: the live rays (t_max > t_min) times the rows whose selected
+    visibility bit is set, at the arm's flops per pair, or every input read
+    once and the four outputs written once."""
+    tab, o, d, t_min, t_max, excl = args
+    motion = (0 if kw.get("tris_t1") is None or kw.get("time") is None
+              else 2 if kw.get("tris_t2") is not None else 1)
+    live = int((t_max > t_min).sum())
+    rows = int((tab[:, 10 if kw.get("shadow") else 9] > 0.5).sum())
+    nbytes = _nbytes(*args, *(x for x in kw.values() if x is not None
+                               and not isinstance(x, bool)))
+    return (live, rows) + _bound_ms(
+        live * rows * FLOPS_PER_PAIR_MOTION[motion],
+        nbytes + 16 * o.shape[0])
+
+
+def hd_scenes():
+    """The Cornell box and the golden's baked cubes (brute force, 96 rows),
+    compiled with their cameras at WIDTH x HEIGHT."""
+    from libyafaray_tpu_torch.scenes import cornell_builder, instances_builder
+    out = []
+    for builder in (cornell_builder, instances_builder):
+        b = builder()
+        b.cameras["cam"]["resx"], b.cameras["cam"]["resy"] = WIDTH, HEIGHT
+        out.append(b.compile("cam"))
+    return out
+
+
+def mt_queries(cornell_hd, cubes_hd):
+    """[(label, arguments, keywords)]: the queries phase 3 times and
+    tools/time_mt_closest.py times builds on: the ten of one Cornell pass
+    and the ten of one pass of the golden's baked cubes, both at 1920x1080,
+    random tables of TABLE_FACES triangles and both motion arms at
+    MOTION_FACES triangles (N_TABLE random rays, closest hits)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import make_integrator
+    out = []
+    for scene_name, scene, cfg in (
+            ("cornell", cornell_hd, {"type": "pathtracing",
+                                     "bounces": BOUNCES}),
+            ("cubes", cubes_hd, {"type": "directlighting"})):
+        for i, (a, k) in enumerate(capture_mt(scene, make_integrator(cfg))):
+            kind = "shadow" if k.get("shadow") else "closest"
+            out.append((f"{scene_name} {i} ({kind})", a, k))
+    rng = np.random.default_rng(17)
+    for f in TABLE_FACES:
+        tab, = _random_table(rng, f)
+        out.append((f"random {f} tris ({tab.shape[0]} rows)",
+                    (tab, *_rays(rng, N_TABLE, n_prims=f)), {}))
+    for motion in (1, 2):
+        tabs = _random_table(rng, MOTION_FACES, motion)
+        tt = torch.from_numpy(rng.random(N_TABLE).astype(np.float32)
+                              ).to(DEVICE)
+        out.append((f"motion{motion} {MOTION_FACES} tris "
+                    f"({tabs[0].shape[0]} rows)",
+                    (tabs[0], *_rays(rng, N_TABLE, n_prims=MOTION_FACES)),
+                    dict(time=tt, tris_t1=tabs[1],
+                         tris_t2=tabs[2] if motion == 2 else None)))
+    return out
+
+
+def phase3_mt(cornell, cornell_hd, cubes_hd):
     """mt_closest against mt_closest_ref; returns (max_err, times, bound)."""
     import numpy as np
     import torch
@@ -201,19 +385,21 @@ def phase3_mt(cornell):
     from libyafaray_tpu_torch.cameras import shoot_rays
     rng = np.random.default_rng(7)
     max_err = 0.0
+    check = lambda name, a, k: _compare(
+        name, MT.mt_closest(*a, **k), MT.mt_closest_ref(*a, **k), max_err,
+        exact=True)
+    for name, tab, rays, shadow, want in mt_edge_cases(rng, DEVICE,
+                                                       N_RANDOM):
+        got = MT.mt_closest(tab, *rays, shadow=shadow)
+        max_err = _compare(name, got, MT.mt_closest_ref(tab, *rays,
+                                                        shadow=shadow),
+                           max_err, exact=True)
+        assert_mt_case(name, got, rays, want)
     tab_c = cornell.geom.tri_table
-    tab_r, = _random_table(rng, 300)
     for shadow in (False, True):
-        args = _rays(rng, N_RANDOM)
-        max_err = _compare(f"random 300 tris shadow={shadow}",
-                           MT.mt_closest(tab_r, *args, shadow=shadow),
-                           MT.mt_closest_ref(tab_r, *args, shadow=shadow),
-                           max_err)
-        args = _rays(rng, N_CORNELL, 0.02, 0.98)
-        max_err = _compare(f"cornell table shadow={shadow}",
-                           MT.mt_closest(tab_c, *args, shadow=shadow),
-                           MT.mt_closest_ref(tab_c, *args, shadow=shadow),
-                           max_err)
+        max_err = check(f"cornell table, random rays shadow={shadow}",
+                        (tab_c, *_rays(rng, N_CORNELL, 0.02, 0.98)),
+                        dict(shadow=shadow))
     # exact tie: two triangles sharing the edge x=0 in the plane z=1
     v0 = torch.tensor([[0.0, -1.0, 1.0], [0.0, -1.0, 1.0]])
     v1 = torch.tensor([[0.0, 1.0, 1.0], [1.0, -1.0, 1.0]])
@@ -225,18 +411,22 @@ def phase3_mt(cornell):
            torch.tensor([1e30], device=DEVICE),
            torch.tensor([-1], dtype=torch.int32, device=DEVICE))
     got = MT.mt_closest(tab_tie, *tie)
-    max_err = _compare("tie", got, MT.mt_closest_ref(tab_tie, *tie), max_err)
+    max_err = _compare("tie", got, MT.mt_closest_ref(tab_tie, *tie), max_err,
+                       exact=True)
     if int(got[1][0]) != 0 or abs(float(got[2][0]) - 0.5) > 1e-6:
         raise AssertionError(f"tie: want prim 0 with u 0.5, got {got}")
-    for motion in (1, 2):
-        tabs = _random_table(rng, 200, motion)
-        args = _rays(rng, N_MOTION)
-        tt = torch.from_numpy(rng.random(N_MOTION).astype(np.float32)).to(DEVICE)
-        kw = dict(time=tt, tris_t1=tabs[1],
-                  tris_t2=tabs[2] if motion == 2 else None)
-        max_err = _compare(f"motion={motion}",
-                           MT.mt_closest(tabs[0], *args, **kw),
-                           MT.mt_closest_ref(tabs[0], *args, **kw), max_err)
+    # the queries of a Cornell pass and of the cubes', the random tables
+    # and the motion arms: held bit for bit (shadow too on the synthetic
+    # ones), each timed beside its bound
+    for label, a, k in mt_queries(cornell_hd, cubes_hd):
+        max_err = check(label, a, k)
+        if not label.startswith(("cornell", "cubes")):
+            max_err = check(f"{label} shadow", a, dict(k, shadow=True))
+        ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 10)
+        live, rows, bound, by = mt_bound(a, k)
+        print(f"phase 3: {label}: {a[1].shape[0]} rays, {live} live, "
+              f"{rows} rows kept: mt_closest {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), at {100 * bound / ms:.1f}% of it")
 
     # kernel and plain times at the main path's shape: 1080p camera rays
     # against the Cornell table
@@ -253,15 +443,11 @@ def phase3_mt(cornell):
         times[shadow] = (
             _cuda_ms(lambda: MT.mt_closest(tab_c, *q, shadow=shadow), 20),
             _cuda_ms(lambda: MT.mt_closest_ref(tab_c, *q, shadow=shadow), 3))
-        print(f"phase 3: time at N={n}, 64-row table, shadow={shadow}: "
-              f"mt_closest {times[shadow][0]:.4f} ms, "
+        print(f"phase 3: time at N={n}, {tab_c.shape[0]}-row table, "
+              f"shadow={shadow}: mt_closest {times[shadow][0]:.4f} ms, "
               f"mt_closest_ref {times[shadow][1]:.4f} ms")
-    # least time for the closest query: the pairs with the scene's real
-    # triangles, and each input read and each output written once
-    faces = cornell.geom.num_faces
-    bound = _bound_ms(n * faces * FLOPS_PER_PAIR,
-                      _nbytes(*q, tab_c) + n * 16)
-    print(f"phase 3: mt_closest bound at N={n} x {faces} triangles: "
+    live, rows, *bound = mt_bound((tab_c, *q), {})
+    print(f"phase 3: mt_closest bound at N={n}, {live} live x {rows} rows: "
           f"{bound[0]:.4f} ms ({bound[1]})")
     return max_err, times, bound
 
@@ -1032,7 +1218,7 @@ def main() -> int:
     print(f"phase 2: compiled the forest scene in "
           f"{time.perf_counter() - t0:.2f} s")
     cornell = cornell_builder().compile("cam")
-    mt_err, mt_times, mt_bound = phase3_mt(cornell)
+    mt_err, mt_times, mt_bnd = phase3_mt(cornell, *hd_scenes())
     tl_err, tl_times, tl_bound, big = phase3b_tiles(terrain)
     arm_err, arm_times = phase3c_arms(forest, tl_times["camera"][0])
     mt_launches = phase4_cornell()
@@ -1060,7 +1246,7 @@ def main() -> int:
          "replaces": "libyafaray_tpu/accel/pallas_intersect.py:49",
          "launches": mt_launches, "max_abs_err": mt_err,
          "ms": mt_times[False][0], "plain_ms": mt_times[False][1],
-         "bound_ms": mt_bound[0], "bound_by": mt_bound[1],
+         "bound_ms": mt_bnd[0], "bound_by": mt_bnd[1],
          "library_ms": None},
         {"name": "tiles_traverse", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/tiles_traverse.cu",

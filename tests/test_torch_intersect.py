@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from libyafaray_tpu.accel import pallas_intersect as JP
 from libyafaray_tpu.ops import intersect as JI
 from libyafaray_tpu_torch.accel import mt_intersect as MT
@@ -108,6 +109,30 @@ def test_plain_version_matches_pallas_kernel_motion(rng, motion):
                             T(excl), time=T(time), tris_t1=T(tabs[1]),
                             tris_t2=None if t2 is None else T(t2))
     assert _assert_hits_match(got, want) > 100
+
+
+@pytest.mark.parametrize("case", range(7), ids=[
+    "no-shadow-casters", "planes-camera", "planes-shadow", "tie-camera",
+    "tie-shadow", "dead-rays-camera", "dead-rays-shadow"])
+def test_plain_version_matches_pallas_kernel_edge_cases(rng, case):
+    """The cases of the CUDA kernel's design (chip_smoke.mt_edge_cases,
+    which the card's check runs too): no shadow casters, visible and
+    invisible rows interleaved across the 128-row chunk boundary, an exact
+    tie across an invisible row, dead rays among live ones and whole dead
+    warps and blocks. Both answers miss on every dead ray and give the
+    named prim ids."""
+    name, tab, rays, shadow, want = chip_smoke.mt_edge_cases(
+        rng, "cpu", 1024)[case]
+    got = MT.mt_closest_ref(tab, *rays, shadow=shadow)
+    jgot = JP.mt_closest(jnp.asarray(tab.numpy()),
+                         *(jnp.asarray(x.numpy()) for x in rays),
+                         shadow=shadow, interpret=True)
+    _assert_hits_match(got, jgot)
+    chip_smoke.assert_mt_case(name, got, rays, want)
+    chip_smoke.assert_mt_case(
+        name, tuple(torch.from_numpy(np.array(x)) for x in jgot), rays, want)
+    if name.startswith("stacked planes"):
+        assert (got[1] >= 100).all()
 
 
 def test_tie_takes_lowest_prim_and_its_barycentrics():

@@ -48,7 +48,7 @@ ARM = re.compile(rb"_Z\w*tiles_traverse_kernelILi(\d)ELb([01])E\w*")
 MAX_THREADS, SHARED, LOCAL, NUM_REGS = 0, 1, 3, 4
 
 
-def _builds(specs):
+def builds(specs):
     """Compile each (name, source) into a shared library and a cubin, all
     nvcc processes at once; returns {name: (so path, cubin path)}."""
     from libyafaray_tpu_torch import csrc_build
@@ -75,11 +75,11 @@ def _builds(specs):
     return paths
 
 
-def _arm_attributes(cubin):
-    """{arm: (registers, static shared bytes, local bytes, threads per block,
-    resident blocks per SM)} of every kernel specialisation in a cubin."""
+def kernel_attributes(cubin, pattern):
+    """{the groups of `pattern`: (registers, static shared bytes, local
+    bytes, threads per block, resident blocks per SM)} of every kernel in a
+    cubin whose mangled name matches `pattern` (a bytes regex)."""
     import torch
-    from libyafaray_tpu_torch.accel import tiles as TL
     torch.cuda.init()
     torch.empty(1, device="cuda")       # the primary context is current
     cu = ctypes.CDLL("libcuda.so.1")
@@ -99,9 +99,7 @@ def _arm_attributes(cubin):
         print(f"cuModuleLoadData failed on {cubin} (CUDA error {err})")
         return {}
     out = {}
-    for name in sorted({m.group(0) for m in ARM.finditer(image)}):
-        m = ARM.match(name)
-        arm = TL.arm(int(m.group(1)), m.group(2) == b"1")
+    for name in sorted({m.group(0) for m in pattern.finditer(image)}):
         fn = ctypes.c_void_p()
         if cu.cuModuleGetFunction(ctypes.byref(fn), mod, name) != 0:
             continue        # a name that is not an entry point
@@ -115,8 +113,8 @@ def _arm_attributes(cubin):
         blocks = ctypes.c_int()
         cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
             ctypes.byref(blocks), fn, threads, 0)
-        out[arm] = (attr(NUM_REGS), attr(SHARED), attr(LOCAL), threads,
-                    blocks.value)
+        out[pattern.match(name).groups()] = (
+            attr(NUM_REGS), attr(SHARED), attr(LOCAL), threads, blocks.value)
     return out
 
 
@@ -170,13 +168,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     t0 = time.perf_counter()
-    paths = _builds(specs)
+    paths = builds(specs)
     print(f"built {len(specs)} sources (a library and a cubin each) in "
           f"{time.perf_counter() - t0:.2f} s")
     fns = {}
     for name, src in specs:
-        for arm, (regs, smem, local, threads, blocks) in _arm_attributes(
-                paths[name][1]).items():
+        for (motion, inst), (regs, smem, local, threads, blocks) in \
+                kernel_attributes(paths[name][1], ARM).items():
+            arm = TL.arm(int(motion), inst == b"1")
             print(f"{name} ({src}) {arm}: {regs} registers, "
                   f"{smem} B static shared memory, {local} B local, "
                   f"{threads} threads a block, {blocks} resident blocks "
