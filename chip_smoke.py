@@ -71,14 +71,45 @@ Phases, each reporting on its own lines:
      image x pi), true instances (block accelerator, instancing arm) and
      baked copies (brute force, mt_closest): global scale within 1%,
      4x4-downsampled mean relative error < 0.01 and p99 < 0.04; the two
-     renders within 2e-3 of each other.
+     renders within 2e-3 of each other;
+ 11. the headline, forward + backward: the Cornell box at 1920x1080, 16
+     spp, 4 bounces, the gradient of mean(rgb) with respect to
+     materials.diffuse_color per chunk of 270 rows (518,400 rays) at the
+     pixel centres, samples 0-15 (bench.py's bench_cornell_fwd_bwd): ms
+     per image and per spp pass, camera rays/s, forward and backward ms
+     from CUDA events, peak device memory, mt_closest's launches (10 per
+     chunk) and their ms; the ten queries of one chunk held bit for bit
+     against mt_closest_ref and timed alone beside it and their bounds
+     (the kernels line reports mt_closest per launch at this shape); the
+     one-hot backward of `take` against plain indexing's on one chunk's
+     gathers; the gradient finite and not zero, and the same chunk twice
+     gives the same gradient (rtol 1e-6);
+ 12. gradients (diffuse_color, lights.color) through the kernel path
+     against the plain path, within rtol 1e-5: the Cornell box at 256x256,
+     2 spp, 4 bounces (mt_closest) and the terrain at 128x128, 1 spp, 2
+     bounces (tile_walk);
+ 13. BASELINE config 2: the glossy Cornell box at 512x512, 16 spp, 4
+     bounces through `render` (ms per pass, camera rays/s); its kernel
+     and plain paths at 256x256, 2 spp; the Blinn exponent's gradient
+     through both paths on the Cornell box with a glossy slab (config 2
+     compiles its glossy material, but no face uses it);
+ 14. make_train_step: five SGD steps on the Cornell diffuse colours at
+     256x256, 1 bounce, target 0.25, sample 0; the loss must decrease;
+ 15. the Cornell box under directlighting (the lamp invisible to camera
+     rays, one light sample) at 256x256, 96 spp against the libYafaRay
+     golden tests/golden/cornell_ref_256.hdr (image x pi): global scale
+     within 1%, mean relative error < 4%, 4x4-downsampled p99 < 6% and
+     max < 15% (tests/test_refparity.py's bounds).
 
-Then one JSON line listing the kernels, and as the last line
+Each phase prints its seconds. Phases 11-14 first check that the fp32
+matmul precision is "highest" (no TF32). Then one JSON line listing the
+kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; the
 script never falls back to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -106,6 +137,13 @@ FOREST_INST, FOREST_MOVING = 2000, 16             # the forest's rocks
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "instances_ref_160.hdr")
 GOLDEN_RES, GOLDEN_SPP = 160, 16
+CHUNK_ROWS = 270         # the headline's chunk: 270 x 1920 = 518,400 rays
+GRAD_RTOL = 1e-5         # kernel-path against plain-path gradients
+GLOSSY_RES = 512         # BASELINE config 2 (bench.py's glossy cell)
+TRAIN_STEPS = 5
+CORNELL_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "golden", "cornell_ref_256.hdr")
+CORNELL_GOLDEN_RES, CORNELL_GOLDEN_SPP = 256, 96
 # H100 SXM data-sheet peaks (fp32 counts a fused multiply-add as 2 flops)
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 FLOPS_PER_PAIR = 45      # one Möller-Trumbore ray-triangle test
@@ -898,6 +936,20 @@ def _paths_agree(phase, img_k, img_p):
                              "renders disagree")
 
 
+@contextlib.contextmanager
+def _plain(module, name, ref):
+    """Inside the context module.name is its plain version `ref`: the swap
+    of phases 5, 7, 9, 12 and 13. The kernel must not launch meanwhile."""
+    real, before = getattr(module, name), module.launches
+    setattr(module, name, ref)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+    if module.launches != before:
+        raise AssertionError("the plain path launched the kernel")
+
+
 def phase5_cornell_paths():
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
@@ -908,14 +960,8 @@ def phase5_cornell_paths():
     small = b.compile("cam")
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
     img_k = F.resolve(render(small, cfg, spp=2, device=DEVICE)).cpu().numpy()
-    before, real = MT.launches, MT.mt_closest
-    MT.mt_closest = lambda *a, **k: MT.mt_closest_ref(*a, **k)
-    try:
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
         img_p = F.resolve(render(small, cfg, spp=2, device=DEVICE)).cpu().numpy()
-    finally:
-        MT.mt_closest = real
-    if MT.launches != before:
-        raise AssertionError("the plain-path render launched the kernel")
     _paths_agree("5", img_k, img_p)
     if abs(float(img_k[..., :3].max()) - LAMP) > 1e-3:
         raise AssertionError(f"max {img_k[..., :3].max()} of the square "
@@ -1093,14 +1139,8 @@ def _kernel_vs_plain(phase, scene, camera):
     cfg = make_integrator({"type": "pathtracing",
                            "bounces": TERRAIN_BOUNCES})
     img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
-    before, real = TL.launches, TL.tile_walk
-    TL.tile_walk = lambda *a, **k: TL.tile_walk_ref(*a, **k)
-    try:
+    with _plain(TL, "tile_walk", TL.tile_walk_ref):
         img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
-    finally:
-        TL.tile_walk = real
-    if TL.launches != before:
-        raise AssertionError("the plain-path render launched the kernel")
     _paths_agree(phase, img_k, img_p)
 
 
@@ -1158,6 +1198,434 @@ def phase10_golden():
         raise AssertionError("phase 10: true and baked instances disagree")
 
 
+# ------------------------------------------------------- phases 11 to 15
+
+def _check_fp32_precision():
+    """Gradients run in full f32: nothing may have lowered matmul precision
+    (TF32 or bf16 passes)."""
+    import torch
+    prec = torch.get_float32_matmul_precision()
+    if prec != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"fp32 matmul precision {prec!r}, allow_tf32 "
+                             f"{torch.backends.cuda.matmul.allow_tf32}")
+
+
+def _leaf_scene(scene, names):
+    """The scene with each named column ("materials.diffuse_color") replaced
+    by a fresh leaf, put in after the scene reached the card; the leaves."""
+    leaves = []
+    for name in names:
+        table, column = name.split(".")
+        leaf = getattr(getattr(scene, table), column).detach().clone()
+        leaf.requires_grad_(True)
+        scene = dataclasses.replace(scene, **{table: dataclasses.replace(
+            getattr(scene, table), **{column: leaf})})
+        leaves.append(leaf)
+    return scene, leaves
+
+
+def _pixels(width, r0, r1, device):
+    """(px, py, pixel id) of image rows r0..r1 at the pixel centres."""
+    import torch
+    pid = torch.arange(r0 * width, r1 * width, dtype=torch.int64,
+                       device=device)
+    return ((pid % width).to(torch.float32) + 0.5,
+            (pid // width).to(torch.float32) + 0.5, pid)
+
+
+def _fwd_bwd(scene, cfg, leaves, pixels, sample, events=None):
+    """Gradients of mean(rgb) over `pixels` at `sample` with respect to the
+    leaves, through shoot_rays -> integrate -> autograd (bench.py's
+    headline chunk); `events` (three CUDA events) split it into forward
+    and backward."""
+    import torch
+    from libyafaray_tpu_torch.cameras import shoot_rays
+    from libyafaray_tpu_torch.integrators.mc import integrate
+    px, py, pid = pixels
+    if events:
+        events[0].record()
+    o, d, valid = shoot_rays(scene.camera, px, py)
+    rgb, _ = integrate(scene, cfg, o, d, valid, pid, sample)
+    loss = rgb.mean()
+    if events:
+        events[1].record()
+    grads = torch.autograd.grad(loss, leaves)
+    if events:
+        events[2].record()
+    return grads
+
+
+def _image_grads(scene, cfg, names, spp):
+    """Gradients of the sum over `spp` samples of each pass's mean(rgb) over
+    the whole frame, as numpy arrays."""
+    import torch
+    sc, leaves = _leaf_scene(scene.to(DEVICE), names)
+    pixels = _pixels(scene.camera.resx, 0, scene.camera.resy, DEVICE)
+    total = [torch.zeros_like(x) for x in leaves]
+    for s in range(spp):
+        for t, g in zip(total, _fwd_bwd(sc, cfg, leaves, pixels, s)):
+            t += g
+    return [t.cpu().numpy() for t in total]
+
+
+def _grads_agree(phase, label, got, want, rtol):
+    """Kernel-path gradients against plain-path ones, elementwise within
+    rtol; both finite and not all zero."""
+    import numpy as np
+    for g, w, name in zip(got, want, label):
+        rel = np.abs(g - w).max() / np.abs(w).max()
+        print(f"phase {phase}: {name}: kernel path {g.ravel().round(7)}, "
+              f"plain path {w.ravel().round(7)}; max |diff| / max |grad| "
+              f"{rel:.3g}")
+        if (not np.isfinite(g).all() or not np.abs(w).max() > 0
+                or not (np.abs(g - w) <= rtol * np.abs(w)).all()):
+            raise AssertionError(f"phase {phase}: {name}: the kernel-path "
+                                 f"and plain-path gradients differ beyond "
+                                 f"rtol {rtol}")
+
+
+def phase11_fwd_bwd():
+    """The headline: Cornell 1920x1080, 16 spp, 4 bounces, forward and
+    backward with respect to materials.diffuse_color in chunks of 270 rows
+    (bench.py's bench_cornell_fwd_bwd). Returns mt_closest's launches and,
+    per launch, the error, times and bound of one chunk's queries."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.ops import fast_grad as FG
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    _check_fp32_precision()
+    width, height, spp, bounces = WIDTH, HEIGHT, SPP, BOUNCES
+    b = cornell_builder()
+    b.cameras["cam"]["resx"] = width
+    b.cameras["cam"]["resy"] = height
+    scene, leaves = _leaf_scene(b.compile("cam").to(DEVICE),
+                                ["materials.diffuse_color"])
+    cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
+    chunks = [_pixels(width, r, min(r + CHUNK_ROWS, height), DEVICE)
+              for r in range(0, height, CHUNK_ROWS)]
+    n_chunk = chunks[0][0].shape[0]
+    first = _fwd_bwd(scene, cfg, leaves, chunks[0], 0)[0]   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    spans = []
+    total = torch.zeros_like(leaves[0])
+    MT.launches = 0
+    t0 = time.perf_counter()
+    for s in range(spp):
+        for ch in chunks:
+            e = (ev(), ev(), ev())
+            g, = _fwd_bwd(scene, cfg, leaves, ch, s, e)
+            total += g
+            spans.append(e)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = MT.launches
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms = sum(a.elapsed_time(m) for a, m, _ in spans)
+    bwd_ms = sum(m.elapsed_time(z) for _, m, z in spans)
+    n_chunks = len(spans)
+    want = n_chunks * (bounces + 1) * 2
+    if launches != want:
+        raise AssertionError(f"mt_closest launched {launches} times, want "
+                             f"{want} (closest + shadow per depth per chunk)")
+    grad = total.cpu().numpy()
+    if not np.isfinite(grad).all() or not np.abs(grad).max() > 0:
+        raise AssertionError(f"bad gradient {grad}")
+    # the same chunk again: the same gradient
+    again = _fwd_bwd(scene, cfg, leaves, chunks[0], 0)[0]
+    delta = float((again - first).abs().max())
+    rel = delta / float(first.abs().max())
+    print(f"phase 11: cornell {width}x{height} {spp} spp {bounces} bounces, "
+          f"forward + backward wrt diffuse_color in {n_chunks} chunks of "
+          f"{n_chunk} rays: {seconds * 1e3:.2f} ms per image, "
+          f"{seconds * 1e3 / spp:.2f} ms per spp pass, "
+          f"{width * height * spp / seconds:.4g} camera rays/s; CUDA events: "
+          f"forward {fwd_ms / n_chunks:.2f} ms + backward "
+          f"{bwd_ms / n_chunks:.2f} ms per chunk ({fwd_ms / spp:.2f} + "
+          f"{bwd_ms / spp:.2f} ms per pass); peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"phase 11: gradient of the image (sum over chunks) "
+          f"{grad.round(6).tolist()}; the same chunk twice: max |diff| "
+          f"{delta:.3g} ({rel:.3g} of max |grad|)")
+    if rel > 1e-6:
+        raise AssertionError("phase 11: the gradient is not reproducible")
+
+    # one chunk again, with mt_closest's launches and take's backwards
+    # captured: their times beside the chunk's
+    real_mt, real_grad = MT.mt_closest, FG.onehot_grad
+    mt_ev, mt_calls, takes = [], [], []
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def mt_timed(*a, **k):
+        e = (ev(), ev())
+        e[0].record()
+        out = real_mt(*a, **k)
+        e[1].record()
+        mt_ev.append(e)
+        mt_calls.append((tuple(copy(x) for x in a),
+                         {key: copy(x) for key, x in k.items()},
+                         tuple(x.clone() for x in out)))
+        return out
+
+    def grad_captured(idx, g, rows):
+        takes.append((idx, g.detach().clone(), rows))
+        return real_grad(idx, g, rows)
+
+    MT.mt_closest, FG.onehot_grad = mt_timed, grad_captured
+    try:
+        e = (ev(), ev(), ev())
+        _fwd_bwd(scene, cfg, leaves, chunks[1], 1, e)
+        torch.cuda.synchronize()
+    finally:
+        MT.mt_closest, FG.onehot_grad = real_mt, real_grad
+    mt_ms = sum(a.elapsed_time(z) for a, z in mt_ev)
+    # the chunk's queries at their own shape: each held bit for bit against
+    # mt_closest_ref, then timed alone beside the plain version and its bound
+    mt_err, alone, bound_by = 0.0, [], {}
+    for i, (a, k, got) in enumerate(mt_calls):
+        name = f"chunk query {i} ({'shadow' if k.get('shadow') else 'closest'})"
+        mt_err = _compare(name, got, MT.mt_closest_ref(*a, **k), mt_err,
+                          phase="11", exact=True)
+        ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 10)
+        plain = _cuda_ms(lambda: MT.mt_closest_ref(*a, **k), 1)
+        live, rows, bound, by = mt_bound(a, k)
+        alone.append((ms, plain, bound))
+        bound_by[by] = bound_by.get(by, 0.0) + bound
+        print(f"phase 11: {name}: {a[1].shape[0]} rays, {live} live, {rows} "
+              f"rows kept: mt_closest {ms:.4f} ms, mt_closest_ref "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), at "
+              f"{100 * bound / ms:.1f}% of it")
+    alone_ms, alone_plain, alone_bound = (sum(x) for x in zip(*alone))
+    # both backwards against the same sums in f64
+    take_ms = plain_ms = take_err = plain_err = 0.0
+    for idx, g, rows in takes:
+        plain = lambda: torch.zeros((rows,) + g.shape[1:], device=DEVICE
+                                    ).index_put_((idx,), g, accumulate=True)
+        exact = torch.zeros((rows,) + g.shape[1:], dtype=torch.float64,
+                            device=DEVICE).index_add_(0, idx, g.double())
+        rel = lambda x: float(((x.double() - exact).abs()
+                               / exact.abs().clamp_min(1e-30)).max())
+        take_err = max(take_err, rel(real_grad(idx, g, rows)))
+        plain_err = max(plain_err, rel(plain()))
+        take_ms += _cuda_ms(lambda: real_grad(idx, g, rows), 5)
+        plain_ms += _cuda_ms(plain, 5)
+    print(f"phase 11: one chunk: forward {e[0].elapsed_time(e[1]):.2f} ms, "
+          f"backward {e[1].elapsed_time(e[2]):.2f} ms; mt_closest "
+          f"{len(mt_ev)} launches per chunk, {mt_ms:.3f} ms of events in the "
+          f"chunk, {alone_ms:.4f} ms timed alone (mt_closest_ref "
+          f"{alone_plain:.4f} ms, bound {alone_bound:.4f} ms); take: "
+          f"{len(takes)} backwards in the chunk, one-hot products "
+          f"{take_ms:.3f} ms against plain indexing's backward "
+          f"(index_put_ with accumulate) {plain_ms:.3f} ms; max relative "
+          f"error against the f64 sums: take {take_err:.3g}, plain "
+          f"indexing {plain_err:.3g}")
+    if not takes or take_err > 1e-5:
+        raise AssertionError("phase 11: take's backward misses the sums")
+    if len(mt_calls) != want // n_chunks:
+        raise AssertionError(f"phase 11: {len(mt_calls)} mt_closest calls in "
+                             "the captured chunk")
+    n = len(alone)
+    per_launch = dict(max_abs_err=mt_err, ms=alone_ms / n,
+                      plain_ms=alone_plain / n, bound_ms=alone_bound / n,
+                      bound_by=max(bound_by, key=bound_by.get))
+
+    # where a chunk's time goes: the device time of one chunk's kernels
+    # (profiler) against the unprofiled chunk's wall time (events above);
+    # and the same work in one chunk of the whole frame
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _fwd_bwd(scene, cfg, leaves, chunks[2], 2)
+        torch.cuda.synchronize()
+    kernels = [k for k in prof.key_averages()
+               if k.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(k.self_device_time_total for k in kernels) / 1e3
+    chunk_ms = (fwd_ms + bwd_ms) / n_chunks
+    top = sorted(kernels, key=lambda k: -k.self_device_time_total)[:4]
+    print(f"phase 11: profiled chunk: device busy "
+          + (f"{busy_ms:.2f} ms in {sum(k.count for k in kernels)} kernel "
+             f"launches, {100 * busy_ms / chunk_ms:.1f}% of a chunk's "
+             f"{chunk_ms:.2f} ms (idle {100 - 100 * busy_ms / chunk_ms:.1f}"
+             "%); top: " + ", ".join(
+                 f"{k.key[:48]} {k.self_device_time_total / 1e3:.2f} ms "
+                 f"x{k.count}" for k in top)
+             if busy_ms > 0 else "not measured (no device time traced)"))
+    whole = _pixels(width, 0, height, DEVICE)
+    _fwd_bwd(scene, cfg, leaves, whole, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for s in range(4):
+        _fwd_bwd(scene, cfg, leaves, whole, s)
+    torch.cuda.synchronize()
+    print(f"phase 11: for comparison, the whole frame as one chunk: "
+          f"{(time.perf_counter() - t0) * 1e3 / 4:.2f} ms per spp pass "
+          f"(4 passes), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return launches, per_launch
+
+
+def phase12_grad_paths(terrain):
+    """Gradients through the kernel path against the plain path: Cornell
+    and the terrain (kernel b). Returns tiles_traverse's launches."""
+    import torch
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.cameras import make_camera
+    from libyafaray_tpu_torch.params import ParamMap
+    from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA, cornell_builder
+    _check_fp32_precision()
+    names = ["materials.diffuse_color", "lights.color"]
+    b = cornell_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = SMALL
+    cornell = b.compile("cam")
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    got = _image_grads(cornell, cfg, names, 2)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        want = _image_grads(cornell, cfg, names, 2)
+    _grads_agree("12", [f"cornell {SMALL}x{SMALL} {n}" for n in names], got,
+                 want, GRAD_RTOL)
+    small = dataclasses.replace(terrain, camera=make_camera(ParamMap(dict(
+        TERRAIN_CAMERA, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    TL.launches = 0
+    got = _image_grads(small, cfg, names, 1)
+    torch.cuda.synchronize()
+    launches = TL.launches
+    if launches != (TERRAIN_BOUNCES + 1) * 3:
+        raise AssertionError(f"the terrain launched tile_walk {launches} "
+                             "times")
+    with _plain(TL, "tile_walk", TL.tile_walk_ref):
+        want = _image_grads(small, cfg, names, 1)
+    _grads_agree("12", [f"terrain {TERRAIN_SMALL}x{TERRAIN_SMALL} {n}"
+                        for n in names], got, want, GRAD_RTOL)
+    return launches
+
+
+def phase13_glossy():
+    """BASELINE config 2: the glossy Cornell at 512x512, 16 spp, 4 bounces;
+    its kernel and plain paths at 256x256; kernel-path and plain-path
+    exponent gradients on the Cornell box with the glossy slab."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.scenes import (glossy_cornell_builder,
+                                             glossy_slab_builder)
+    b = glossy_cornell_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = GLOSSY_RES
+    scene = b.compile("cam")
+    if 1 not in scene.materials.present_types:
+        raise AssertionError("the glossy material is not compiled")
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    render(scene, cfg, spp=1)                       # warm-up pass
+    torch.cuda.synchronize()
+    MT.launches = 0
+    t0 = time.perf_counter()
+    film = render(scene, cfg, spp=SPP)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = MT.launches
+    img = F.resolve(film).cpu().numpy()
+    if not np.isfinite(img).all() or launches != SPP * (BOUNCES + 1) * 2:
+        raise AssertionError(f"glossy render: finite {np.isfinite(img).all()}"
+                             f", {launches} mt_closest launches")
+    print(f"phase 13: glossy cornell {GLOSSY_RES}x{GLOSSY_RES} {SPP} spp "
+          f"{BOUNCES} bounces: {seconds * 1e3 / SPP:.2f} ms/pass, "
+          f"{GLOSSY_RES ** 2 * SPP / seconds:.4g} camera rays/s, {launches} "
+          f"kernel launches, image mean {float(img.mean()):.6f}")
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = SMALL
+    small = b.compile("cam")
+    img_k = F.resolve(render(small, cfg, spp=2)).cpu().numpy()
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = F.resolve(render(small, cfg, spp=2)).cpu().numpy()
+    _paths_agree("13", img_k, img_p)
+    # no face of config 2 uses its glossy material: the exponent gradient
+    # is taken where the glossy slab is in view
+    b = glossy_slab_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = SMALL
+    slab = b.compile("cam")
+    _check_fp32_precision()
+    got = _image_grads(slab, cfg, ["materials.exponent"], 2)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        want = _image_grads(slab, cfg, ["materials.exponent"], 2)
+    _grads_agree("13", [f"glossy slab {SMALL}x{SMALL} exponent"], got, want,
+                 GRAD_RTOL)
+    return launches
+
+
+def phase14_train():
+    """make_train_step: five SGD steps on the Cornell diffuse colours at
+    256x256, 1 bounce, target 0.25, sample 0; the loss must decrease."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import make_integrator, make_train_step
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    _check_fp32_precision()
+    b = cornell_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = SMALL
+    scene = b.compile("cam")
+    step = make_train_step(make_integrator({"type": "pathtracing",
+                                            "bounces": 1}), SMALL, SMALL)
+    params = {"diffuse_color": scene.materials.diffuse_color}
+    target = torch.full((SMALL, SMALL, 3), 0.25, device=DEVICE)
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, loss = step(scene, params, target, 0)
+        losses.append(float(loss))        # synchronises
+        times.append(time.perf_counter() - t0)
+    print(f"phase 14: make_train_step {SMALL}x{SMALL}, 1 bounce: losses "
+          f"{[round(x, 8) for x in losses]}; ms per step "
+          f"{[round(t * 1e3, 2) for t in times]}; diffuse_color now "
+          f"{params['diffuse_color'].cpu().numpy().round(5).tolist()}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 14: the loss did not decrease: {losses}")
+
+
+def phase15_cornell_golden():
+    """The Cornell box under directlighting against the libYafaRay golden
+    tests/golden/cornell_ref_256.hdr, with tests/test_refparity.py's
+    bounds."""
+    import numpy as np
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.io import load_hdr
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    ref = load_hdr(CORNELL_GOLDEN)[..., :3]
+    b = cornell_builder()
+    # the reference's area lights are invisible to camera rays
+    b.lights["lamp"]["visibility"] = "invisible"
+    b.lights["lamp"]["samples"] = 1
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = CORNELL_GOLDEN_RES
+    film = render(b.compile("cam"), make_integrator({"type": "directlighting"}),
+                  spp=CORNELL_GOLDEN_SPP)
+    img = F.resolve(film)[..., :3].cpu().numpy() * np.pi
+    down = lambda x: x.reshape(CORNELL_GOLDEN_RES // 4, 4,
+                               CORNELL_GOLDEN_RES // 4, 4, 3).mean((1, 3))
+    scale = img.mean() / ref.mean()
+    lit = ref.max(-1) > 0.05
+    rel = np.abs(img - ref).max(-1)[lit] / ref.max(-1)[lit]
+    rd, od = down(ref), down(img)
+    litd = rd.max(-1) > 0.05
+    reld = np.abs(od - rd).max(-1)[litd] / rd.max(-1)[litd]
+    p99 = float(np.percentile(reld, 99))
+    print(f"phase 15: cornell directlighting {CORNELL_GOLDEN_RES}x"
+          f"{CORNELL_GOLDEN_RES} {CORNELL_GOLDEN_SPP} spp against the "
+          f"libYafaRay golden: global scale {scale:.6f}, mean relative error "
+          f"{rel.mean():.5f}, 4x4-downsampled p99 {p99:.5f}, max "
+          f"{reld.max():.5f}")
+    if not (np.isfinite(img).all() and abs(scale - 1.0) < 0.01
+            and rel.mean() < 0.04 and p99 < 0.06 and reld.max() < 0.15):
+        raise AssertionError("phase 15: the Cornell render misses the golden")
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -1178,6 +1646,14 @@ def _probe():
     bound = _bound_ms(8 * 128, 8 * 128 * 4)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1])
+
+
+def _timed(phase, fn, *args):
+    """fn(*args), with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1218,17 +1694,24 @@ def main() -> int:
     print(f"phase 2: compiled the forest scene in "
           f"{time.perf_counter() - t0:.2f} s")
     cornell = cornell_builder().compile("cam")
-    mt_err, mt_times, mt_bnd = phase3_mt(cornell, *hd_scenes())
-    tl_err, tl_times, tl_bound, big = phase3b_tiles(terrain)
-    arm_err, arm_times = phase3c_arms(forest, tl_times["camera"][0])
-    mt_launches = phase4_cornell()
-    phase5_cornell_paths()
-    terrain_img, terrain_launches = phase6_terrain(terrain)
+    mt_err, mt_times, mt_bnd = _timed("3", phase3_mt, cornell, *hd_scenes())
+    tl_err, tl_times, tl_bound, big = _timed("3b", phase3b_tiles, terrain)
+    arm_err, arm_times = _timed("3c", phase3c_arms, forest,
+                                tl_times["camera"][0])
+    mt_launches = _timed("4", phase4_cornell)
+    _timed("5", phase5_cornell_paths)
+    terrain_img, terrain_launches = _timed("6", phase6_terrain, terrain)
     from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
-    _kernel_vs_plain("7", terrain, TERRAIN_CAMERA)
-    forest_launches, forest_arms = phase8_forest(forest, terrain_img)
-    _kernel_vs_plain("9", forest, TERRAIN_CAMERA)
-    phase10_golden()
+    _timed("7", _kernel_vs_plain, "7", terrain, TERRAIN_CAMERA)
+    forest_launches, forest_arms = _timed("8", phase8_forest, forest,
+                                          terrain_img)
+    _timed("9", _kernel_vs_plain, "9", forest, TERRAIN_CAMERA)
+    _timed("10", phase10_golden)
+    fwd_bwd_launches, mt_chunk = _timed("11", phase11_fwd_bwd)
+    grad_tile_launches = _timed("12", phase12_grad_paths, terrain)
+    glossy_launches = _timed("13", phase13_glossy)
+    _timed("14", phase14_train)
+    _timed("15", phase15_cornell_golden)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -1244,9 +1727,19 @@ def main() -> int:
         {"name": "mt_closest", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/mt_intersect.cu",
          "replaces": "libyafaray_tpu/accel/pallas_intersect.py:49",
-         "launches": mt_launches, "max_abs_err": mt_err,
-         "ms": mt_times[False][0], "plain_ms": mt_times[False][1],
-         "bound_ms": mt_bnd[0], "bound_by": mt_bnd[1],
+         "launches": fwd_bwd_launches,
+         "max_abs_err": max(mt_err, mt_chunk["max_abs_err"]),
+         "launches_by_path": {
+             "cornell forward, phase 4": mt_launches,
+             "cornell forward + backward, phase 11": fwd_bwd_launches,
+             "glossy cornell forward, phase 13": glossy_launches},
+         "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
+                     "mean per launch",
+         "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],
+         "bound_ms": mt_chunk["bound_ms"], "bound_by": mt_chunk["bound_by"],
+         "camera_1080p": {"ms": mt_times[False][0],
+                          "plain_ms": mt_times[False][1],
+                          "bound_ms": mt_bnd[0], "bound_by": mt_bnd[1]},
          "library_ms": None},
         {"name": "tiles_traverse", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/tiles_traverse.cu",
@@ -1256,7 +1749,11 @@ def main() -> int:
          "plain_ms": arm_times[main_arm]["plain_ms"],
          "bound_ms": arm_times[main_arm]["bound_ms"],
          "bound_by": arm_times[main_arm]["bound_by"],
-         "library_ms": None, "arms": arms},
+         "library_ms": None, "arms": arms,
+         "launches_by_path": {
+             "forest forward, phase 8": forest_launches,
+             "terrain forward, phase 6": terrain_launches,
+             "terrain forward + backward, phase 12": grad_tile_launches}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -1,11 +1,15 @@
 """libyafaray_tpu_torch: the PyTorch / CUDA port of libyafaray_tpu.
 
 A second package beside the JAX one, held against it module by module. It
-imports torch and numpy only. The forward path renders the Cornell box, the
-203k-triangle terrain of BASELINE config 3 (untextured) and the forest (the
-terrain under true instances, some of them moving) under the `pathtracing`
-and `directlighting` integrators; `SceneBuilder.compile` and `render` run
-on the CUDA card unless the caller names another device. On the card every
+imports torch and numpy only. The forward path renders the Cornell box (with
+shiny-diffuse and glossy materials), the 203k-triangle terrain of BASELINE
+config 3 (untextured) and the forest (the terrain under true instances,
+some of them moving) under the `pathtracing` and `directlighting`
+integrators. Torch autograd runs through it: material and light parameters
+get gradients, which stop at the intersection queries as in the JAX
+package, and `make_train_step` takes an inverse-rendering SGD step on one
+device. `SceneBuilder.compile`, `render` and `make_train_step` run on the
+CUDA card unless the caller names another device. On the card every
 intersection query runs a hand-written kernel: `csrc/mt_intersect.cu` on
 the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
 (static, motion-blur and instancing arms) on the block accelerator
@@ -13,9 +17,10 @@ the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
 the card's shared memory per block.
 """
 from .integrators.mc import IntegratorConfig, make_integrator
+from .parallel import make_train_step
 from .render import render, render_pass_fn
 from .scene import SceneBuilder
 from .scene_types import SceneData
 
 __all__ = ["SceneBuilder", "SceneData", "IntegratorConfig", "make_integrator",
-           "render", "render_pass_fn"]
+           "make_train_step", "render", "render_pass_fn"]

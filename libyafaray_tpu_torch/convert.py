@@ -14,8 +14,15 @@ import numpy as np
 import torch
 
 from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT,
-                          LIGHT_SUN, MAT_SHINY_DIFFUSE, Background, BlockAccel, Camera,
-                          Geometry, LightTable, MaterialTable, SceneData)
+                          LIGHT_SUN, MAT_GLOSSY, MAT_SHINY_DIFFUSE, Background,
+                          BlockAccel, Camera, Geometry, LightTable,
+                          MaterialTable, SceneData)
+
+
+_MAT_COLUMNS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
+                "emit_color", "specular_refl", "transparency", "translucency",
+                "diffuse_reflect", "glossy_reflect", "exponent", "exp_u",
+                "exp_v", "ior", "mat_flags")
 
 
 def _t(x) -> torch.Tensor:
@@ -42,7 +49,7 @@ def scene_from_numpy(tree) -> SceneData:
     if tree.accel_kind == "brute":
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
-    _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE},
+    _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE, MAT_GLOSSY},
              f"material types {m.present_types}")
     _require(not (m.has_oren or m.has_blend or m.has_mask or m.has_beer
                   or m.has_sss), "Oren-Nayar, blend, mask or volume materials")
@@ -72,12 +79,9 @@ def scene_from_numpy(tree) -> SceneData:
                    "inst_face_base", "inst_face_off", "inst_obj",
                    "inst_vis")))
     mats = MaterialTable(
-        mat_type=_t(m.mat_type), diffuse_color=_t(m.diffuse_color),
-        mirror_color=_t(m.mirror_color), emit_color=_t(m.emit_color),
-        specular_refl=_t(m.specular_refl), transparency=_t(m.transparency),
-        translucency=_t(m.translucency),
-        diffuse_reflect=_t(m.diffuse_reflect), ior=_t(m.ior),
-        mat_flags=_t(m.mat_flags), has_fresnel=bool(m.has_fresnel))
+        **{f: _t(getattr(m, f)) for f in _MAT_COLUMNS},
+        present_types=tuple(m.present_types),
+        has_fresnel=bool(m.has_fresnel), has_aniso=bool(m.has_aniso))
     lights = LightTable(
         light_type=_t(lt.light_type), position=_t(lt.position),
         direction=_t(lt.direction), color=_t(lt.color), edge1=_t(lt.edge1),

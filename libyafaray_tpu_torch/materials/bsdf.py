@@ -1,17 +1,22 @@
 """Vectorized BSDF table: eval / sample / emit for the whole wavefront.
 
 Counterpart of `libyafaray_tpu/materials/bsdf.py` with the shiny-diffuse
-material (`MAT_SHINY_DIFFUSE`), the only family the port compiles so far.
-Its lobes, in the JAX package's numbering:
+(`MAT_SHINY_DIFFUSE`) and glossy (`MAT_GLOSSY`) materials, the families the
+port compiles so far. Their lobes, in the JAX package's numbering:
 
     lobe 0  delta reflect   (specular_reflect, optionally Fresnel-weighted)
     lobe 1  delta transmit  (transparency: passes straight through)
+    lobe 2  microfacet      (glossy: Blinn or Ashikhmin-Shirley reflection)
     lobe 3  diffuse reflect (Lambert)
     lobe 4  diffuse transmit (translucency)
 
-The microfacet lobe 2 belongs to glossy and glass materials, which are not
-ported yet; its weight is zero for every shiny-diffuse row. All math runs in
-the local shading frame (z = n).
+Each family's lobe weights are evaluated for the whole wavefront and picked
+per lane by its material type; the lobe math of a family absent from the
+scene (`MaterialTable.present_types`) is not evaluated. All math runs in
+the local shading frame (z = n), and every float parameter is
+differentiable: `gather_mp` gathers the columns through `ops.fast_grad.take`,
+whose backward reduces onto the table with one-hot products, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -21,70 +26,128 @@ from dataclasses import dataclass
 import torch
 
 from ..math import vec
-from ..scene_types import MaterialTable, SceneData
+from ..ops.fast_grad import take
+from ..scene_types import (MAT_GLOSSY, MAT_SHINY_DIFFUSE, MaterialTable,
+                           SceneData)
+from . import microfacet as mf
 
 Tensor = torch.Tensor
 
 # mat_flags bits
 FLAG_FRESNEL = 1
+FLAG_ANISOTROPIC = 2
+FLAG_AS_DIFFUSE = 4
 
 _INV_PI = 1.0 / math.pi
+
+# the float columns of the material table, gathered per lane
+_COLUMNS = ("diffuse_color", "glossy_color", "mirror_color", "emit_color",
+            "specular_refl", "transparency", "translucency",
+            "diffuse_reflect", "glossy_reflect", "exponent", "exp_u", "exp_v",
+            "ior")
 
 
 @dataclass
 class MP:
     """Per-lane material parameters."""
+    mat_type: Tensor
     diffuse_color: Tensor
+    glossy_color: Tensor
     mirror_color: Tensor
     emit_color: Tensor
     specular_refl: Tensor
     transparency: Tensor
     translucency: Tensor
     diffuse_reflect: Tensor
+    glossy_reflect: Tensor
+    exponent: Tensor
+    exp_u: Tensor
+    exp_v: Tensor
     ior: Tensor
     mat_flags: Tensor
-    # any row with fresnel_effect set (static hint, as in the JAX package)
+    # static hints copied from the table, as in the JAX package: the
+    # material families present, and whether any row uses Fresnel
+    # weighting or an anisotropic lobe
+    present: tuple = ()
     has_fresnel: bool = True
+    has_aniso: bool = True
+
+    def has(self, ty: int) -> bool:
+        return not self.present or ty in self.present
 
 
 def gather_mp(mats: MaterialTable, mat_id: Tensor) -> MP:
     idx = mat_id.long()
-    return MP(
-        has_fresnel=mats.has_fresnel,
-        diffuse_color=mats.diffuse_color[idx],
-        mirror_color=mats.mirror_color[idx],
-        emit_color=mats.emit_color[idx],
-        specular_refl=mats.specular_refl[idx],
-        transparency=mats.transparency[idx],
-        translucency=mats.translucency[idx],
-        diffuse_reflect=mats.diffuse_reflect[idx],
-        ior=mats.ior[idx],
-        mat_flags=mats.mat_flags[idx])
+    return MP(present=mats.present_types, has_fresnel=mats.has_fresnel,
+              has_aniso=mats.has_aniso, mat_type=mats.mat_type[idx],
+              mat_flags=mats.mat_flags[idx],
+              **{f: take(getattr(mats, f), idx) for f in _COLUMNS})
+
+
+def _flag(flags: Tensor, bit: int) -> Tensor:
+    return (flags & bit) != 0
 
 
 def lobe_weights(mp: MP, cos_wo: Tensor):
-    """Per-lane weights of the delta-reflect, delta-transmit,
-    diffuse-reflect and diffuse-transmit lobes, summing to <= 1: ShinyDiffuse's
-    cumulative component accumulation (material_shiny_diffuse.cc)."""
-    if mp.has_fresnel:
-        kr_ior = vec.fresnel_dielectric(cos_wo, mp.ior)
-        use_fresnel = (mp.mat_flags & FLAG_FRESNEL) != 0
-        m = mp.specular_refl * torch.where(use_fresnel, kr_ior, 1.0)
-    else:
-        m = mp.specular_refl
-    acc = 1.0 - m
-    t = mp.transparency * acc
-    acc = acc * (1.0 - mp.transparency)
-    tl = mp.translucency * acc
-    acc = acc * (1.0 - mp.translucency)
-    di = mp.diffuse_reflect * acc
-    return m, t, di, tl
+    """Per-lane weights of the five lobes, summing to <= 1: ShinyDiffuse's
+    cumulative component accumulation (material_shiny_diffuse.cc) and the
+    glossy material's split."""
+    zero = torch.zeros_like(cos_wo)
+    w_dr = w_dt = w_mf = w_di = w_tl = zero
+    if mp.has(MAT_SHINY_DIFFUSE):
+        if mp.has_fresnel:
+            kr_ior = vec.fresnel_dielectric(cos_wo, mp.ior)
+            use_fresnel = _flag(mp.mat_flags, FLAG_FRESNEL)
+            m = mp.specular_refl * torch.where(use_fresnel, kr_ior, 1.0)
+        else:
+            m = mp.specular_refl
+        acc = 1.0 - m
+        t = mp.transparency * acc
+        acc = acc * (1.0 - mp.transparency)
+        tl = mp.translucency * acc
+        acc = acc * (1.0 - mp.translucency)
+        di = mp.diffuse_reflect * acc
+        is_sd = mp.mat_type == MAT_SHINY_DIFFUSE
+        w_dr = torch.where(is_sd, m, w_dr)
+        w_dt = torch.where(is_sd, t, w_dt)
+        w_tl = torch.where(is_sd, tl, w_tl)
+        w_di = torch.where(is_sd, di, w_di)
+    if mp.has(MAT_GLOSSY):
+        is_gl = mp.mat_type == MAT_GLOSSY
+        w_mf = torch.where(is_gl, mp.glossy_reflect, w_mf)
+        w_di = torch.where(is_gl, mp.diffuse_reflect
+                           * (1.0 - mp.glossy_reflect), w_di)
+    return w_dr, w_dt, w_mf, w_di, w_tl
+
+
+def _glossy_f(mp: MP, wo_l: Tensor, wi_l: Tensor):
+    """Microfacet reflection f and solid-angle pdf of the glossy lobe
+    (Ashikhmin-Shirley normalisation, material_glossy.cc)."""
+    h = vec.normalize(wo_l + wi_l)
+    cos_wo_h = torch.abs(vec.dot(wo_l, h))
+    cos_no = torch.abs(wo_l[..., 2])
+    cos_ni = torch.abs(wi_l[..., 2])
+    aniso = _flag(mp.mat_flags, FLAG_ANISOTROPIC)
+    d = torch.where(aniso, mf.as_aniso_d(h, mp.exp_u, mp.exp_v),
+                    mf.blinn_d(h[..., 2], mp.exponent))
+    pdf_h = torch.where(aniso, mf.as_aniso_pdf_h(h, mp.exp_u, mp.exp_v),
+                        mf.blinn_pdf_h(h[..., 2], mp.exponent))
+    fres = vec.schlick_fresnel(cos_wo_h, mp.glossy_reflect)
+    denom = 4.0 * torch.clamp_min(cos_wo_h, 1e-6) * torch.clamp_min(
+        torch.maximum(cos_no, cos_ni), 1e-6)
+    f = (d * fres / denom)[..., None] * mp.glossy_color
+    # pdf of wi when sampling h then reflecting: pdf_h / (4 |wo.h|)
+    pdf_wi = pdf_h / torch.clamp_min(4.0 * cos_wo_h, 1e-6)
+    same_hemi = (wo_l[..., 2] * wi_l[..., 2]) > 0.0
+    f = torch.where(same_hemi[..., None], f, 0.0)
+    pdf_wi = torch.where(same_hemi, pdf_wi, 0.0)
+    return f, pdf_wi
 
 
 def _eval_single(mp: MP, wo_l: Tensor, wi_l: Tensor):
     """Non-delta f and solid-angle pdf for one parameter row per lane."""
     cos_wo = torch.abs(wo_l[..., 2])
-    w_dr, w_dt, w_di, w_tl = lobe_weights(mp, cos_wo)
+    w_dr, w_dt, w_mf, w_di, w_tl = lobe_weights(mp, cos_wo)
     same_hemi = (wo_l[..., 2] * wi_l[..., 2]) > 0.0
     cos_wi = torch.abs(wi_l[..., 2])
     # diffuse reflect (Lambert)
@@ -95,9 +158,16 @@ def _eval_single(mp: MP, wo_l: Tensor, wi_l: Tensor):
     f_tl = (w_tl * _INV_PI)[..., None] * mp.diffuse_color
     f_tl = torch.where(same_hemi[..., None], 0.0, f_tl)
     pdf_tl = torch.where(same_hemi, 0.0, cos_wi * _INV_PI)
-    f = f_di + f_tl
-    w_sum = w_dr + w_dt + w_di + w_tl
-    pdf = (w_di * pdf_di + w_tl * pdf_tl) / torch.clamp_min(w_sum, 1e-6)
+    # microfacet: only the families present in the scene are evaluated
+    if mp.has(MAT_GLOSSY):
+        f_mf, pdf_mf = _glossy_f(mp, wo_l, wi_l)
+    else:
+        f_mf = torch.zeros_like(mp.diffuse_color)
+        pdf_mf = torch.zeros_like(cos_wi)
+    f = f_di + f_tl + w_mf[..., None] * f_mf
+    w_sum = w_dr + w_dt + w_mf + w_di + w_tl
+    pdf = (w_di * pdf_di + w_tl * pdf_tl + w_mf * pdf_mf) / torch.clamp_min(
+        w_sum, 1e-6)
     return f, pdf
 
 
@@ -125,14 +195,14 @@ class MatSample:
     is_transmit: Tensor  # bool[N] crossed to the other side of the surface
     valid: Tensor        # bool[N] sample produced any contribution
     lobe: Tensor         # i32[N] 0 delta-reflect, 1 delta-transmit,
-                         # 3 diffuse, 4 translucent
+                         # 2 microfacet, 3 diffuse, 4 translucent
 
 
 def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
                    ) -> MatSample:
     cos_wo = torch.abs(wo_l[..., 2])
-    w_dr, w_dt, w_di, w_tl = lobe_weights(mp, cos_wo)
-    w_sum = w_dr + w_dt + w_di + w_tl
+    w_dr, w_dt, w_mf, w_di, w_tl = lobe_weights(mp, cos_wo)
+    w_sum = w_dr + w_dt + w_mf + w_di + w_tl
     valid = w_sum > 1e-6
     inv_sum = 1.0 / torch.clamp_min(w_sum, 1e-6)
     p_dr = w_dr * inv_sum
@@ -140,10 +210,12 @@ def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
     p_di = w_di * inv_sum
     c0 = p_dr
     c1 = c0 + p_dt
-    c3 = c1 + p_di
     pick_dr = u3 < c0
     pick_dt = ~pick_dr & (u3 < c1)
-    pick_di = ~pick_dr & ~pick_dt & (u3 < c3)
+    c2 = c1 + w_mf * inv_sum
+    c3 = c2 + p_di
+    pick_mf = ~pick_dr & ~pick_dt & (u3 < c2)
+    pick_di = ~pick_dr & ~pick_dt & ~pick_mf & (u3 < c3)
 
     sgn_wo = torch.sign(wo_l[..., 2:3])
     sgn_wo = torch.where(sgn_wo == 0, 1.0, sgn_wo)
@@ -155,10 +227,26 @@ def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
     d_loc = vec.cosine_sample_hemisphere(u1, u2)
     wi_di = d_loc * sgn_wo     # same hemisphere as wo
     wi_tl = -d_loc * sgn_wo    # opposite hemisphere
+    # microfacet: a half vector on wo's side, wo reflected about it (only
+    # the families present in the scene are traced)
+    if mp.has(MAT_GLOSSY):
+        if mp.has_aniso:
+            aniso = _flag(mp.mat_flags, FLAG_ANISOTROPIC)
+            h = torch.where(aniso[..., None],
+                            mf.as_aniso_sample_h(u1, u2, mp.exp_u, mp.exp_v),
+                            mf.blinn_sample_h(u1, u2, mp.exponent))
+        else:
+            h = mf.blinn_sample_h(u1, u2, mp.exponent)
+        h = h * sgn_wo
+        cos_wo_h = vec.dot(wo_l, h)
+        wi_mf = vec.normalize(2.0 * cos_wo_h[..., None] * h - wo_l)
+    else:
+        wi_mf = wi_dr
     wi_l = torch.where(pick_dr[..., None], wi_dr,
                        torch.where(pick_dt[..., None], wi_dt,
-                                   torch.where(pick_di[..., None], wi_di,
-                                               wi_tl)))
+                                   torch.where(pick_mf[..., None], wi_mf,
+                                               torch.where(pick_di[..., None],
+                                                           wi_di, wi_tl))))
 
     # combined eval at the sampled wi for an MIS-correct weight and pdf
     f, pdf_nd = _eval_single(mp, wo_l, wi_l)
@@ -178,7 +266,7 @@ def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
     valid = valid & (picked_delta | (pdf_nd > 1e-9))
     is_transmit = (wi_l[..., 2] * wo_l[..., 2]) < 0.0
     lobe = torch.where(pick_dr, 0, torch.where(pick_dt, 1, torch.where(
-        pick_di, 3, 4))).to(torch.int32)
+        pick_mf, 2, torch.where(pick_di, 3, 4)))).to(torch.int32)
     return MatSample(wi=wi_l, weight=weight, pdf=pdf_out,
                      is_delta=picked_delta, is_transmit=is_transmit,
                      valid=valid, lobe=lobe)
@@ -195,6 +283,6 @@ def sample_bsdf(scene: SceneData, sp, wo: Tensor, u1, u2, u3) -> MatSample:
 
 def emit(scene: SceneData, sp, wo: Tensor) -> Tensor:
     """Material emission toward wo (one-sided: front face, ng . wo > 0)."""
-    mp = gather_mp(scene.materials, sp.mat_id)
+    emit_color = take(scene.materials.emit_color, sp.mat_id.long())
     front = vec.dot(wo, sp.ng) > 0.0
-    return torch.where((front & sp.valid)[..., None], mp.emit_color, 0.0)
+    return torch.where((front & sp.valid)[..., None], emit_color, 0.0)

@@ -49,6 +49,13 @@ def fresnel_dielectric(cos_i: Tensor, eta: Tensor) -> Tensor:
     return torch.where(tir, 1.0, fr)
 
 
+def schlick_fresnel(cos_i: Tensor, r0: Tensor) -> Tensor:
+    """Schlick's approximation (material_utils_microfacet.h)."""
+    m = torch.clamp(1.0 - torch.abs(cos_i), 0.0, 1.0)
+    m2 = m * m
+    return r0 + (1.0 - r0) * m2 * m2 * m
+
+
 def orthonormal_basis(n: Tensor):
     """(u, v) such that (u, v, n) is a right-handed orthonormal frame
     (branchless Duff et al. construction)."""

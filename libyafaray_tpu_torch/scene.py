@@ -2,10 +2,11 @@
 compiled to the torch tables of `scene_types.py`.
 
 Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
-port carries so far: `shinydiffusemat` materials, triangle meshes with
-motion-blur keyframes, instances (baked into copies, or true instances over
-the block accelerator), point lights, area lights (baked into the geometry
-as two emissive triangles), sun lights, a perspective camera and a
+port carries so far: `shinydiffusemat` and `glossy` materials (with the
+Lambert diffuse BRDF), triangle meshes with motion-blur keyframes,
+instances (baked into copies, or true instances over the block
+accelerator), point lights, area lights (baked into the geometry as two
+emissive triangles), sun lights, a perspective camera and a
 constant background (with `ibl`, lighting the scene), over the brute-force
 or the block accelerator. `compile()` builds the same tables as the JAX
 compile, on the CUDA card unless the caller names another device. Every
@@ -27,11 +28,12 @@ from .accel.mt_intersect import MAX_TRIS, pack_tris
 from .backgrounds import make_background
 from .cameras import make_camera
 from .lights import FLAG_CAST_SHADOWS, FLAG_ENABLED, FLAG_PHOTON_ONLY
-from .materials.bsdf import FLAG_FRESNEL
+from .materials.bsdf import FLAG_ANISOTROPIC, FLAG_AS_DIFFUSE, FLAG_FRESNEL
 from .scene_types import (
-    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT, LIGHT_SUN, MAT_SHINY_DIFFUSE,
-    VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background,
-    Geometry, LightTable, MaterialTable, SceneData,
+    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT, LIGHT_SUN, MAT_GLOSSY,
+    MAT_SHINY_DIFFUSE, VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL,
+    VIS_SHADOW_ONLY, Background, Geometry, LightTable, MaterialTable,
+    SceneData,
 )
 
 # material and light types the JAX package knows; the ones not ported yet
@@ -104,7 +106,7 @@ class SceneBuilder:
         ty = pm.get_string("type")
         if ty not in _MAT_TYPES:
             raise KeyError(f"material: unknown type {ty!r}")
-        if ty != "shinydiffusemat":
+        if ty not in ("shinydiffusemat", "glossy"):
             raise _unsupported(f"material type {ty!r}")
         if node_list:
             raise _unsupported("shader nodes (material node_list)")
@@ -302,10 +304,11 @@ class SceneBuilder:
         z3 = lambda: np.zeros((n, 3), np.float32)
         zi = lambda: np.zeros((n,), np.int32)
         cols = dict(
-            mat_type=zi(), diffuse_color=z3(), mirror_color=z3(),
-            emit_color=z3(),
+            mat_type=zi(), diffuse_color=z3(), glossy_color=z3(),
+            mirror_color=z3(), emit_color=z3(),
             specular_refl=z(), transparency=z(), translucency=z(),
-            diffuse_reflect=z(), ior=z() + 1.5, mat_flags=zi())
+            diffuse_reflect=z(), glossy_reflect=z(), exponent=z(), exp_u=z(),
+            exp_v=z(), ior=z() + 1.5, mat_flags=zi())
         if not self.material_order:
             # default diffuse gray
             cols["diffuse_color"][0] = (0.8, 0.8, 0.8)
@@ -313,22 +316,49 @@ class SceneBuilder:
         for i, name in enumerate(self.material_order):
             pm = self.materials[name]
             flags = 0
-            # material_shiny_diffuse.cc params
-            cols["mat_type"][i] = MAT_SHINY_DIFFUSE
-            cols["diffuse_color"][i] = pm.get_color("color", (0.8, 0.8, 0.8))[:3]
-            cols["mirror_color"][i] = pm.get_color("mirror_color", (1, 1, 1))[:3]
-            cols["specular_refl"][i] = pm.get_float("specular_reflect", 0.0)
-            cols["transparency"][i] = pm.get_float("transparency", 0.0)
-            cols["translucency"][i] = pm.get_float("translucency", 0.0)
-            cols["diffuse_reflect"][i] = pm.get_float("diffuse_reflect", 1.0)
-            cols["emit_color"][i] = (pm.get_float("emit", 0.0)
-                                     * pm.get_color("color", (0.8, 0.8, 0.8))[:3])
-            cols["ior"][i] = pm.get_float("IOR", 1.33)
-            if pm.get_bool("fresnel_effect", False):
-                flags |= FLAG_FRESNEL
+            if pm.get_string("type") == "glossy":
+                # material_glossy.cc params
+                cols["mat_type"][i] = MAT_GLOSSY
+                cols["diffuse_color"][i] = pm.get_color("diffuse_color",
+                                                        (0.5,) * 3)[:3]
+                cols["glossy_color"][i] = pm.get_color("color", (1, 1, 1))[:3]
+                cols["mirror_color"][i] = pm.get_color("mirror_color",
+                                                       (1, 1, 1))[:3]
+                cols["diffuse_reflect"][i] = pm.get_float("diffuse_reflect",
+                                                          1.0)
+                cols["glossy_reflect"][i] = pm.get_float("glossy_reflect", 1.0)
+                cols["exponent"][i] = pm.get_float("exponent", 50.0)
+                cols["ior"][i] = pm.get_float("IOR", 1.5)
+                if pm.get_bool("anisotropic", False):
+                    flags |= FLAG_ANISOTROPIC
+                    cols["exp_u"][i] = pm.get_float("exp_u", 50.0)
+                    cols["exp_v"][i] = pm.get_float("exp_v", 50.0)
+                if pm.get_bool("as_diffuse", True):
+                    flags |= FLAG_AS_DIFFUSE
+            else:
+                # material_shiny_diffuse.cc params
+                cols["mat_type"][i] = MAT_SHINY_DIFFUSE
+                cols["diffuse_color"][i] = pm.get_color("color",
+                                                        (0.8, 0.8, 0.8))[:3]
+                cols["mirror_color"][i] = pm.get_color("mirror_color",
+                                                       (1, 1, 1))[:3]
+                cols["specular_refl"][i] = pm.get_float("specular_reflect",
+                                                        0.0)
+                cols["transparency"][i] = pm.get_float("transparency", 0.0)
+                cols["translucency"][i] = pm.get_float("translucency", 0.0)
+                cols["diffuse_reflect"][i] = pm.get_float("diffuse_reflect",
+                                                          1.0)
+                cols["emit_color"][i] = (pm.get_float("emit", 0.0)
+                                         * pm.get_color("color",
+                                                        (0.8, 0.8, 0.8))[:3])
+                cols["ior"][i] = pm.get_float("IOR", 1.33)
+                if pm.get_bool("fresnel_effect", False):
+                    flags |= FLAG_FRESNEL
             cols["mat_flags"][i] = flags
         return MaterialTable(
+            present_types=tuple(sorted({int(t) for t in cols["mat_type"]})),
             has_fresnel=bool(np.any(cols["mat_flags"] & FLAG_FRESNEL)),
+            has_aniso=bool(np.any(cols["mat_flags"] & FLAG_ANISOTROPIC)),
             **{k: torch.from_numpy(v) for k, v in cols.items()})
 
     # ------------------------------------------------------------------

@@ -18,6 +18,7 @@ Tensor = torch.Tensor
 
 # --- material type enum (same values as the JAX package) ---
 MAT_SHINY_DIFFUSE = 0   # "shinydiffusemat"
+MAT_GLOSSY = 1          # "glossy"
 
 # --- light type enum (the values the port compiles) ---
 LIGHT_POINT = 0         # "pointlight"
@@ -123,19 +124,32 @@ def inst_transform_normal(geom: Geometry, inst: Tensor, n: Tensor) -> Tensor:
 
 @dataclass
 class MaterialTable(_Table):
-    """SoA material parameters, one row per named material."""
+    """SoA material parameters, one row per named material. Every float
+    column is differentiable: put a leaf in with `dataclasses.replace` after
+    the scene has been moved to its device."""
     mat_type: Tensor         # i32[M]
     diffuse_color: Tensor    # f32[M, 3]
+    glossy_color: Tensor     # f32[M, 3]
     mirror_color: Tensor     # f32[M, 3]
     emit_color: Tensor       # f32[M, 3]
     specular_refl: Tensor    # f32[M]
     transparency: Tensor     # f32[M]
     translucency: Tensor     # f32[M]
     diffuse_reflect: Tensor  # f32[M]
+    glossy_reflect: Tensor   # f32[M]
+    exponent: Tensor         # f32[M] Blinn exponent
+    exp_u: Tensor            # f32[M] anisotropic exponent u
+    exp_v: Tensor            # f32[M] anisotropic exponent v
     ior: Tensor              # f32[M]
-    mat_flags: Tensor        # i32[M] bit0 fresnel_effect
+    mat_flags: Tensor        # i32[M] bit0 fresnel_effect, bit1 anisotropic,
+                             #        bit2 as_diffuse
+    # the mat_type values present (empty: unknown, every family); lobe math
+    # of absent families is not evaluated
+    present_types: tuple = ()
     # any row with fresnel_effect set
     has_fresnel: bool = True
+    # any row with the anisotropic flag
+    has_aniso: bool = True
 
 
 @dataclass

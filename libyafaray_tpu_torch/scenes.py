@@ -1,8 +1,10 @@
-"""Built-in scenes, made with the port's own SceneBuilder: the Cornell box
-and the terrain of BASELINE config 3 (copies of `tests/scenes.py`), the
-forest (the terrain under 2,000 instanced rocks, some of them moving) and
-the instanced cubes of the libYafaRay golden `tests/golden/
-instances_ref_160.hdr` (the scene of `tools/refparity/instances_ref.c`)."""
+"""Built-in scenes, made with the port's own SceneBuilder: the Cornell box,
+its glossy variants (BASELINE config 2, and the scene of the glossy-exponent
+gradient) and the terrain of BASELINE config 3 (copies of `tests/scenes.py`
+and `tests/test_gradients.py`), the forest (the terrain under 2,000
+instanced rocks, some of them moving) and the instanced cubes of the
+libYafaRay golden `tests/golden/instances_ref_160.hdr` (the scene of
+`tools/refparity/instances_ref.c`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,10 +12,12 @@ import numpy as np
 from .scene import SceneBuilder
 
 
-def cornell_builder(white_emit: float = 12.0) -> SceneBuilder:
+def cornell_builder(white_emit: float = 12.0, extras=()) -> SceneBuilder:
     """Cornell box in [0,1]^3 (camera looks +y, z up): floor, ceiling and
     back wall white, left wall red, right wall green, two rotated boxes and
-    a ceiling area light. 34 triangles, plus the light's 2-triangle quad."""
+    a ceiling area light. 34 triangles, plus the light's 2-triangle quad.
+    `extras` are further (name, params) materials, created after the
+    three of the walls."""
     b = SceneBuilder()
     b.create_material("white", {"type": "shinydiffusemat",
                                 "color": (0.73, 0.73, 0.73)})
@@ -21,6 +25,8 @@ def cornell_builder(white_emit: float = 12.0) -> SceneBuilder:
                               "color": (0.65, 0.05, 0.05)})
     b.create_material("green", {"type": "shinydiffusemat",
                                 "color": (0.12, 0.45, 0.15)})
+    for name, pm in extras:
+        b.create_material(name, pm)
 
     b.create_object("walls")
 
@@ -56,6 +62,29 @@ def cornell_builder(white_emit: float = 12.0) -> SceneBuilder:
                             "up": (0.5, -1.35, 1.5),
                             "resx": 64, "resy": 64, "fov": 39.0})
     b.create_background({"type": "constant", "color": (0, 0, 0)})
+    return b
+
+
+def glossy_cornell_builder() -> SceneBuilder:
+    """BASELINE config 2: the Cornell box with a glossy material (exponent
+    120, glossy_reflect 0.8) beside the diffuse walls. As in the JAX
+    package's scene, no face uses it: it compiles the glossy lobe into
+    every BSDF evaluation of the render."""
+    return cornell_builder(extras=[
+        ("gloss", {"type": "glossy", "color": (0.7, 0.6, 0.3),
+                   "glossy_reflect": 0.8, "exponent": 120.0})])
+
+
+def glossy_slab_builder() -> SceneBuilder:
+    """The Cornell box with a glossy slab (Blinn exponent 25,
+    glossy_reflect 0.6, diffuse_reflect 0.3) in the middle of the floor:
+    the scene of the JAX package's glossy-exponent gradient test."""
+    b = cornell_builder(extras=[
+        ("gl", {"type": "glossy", "exponent": 25.0, "glossy_reflect": 0.6,
+                "diffuse_reflect": 0.3, "color": (0.7, 0.7, 0.7)})])
+    b.create_object("slab")
+    b.set_current_material("gl")
+    _box(b, (0.35, 0.35, 0.2), (0.3, 0.2, 0.35))
     return b
 
 

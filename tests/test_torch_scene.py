@@ -11,13 +11,14 @@ import libyafaray_tpu_torch as P
 from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
 from libyafaray_tpu_torch.scenes import cornell_builder as port_cornell
-from scenes import bigmesh_builder, cornell_builder, glossy_cornell_builder
+from scenes import bigmesh_builder, cornell_builder
 from test_torch_foundations import one_torch_thread  # noqa: F401
 
 GEOM = ("vertices", "normals", "uvs", "faces", "face_uvs", "face_mat",
         "face_obj", "face_smooth", "face_light", "face_vis", "tri_table")
-MATS = ("mat_type", "diffuse_color", "mirror_color", "emit_color",
-        "specular_refl", "transparency", "translucency", "diffuse_reflect",
+MATS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
+        "emit_color", "specular_refl", "transparency", "translucency",
+        "diffuse_reflect", "glossy_reflect", "exponent", "exp_u", "exp_v",
         "ior", "mat_flags")
 LIGHTS = ("light_type", "position", "direction", "color", "edge1", "edge2",
           "area", "flags", "samples", "cos_start")
@@ -50,6 +51,21 @@ def _variant(b, name):
                                         (0.7, 0.8, 0.3))]
         b.add_triangle(*i)
         b.smooth_mesh()
+    elif name == "glossy":
+        b.create_material("gloss", {
+            "type": "glossy", "color": (0.7, 0.6, 0.3),
+            "diffuse_color": (0.2, 0.3, 0.4), "glossy_reflect": 0.8,
+            "diffuse_reflect": 0.6, "exponent": 120.0, "IOR": 1.7,
+            "mirror_color": (0.9, 0.8, 0.7)})
+        b.create_material("aniso", {
+            "type": "glossy", "anisotropic": True, "exp_u": 20.0,
+            "exp_v": 300.0, "as_diffuse": False})
+        b.create_object("gbox")
+        for mat, z in (("gloss", 0.2), ("aniso", 0.4)):
+            b.set_current_material(mat)
+            i = [b.add_vertex(*v) for v in ((0.2, 0.2, z), (0.4, 0.2, z),
+                                            (0.3, 0.4, z))]
+            b.add_triangle(*i)
     elif name == "lights":
         b.create_light("lamp2", {
             "type": "arealight", "corner": (0.1, 0.1, 0.9),
@@ -72,7 +88,7 @@ def _assert_same(got, want, fields, what):
 
 
 @pytest.mark.parametrize("variant", ["cornell", "lamp_invisible", "materials",
-                                     "lights"])
+                                     "lights", "glossy"])
 def test_compile_matches_jax_tables(variant):
     js = _variant(cornell_builder(), variant).compile("cam")
     want = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
@@ -85,7 +101,8 @@ def test_compile_matches_jax_tables(variant):
                  "background")
     _assert_same(got, want, ("shadow_bias", "ray_min_dist"), "scene")
     for part, fields in (("geom", ("num_faces", "num_spheres")),
-                         ("materials", ("has_fresnel",)),
+                         ("materials", ("has_fresnel", "has_aniso",
+                                        "present_types")),
                          ("lights", ("num_lights", "present_types",
                                      "samples_static")),
                          ("camera", ("kind", "resx", "resy")),
@@ -162,7 +179,8 @@ def test_compile_runs_on_the_card_unless_told_otherwise(monkeypatch):
 
 
 def _add_glossy(b):
-    b.create_material("g", {"type": "glossy"})
+    # the coated glossy material (plain glossy is ported)
+    b.create_material("g", {"type": "coated_glossy"})
 
 
 def _spot_light(b):
@@ -286,9 +304,9 @@ def test_unknown_types_raise_key_error():
 
 
 def test_converting_an_unported_jax_scene_raises():
-    b = glossy_cornell_builder()
+    b = cornell_builder(extras=[("coat", {"type": "coated_glossy"})])
     b.create_object("gbox")
-    b.set_current_material("gloss")
+    b.set_current_material("coat")
     i = [b.add_vertex(*v) for v in ((0.2, 0.2, 0.2), (0.4, 0.2, 0.2),
                                     (0.3, 0.4, 0.2))]
     b.add_triangle(*i)
