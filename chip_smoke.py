@@ -99,7 +99,32 @@ Phases, each reporting on its own lines:
      rays, one light sample) at 256x256, 96 spp against the libYafaRay
      golden tests/golden/cornell_ref_256.hdr (image x pi): global scale
      within 1%, mean relative error < 4%, 4x4-downsampled p99 < 6% and
-     max < 15% (tests/test_refparity.py's bounds).
+     max < 15% (tests/test_refparity.py's bounds);
+ 16. the slice: BASELINE config 3 as the bench runs it, the image-textured
+     terrain (bigmesh_builder(320), a 64x64 texture on uv through a
+     texture_mapper node) at 720x720, 6 spp, 2 bounces through `render`:
+     every launch the static arm, 54 of them; the split of a pass as in
+     phase 6; the top row the sky, the mean alpha phase 6's, the texture
+     visible (most covered pixels differ from phase 6's by more than
+     1e-2); kernel path against plain path at 128x128, 1 spp; one pass of
+     each terrain profiled: kernel launches per pass and device busy share;
+ 17. the cover-order any hit (YAF_COVER_ORDER=1): every any-hit query of one
+     textured-terrain pass and of one forest pass, walked by tile_walk in
+     cover order against tile_walk_ref (hit/miss equal on every ray) and
+     against the same query front to back, each timed beside its bound
+     (the pair tests of each live ray with its tile's candidates up to its
+     first hit, tile_walk_ref's `steps`), the prepass
+     with and without coverage timed on each; random any-hit rays on phase
+     3b's 2.4M-triangle table the same way; the textured terrain rendered
+     in cover order at phase 16's size must equal phase 16's image bit
+     for bit, with both passes' ms;
+ 18. texel gradients: the gradient of mean(rgb) with respect to
+     textures.texel_pool on the textured terrain at 128x128, 1 spp,
+     through the kernel path against the plain path, and the kernel path
+     twice (rtol 1e-4: the texel gathers' backward is index_put_ with
+     accumulate, whose order on the card is its own); at 720x720, 1 spp,
+     the forward and backward ms, peak device memory and tile_walk's
+     launches in that run (9).
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -144,6 +169,7 @@ TRAIN_STEPS = 5
 CORNELL_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tests", "golden", "cornell_ref_256.hdr")
 CORNELL_GOLDEN_RES, CORNELL_GOLDEN_SPP = 256, 96
+TEXEL_RTOL = 1e-4        # texel gradients: accumulation order on the card
 # H100 SXM data-sheet peaks (fp32 counts a fused multiply-add as 2 flops)
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 FLOPS_PER_PAIR = 45      # one Möller-Trumbore ray-triangle test
@@ -492,10 +518,10 @@ def phase3_mt(cornell, cornell_hd, cubes_hd):
 
 # --------------------------------------------------------------- phase 3b
 
-def _sorted_query(acc, o, d, t_min, t_max, excl, time=None):
+def _sorted_query(acc, o, d, t_min, t_max, excl, time=None, cover=False):
     """The rays (and their shutter times) in the block accelerator's
-    coherence order, prepared for the tile walk: (n, rays, cand, ent,
-    count)."""
+    coherence order, prepared for the tile walk (the candidate lists in
+    cover order with `cover`): (n, rays, cand, ent, count)."""
     import torch
     from libyafaray_tpu_torch.accel import blocks as BL
     from libyafaray_tpu_torch.accel import tiles as TL
@@ -505,7 +531,7 @@ def _sorted_query(acc, o, d, t_min, t_max, excl, time=None):
                                 for x in (o, d, t_min, t_max, excl))
     time = None if time is None else time[perm].contiguous()
     return (o.shape[0],) + TL.prepare(acc.bmin, acc.bmax, o, d, t_min, t_max,
-                                      excl, time)
+                                      excl, time, cover)
 
 
 def _walk_case(name, query, tab, kw, max_err, phase="3b"):
@@ -553,23 +579,35 @@ def _needed(cand, ent, count, got, any_hit):
     return (cols < count[:, None]) & (ent <= reach)
 
 
-def _walk_bound(prep, got, kw):
+def _walk_bound(prep, got, kw, steps=None):
     """(pair tests needed, bound ms, what bounds it) of one tile_walk call
     (prep: rays, cand, ent, count, tab; kw: its keywords; got: its
     outputs): the needed pair tests at the arm's flops per pair, plus one
     ray transform per needed candidate step of an instance block; every
-    input read once and the four outputs written once."""
+    input read once and the four outputs written once. A cover-order walk
+    needs each live ray tested at the candidate steps up to its first hit:
+    `steps` per ray, from tile_walk_ref."""
     import torch
     from libyafaray_tpu_torch.accel import tiles as TL
     rays, cand, ent, count, tab = prep
     motion = (0 if kw.get("tab_t1") is None
               else 2 if kw.get("tab_t2") is not None else 1)
-    need = _needed(cand, ent, count, got, bool(kw.get("any_hit")))
-    pairs = int(need.sum()) * TL.RAY_TILE * tab.shape[2]
+    if steps is None:
+        need = (_needed(cand, ent, count, got, bool(kw.get("any_hit")))
+                * TL.RAY_TILE)
+    else:
+        # need[t, c]: the rays of tile t still looked for at its step c
+        hist = torch.zeros(count.shape[0], cand.shape[1] + 1,
+                           dtype=torch.int64, device=cand.device)
+        hist.scatter_add_(1, steps.view(count.shape[0], TL.RAY_TILE),
+                          torch.ones_like(hist[:, :1]).expand(
+                              -1, TL.RAY_TILE))
+        need = hist.flip(1).cumsum(1).flip(1)[:, 1:]
+    pairs = int(need.sum()) * tab.shape[2]
     flops = pairs * FLOPS_PER_PAIR_MOTION[motion]
     if kw.get("blk_minv") is not None:
         inst = kw["blk_minv"][cand.long()] > 0
-        flops += int((need & inst).sum()) * TL.RAY_TILE * FLOPS_PER_TRANSFORM
+        flops += int((need * inst).sum()) * FLOPS_PER_TRANSFORM
     tabs = [x for x in kw.values() if isinstance(x, torch.Tensor)]
     nbytes = _nbytes(*prep, *tabs) + 4 * rays.shape[0] * 4
     return (pairs,) + _bound_ms(flops, nbytes)
@@ -1626,6 +1664,329 @@ def phase15_cornell_golden():
         raise AssertionError("phase 15: the Cornell render misses the golden")
 
 
+# ------------------------------------------------------- phases 16 to 18
+
+def _profile_pass(scene, cfg):
+    """(kernel launches, device busy ms, ms) of one pass of `scene`: the
+    launches and busy time from the profiler, the ms from an unprofiled
+    pass (host clock, synchronised)."""
+    import torch
+    from libyafaray_tpu_torch import render
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render(scene, cfg, spp=1, start_sample=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        render(scene, cfg, spp=1, start_sample=1)
+        torch.cuda.synchronize()
+    kernels = [k for k in prof.key_averages()
+               if k.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(k.count for k in kernels),
+            sum(k.self_device_time_total for k in kernels) / 1e3, ms)
+
+
+def phase16_textured(textured, terrain, terrain_img):
+    """The slice: the textured terrain. Returns (image, tile kernel
+    launches of its render)."""
+    import numpy as np
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
+    pool, prog = textured.textures, textured.nodes
+    if pool is None or prog is None or prog.bound != ("node_diffuse",):
+        raise AssertionError("the textured terrain must bind a texture node "
+                             "to the diffuse colour")
+    print(f"phase 16: texel pool {tuple(pool.texel_pool.shape)} "
+          f"{pool.texel_pool.dtype} ({pool.num_textures} texture, "
+          f"{int(pool.num_mips[0])} mip levels), {prog.num_nodes} shader "
+          f"node, interpolation {pool.used_interps}")
+    img, launches, arms = _slice_render("16", textured, TERRAIN_SPP,
+                                        TERRAIN_BOUNCES)
+    want = TERRAIN_SPP * (TERRAIN_BOUNCES + 1) * 3
+    if set(arms) != {"static"} or launches != want:
+        raise AssertionError(f"the textured terrain ran {launches} launches "
+                             f"{arms}, want {want} of the static arm")
+    top = img[0, :, :3]
+    if not np.allclose(top, np.broadcast_to(SKY, top.shape), rtol=1e-5,
+                       atol=0) or img[0, :, 3].any():
+        raise AssertionError("the textured terrain's top row is not the sky")
+    alpha, alpha6 = float(img[..., 3].mean()), float(terrain_img[..., 3].mean())
+    covered = img[..., 3] > 0
+    changed = float((np.abs(img[..., :3] - terrain_img[..., :3]).max(-1)
+                     > 1e-2)[covered].mean())
+    print(f"phase 16: alpha mean {alpha:.6f} (phase 6: {alpha6:.6f}); "
+          f"{100 * changed:.2f}% of covered pixels differ from phase 6's "
+          "untextured image by more than 1e-2")
+    if abs(alpha - alpha6) > 1e-6 or changed < 0.5:
+        raise AssertionError("the textured terrain's image is not plausible")
+    _kernel_vs_plain("16", textured, TERRAIN_CAMERA)
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    for label, sc in (("untextured terrain (phase 6's scene)", terrain),
+                      ("textured terrain", textured)):
+        n, busy, ms = _profile_pass(sc, cfg)
+        print(f"phase 16: one pass of the {label}: {n} kernel launches, "
+              + (f"device busy {busy:.2f} ms of {ms:.2f} ms "
+                 f"({100 * busy / ms:.1f}%)" if busy > 0 else
+                 "device busy not measured (no device time traced)"))
+    return img, launches
+
+
+@contextlib.contextmanager
+def _cover_order(on: bool):
+    """YAF_COVER_ORDER set to 1 (on) or unset inside the context."""
+    before = os.environ.pop("YAF_COVER_ORDER", None)
+    if on:
+        os.environ["YAF_COVER_ORDER"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("YAF_COVER_ORDER", None)
+        if before is not None:
+            os.environ["YAF_COVER_ORDER"] = before
+
+
+def _capture_any(scene, cover):
+    """Every any-hit tile_walk call of one pass of `scene` at its camera's
+    size (sample 0, TERRAIN_BOUNCES), in cover order or front to back, each
+    as ((rays, cand, ent, count, tab), keywords); and the pass's launches
+    per arm."""
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import tiles as TL
+    kept, real = [], TL.tile_walk
+
+    def keep_call(*a, **k):
+        if k.get("any_hit"):
+            kept.append((a, k))
+        return real(*a, **k)
+
+    TL.arm_launches.clear()
+    TL.tile_walk = keep_call
+    try:
+        with _cover_order(cover):
+            render(scene, make_integrator({"type": "pathtracing",
+                                           "bounces": TERRAIN_BOUNCES}),
+                   spp=1)
+    finally:
+        TL.tile_walk = real
+    return kept, dict(TL.arm_launches)
+
+
+def _cover_case(label, acc, cover_q, front_q):
+    """One any-hit query walked in cover order by the kernel against
+    tile_walk_ref and against the front-to-back kernel walk of the same
+    rays (hit/miss equal on every ray); times and bound. Returns dict(ms,
+    front_ms, plain_ms, bound_ms, bound_by, cand_ms, front_cand_ms)."""
+    import torch
+    from libyafaray_tpu_torch.accel import tiles as TL
+    (*prep, tab), kw = cover_q
+    (*fprep, ftab), fkw = front_q
+    if not kw.get("cover_order") or fkw.get("cover_order"):
+        raise AssertionError(f"phase 17: {label}: not a cover / front pair")
+    if not torch.equal(prep[0], fprep[0]):
+        raise AssertionError(f"phase 17: {label}: the two orders' rays "
+                             "differ")
+    steps = torch.zeros(prep[0].shape[0], dtype=torch.int64, device=DEVICE)
+    got = TL.tile_walk(*prep, tab, **kw)
+    want = TL.tile_walk_ref(*prep, tab, steps=steps, **kw)
+    front = TL.tile_walk(*fprep, ftab, **fkw)
+    torch.cuda.synchronize()
+    for name, other in (("tile_walk_ref", want), ("front to back", front)):
+        mism = int(((got[1] >= 0) != (other[1] >= 0)).sum())
+        if mism:
+            raise AssertionError(f"phase 17: {label}: hit/miss differs from "
+                                 f"{name} on {mism} rays")
+    r = prep[0]
+    rays_args = (acc.bmin, acc.bmax, r[:, 0:3].contiguous(),
+                 r[:, 3:6].contiguous(), r[:, 6].contiguous(),
+                 r[:, 7].contiguous())
+    out = dict(
+        ms=_cuda_ms(lambda: TL.tile_walk(*prep, tab, **kw), 5),
+        front_ms=_cuda_ms(lambda: TL.tile_walk(*fprep, ftab, **fkw), 5),
+        plain_ms=_cuda_ms(lambda: TL.tile_walk_ref(*prep, tab, **kw), 1),
+        cand_ms=_cuda_ms(lambda: TL.tile_candidates(*rays_args,
+                                                    any_hit=True), 3),
+        front_cand_ms=_cuda_ms(lambda: TL.tile_candidates(*rays_args), 3))
+    pairs, out["bound_ms"], out["bound_by"] = _walk_bound(
+        (*prep, tab), got, kw, steps=steps)
+    live = int((r[:, 7] >= r[:, 6]).sum())
+    print(f"phase 17: {label}: {live} live rays, {int((got[1] >= 0).sum())} "
+          f"hits, hit/miss equal to tile_walk_ref and to the front-to-back "
+          f"walk; {int(steps.sum())} ray-candidate steps needed of "
+          f"{int(prep[3].sum()) * TL.RAY_TILE} on the lists ({pairs} pair "
+          f"tests): cover order "
+          f"{out['ms']:.4f} ms, front to back {out['front_ms']:.4f} ms, "
+          f"tile_walk_ref {out['plain_ms']:.2f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}), the kernel at "
+          f"{100 * out['bound_ms'] / out['ms']:.1f}% of it; tile_candidates "
+          f"with coverage {out['cand_ms']:.3f} ms, without "
+          f"{out['front_cand_ms']:.3f} ms")
+    return out
+
+
+def phase17_cover(textured, forest, textured_img):
+    """The cover-order arm; returns (arm entries for the kernels line,
+    launches of the cover-order render)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import blocks as BL
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.scenes import bigmesh_grid
+    arms = []
+    for name, scene, arm in (("textured terrain", textured, "static+cover"),
+                             ("forest", forest, "instanced+motion1+cover")):
+        cover_q, launched = _capture_any(scene, True)
+        front_q, _ = _capture_any(scene, False)
+        want = (TERRAIN_BOUNCES + 1) * 2
+        if len(cover_q) != want or len(front_q) != want or not launched.get(
+                arm):
+            raise AssertionError(f"phase 17: {name}: {len(cover_q)} cover "
+                                 f"queries, arms {launched}")
+        print(f"phase 17: {name}, one pass in cover order: launches "
+              f"{launched}")
+        cases = [_cover_case(f"{name} any-hit query {i} (depth {i // 2}, "
+                             f"{'sun' if i % 2 == 0 else 'background'})",
+                             scene.blocks, c, f)
+                 for i, (c, f) in enumerate(zip(cover_q, front_q))]
+        total = {k: sum(c[k] for c in cases) for k in
+                 ("ms", "front_ms", "plain_ms", "bound_ms", "cand_ms",
+                  "front_cand_ms")}
+        print(f"phase 17: {name}, the pass's {want} any-hit queries: cover "
+              f"order {total['ms']:.4f} ms, front to back "
+              f"{total['front_ms']:.4f} ms, bound {total['bound_ms']:.4f} "
+              f"ms; tile_candidates with coverage {total['cand_ms']:.3f} ms, "
+              f"without {total['front_cand_ms']:.3f} ms")
+        arms.append(dict(
+            arm=arm, launches=launched[arm],
+            ms=total["ms"] / want, plain_ms=total["plain_ms"] / want,
+            bound_ms=total["bound_ms"] / want,
+            bound_by=max((c["bound_by"] for c in cases),
+                         key=[c["bound_by"] for c in cases].count),
+            front_to_back_ms=total["front_ms"] / want,
+            path=f"{name}, one pass in cover order, phase 17 (mean per "
+                 "any-hit query)"))
+        del cover_q, front_q
+    # random any-hit rays on phase 3b's 2.4M-triangle table
+    rng = np.random.default_rng(17)
+    verts, faces, _, _ = bigmesh_grid(BIG_GRID)
+    vis = np.full(len(faces), 3, np.int32)
+    vis[::7] = 2
+    vis[::11] = 1
+    big = BL.build_blocks(_mesh(verts, faces, vis))
+    o, d, t_min, t_max, excl = _rays(rng, N_BIG, [0, 0, 0.3], [4, 4, 1.5],
+                                     len(faces), 7)
+    d[: N_BIG // 2, 2] = -d[: N_BIG // 2, 2].abs()
+    kw = dict(shadow=True, any_hit=True)
+    cq = _sorted_query(big, o, d, t_min, t_max, excl, cover=True)
+    fq = _sorted_query(big, o, d, t_min, t_max, excl)
+    big_case = _cover_case(f"big terrain ({len(faces)} triangles, blocks of "
+                           f"{big.block_size}), random rays", big,
+                           (cq[1:] + (big.tab,), dict(kw, cover_order=True)),
+                           (fq[1:] + (big.tab,), kw))
+    arms.append(dict(arm="static+cover, blocks of 1024", launches=0,
+                     **{k: big_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by")},
+                     front_to_back_ms=big_case["front_ms"],
+                     path="phase 17, the regime of TPU kernel c"))
+    del big, cq, fq
+    # the textured terrain rendered both ways at phase 16's size
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    images, ms = {}, {}
+    for on in (False, True):
+        with _cover_order(on):
+            torch.cuda.synchronize()
+            TL.arm_launches.clear()
+            t0 = time.perf_counter()
+            film = render(textured, cfg, spp=TERRAIN_SPP)
+            torch.cuda.synchronize()
+            ms[on] = (time.perf_counter() - t0) * 1e3 / TERRAIN_SPP
+            images[on] = F.resolve(film).cpu().numpy()
+            launched = dict(TL.arm_launches)
+    print(f"phase 17: textured terrain {TERRAIN_RES}x{TERRAIN_RES} "
+          f"{TERRAIN_SPP} spp: front to back {ms[False]:.2f} ms/pass, cover "
+          f"order {ms[True]:.2f} ms/pass ({launched}); the two images equal: "
+          f"{np.array_equal(images[True], images[False])}, equal to phase "
+          f"16's: {np.array_equal(images[True], textured_img)}")
+    if not (np.array_equal(images[True], images[False])
+            and np.array_equal(images[True], textured_img)):
+        raise AssertionError("phase 17: the cover-order render differs")
+    # the arm's launches are those of the cover-order render (the main
+    # path in cover order); its times are per any-hit query of one pass
+    arms[0].update(launches=launched["static+cover"],
+                   path=f"textured terrain rendered in cover order "
+                        f"({TERRAIN_SPP} passes), phase 17; times: mean per "
+                        "any-hit query of one pass")
+    return arms, sum(launched.values())
+
+
+def phase18_texel_grads(textured):
+    """Texel gradients through the kernel path against the plain path, and
+    their cost at 720x720. Returns tiles_traverse's launches in the timed
+    720x720 forward + backward."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.cameras import make_camera
+    from libyafaray_tpu_torch.params import ParamMap
+    from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
+    _check_fp32_precision()
+    names = ["textures.texel_pool"]
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    small = dataclasses.replace(textured, camera=make_camera(ParamMap(dict(
+        TERRAIN_CAMERA, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
+    TL.launches = 0
+    got, = _image_grads(small, cfg, names, 1)
+    again, = _image_grads(small, cfg, names, 1)
+    torch.cuda.synchronize()
+    if TL.launches != 2 * (TERRAIN_BOUNCES + 1) * 3:
+        raise AssertionError(f"phase 18: {TL.launches} tile_walk launches "
+                             f"at {TERRAIN_SMALL}x{TERRAIN_SMALL}")
+    with _plain(TL, "tile_walk", TL.tile_walk_ref):
+        want, = _image_grads(small, cfg, names, 1)
+    for label, a, b in (("kernel path against plain path", got, want),
+                        ("kernel path twice", again, got)):
+        scale = np.abs(b).max()
+        ok = np.abs(a - b) <= TEXEL_RTOL * np.abs(b) + 1e-6 * scale
+        print(f"phase 18: texel gradient {TERRAIN_SMALL}x{TERRAIN_SMALL}, "
+              f"{label}: {int((b != 0).any(-1).sum())} of {b.shape[0]} texels "
+              f"with a gradient, max |grad| {scale:.4g}, max |diff| / max "
+              f"|grad| {np.abs(a - b).max() / scale:.3g}, max relative diff "
+              f"{(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max():.3g}")
+        if not (np.isfinite(a).all() and scale > 0 and ok.all()):
+            raise AssertionError(f"phase 18: {label}: the texel gradients "
+                                 f"differ beyond rtol {TEXEL_RTOL}")
+    # the whole 720x720 frame, 1 spp
+    sc, leaves = _leaf_scene(textured, names)
+    pixels = _pixels(TERRAIN_RES, 0, TERRAIN_RES, DEVICE)
+    _fwd_bwd(sc, cfg, leaves, pixels, 0)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    TL.launches = 0
+    g, = _fwd_bwd(sc, cfg, leaves, pixels, 1, ev)
+    torch.cuda.synchronize()
+    launches = TL.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != (TERRAIN_BOUNCES + 1) * 3:
+        raise AssertionError(f"phase 18: {launches} tile_walk launches at "
+                             f"{TERRAIN_RES}x{TERRAIN_RES}")
+    if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+        raise AssertionError("phase 18: the 720x720 texel gradient is not "
+                             "finite or all zero")
+    print(f"phase 18: texel gradient {TERRAIN_RES}x{TERRAIN_RES}, 1 spp, "
+          f"{TERRAIN_BOUNCES} bounces: forward {ev[0].elapsed_time(ev[1]):.2f}"
+          f" ms, backward {ev[1].elapsed_time(ev[2]):.2f} ms, peak device "
+          f"memory {peak / 2**30:.3f} GiB, {launches} tile_walk launches; "
+          f"{int((g != 0).any(-1).sum())} texels with a gradient")
+    return launches
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -1693,6 +2054,10 @@ def main() -> int:
                             TERRAIN_GRID).compile("cam")
     print(f"phase 2: compiled the forest scene in "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    textured = bigmesh_builder(TERRAIN_GRID).compile("cam")
+    print(f"phase 2: compiled the textured terrain scene in "
+          f"{time.perf_counter() - t0:.2f} s")
     cornell = cornell_builder().compile("cam")
     mt_err, mt_times, mt_bnd = _timed("3", phase3_mt, cornell, *hd_scenes())
     tl_err, tl_times, tl_bound, big = _timed("3b", phase3b_tiles, terrain)
@@ -1712,6 +2077,11 @@ def main() -> int:
     glossy_launches = _timed("13", phase13_glossy)
     _timed("14", phase14_train)
     _timed("15", phase15_cornell_golden)
+    textured_img, textured_launches = _timed(
+        "16", phase16_textured, textured, terrain, terrain_img)
+    cover_arms, cover_launches = _timed("17", phase17_cover, textured, forest,
+                                        textured_img)
+    texel_launches = _timed("18", phase18_texel_grads, textured)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -1723,6 +2093,7 @@ def main() -> int:
              for a, _, _ in ARMS]
     arms.append(dict(arm="static, blocks of 1024", launches=0, **big,
                      path="phase 3b, the regime of TPU kernel c"))
+    arms += cover_arms
     print(json.dumps({"kernels": [
         {"name": "mt_closest", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/mt_intersect.cu",
@@ -1744,6 +2115,8 @@ def main() -> int:
         {"name": "tiles_traverse", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/tiles_traverse.cu",
          "replaces": "libyafaray_tpu/accel/tiles.py:277",
+         "cover_order_replaces": "libyafaray_tpu/accel/tiles.py:300-306 "
+                                 "and :158-161",
          "launches": forest_launches, "max_abs_err": max(tl_err, arm_err),
          "ms": arm_times[main_arm]["ms"],
          "plain_ms": arm_times[main_arm]["plain_ms"],
@@ -1753,7 +2126,12 @@ def main() -> int:
          "launches_by_path": {
              "forest forward, phase 8": forest_launches,
              "terrain forward, phase 6": terrain_launches,
-             "terrain forward + backward, phase 12": grad_tile_launches}},
+             "terrain forward + backward, phase 12": grad_tile_launches,
+             "textured terrain forward, phase 16": textured_launches,
+             "textured terrain forward in cover order, phase 17":
+                 cover_launches,
+             "textured terrain texel gradient 720x720, 1 spp, phase 18":
+                 texel_launches}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -10,6 +10,12 @@ Möller-Trumbore over the block's (16, B) slab, SUB triangles at a time, and
 stops once the next candidate's entry bound is beyond every ray's best hit
 (closest hit) or beyond every unhit ray's t_max (any hit).
 
+An any-hit query can walk in cover order instead (`cover_order`, the JAX
+package's opt-in `YAF_COVER_ORDER=1`): the prepass sorts each tile's blocks
+by descending ray coverage (how many of the tile's rays enter the block)
+and `ent` carries minus the coverage; the walk then stops once every live
+ray of the tile has a hit or the list ends, and never reads `ent`.
+
 Two arms extend the static walk, alone or together, as in the JAX
 package's resident kernel:
   * motion blur (`tab_t1`, and `tab_t2` for the quadratic b-spline): each
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -61,12 +68,14 @@ _fn = None
 
 
 def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
-                 t0: Tensor, t1: Tensor) -> Tensor:
+                 t0: Tensor, t1: Tensor, cover: bool = False):
     """Exact slab test of a chunk of tiles' rays ([G, R, 3]) against every
     block AABB; returns each block's entry distance per tile (the minimum
     over the tile's rays that enter it within their t-range; inf if none),
-    f32[G, C]. Taken one axis at a time, which rounds as the JAX package's
-    [G, R, C, 3] form does (max and min are exact)."""
+    f32[G, C], and with `cover` also each block's coverage (how many of
+    the tile's rays enter it), f32[G, C]. Taken one axis at a time, which
+    rounds as the JAX package's [G, R, C, 3] form does (max and min are
+    exact)."""
     tn = tf = None
     for k in range(3):
         o_k = oc[..., k:k + 1]
@@ -79,19 +88,23 @@ def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
         tf = hi if tf is None else torch.minimum(tf, hi)
     t0 = t0[..., None]
     ok = (tn <= tf) & (tf >= t0) & (tn <= t1[..., None])
-    return torch.where(ok, torch.maximum(tn, t0), torch.inf).amin(dim=1)
+    ent = torch.where(ok, torch.maximum(tn, t0), torch.inf).amin(dim=1)
+    if cover:
+        return ent, ok.sum(dim=1, dtype=torch.int32).to(torch.float32)
+    return ent
 
 
 def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
-                    t_min: Tensor, t_max: Tensor):
-    """Per-tile candidate block lists (the JAX package's default branch:
-    one block per candidate, front-to-back order).
+                    t_min: Tensor, t_max: Tensor, any_hit: bool = False):
+    """Per-tile candidate block lists (the JAX package's branch of one block
+    per candidate; front-to-back order, or with `any_hit` cover order).
 
     Rays must be sorted and padded to a RAY_TILE multiple. Returns
     (cand i32[T, Cpad], ent f32[T, Cpad], count i32[T]): each tile's first
     count[t] entries are the blocks some of its rays enter, sorted by entry
-    distance (stable, so ties keep block order); Cpad pads C to a multiple
-    of 128 with block 0 / inf.
+    distance, or with `any_hit` by descending coverage, with `ent` minus
+    the coverage (stable either way, so ties keep block order); Cpad pads C
+    to a multiple of 128 with block 0 / inf.
 
     Tiles are processed in chunks whose [G, R, C] temporaries stay near
     64 MB, as in the JAX package. A chunk whose rays all have an empty
@@ -115,11 +128,22 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
         tile_live = torch.cat([tile_live, tile_live.new_zeros(pad)])
     live = tile_live.reshape(chunks, g).any(dim=1).tolist()
     key = torch.full((t, c), torch.inf, dtype=torch.float32, device=dev)
+    cover = torch.zeros_like(key) if any_hit else None
     for k in range(chunks):
         if live[k]:
             s = slice(k * g, min(t, (k + 1) * g))
-            key[s] = _chunk_entry(bmin, bmax, ot[s], it[s], t0[s], t1[s])
+            out = _chunk_entry(bmin, bmax, ot[s], it[s], t0[s], t1[s],
+                               any_hit)
+            if any_hit:
+                key[s], cover[s] = out
+            else:
+                key[s] = out
     overlap = torch.isfinite(key)
+    if any_hit:
+        # an any-hit walk needs no front-to-back order: candidate membership
+        # already holds each ray's t-range, and it ends when no live ray is
+        # left unhit, so the blocks that most rays enter go first
+        key = -cover
     key = torch.where(overlap, key, torch.inf)
     ent, cand = torch.sort(key, dim=1, stable=True)
     count = overlap.sum(dim=1, dtype=torch.int32)
@@ -225,17 +249,21 @@ def _instance_cols(cols, m: Tensor):
 
 def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
                   tab: Tensor, *, shadow: bool = False,
-                  any_hit: bool = False, tab_t1: Optional[Tensor] = None,
+                  any_hit: bool = False, cover_order: bool = False,
+                  tab_t1: Optional[Tensor] = None,
                   tab_t2: Optional[Tensor] = None,
                   blk_base: Optional[Tensor] = None,
                   blk_minv: Optional[Tensor] = None,
                   id_delta: Optional[Tensor] = None,
-                  inv_rows: Optional[Tensor] = None):
+                  inv_rows: Optional[Tensor] = None,
+                  steps: Optional[Tensor] = None):
     """Plain PyTorch version of the kernel: a loop over candidate steps,
     vectorised across tiles. Before every group of UNROLL steps each tile
     still walking takes the exit test; at step k a tile takes its k-th
     candidate, masked by k < count. Returns (t, id, u, v), each f32[Npad]
-    (id -1 on a miss, t the ray's t_max)."""
+    (id -1 on a miss, t the ray's t_max). `steps` (i64[Npad], optional)
+    is set to the number of candidate steps each ray was tested at while
+    unhit with a live range: a cover-order walk's needed work."""
     t = count.shape[0]
     r = rays.reshape(t, RAY_TILE, 16)
     cols = [r[:, :, k:k + 1] for k in (0, 1, 2, 3, 4, 5, 6, 8)]
@@ -250,14 +278,20 @@ def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     vis_col = 10 if shadow else 9
     cnt = count.to(torch.int64)
     walking = cnt > 0
+    # cover order: a ray is still looked for while unhit with a live range
+    live = r[:, :, 7:8] >= r[:, :, 6:7]
+    if steps is not None:
+        steps.zero_()
+        ray_steps = steps.view(t, RAY_TILE, 1)
     c = 0
     while True:
-        if any_hit:
-            reach = torch.where(best_id < 0.0, best_t, -torch.inf)
+        if cover_order:
+            more = ((best_id < 0.0) & live).any(dim=2).any(dim=1)
         else:
-            reach = best_t
-        walking &= (c < cnt) & (ent[:, min(c, c_pad - 1)]
-                                <= reach.amax(dim=(1, 2)))
+            reach = (torch.where(best_id < 0.0, best_t, -torch.inf)
+                     if any_hit else best_t)
+            more = ent[:, min(c, c_pad - 1)] <= reach.amax(dim=(1, 2))
+        walking &= (c < cnt) & more
         idx = walking.nonzero()[:, 0]
         if idx.numel() == 0:
             break
@@ -269,6 +303,9 @@ def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
             for k in range(UNROLL):
                 ci = c + k
                 step_ok = (ci < cnt[sel]).view(-1, 1, 1) if k else None
+                if steps is not None:
+                    need = (carry[1] < 0.0) & live[sel]
+                    ray_steps[sel] += need if k == 0 else need & step_ok
                 blk = cand[sel, min(ci, c_pad - 1)].to(torch.int64)
                 delta, cols_k = None, cs
                 if blk_base is not None:
@@ -301,23 +338,33 @@ def _launcher():
         fn = csrc_build.library("tiles_traverse").tiles_traverse_launch
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                       ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                       ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                        vp, vp, vp, vp, vp]
         fn.restype = ci
         _fn = fn
     return _fn
 
 
-def arm(motion: int, instanced: bool) -> str:
+def arm(motion: int, instanced: bool, cover: bool = False) -> str:
     """Name of a specialisation of the kernel: "static", "motion1"
-    (linear), "motion2" (quadratic), "instanced", "instanced+motion1"..."""
+    (linear), "motion2" (quadratic), "instanced", "instanced+motion1"...,
+    with "+cover" for the cover-order any-hit walk ("static+cover")."""
     parts = (["instanced"] if instanced else []) + (
         [f"motion{motion}"] if motion else [])
-    return "+".join(parts) or "static"
+    return "+".join((parts or ["static"]) + (["cover"] if cover else []))
+
+
+def cover_order_on(any_hit: bool) -> bool:
+    """Whether an any-hit query walks in cover order: as in the JAX
+    package, when the environment sets YAF_COVER_ORDER=1 (read at each
+    call; the port has neither SUPER nor CAND_K, JAX's other two
+    conditions)."""
+    return bool(any_hit) and os.environ.get("YAF_COVER_ORDER", "0") == "1"
 
 
 def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
               tab: Tensor, *, shadow: bool = False, any_hit: bool = False,
+              cover_order: bool = False,
               tab_t1: Optional[Tensor] = None,
               tab_t2: Optional[Tensor] = None,
               blk_base: Optional[Tensor] = None,
@@ -333,6 +380,8 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     id_delta i32[C] and inv_rows f32[K+1, 12], all four or none. All
     contiguous, on one device; tab, tab_t1 and tab_t2 start on a 16-byte
     boundary (the kernel stages them with 16-byte asynchronous copies).
+    `cover_order` (any hit only) walks lists from
+    `tile_candidates(any_hit=True)` by the cover rule.
     Returns (t, id, u, v), each f32[Npad]. For a closest hit they are the
     ray's nearest hit; for any hit only hit/miss is defined: the kernel
     stops testing a warp's rays once each has a hit, so the t, id, u, v it
@@ -351,6 +400,8 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
                          f"multiple of {SUB}, got {tuple(tab.shape)}")
     if tab_t2 is not None and tab_t1 is None:
         raise ValueError("tile_walk: tab_t2 needs tab_t1")
+    if cover_order and not any_hit:
+        raise ValueError("tile_walk: cover order is an any-hit walk")
     for name, x in (("tab", tab), ("tab_t1", tab_t1), ("tab_t2", tab_t2)):
         if x is not None:
             check(name, x, torch.float32, tuple(tab.shape))
@@ -367,9 +418,9 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
         for name, x in zip(("blk_base", "blk_minv", "id_delta"), inst):
             check(name, x, torch.int32, (c_virt,))
         check("inv_rows", inv_rows, torch.float32, (inv_rows.shape[0], 12))
-    kw = dict(shadow=shadow, any_hit=any_hit, tab_t1=tab_t1, tab_t2=tab_t2,
-              blk_base=blk_base, blk_minv=blk_minv, id_delta=id_delta,
-              inv_rows=inv_rows)
+    kw = dict(shadow=shadow, any_hit=any_hit, cover_order=cover_order,
+              tab_t1=tab_t1, tab_t2=tab_t2, blk_base=blk_base,
+              blk_minv=blk_minv, id_delta=id_delta, inv_rows=inv_rows)
     if dev.type == "cpu":
         return tile_walk_ref(rays, cand, ent, count, tab, **kw)
     if dev.type != "cuda":
@@ -383,7 +434,8 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     err = launch(rays.data_ptr(), cand.data_ptr(), ent.data_ptr(),
                  count.data_ptr(), tab.data_ptr(), ptr(tab_t1), ptr(tab_t2),
                  *(ptr(x) for x in inst), t, c_pad, tab.shape[2],
-                 10 if shadow else 9, int(bool(any_hit)), motion,
+                 10 if shadow else 9, int(bool(any_hit)),
+                 int(bool(cover_order)), motion,
                  blk_base.shape[0] if instanced else tab.shape[0],
                  tab.shape[0], inv_rows.shape[0] if instanced else 0,
                  *(x.data_ptr() for x in out), stream)
@@ -391,16 +443,17 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
         raise RuntimeError(f"tiles_traverse kernel launch failed (CUDA error "
                            f"{err})")
     launches += 1
-    arm_launches[arm(motion, instanced)] += 1
+    arm_launches[arm(motion, instanced, cover_order)] += 1
     return tuple(out)
 
 
 def prepare(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
-            t_max: Tensor, exclude: Tensor, time: Optional[Tensor] = None):
+            t_max: Tensor, exclude: Tensor, time: Optional[Tensor] = None,
+            cover_order: bool = False):
     """Pad the rays to a RAY_TILE multiple (padding rays have an empty
     t-range), pack them f32[Npad, 16] (the shutter time in column 9, 0
-    without one) and build the candidate lists. Returns
-    (rays, cand, ent, count)."""
+    without one) and build the candidate lists (in cover order with
+    `cover_order`). Returns (rays, cand, ent, count)."""
     n = o.shape[0]
     npad = -(-n // RAY_TILE) * RAY_TILE
     dev = o.device
@@ -420,7 +473,8 @@ def prepare(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
         time = torch.cat([time, torch.zeros((k,), **f32)])
     rays = torch.cat([o, d, t_min[:, None], t_max[:, None], exclude[:, None],
                       time[:, None], torch.zeros((npad, 6), **f32)], dim=1)
-    cand, ent, count = tile_candidates(bmin, bmax, o, d, t_min, t_max)
+    cand, ent, count = tile_candidates(bmin, bmax, o, d, t_min, t_max,
+                                       any_hit=cover_order)
     return rays, cand, ent, count
 
 
@@ -430,10 +484,12 @@ def _traverse(walk, tab, bmin, bmax, o, d, t_min, t_max, exclude, shadow,
     if tab_t1 is None or time is None:     # no motion: the keyframes idle
         tab_t1 = tab_t2 = time = None
     n = o.shape[0]
+    cover = cover_order_on(any_hit)
     rays, cand, ent, count = prepare(bmin, bmax, o, d, t_min, t_max, exclude,
-                                     time)
+                                     time, cover)
     bt, bid, bu, bv = walk(rays, cand, ent, count, tab, shadow=shadow,
-                           any_hit=any_hit, tab_t1=tab_t1, tab_t2=tab_t2,
+                           any_hit=any_hit, cover_order=cover,
+                           tab_t1=tab_t1, tab_t2=tab_t2,
                            blk_base=blk_base, blk_minv=blk_minv,
                            id_delta=id_delta, inv_rows=inv_rows)
     return bt[:n], bid[:n].to(torch.int32), bu[:n], bv[:n]
@@ -450,8 +506,9 @@ def tiles_traverse(tab: Tensor, bmin: Tensor, bmax: Tensor, o: Tensor,
     virtual block; o, d f32[N, 3]; t_min, t_max f32[N]; exclude i32[N].
     Instanced scenes pass blk_base / blk_minv / id_delta i32[C] and
     inv_rows f32[K+1, 12]; motion blur passes tab_t1 (and tab_t2) with the
-    rays' shutter times `time` f32[N]. Returns (t, prim i32 (-1 on a miss),
-    u, v), each [N]."""
+    rays' shutter times `time` f32[N]. Any-hit queries walk in cover order
+    when `cover_order_on` says so. Returns (t, prim i32 (-1 on a miss), u,
+    v), each [N]."""
     return _traverse(tile_walk, tab, bmin, bmax, o, d, t_min, t_max, exclude,
                      shadow, any_hit, blk_base, blk_minv, id_delta, inv_rows,
                      tab_t1, tab_t2, time)

@@ -4,9 +4,10 @@
 leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
 SceneData with the same tables (the motion keyframes, the true-instancing
-tables and the block accelerator's included), on the CPU. It reads attributes only and
-imports nothing of JAX. Scenes that use features the port does not carry
-yet raise NotImplementedError.
+tables, the block accelerator's, the image texture pool and the shader-node
+program included), on the CPU. It reads attributes only and imports nothing
+of JAX. Scenes that use features the port does not carry yet raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ import numpy as np
 import torch
 
 from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT,
-                          LIGHT_SUN, MAT_GLOSSY, MAT_SHINY_DIFFUSE, Background,
-                          BlockAccel, Camera, Geometry, LightTable,
-                          MaterialTable, SceneData)
+                          LIGHT_SUN, MAT_GLOSSY, MAT_SHINY_DIFFUSE,
+                          NODE_COLUMNS, Background, BlockAccel, Camera,
+                          Geometry, LightTable, MaterialTable, NodeProgram,
+                          SceneData, TexturePool)
+from .textures import TEX_IMAGE
 
 
 _MAT_COLUMNS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
@@ -63,8 +66,10 @@ def scene_from_numpy(tree) -> SceneData:
     cam = tree.camera
     _require(cam.kind == "perspective", f"camera kind {cam.kind!r}")
     _require(float(cam.aperture) == 0.0, "depth of field")
-    _require(tree.textures is None and tree.nodes is None
-             and tree.volumes is None, "textures, shader nodes and volumes")
+    _require(tree.volumes is None, "volumes")
+    if tree.textures is not None:
+        _require(set(tree.textures.used_types) <= {TEX_IMAGE},
+                 "procedural textures")
     _require(tree.fixed_wavelength is None, "render views")
 
     geom = Geometry(
@@ -79,7 +84,7 @@ def scene_from_numpy(tree) -> SceneData:
                    "inst_face_base", "inst_face_off", "inst_obj",
                    "inst_vis")))
     mats = MaterialTable(
-        **{f: _t(getattr(m, f)) for f in _MAT_COLUMNS},
+        **{f: _t(getattr(m, f)) for f in _MAT_COLUMNS + NODE_COLUMNS},
         present_types=tuple(m.present_types),
         has_fresnel=bool(m.has_fresnel), has_aniso=bool(m.has_aniso))
     lights = LightTable(
@@ -111,4 +116,40 @@ def scene_from_numpy(tree) -> SceneData:
         camera=camera, shadow_bias=_t(tree.shadow_bias),
         ray_min_dist=_t(tree.ray_min_dist), accel_kind=tree.accel_kind,
         blocks=blocks,
-        has_cam_invisible=bool(tree.has_cam_invisible))
+        has_cam_invisible=bool(tree.has_cam_invisible),
+        textures=_textures(tree.textures), nodes=_nodes(tree.nodes, mats),
+        pixel_spread=(None if tree.pixel_spread is None
+                      else _t(tree.pixel_spread)))
+
+
+_POOL_COLUMNS = ("texel_pool", "texel_scale", "img_offset", "img_width",
+                 "img_height", "mip_offsets", "num_mips", "tex_type",
+                 "params_f", "params_c", "ramp_pos", "ramp_col", "ramp_count",
+                 "ramp_mode", "interp", "extend", "adj")
+_NODE_TABLES = ("node_type", "tex_id", "in_a", "in_b", "in_fac", "const_a",
+                "const_b", "const_fac", "params_f", "params_i")
+
+
+def _textures(pool):
+    if pool is None:
+        return None
+    return TexturePool(**{k: _t(getattr(pool, k)) for k in _POOL_COLUMNS},
+                       num_textures=int(pool.num_textures),
+                       used_types=tuple(pool.used_types),
+                       used_interps=tuple(pool.used_interps))
+
+
+def _nodes(prog, mats: MaterialTable):
+    if prog is None:
+        return None
+    bound = tuple(sorted(c for c in NODE_COLUMNS
+                         if bool((getattr(mats, c) >= 0).any())))
+    _require(not set(bound) & {"node_filter_color", "node_sigma_oren",
+                               "node_blend"},
+             "shader nodes bound to the filter colour, sigma or blend")
+    _require(all(im[0] != 2 for t, im in zip(prog.meta, prog.imeta)
+                 if t[0] == 0), "orco texture coordinates")
+    return NodeProgram(**{k: _t(getattr(prog, k)) for k in _NODE_TABLES},
+                       num_nodes=int(prog.num_nodes), meta=tuple(prog.meta),
+                       imeta=tuple(prog.imeta), has_bump=bool(prog.has_bump),
+                       bound=bound)

@@ -28,7 +28,15 @@
 // visibility 0 and prim id -2; dead rays (t_max < t_min) and the padded
 // tail rays can never hit and cannot raise the exit bound.
 //
-// The arms are compile-time specialisations (template MOTION x INST):
+// The cover-order any hit (the JAX package's opt-in YAF_COVER_ORDER=1,
+// tiles.py:158-161 and :300-306) walks lists that tile_candidates(any_hit)
+// sorted by descending ray coverage; `ent` then holds minus the coverage,
+// not a distance, and is never read. Its exit test is a block-wide vote: the
+// tile goes on while c < count and some ray is unhit with t_max >= t_min
+// (its own t-range was already applied by candidate membership).
+//
+// The arms are compile-time specialisations (template MOTION x INST x
+// COVER; COVER only with any hit):
 //   * MOTION 1 / 2 (tab_t1, and tab_t2 for the quadratic b-spline): the
 //     keyframes' 9 vertex rows are staged beside the 11 rows of tab, and
 //     every ray blends each triangle with its own weights,
@@ -192,7 +200,7 @@ __device__ __forceinline__ void stage(float (*dst)[SUB], const WalkArgs& a,
   }
 }
 
-template <int MOTION, bool INST>
+template <int MOTION, bool INST, bool COVER>
 __global__ void __launch_bounds__(NT)
     tiles_traverse_kernel(const WalkArgs a) {
   constexpr int NS = NROW + NKEY * MOTION;
@@ -207,8 +215,8 @@ __global__ void __launch_bounds__(NT)
   const float* r = a.rays + ray * RAY_COLS;
   const float wox = r[0], woy = r[1], woz = r[2];
   const float wdx = r[3], wdy = r[4], wdz = r[5];
-  const float tmin = r[6], excl = r[8];
-  float best_t = r[7], best_id = -1.0f, best_u = 0.0f, best_v = 0.0f;
+  const float tmin = r[6], tmax = r[7], excl = r[8];
+  float best_t = tmax, best_id = -1.0f, best_u = 0.0f, best_v = 0.0f;
   // keyframe weights of this ray's shutter time
   float w0 = 1.0f, w1 = 0.0f, w2 = 0.0f;
   if (MOTION == 1) {
@@ -231,9 +239,17 @@ __global__ void __launch_bounds__(NT)
   if (cnt > 0) stage<MOTION>(s_tri[0], a, slab_of<INST>(a, cand_t, 0), 0);
 
   for (int c = 0;; c += UNROLL) {
-    const float reach = (a.any_hit && best_id >= 0.0f) ? -INFINITY : best_t;
-    const float bound = tile_max(reach, s_red);
-    if (!(c < cnt && ent_t[min(c, a.c_pad - 1)] <= bound)) break;
+    if (COVER) {
+      // some ray of the tile still unhit with a live t-range (one vote per
+      // ray, from its first thread)
+      const bool unhit = part == 0 && best_id < 0.0f && tmax >= tmin;
+      if (!__syncthreads_or(unhit) || c >= cnt) break;
+    } else {
+      const float reach =
+          (a.any_hit && best_id >= 0.0f) ? -INFINITY : best_t;
+      const float bound = tile_max(reach, s_red);
+      if (!(c < cnt && ent_t[min(c, a.c_pad - 1)] <= bound)) break;
+    }
     for (int k = 0; k < UNROLL && c + k < cnt; ++k) {
       const int ci = c + k;
       const int jv = min(max(cand_t[ci], 0), a.num_blocks - 1);
@@ -347,10 +363,24 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int MOTION, bool INST>
+template <int MOTION, bool INST, bool COVER>
 int launch_arm(const WalkArgs& a, int num_tiles, cudaStream_t stream) {
-  tiles_traverse_kernel<MOTION, INST><<<num_tiles, NT, 0, stream>>>(a);
+  tiles_traverse_kernel<MOTION, INST, COVER>
+      <<<num_tiles, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool COVER>
+int launch_cover(const WalkArgs& a, int motion, bool inst, int num_tiles,
+                 cudaStream_t st) {
+  switch (motion * 2 + (inst ? 1 : 0)) {
+    case 0: return launch_arm<0, false, COVER>(a, num_tiles, st);
+    case 1: return launch_arm<0, true, COVER>(a, num_tiles, st);
+    case 2: return launch_arm<1, false, COVER>(a, num_tiles, st);
+    case 3: return launch_arm<1, true, COVER>(a, num_tiles, st);
+    case 4: return launch_arm<2, false, COVER>(a, num_tiles, st);
+    default: return launch_arm<2, true, COVER>(a, num_tiles, st);
+  }
 }
 
 }  // namespace
@@ -363,16 +393,17 @@ int launch_arm(const WalkArgs& a, int num_tiles, cudaStream_t stream) {
 // (block_rows a multiple of 128; tab_t1 for motion >= 1, tab_t2 for motion
 // 2, else NULL); blk_base, blk_minv, id_delta: i32[num_blocks] and
 // inv_rows: f32[num_inv, 12] for instanced tables, else all NULL (and
-// candidate ids index tab directly); outputs: f32[num_tiles * 128] each (t,
-// prim id as a float, u, v).
+// candidate ids index tab directly); cover: 1 for the cover-order walk
+// (any_hit must be 1; lists from tile_candidates(any_hit)); outputs:
+// f32[num_tiles * 128] each (t, prim id as a float, u, v).
 extern "C" int tiles_traverse_launch(
     const float* rays, const int* cand, const float* ent, const int* count,
     const float* tab, const float* tab_t1, const float* tab_t2,
     const int* blk_base, const int* blk_minv, const int* id_delta,
     const float* inv_rows, int num_tiles, int c_pad, int block_rows,
-    int vis_col, int any_hit, int motion, int num_blocks, int num_phys,
-    int num_inv, float* out_t, float* out_id, float* out_u, float* out_v,
-    void* stream) {
+    int vis_col, int any_hit, int cover, int motion, int num_blocks,
+    int num_phys, int num_inv, float* out_t, float* out_id, float* out_u,
+    float* out_v, void* stream) {
   if (num_tiles <= 0) return 0;
   const bool inst = blk_base != nullptr;
   const uintptr_t align = reinterpret_cast<uintptr_t>(tab) |
@@ -381,7 +412,7 @@ extern "C" int tiles_traverse_launch(
   if (block_rows <= 0 || block_rows % SUB != 0 || c_pad <= 0 ||
       num_blocks <= 0 || num_phys <= 0 || motion < 0 || motion > 2 ||
       (align & 15) != 0 || (motion >= 1 && tab_t1 == nullptr) ||
-      (motion == 2 && tab_t2 == nullptr) ||
+      (motion == 2 && tab_t2 == nullptr) || (cover && !any_hit) ||
       (inst && (blk_minv == nullptr || id_delta == nullptr ||
                 inv_rows == nullptr || num_inv <= 0)))
     return (int)cudaErrorInvalidValue;
@@ -391,12 +422,6 @@ extern "C" int tiles_traverse_launch(
                    num_blocks, num_phys, num_inv, out_t,    out_id,
                    out_u,    out_v};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (motion * 2 + (inst ? 1 : 0)) {
-    case 0: return launch_arm<0, false>(a, num_tiles, st);
-    case 1: return launch_arm<0, true>(a, num_tiles, st);
-    case 2: return launch_arm<1, false>(a, num_tiles, st);
-    case 3: return launch_arm<1, true>(a, num_tiles, st);
-    case 4: return launch_arm<2, false>(a, num_tiles, st);
-    default: return launch_arm<2, true>(a, num_tiles, st);
-  }
+  return cover ? launch_cover<true>(a, motion, inst, num_tiles, st)
+               : launch_cover<false>(a, motion, inst, num_tiles, st);
 }

@@ -6,7 +6,9 @@ lanes; dead lanes carry zero throughput and an empty t-range. NEE with MIS
 every bounce, BSDF sampling and Russian roulette after a minimum bounce
 count, drawn from the same counter-based samples as the JAX package. In a
 motion-blurred scene every path carries one shutter time, drawn per sample,
-which its camera, bounce and shadow queries share.
+which its camera, bounce and shadow queries share. Primary hits carry their
+pixel footprint (`compute_differentials`) and every hit its bump-mapped
+normal (`bump_normal`), where the JAX package computes them.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from .. import params as P
 from .. import sampler
 from ..backgrounds import eval_background
 from ..materials import bsdf as B
+from ..materials.nodes import bump_normal
 from ..math import vec
 from ..ops import intersect as I
 from ..ops import surface as S
@@ -105,6 +108,10 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
                                 exclude_prim=prev_prim, time=ray_time)
         hit.valid = hit.valid & alive
         sp = S.make_surface(scene, hit, o, d)
+        if depth == 0:
+            # primary hits carry their footprint for texture filtering
+            sp = S.compute_differentials(scene, sp, d)
+        sp = bump_normal(scene, sp)
         wo = -d
 
         # escaped rays: background, MIS-weighted against the background

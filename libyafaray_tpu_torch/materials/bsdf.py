@@ -16,12 +16,17 @@ scene (`MaterialTable.present_types`) is not evaluated. All math runs in
 the local shading frame (z = n), and every float parameter is
 differentiable: `gather_mp` gathers the columns through `ops.fast_grad.take`,
 whose backward reduces onto the table with one-hot products, as the JAX
-package's does.
+package's does. `resolve_mp` then applies the shader-node overrides
+(`materials/nodes.py`) of the channels a material binds to nodes, such as a
+texture's colour in place of the diffuse colour; `eval_bsdf` and
+`sample_bsdf` go through it, as in the JAX package (`emit_color` is not a
+node channel).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -82,6 +87,17 @@ def gather_mp(mats: MaterialTable, mat_id: Tensor) -> MP:
               has_aniso=mats.has_aniso, mat_type=mats.mat_type[idx],
               mat_flags=mats.mat_flags[idx],
               **{f: take(getattr(mats, f), idx) for f in _COLUMNS})
+
+
+def resolve_mp(scene: SceneData, sp, mat_id: Optional[Tensor] = None) -> MP:
+    """gather_mp, then the shader-node overrides."""
+    if mat_id is None:
+        mat_id = sp.mat_id
+    mp = gather_mp(scene.materials, mat_id)
+    if scene.nodes is not None and scene.nodes.num_nodes > 0:
+        from . import nodes as node_mod
+        mp = node_mod.apply_overrides(scene, sp, mat_id, mp)
+    return mp
 
 
 def _flag(flags: Tensor, bit: int) -> Tensor:
@@ -182,7 +198,7 @@ def _from_local(sp, l):
 def eval_bsdf(scene: SceneData, sp, wo: Tensor, wi: Tensor):
     """f(wo, wi) of the non-delta lobes and the solid-angle pdf
     (Material::eval / pdf)."""
-    mp = gather_mp(scene.materials, sp.mat_id)
+    mp = resolve_mp(scene, sp)
     return _eval_single(mp, _to_local(sp, wo), _to_local(sp, wi))
 
 
@@ -275,7 +291,7 @@ def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
 def sample_bsdf(scene: SceneData, sp, wo: Tensor, u1, u2, u3) -> MatSample:
     """Material::sample for the whole wavefront; `wi` comes back in world
     space."""
-    mp = gather_mp(scene.materials, sp.mat_id)
+    mp = resolve_mp(scene, sp)
     s = _sample_single(mp, _to_local(sp, wo), u1, u2, u3)
     s.wi = _from_local(sp, s.wi)
     return s

@@ -5,11 +5,14 @@ primitives are not ported yet and are rejected at compile). A true
 instance's virtual face id resolves to its base face and instance: the
 vertices move world<-object and the normals by the inverse transpose. A
 moving triangle takes its frame from its shutter-open vertices, as in the
-JAX package (the hit point itself is o + t d).
+JAX package (the hit point itself is o + t d). `compute_differentials`
+gives the primary hits their one-pixel footprint for texture filtering.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -38,6 +41,13 @@ class SurfacePoint:
     prim: Tensor      # i32[N] primitive id (-1 on a miss)
     t: Tensor         # f32[N] ray parameter of the hit
     bary: Tensor      # f32[N,2] triangle barycentrics (u, v) of the hit
+    # the screen-space footprint of primary hits (the reference's
+    # SurfacePoint differentials, surface.h:70,123-133): the world-space
+    # pixel axes and their uv-space derivatives, for mipmap / EWA filtering
+    dp_dx: Optional[Tensor] = None   # f32[N,3]
+    dp_dy: Optional[Tensor] = None   # f32[N,3]
+    duv_dx: Optional[Tensor] = None  # f32[N,2]
+    duv_dy: Optional[Tensor] = None  # f32[N,2]
 
 
 def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
@@ -111,3 +121,48 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
         light_id=torch.where(valid, g.face_light[tri], -1),
         prim=torch.where(valid, hit.prim, -1),
         t=hit.t, bary=hit.uv)
+
+
+def compute_differentials(scene: SceneData, sp: SurfacePoint,
+                          d: Tensor) -> SurfacePoint:
+    """sp with the one-pixel footprint of primary hits (the JAX package's
+    analytic form of the reference's uv differentials): radius
+    r = t * pixel_spread along the two directions perpendicular to the ray,
+    projected onto the tangent plane along the ray, then into uv by the
+    2x2 normal equations against dp_du / dp_dv. Zero on lanes without a
+    hit; sp as it is when the scene has no pixel_spread."""
+    if scene.pixel_spread is None:
+        return sp
+    r = sp.t * scene.pixel_spread
+    # an orthonormal frame perpendicular to the ray
+    z_axis = torch.tensor([0.0, 0.0, 1.0], device=d.device)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device=d.device)
+    e1 = vec.normalize(vec.cross(d, torch.where(
+        torch.abs(d[..., 2:3]) < 0.9, z_axis, x_axis)))
+    e2 = vec.cross(d, e1)
+    # the offsets projected onto the tangent plane along the ray
+    dn = vec.dot(d, sp.ng, keepdim=True)
+    dn = torch.where(torch.abs(dn) < 1e-6,
+                     torch.where(dn < 0, -1e-6, 1e-6), dn)
+    ax = (e1 - d * (vec.dot(e1, sp.ng, keepdim=True) / dn)) * r[..., None]
+    ay = (e2 - d * (vec.dot(e2, sp.ng, keepdim=True) / dn)) * r[..., None]
+    # [dp_du dp_dv] [du dv]^T = axis, by the 2x2 normal equations
+    a11 = vec.dot(sp.dp_du, sp.dp_du)
+    a12 = vec.dot(sp.dp_du, sp.dp_dv)
+    a22 = vec.dot(sp.dp_dv, sp.dp_dv)
+    det = a11 * a22 - a12 * a12
+    inv_det = torch.where(torch.abs(det) > 1e-18,
+                          1.0 / torch.where(det == 0, 1.0, det), 0.0)
+
+    def solve(axis):
+        b1 = vec.dot(axis, sp.dp_du)
+        b2 = vec.dot(axis, sp.dp_dv)
+        du = (a22 * b1 - a12 * b2) * inv_det
+        dv = (a11 * b2 - a12 * b1) * inv_det
+        return torch.stack([du, dv], -1)
+
+    v = sp.valid[..., None]
+    return dataclasses.replace(
+        sp, dp_dx=torch.where(v, ax, 0.0), dp_dy=torch.where(v, ay, 0.0),
+        duv_dx=torch.where(v, solve(ax), 0.0),
+        duv_dy=torch.where(v, solve(ay), 0.0))

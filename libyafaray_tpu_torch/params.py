@@ -33,3 +33,9 @@ class ParamMap(dict):
         elif v.size == 3:
             v = np.concatenate([v, [1.0]]).astype(np.float32)
         return v[:4]
+
+    def get_matrix(self, key: str, default=None) -> np.ndarray:
+        if key not in self and default is None:
+            return np.eye(4, dtype=np.float32)
+        return np.asarray(self.get(key, default),
+                          dtype=np.float32).reshape(4, 4)

@@ -3,7 +3,8 @@ compiled to the torch tables of `scene_types.py`.
 
 Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
 port carries so far: `shinydiffusemat` and `glossy` materials (with the
-Lambert diffuse BRDF), triangle meshes with motion-blur keyframes,
+Lambert diffuse BRDF), image textures and the shader nodes that bind them to
+material channels, triangle meshes with motion-blur keyframes,
 instances (baked into copies, or true instances over the block
 accelerator), point lights, area lights (baked into the geometry as two
 emissive triangles), sun lights, a perspective camera and a
@@ -31,9 +32,9 @@ from .lights import FLAG_CAST_SHADOWS, FLAG_ENABLED, FLAG_PHOTON_ONLY
 from .materials.bsdf import FLAG_ANISOTROPIC, FLAG_AS_DIFFUSE, FLAG_FRESNEL
 from .scene_types import (
     LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT, LIGHT_SUN, MAT_GLOSSY,
-    MAT_SHINY_DIFFUSE, VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL,
-    VIS_SHADOW_ONLY, Background, Geometry, LightTable, MaterialTable,
-    SceneData,
+    MAT_SHINY_DIFFUSE, NODE_COLUMNS, VIS_INVISIBLE, VIS_NO_SHADOWS,
+    VIS_NORMAL, VIS_SHADOW_ONLY, Background, Geometry, LightTable,
+    MaterialTable, SceneData,
 )
 
 # material and light types the JAX package knows; the ones not ported yet
@@ -89,6 +90,10 @@ class SceneBuilder:
         self.material_order: List[str] = []
         self.lights: Dict[str, P.ParamMap] = {}
         self.light_order: List[str] = []
+        self.textures: Dict[str, P.ParamMap] = {}
+        self.texture_order: List[str] = []
+        self.texture_images: Dict[str, np.ndarray] = {}
+        self._shader_stacks: Dict[str, List[P.ParamMap]] = {}
         self.cameras: Dict[str, P.ParamMap] = {}
         self.background_params: Optional[P.ParamMap] = None
         self.objects: Dict[str, _MeshObject] = {}
@@ -108,13 +113,13 @@ class SceneBuilder:
             raise KeyError(f"material: unknown type {ty!r}")
         if ty not in ("shinydiffusemat", "glossy"):
             raise _unsupported(f"material type {ty!r}")
-        if node_list:
-            raise _unsupported("shader nodes (material node_list)")
         if pm.get_string("diffuse_brdf", "lambert") == "oren_nayar":
             raise _unsupported("the Oren-Nayar diffuse BRDF")
         if name not in self.materials:
             self.material_order.append(name)
         self.materials[name] = pm
+        if node_list:
+            self._shader_stacks[name] = [P.ParamMap(n) for n in node_list]
         return self.material_order.index(name)
 
     def create_light(self, name: str, pm: dict) -> None:
@@ -138,7 +143,13 @@ class SceneBuilder:
         self.background_params = pm
 
     def create_texture(self, name: str, pm: dict, image=None) -> None:
-        raise _unsupported("textures")
+        """An image texture: its pixels (f32[H, W, 1|3|4]) or a filename in
+        pm (procedural types raise at compile)."""
+        if name not in self.textures:
+            self.texture_order.append(name)
+        self.textures[name] = P.ParamMap(pm)
+        if image is not None:
+            self.texture_images[name] = np.asarray(image, np.float32)
 
     def create_volume_region(self, name: str, pm: dict) -> None:
         raise _unsupported("volume regions")
@@ -261,6 +272,7 @@ class SceneBuilder:
         unless the caller names another device, such as "cpu"); the block
         accelerator is built there."""
         materials = self._build_materials()
+        textures, nodes, materials = self._build_textures_and_nodes(materials)
         g = self._build_geometry()
         lights, g = self._build_lights(g)
         geom = _geometry_tables(g).to(device)
@@ -288,6 +300,9 @@ class SceneBuilder:
                 raise _unsupported(f"brute-force intersection above "
                                    f"{MAX_TRIS} faces")
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        # one pixel's angular footprint, for the primary hits' texture
+        # filtering (as the JAX compile)
+        focal = max(float(camera.focal), 1e-6)
         return SceneData(
             geom=geom, materials=materials, lights=lights,
             background=background, camera=camera,
@@ -295,7 +310,18 @@ class SceneBuilder:
             shadow_bias=f32(self.render_params.get_float("shadow_bias", 5e-4)),
             ray_min_dist=f32(self.render_params.get_float("ray_min_dist",
                                                           5e-5)),
-            has_cam_invisible=bool((g["face_vis"] & 4).any())).to(device)
+            has_cam_invisible=bool((g["face_vis"] & 4).any()),
+            textures=textures, nodes=nodes,
+            pixel_spread=f32(1.0 / (max(camera.resx, 1) * focal))).to(device)
+
+    def _build_textures_and_nodes(self, mat_table):
+        """The texture pool and the node program (each None when the scene
+        has none), and the material table with its node bindings."""
+        from .materials.nodes import build_node_program
+        from .textures import build_texture_pool
+        textures = build_texture_pool(self)
+        nodes, mat_table = build_node_program(self, mat_table)
+        return textures, nodes, mat_table
 
     # ------------------------------------------------------------------
     def _build_materials(self) -> MaterialTable:
@@ -355,6 +381,7 @@ class SceneBuilder:
                 if pm.get_bool("fresnel_effect", False):
                     flags |= FLAG_FRESNEL
             cols["mat_flags"][i] = flags
+        cols.update({c: np.full((n,), -1, np.int32) for c in NODE_COLUMNS})
         return MaterialTable(
             present_types=tuple(sorted({int(t) for t in cols["mat_type"]})),
             has_fresnel=bool(np.any(cols["mat_flags"] & FLAG_FRESNEL)),

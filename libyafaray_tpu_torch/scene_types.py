@@ -150,6 +150,30 @@ class MaterialTable(_Table):
     has_fresnel: bool = True
     # any row with the anisotropic flag
     has_aniso: bool = True
+    # shader-node bindings per channel (`materials/node_build.py`): the slot
+    # of the node whose output overrides the channel, -1 for none
+    node_diffuse: Optional[Tensor] = None          # i32[M]
+    node_glossy: Optional[Tensor] = None           # i32[M]
+    node_mirror: Optional[Tensor] = None           # i32[M]
+    node_bump: Optional[Tensor] = None             # i32[M]
+    node_transparency: Optional[Tensor] = None     # i32[M]
+    node_translucency: Optional[Tensor] = None     # i32[M]
+    node_mirror_strength: Optional[Tensor] = None  # i32[M]
+    node_sigma_oren: Optional[Tensor] = None       # i32[M]
+    node_diffuse_reflect: Optional[Tensor] = None  # i32[M]
+    node_glossy_reflect: Optional[Tensor] = None   # i32[M]
+    node_blend: Optional[Tensor] = None            # i32[M]
+    node_exponent: Optional[Tensor] = None         # i32[M]
+    node_ior: Optional[Tensor] = None              # i32[M]
+    node_filter_color: Optional[Tensor] = None     # i32[M]
+
+
+# the node binding columns of MaterialTable
+NODE_COLUMNS = ("node_diffuse", "node_glossy", "node_mirror", "node_bump",
+                "node_transparency", "node_translucency",
+                "node_mirror_strength", "node_sigma_oren",
+                "node_diffuse_reflect", "node_glossy_reflect", "node_blend",
+                "node_exponent", "node_ior", "node_filter_color")
 
 
 @dataclass
@@ -224,6 +248,68 @@ class BlockAccel(_Table):
 
 
 @dataclass
+class TexturePool(_Table):
+    """Every image texture flattened into one texel pool with its mip chain,
+    and the per-texture parameter tables. Mip level l of texture t starts at
+    row mip_offsets[t, l] (level 0 at img_offset[t]), row-major; row 0 is an
+    unused zero texel. The pool's dtype is the JAX package's
+    `image_optimization` level: f32 ("none"), f16 ("optimized") or uint8
+    ("compressed", dequantised by texel_scale per texture). The texel pool is
+    differentiable when f32: put a leaf in with `dataclasses.replace` after
+    the scene has reached its device."""
+    texel_pool: Tensor      # f32|f16|u8[R, 4] rgba, linear
+    texel_scale: Tensor     # f32[T] dequantisation scale (1 unless u8)
+    img_offset: Tensor      # i32[T] first row of mip 0
+    img_width: Tensor       # i32[T]
+    img_height: Tensor      # i32[T]
+    mip_offsets: Tensor     # i32[T, MAX_MIPS] first row of each mip, or -1
+    num_mips: Tensor        # i32[T]
+    tex_type: Tensor        # i32[T] TEX_* (textures/__init__.py)
+    params_f: Tensor        # f32[T, 16] repeat, crop, mirror, lod bias, ...
+    params_c: Tensor        # f32[T, 2, 4] color1 / color2
+    ramp_pos: Tensor        # f32[T, RAMP_MAX] colour-ramp positions
+    ramp_col: Tensor        # f32[T, RAMP_MAX, 4]
+    ramp_count: Tensor      # i32[T] 0: no ramp
+    ramp_mode: Tensor       # i32[T] 0 rgb, 1 hsv, 2 hsl interpolation
+    interp: Tensor          # i32[T] 0 none, 1 bilinear, 2 bicubic,
+                            #        3 trilinear, 4 EWA
+    extend: Tensor          # i32[T] 0 repeat, 1 extend, 2 clip, 3 checker
+    # [mult r, g, b, intensity, contrast, saturation, hue, clamp]
+    adj: Tensor             # f32[T, 8]
+    num_textures: int = 0
+    # the texture types and interpolation modes present: the evaluator
+    # runs only their code, as the JAX package traces only theirs
+    used_types: tuple = ()
+    used_interps: tuple = (0, 1, 2, 3, 4)
+
+
+@dataclass
+class NodeProgram(_Table):
+    """Every material's shader nodes in one topologically sorted table
+    (`materials/node_build.py`); `meta` and `imeta` are its static copies
+    that the evaluator's Python loop specialises on."""
+    node_type: Tensor       # i32[N] NODE_*
+    tex_id: Tensor          # i32[N] texture of a texture_mapper, or -1
+    in_a: Tensor            # i32[N] input slots (-1: a constant)
+    in_b: Tensor            # i32[N]
+    in_fac: Tensor          # i32[N]
+    const_a: Tensor         # f32[N, 4]
+    const_b: Tensor         # f32[N, 4]
+    const_fac: Tensor       # f32[N]
+    params_f: Tensor        # f32[N, 24] mapper matrix, scale, offset, bump
+    params_i: Tensor        # i32[N, 8] coords, projection, blend mode, flags
+    num_nodes: int = 0
+    # meta[i] = (node_type, in_a, in_b, in_fac, tex_id)
+    meta: tuple = ()
+    # imeta[i] = tuple(params_i[i])
+    imeta: tuple = ()
+    # does any material bind a bump node
+    has_bump: bool = False
+    # the material table's node_* columns that some material binds
+    bound: tuple = ()
+
+
+@dataclass
 class SceneData(_Table):
     """Everything the integrator needs."""
     geom: Geometry
@@ -237,3 +323,7 @@ class SceneData(_Table):
     blocks: Optional[BlockAccel] = None
     # any primitive flagged invisible-to-camera (face_vis bit value 4)
     has_cam_invisible: bool = False
+    textures: Optional[TexturePool] = None
+    nodes: Optional[NodeProgram] = None
+    # angle of one pixel (the primary hits' texture footprint), f32[]
+    pixel_spread: Optional[Tensor] = None

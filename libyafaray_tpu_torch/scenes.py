@@ -142,20 +142,34 @@ def bigmesh_grid(res: int):
 def bigmesh_builder(res: int = 320, textured: bool = True) -> SceneBuilder:
     """BASELINE config 3: a displaced terrain grid of 2*(res-1)^2 triangles
     (res=320: 203,522) under a sun and a constant background with ibl, seen
-    by a 720x720 camera. `textured=True` (the image-textured material)
-    raises NotImplementedError until textures are ported; `textured=False`
-    is the same scene with a plain diffuse material."""
-    if textured:
-        raise NotImplementedError(
-            "textures are not ported to libyafaray_tpu_torch yet; use "
-            "bigmesh_builder(textured=False)")
+    by a 720x720 camera. `textured=True` maps a 64x64 image texture on
+    uv (x/4, y/4) through a texture_mapper node that overrides the diffuse
+    colour; `textured=False` is the same scene with the plain diffuse
+    material and no uvs."""
     b = SceneBuilder()
-    b.create_material("ground", {"type": "shinydiffusemat",
-                                 "color": (0.6, 0.55, 0.5)})
+    if textured:
+        # 64x64 diagonal bands of 16 levels
+        tex = (np.indices((64, 64)).sum(0) % 16 / 15.0).astype(np.float32)
+        b.create_texture("checker", {"type": "image"}, image=np.stack(
+            [tex, 0.8 * tex + 0.1, 1.0 - tex], -1))
+        b.create_material(
+            "ground",
+            {"type": "shinydiffusemat", "color": (0.6, 0.55, 0.5),
+             "diffuse_shader": "diff"},
+            node_list=[{"name": "diff", "type": "texture_mapper",
+                        "texture": "checker", "texco": "uv"}])
+    else:
+        b.create_material("ground", {"type": "shinydiffusemat",
+                                     "color": (0.6, 0.55, 0.5)})
     b.create_object("terrain")
     b.set_current_material("ground")
-    verts, faces, _, _ = bigmesh_grid(res)
-    b.add_mesh_arrays(verts, faces)
+    verts, faces, xx, yy = bigmesh_grid(res)
+    if textured:
+        uvs = np.stack([xx / 4.0, yy / 4.0], axis=-1).reshape(-1, 2)
+        b.add_mesh_arrays(verts, faces, uvs=uvs.astype(np.float32),
+                          face_uvs=faces)
+    else:
+        b.add_mesh_arrays(verts, faces)
     b.create_light("sun", {"type": "sunlight", "direction": (0.3, 0.3, 0.8),
                            "color": (1.0, 1.0, 0.95), "power": 1.0})
     b.create_camera("cam", dict(TERRAIN_CAMERA))

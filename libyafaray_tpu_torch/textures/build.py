@@ -1,0 +1,185 @@
+"""TexturePool builder: the staged image textures frozen into SoA tables.
+
+Counterpart of `libyafaray_tpu/textures/build.py` for image textures. Every
+image is packed with its box-filtered mip chain into one flat texel pool,
+so trilinear and EWA sampling are gathers and lerps. The pool's dtype
+follows the `image_optimization` parameters (the reference's image.h:47-48):
+f32 unless every image asks for "optimized" (f16) or "compressed" (uint8
+with a scale per texture). Procedural texture types raise
+NotImplementedError naming the type; the environment map's importance
+tables (`build_env_tables`) are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..scene_types import TexturePool
+from . import MAX_MIPS, RAMP_MAX, TEX_IMAGE
+
+_TEX_TYPES = ("image", "blend", "clouds", "marble", "wood", "voronoi",
+              "musgrave", "distorted_noise", "rgb_cube")
+_INTERP = {"none": 0, "bilinear": 1, "bicubic": 2, "mipmap_trilinear": 3,
+           "mipmap_ewa": 4}
+_EXTEND = {"repeat": 0, "extend": 1, "clip": 2, "clipcube": 2, "checker": 3}
+
+
+def _mip_chain(img: np.ndarray):
+    """Box-filtered mip pyramid down to 1 texel on the short side (odd sizes
+    floor-divide), at most MAX_MIPS levels."""
+    mips = [img]
+    while min(img.shape[0], img.shape[1]) > 1 and len(mips) < MAX_MIPS:
+        h, w = img.shape[:2]
+        h2, w2 = max(h // 2, 1), max(w // 2, 1)
+        img = img[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2, 4).mean((1, 3))
+        mips.append(img.astype(np.float32))
+    return mips
+
+
+def _load(path: str) -> np.ndarray:
+    if path.lower().endswith(".hdr"):
+        from ..io import load_hdr
+        return load_hdr(path)
+    raise NotImplementedError(f"loading the image {path!r} is not ported to "
+                              "libyafaray_tpu_torch yet (pass the pixels "
+                              "with create_texture(image=...))")
+
+
+def _rgba(pm, img) -> np.ndarray:
+    """The texture's pixels as linear f32 rgba (colour space, gamma and
+    rot90 applied)."""
+    if img is None:
+        path = pm.get_string("filename", pm.get_string("image_name", ""))
+        img = _load(path) if path else np.ones((1, 1, 4), np.float32)
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] == 1:
+        img = np.repeat(img, 3, -1)
+    if img.shape[-1] == 3:
+        img = np.concatenate([img, np.ones_like(img[..., :1])], -1)
+    gamma = pm.get_float("gamma", 1.0)
+    if pm.get_string("color_space", "") in ("sRGB", "srgb"):
+        lin = np.clip(img[..., :3], 0, None)
+        a = lin / 12.92
+        b = ((lin + 0.055) / 1.055) ** 2.4
+        img = np.concatenate([np.where(lin <= 0.04045, a, b), img[..., 3:]],
+                             -1)
+    elif gamma != 1.0:
+        img = np.concatenate(
+            [np.clip(img[..., :3], 0, None) ** gamma, img[..., 3:]], -1)
+    if pm.get_bool("rot90", False):
+        img = np.rot90(img, axes=(0, 1)).copy()
+    return img.astype(np.float32)
+
+
+def build_pool(builder) -> TexturePool:
+    names = builder.texture_order
+    n = len(names)
+    texels = [np.zeros((1, 4), np.float32)]
+    opt_req = []   # each image's image_optimization request
+    off = 1
+    img_offset = np.zeros((n,), np.int32)
+    img_w = np.zeros((n,), np.int32)
+    img_h = np.zeros((n,), np.int32)
+    mip_offsets = np.full((n, MAX_MIPS), -1, np.int32)
+    num_mips = np.zeros((n,), np.int32)
+    tex_type = np.zeros((n,), np.int32)
+    params_f = np.zeros((n, 16), np.float32)
+    params_c = np.zeros((n, 2, 4), np.float32)
+    params_c[:, 0] = (0, 0, 0, 1)
+    params_c[:, 1] = (1, 1, 1, 1)
+    ramp_pos = np.zeros((n, RAMP_MAX), np.float32)
+    ramp_col = np.zeros((n, RAMP_MAX, 4), np.float32)
+    ramp_count = np.zeros((n,), np.int32)
+    ramp_mode = np.zeros((n,), np.int32)
+    interp = np.zeros((n,), np.int32)
+    extend = np.zeros((n,), np.int32)
+    adj = np.zeros((n, 8), np.float32)
+
+    for i, name in enumerate(names):
+        pm = builder.textures[name]
+        ty_name = pm.get_string("type", "image")
+        if ty_name not in _TEX_TYPES:
+            raise KeyError(f"texture: unknown type {ty_name!r}")
+        if ty_name != "image":
+            raise NotImplementedError(
+                f"the procedural texture type {ty_name!r} is not ported to "
+                "libyafaray_tpu_torch yet")
+        tex_type[i] = TEX_IMAGE
+        if "color1" in pm:
+            params_c[i, 0] = pm.get_color("color1")
+        if "color2" in pm:
+            params_c[i, 1] = pm.get_color("color2")
+        adj[i] = (pm.get_float("adj_mult_factor_red", 1.0),
+                  pm.get_float("adj_mult_factor_green", 1.0),
+                  pm.get_float("adj_mult_factor_blue", 1.0),
+                  pm.get_float("adj_intensity", 1.0),
+                  pm.get_float("adj_contrast", 1.0),
+                  pm.get_float("adj_saturation", 1.0),
+                  pm.get_float("adj_hue", 0.0),
+                  1.0 if pm.get_bool("adj_clamp", False) else 0.0)
+        if pm.get_bool("use_color_ramp", False):
+            items = pm.get("ramp_items", [])
+            cnt = min(len(items), RAMP_MAX)
+            for k in range(cnt):
+                it = items[k]
+                ramp_pos[i, k] = float(it.get("position", k / max(cnt - 1, 1)))
+                c = np.asarray(it.get("color", (0, 0, 0, 1)), np.float32)
+                ramp_col[i, k, : len(c)] = c[:4]
+            ramp_count[i] = cnt
+            ramp_mode[i] = {"rgb": 0, "hsv": 1, "hsl": 2}.get(
+                pm.get_string("ramp_color_mode", "rgb"), 0)
+
+        img = _rgba(pm, builder.texture_images.get(name))
+        opt = pm.get_string("image_optimization", "none")
+        opt_req.append(opt if opt in ("none", "optimized", "compressed")
+                       else "none")
+        mips = _mip_chain(img)
+        img_offset[i] = off
+        img_h[i], img_w[i] = img.shape[:2]
+        num_mips[i] = len(mips)
+        for mi, m in enumerate(mips):
+            mip_offsets[i, mi] = off
+            texels.append(m.reshape(-1, 4))
+            off += m.shape[0] * m.shape[1]
+        params_f[i, 0] = pm.get_float("xrepeat", 1.0)
+        params_f[i, 1] = pm.get_float("yrepeat", 1.0)
+        params_f[i, 2] = pm.get_float("cropmin_x", 0.0)
+        params_f[i, 3] = pm.get_float("cropmin_y", 0.0)
+        params_f[i, 4] = pm.get_float("cropmax_x", 1.0)
+        params_f[i, 5] = pm.get_float("cropmax_y", 1.0)
+        params_f[i, 6] = 1.0 if pm.get_bool("mirror_x", False) else 0.0
+        params_f[i, 7] = 1.0 if pm.get_bool("mirror_y", False) else 0.0
+        params_f[i, 8] = pm.get_float("trilinear_level_bias", 0.0)
+        params_f[i, 9] = pm.get_float("ewa_max_anisotropy", 8.0)
+        interp[i] = _INTERP.get(pm.get_string("interpolate", "bilinear"), 1)
+        extend[i] = _EXTEND.get(pm.get_string("clipping", "repeat"), 0)
+
+    # the pool's dtype: the highest precision any image asks for
+    texel_np = np.concatenate(texels, axis=0)
+    texel_scale = np.ones((max(n, 1),), np.float32)
+    if opt_req and all(o == "compressed" for o in opt_req):
+        # uint8 with a scale per texture (which keeps HDR images)
+        for i in range(n):
+            end = img_offset[i] + sum(
+                max(1, img_h[i] >> lv) * max(1, img_w[i] >> lv)
+                for lv in range(num_mips[i]))
+            sl = texel_np[img_offset[i]:end]
+            sc = max(1.0, float(sl.max())) if sl.size else 1.0
+            texel_scale[i] = sc
+            texel_np[img_offset[i]:end] = np.clip(sl / sc, 0.0, 1.0)
+        texel_np = np.round(texel_np * 255.0).astype(np.uint8)
+    elif opt_req and all(o in ("optimized", "compressed") for o in opt_req):
+        texel_np = texel_np.astype(np.float16)
+    t = torch.from_numpy
+    return TexturePool(
+        texel_pool=t(texel_np), texel_scale=t(texel_scale),
+        img_offset=t(img_offset), img_width=t(img_w), img_height=t(img_h),
+        mip_offsets=t(mip_offsets), num_mips=t(num_mips),
+        tex_type=t(tex_type), params_f=t(params_f), params_c=t(params_c),
+        ramp_pos=t(ramp_pos), ramp_col=t(ramp_col),
+        ramp_count=t(ramp_count), ramp_mode=t(ramp_mode), interp=t(interp),
+        extend=t(extend), adj=t(adj), num_textures=n,
+        used_types=tuple(sorted({int(x) for x in tex_type})),
+        used_interps=tuple(sorted({int(x) for x in interp})))

@@ -254,16 +254,29 @@ def _orco(b):
 
 
 def _texture(b):
-    b.create_texture("t", {"type": "image"}, image=np.zeros((2, 2, 3)))
+    # a procedural texture (image textures are ported)
+    b.create_texture("t", {"type": "clouds"})
+    b.compile("cam", device="cpu")
 
 
 def _nodes(b):
-    b.create_material("n", {"type": "shinydiffusemat"},
-                      node_list=[{"name": "x", "type": "texture_mapper"}])
+    # a texture_mapper on orco coordinates (uv, global, normal and the
+    # projections are ported)
+    b.create_texture("t", {"type": "image"}, image=np.zeros((2, 2, 3)))
+    b.create_material("n", {"type": "shinydiffusemat",
+                            "diffuse_shader": "x"},
+                      node_list=[{"name": "x", "type": "texture_mapper",
+                                  "texture": "t", "texco": "orco"}])
+    b.compile("cam", device="cpu")
 
 
 def _textured_terrain(b):
-    port_bigmesh(33)
+    # the textured terrain under a texture background (the terrain itself
+    # is ported)
+    t = port_bigmesh(33)
+    t.create_background({"type": "textureback", "texture": "checker",
+                         "ibl": True})
+    t.compile("cam", device="cpu")
 
 
 def _sun_from_background(b):
