@@ -125,6 +125,31 @@ Phases, each reporting on its own lines:
      accumulate, whose order on the card is its own); at 720x720, 1 spp,
      the forward and backward ms, peak device memory and tile_walk's
      launches in that run (9).
+ 19. BASELINE config 4 as bench.py runs it: the glass caustic scene
+     (caustic_grad_builder(512, 512)) forward + backward at 512x512, 5
+     bounces, pixel centres, samples 1-4, with respect to materials.ior
+     and textures.texel_pool: ms per forward + backward, camera rays/s,
+     forward and backward ms from CUDA events, peak device memory,
+     mt_closest's launches (12 a sample); the IOR gradient and the texel
+     gradient's L1 finite and not zero; sample 0 twice gives the same
+     gradients (within 1e-6 of the largest); the queries of one forward
+     held bit for bit against mt_closest_ref, each timed beside its bound;
+     one forward + backward profiled (kernel launches, device busy share);
+     kernel path against plain path at 128x128, 1 spp: the image (the
+     slice tolerance), the IOR gradient (rtol 1e-5) and the texel
+     gradient (rtol 1e-4 plus 1e-6 of the largest);
+ 20. BASELINE config 5 as bench.py runs it: the homogeneous single-scatter
+     volume lit by an emissive mesh (volume_emissive_builder) at 512x512,
+     8 spp, 3 bounces, 16 volume steps, through `render` with no device
+     argument: ms per pass, camera rays/s, peak device memory,
+     mt_closest's launches (28 a pass), one pass profiled (kernel launches,
+     device busy share); the image finite, changed by the fog on 99% of
+     pixels against the same scene without its volume region, the glow
+     triangle bright and warm; the camera segments' mean transmittance
+     below 1 and in-scattered radiance above 0; one pass's queries (the 16
+     in-scatter shadow queries last) held bit for bit against
+     mt_closest_ref, each timed beside its bound; kernel path against
+     plain path at 128x128, 1 spp.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -170,6 +195,10 @@ CORNELL_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tests", "golden", "cornell_ref_256.hdr")
 CORNELL_GOLDEN_RES, CORNELL_GOLDEN_SPP = 256, 96
 TEXEL_RTOL = 1e-4        # texel gradients: accumulation order on the card
+CAUSTIC_RES, CAUSTIC_BOUNCES = 512, 5     # BASELINE config 4 (bench.py)
+CAUSTIC_SAMPLES = 4      # timed forward + backward samples
+VOLUME_RES, VOLUME_SPP, VOLUME_BOUNCES = 512, 8, 3   # BASELINE config 5
+PATHS_RES = 128          # phases 19-20: kernel path against plain path
 # H100 SXM data-sheet peaks (fp32 counts a fused multiply-add as 2 flops)
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 FLOPS_PER_PAIR = 45      # one Möller-Trumbore ray-triangle test
@@ -1322,6 +1351,63 @@ def _grads_agree(phase, label, got, want, rtol):
                                  f"rtol {rtol}")
 
 
+@contextlib.contextmanager
+def _mt_captured():
+    """Inside the context every mt_closest call is recorded, in call order,
+    as (arguments, keywords, outputs) with its tensors cloned, and timed by
+    CUDA events: the yielded (calls, events) fill as the work runs."""
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    real, calls, events = MT.mt_closest, [], []
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def kept(*a, **k):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = real(*a, **k)
+        e[1].record()
+        events.append(e)
+        calls.append((tuple(copy(x) for x in a),
+                      {key: copy(x) for key, x in k.items()},
+                      tuple(x.clone() for x in out)))
+        return out
+
+    MT.mt_closest = kept
+    try:
+        yield calls, events
+    finally:
+        MT.mt_closest = real
+
+
+def _hold_queries(phase, calls, labels):
+    """Each captured query held bit for bit against mt_closest_ref, then
+    timed alone beside the plain version and its bound. Returns the max
+    error and per-launch means (ms, plain_ms, bound_ms, bound_by)."""
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    err, rows_out, bound_by = 0.0, [], {}
+    for label, (a, k, got) in zip(labels, calls):
+        err = _compare(label, got, MT.mt_closest_ref(*a, **k), err,
+                       phase=phase, exact=True)
+        ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 10)
+        plain = _cuda_ms(lambda: MT.mt_closest_ref(*a, **k), 1)
+        live, rows, bound, by = mt_bound(a, k)
+        rows_out.append((ms, plain, bound))
+        bound_by[by] = bound_by.get(by, 0.0) + bound
+        print(f"phase {phase}: {label}: {a[1].shape[0]} rays, {live} live, "
+              f"{rows} rows kept: mt_closest {ms:.4f} ms, mt_closest_ref "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), at "
+              f"{100 * bound / ms:.1f}% of it")
+    n = len(rows_out)
+    ms, plain, bound = (sum(x) / n for x in zip(*rows_out))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=max(bound_by, key=bound_by.get))
+
+
+def _kind(k):
+    return "shadow" if k.get("shadow") else "closest"
+
+
 def phase11_fwd_bwd():
     """The headline: Cornell 1920x1080, 16 spp, 4 bounces, forward and
     backward with respect to materials.diffuse_color in chunks of 270 rows
@@ -1393,50 +1479,28 @@ def phase11_fwd_bwd():
 
     # one chunk again, with mt_closest's launches and take's backwards
     # captured: their times beside the chunk's
-    real_mt, real_grad = MT.mt_closest, FG.onehot_grad
-    mt_ev, mt_calls, takes = [], [], []
-    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
-
-    def mt_timed(*a, **k):
-        e = (ev(), ev())
-        e[0].record()
-        out = real_mt(*a, **k)
-        e[1].record()
-        mt_ev.append(e)
-        mt_calls.append((tuple(copy(x) for x in a),
-                         {key: copy(x) for key, x in k.items()},
-                         tuple(x.clone() for x in out)))
-        return out
+    real_grad, takes = FG.onehot_grad, []
 
     def grad_captured(idx, g, rows):
         takes.append((idx, g.detach().clone(), rows))
         return real_grad(idx, g, rows)
 
-    MT.mt_closest, FG.onehot_grad = mt_timed, grad_captured
+    FG.onehot_grad = grad_captured
     try:
-        e = (ev(), ev(), ev())
-        _fwd_bwd(scene, cfg, leaves, chunks[1], 1, e)
-        torch.cuda.synchronize()
+        with _mt_captured() as (mt_calls, mt_ev):
+            e = (ev(), ev(), ev())
+            _fwd_bwd(scene, cfg, leaves, chunks[1], 1, e)
+            torch.cuda.synchronize()
     finally:
-        MT.mt_closest, FG.onehot_grad = real_mt, real_grad
+        FG.onehot_grad = real_grad
     mt_ms = sum(a.elapsed_time(z) for a, z in mt_ev)
     # the chunk's queries at their own shape: each held bit for bit against
     # mt_closest_ref, then timed alone beside the plain version and its bound
-    mt_err, alone, bound_by = 0.0, [], {}
-    for i, (a, k, got) in enumerate(mt_calls):
-        name = f"chunk query {i} ({'shadow' if k.get('shadow') else 'closest'})"
-        mt_err = _compare(name, got, MT.mt_closest_ref(*a, **k), mt_err,
-                          phase="11", exact=True)
-        ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 10)
-        plain = _cuda_ms(lambda: MT.mt_closest_ref(*a, **k), 1)
-        live, rows, bound, by = mt_bound(a, k)
-        alone.append((ms, plain, bound))
-        bound_by[by] = bound_by.get(by, 0.0) + bound
-        print(f"phase 11: {name}: {a[1].shape[0]} rays, {live} live, {rows} "
-              f"rows kept: mt_closest {ms:.4f} ms, mt_closest_ref "
-              f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), at "
-              f"{100 * bound / ms:.1f}% of it")
-    alone_ms, alone_plain, alone_bound = (sum(x) for x in zip(*alone))
+    per_launch = _hold_queries(
+        "11", mt_calls, [f"chunk query {i} ({_kind(k)})"
+                         for i, (_, k, _) in enumerate(mt_calls)])
+    alone_ms, alone_plain, alone_bound = (
+        len(mt_calls) * per_launch[k] for k in ("ms", "plain_ms", "bound_ms"))
     # both backwards against the same sums in f64
     take_ms = plain_ms = take_err = plain_err = 0.0
     for idx, g, rows in takes:
@@ -1465,31 +1529,17 @@ def phase11_fwd_bwd():
     if len(mt_calls) != want // n_chunks:
         raise AssertionError(f"phase 11: {len(mt_calls)} mt_closest calls in "
                              "the captured chunk")
-    n = len(alone)
-    per_launch = dict(max_abs_err=mt_err, ms=alone_ms / n,
-                      plain_ms=alone_plain / n, bound_ms=alone_bound / n,
-                      bound_by=max(bound_by, key=bound_by.get))
 
     # where a chunk's time goes: the device time of one chunk's kernels
     # (profiler) against the unprofiled chunk's wall time (events above);
     # and the same work in one chunk of the whole frame
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _fwd_bwd(scene, cfg, leaves, chunks[2], 2)
-        torch.cuda.synchronize()
-    kernels = [k for k in prof.key_averages()
-               if k.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(k.self_device_time_total for k in kernels) / 1e3
+    n_k, busy_ms, top = _profiled(
+        lambda: _fwd_bwd(scene, cfg, leaves, chunks[2], 2))
     chunk_ms = (fwd_ms + bwd_ms) / n_chunks
-    top = sorted(kernels, key=lambda k: -k.self_device_time_total)[:4]
     print(f"phase 11: profiled chunk: device busy "
-          + (f"{busy_ms:.2f} ms in {sum(k.count for k in kernels)} kernel "
-             f"launches, {100 * busy_ms / chunk_ms:.1f}% of a chunk's "
-             f"{chunk_ms:.2f} ms (idle {100 - 100 * busy_ms / chunk_ms:.1f}"
-             "%); top: " + ", ".join(
-                 f"{k.key[:48]} {k.self_device_time_total / 1e3:.2f} ms "
-                 f"x{k.count}" for k in top)
+          + (f"{busy_ms:.2f} ms in {n_k} kernel launches, "
+             f"{100 * busy_ms / chunk_ms:.1f}% of a chunk's {chunk_ms:.2f} "
+             f"ms (idle {100 - 100 * busy_ms / chunk_ms:.1f}%); top: {top}"
              if busy_ms > 0 else "not measured (no device time traced)"))
     whole = _pixels(width, 0, height, DEVICE)
     _fwd_bwd(scene, cfg, leaves, whole, 0)
@@ -1666,6 +1716,23 @@ def phase15_cornell_golden():
 
 # ------------------------------------------------------- phases 16 to 18
 
+def _profiled(fn):
+    """(kernel launches, device busy ms, the four longest kernels as text)
+    of fn() under the profiler."""
+    import torch
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [k for k in prof.key_averages()
+               if k.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda k: -k.self_device_time_total)[:4]
+    return (sum(k.count for k in kernels),
+            sum(k.self_device_time_total for k in kernels) / 1e3,
+            ", ".join(f"{k.key[:48]} {k.self_device_time_total / 1e3:.2f} ms "
+                      f"x{k.count}" for k in top))
+
+
 def _profile_pass(scene, cfg):
     """(kernel launches, device busy ms, ms) of one pass of `scene`: the
     launches and busy time from the profiler, the ms from an unprofiled
@@ -1677,14 +1744,8 @@ def _profile_pass(scene, cfg):
     render(scene, cfg, spp=1, start_sample=1)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        render(scene, cfg, spp=1, start_sample=1)
-        torch.cuda.synchronize()
-    kernels = [k for k in prof.key_averages()
-               if k.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(k.count for k in kernels),
-            sum(k.self_device_time_total for k in kernels) / 1e3, ms)
+    n, busy, _ = _profiled(lambda: render(scene, cfg, spp=1, start_sample=1))
+    return n, busy, ms
 
 
 def phase16_textured(textured, terrain, terrain_img):
@@ -1987,6 +2048,221 @@ def phase18_texel_grads(textured):
     return launches
 
 
+# ------------------------------------------------------- phases 19 and 20
+
+def phase19_caustic():
+    """BASELINE config 4: the caustic forward + backward at 512x512, 5
+    bounces, pixel centres, with respect to materials.ior and
+    textures.texel_pool (bench.py's bench_caustic_grad). Returns
+    mt_closest's launches in the timed samples and its per-launch numbers
+    on one pass's queries."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.scenes import caustic_grad_builder
+    from libyafaray_tpu_torch.scene_types import MAT_GLASS
+    _check_fp32_precision()
+    res, bounces = CAUSTIC_RES, CAUSTIC_BOUNCES
+    names = ["materials.ior", "textures.texel_pool"]
+    scene = caustic_grad_builder(res, res).compile("cam")
+    glass = int(torch.nonzero(scene.materials.mat_type == MAT_GLASS)[0])
+    pool_rows = scene.textures.texel_pool.shape[0]
+    sc, leaves = _leaf_scene(scene, names)
+    cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
+    pixels = _pixels(res, 0, res, DEVICE)
+    first = _fwd_bwd(sc, cfg, leaves, pixels, 0)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    spans, totals = [], [torch.zeros_like(x) for x in leaves]
+    MT.launches = 0
+    t0 = time.perf_counter()
+    for s in range(1, CAUSTIC_SAMPLES + 1):
+        e = (ev(), ev(), ev())
+        for t, g in zip(totals, _fwd_bwd(sc, cfg, leaves, pixels, s, e)):
+            t += g
+        spans.append(e)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = MT.launches
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms = sum(a.elapsed_time(m) for a, m, _ in spans) / CAUSTIC_SAMPLES
+    bwd_ms = sum(m.elapsed_time(z) for _, m, z in spans) / CAUSTIC_SAMPLES
+    want = CAUSTIC_SAMPLES * (bounces + 1) * 2
+    if launches != want:
+        raise AssertionError(f"phase 19: mt_closest launched {launches} "
+                             f"times, want {want}")
+    g_ior, g_tex = (t.cpu().numpy() for t in totals)
+    tex_l1 = float(np.abs(g_tex).sum())
+    if not (np.isfinite(g_ior).all() and np.isfinite(g_tex).all()
+            and g_ior[glass] != 0 and tex_l1 > 0):
+        raise AssertionError(f"phase 19: bad gradients: ior {g_ior}, "
+                             f"texel L1 {tex_l1}")
+    again = _fwd_bwd(sc, cfg, leaves, pixels, 0)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(again, first))
+    print(f"phase 19: caustic {res}x{res} {bounces} bounces, forward + "
+          f"backward wrt ior and texel_pool ({pool_rows} rows), samples 1-"
+          f"{CAUSTIC_SAMPLES}: {seconds * 1e3 / CAUSTIC_SAMPLES:.2f} ms per "
+          f"forward + backward, {res * res * CAUSTIC_SAMPLES / seconds:.4g} "
+          f"camera rays/s; CUDA events: forward {fwd_ms:.2f} ms + backward "
+          f"{bwd_ms:.2f} ms; peak device memory {peak / 2**30:.3f} GiB; "
+          f"{launches} mt_closest launches")
+    print(f"phase 19: gradient of the summed means: ior (glass row {glass}) "
+          f"{g_ior[glass]:.6g}, texel L1 {tex_l1:.6g} over "
+          f"{int((g_tex != 0).any(-1).sum())} texels; sample 0 twice: "
+          f"bit for bit {same}, max |diff| / max |grad| {rel:.3g}")
+    if rel > 1e-6:
+        raise AssertionError("phase 19: the same sample gave two gradients")
+
+    # one pass's queries, captured as they reach mt_closest
+    with _mt_captured() as (calls, events):
+        e = (ev(), ev(), ev())
+        _fwd_bwd(sc, cfg, leaves, pixels, 1, e)
+        torch.cuda.synchronize()
+    mt_ms = sum(a.elapsed_time(z) for a, z in events)
+    print(f"phase 19: one forward + backward: forward "
+          f"{e[0].elapsed_time(e[1]):.2f} ms, backward "
+          f"{e[1].elapsed_time(e[2]):.2f} ms; mt_closest {len(calls)} "
+          f"launches, {mt_ms:.3f} ms of events")
+    per_launch = _hold_queries(
+        "19", calls, [f"caustic query {i} ({_kind(k)})"
+                      for i, (_, k, _) in enumerate(calls)])
+    n_k, busy, top = _profiled(lambda: _fwd_bwd(sc, cfg, leaves, pixels, 2))
+    wall = seconds * 1e3 / CAUSTIC_SAMPLES
+    print(f"phase 19: one forward + backward profiled: {n_k} kernel "
+          f"launches, device busy {busy:.2f} ms of the unprofiled "
+          f"{wall:.2f} ms ({100 * busy / wall:.1f}%); top: {top}")
+
+    # kernel path against plain path at 128x128, 1 spp: image and gradients
+    small = caustic_grad_builder(PATHS_RES, PATHS_RES).compile("cam")
+    img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    got = _image_grads(small, cfg, names, 1)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        want_g = _image_grads(small, cfg, names, 1)
+    _paths_agree("19", img_k, img_p)
+    _grads_agree("19", [f"caustic {PATHS_RES}x{PATHS_RES} ior"], got[:1],
+                 want_g[:1], GRAD_RTOL)
+    a, b = got[1], want_g[1]
+    scale = np.abs(b).max()
+    print(f"phase 19: texel gradient {PATHS_RES}x{PATHS_RES}, kernel path "
+          f"against plain path: max |grad| {scale:.4g}, max |diff| / max "
+          f"|grad| {np.abs(a - b).max() / scale:.3g}")
+    if not (np.isfinite(a).all() and scale > 0 and (
+            np.abs(a - b) <= TEXEL_RTOL * np.abs(b) + 1e-6 * scale).all()):
+        raise AssertionError("phase 19: the kernel-path and plain-path texel "
+                             "gradients differ")
+    return launches, per_launch
+
+
+def _glow_pixel(camera, point):
+    """(px, py) where the camera sees `point` (the inverse of shoot_rays)."""
+    import torch
+    d = torch.tensor(point, device=camera.origin.device) - camera.origin
+    z = float((d * camera.cam_z).sum())
+    sx = float(camera.focal) * float((d * camera.cam_x).sum()) / z
+    sy = -float(camera.focal) * float((d * camera.cam_y).sum()) / z
+    return (int((sx + 0.5) * camera.resx),
+            int((sy / float(camera.aspect) + 0.5) * camera.resy))
+
+
+def phase20_volume():
+    """BASELINE config 5: the homogeneous single-scatter volume lit by an
+    emissive mesh, 512x512, 8 spp, 3 bounces, 16 volume steps, through
+    `render` with no device argument. Returns mt_closest's launches in the
+    timed render and its per-launch numbers on one pass's queries."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.integrators import volume as VI
+    from libyafaray_tpu_torch.scenes import volume_emissive_builder
+    b = volume_emissive_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = VOLUME_RES
+    scene = b.compile("cam")
+    cfg = make_integrator({"type": "pathtracing", "bounces": VOLUME_BOUNCES})
+    per_pass = (VOLUME_BOUNCES + 1) * (1 + scene.lights.num_lights) \
+        + cfg.vol_steps
+    render(scene, cfg, spp=1)                        # warm-up pass
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MT.launches = 0
+    t0 = time.perf_counter()
+    film = render(scene, cfg, spp=VOLUME_SPP)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = MT.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != VOLUME_SPP * per_pass:
+        raise AssertionError(f"phase 20: {launches} mt_closest launches, "
+                             f"want {VOLUME_SPP} x {per_pass}")
+    img = F.resolve(film).cpu().numpy()
+    clear = F.resolve(render(dataclasses.replace(scene, volumes=None), cfg,
+                             spp=VOLUME_SPP)).cpu().numpy()
+    changed = float((np.abs(img - clear)[..., :3].max(-1) > 1e-4).mean())
+    gx, gy = _glow_pixel(scene.camera, (0.5, 0.5, 0.42))
+    glow = img[gy, gx, :3]
+    n_k, busy, ms = _profile_pass(scene, cfg)
+    print(f"phase 20: volume {VOLUME_RES}x{VOLUME_RES} {VOLUME_SPP} spp "
+          f"{VOLUME_BOUNCES} bounces, {cfg.vol_steps} volume steps: "
+          f"{seconds * 1e3 / VOLUME_SPP:.2f} ms/pass, "
+          f"{VOLUME_RES ** 2 * VOLUME_SPP / seconds:.4g} camera rays/s, peak "
+          f"device memory {peak / 2**30:.3f} GiB, {launches // VOLUME_SPP} "
+          f"mt_closest launches per pass; one pass profiled: {n_k} kernel "
+          f"launches, device busy {busy:.2f} of {ms:.2f} ms "
+          f"({100 * busy / ms:.1f}%)")
+    print(f"phase 20: image mean {float(img[..., :3].mean()):.6f} against "
+          f"{float(clear[..., :3].mean()):.6f} without the volume region; "
+          f"{100 * changed:.2f}% of pixels changed by more than 1e-4; the "
+          f"glow at pixel ({gx}, {gy}) {glow.round(4).tolist()}")
+    if not (np.isfinite(img).all() and changed > 0.99 and glow[0] > 1.0
+            and glow[0] > glow[1] > glow[2]):
+        raise AssertionError("phase 20: the image is not finite, the fog or "
+                             "the glow is not visible")
+
+    # the fog's two shares over one pass's camera segments
+    from libyafaray_tpu_torch.cameras import shoot_rays
+    from libyafaray_tpu_torch.ops import intersect as I
+    px, py, pid = _pixels(VOLUME_RES, 0, VOLUME_RES, DEVICE)
+    o, d, _ = shoot_rays(scene.camera, px, py)
+    t_hit = I.closest_hit(scene, o, d, scene.ray_min_dist, 1e30).t
+    tr = VI.transmittance(scene, o, d, t_hit, cfg.vol_steps)
+    ins = VI.in_scatter(scene, o, d, t_hit, pid, 0, cfg.vol_steps)
+    print(f"phase 20: camera segments: mean transmittance "
+          f"{float(tr.mean()):.4f}, mean in-scattered radiance "
+          f"{float(ins.mean()):.6f}")
+    if not (float(tr.max()) < 1.0 and float(ins.mean()) > 0):
+        raise AssertionError("phase 20: the fog neither attenuates nor "
+                             "scatters")
+
+    # one pass's queries, the 16 in-scatter shadow queries last
+    with _mt_captured() as (calls, events):
+        render(scene, cfg, spp=1, start_sample=1)
+        torch.cuda.synchronize()
+    if len(calls) != per_pass:
+        raise AssertionError(f"phase 20: {len(calls)} queries in a pass")
+    surface = per_pass - cfg.vol_steps
+    labels = [f"volume query {i} ({_kind(k)}"
+              + (f", in-scatter step {i - surface})" if i >= surface else ")")
+              for i, (_, k, _) in enumerate(calls)]
+    print(f"phase 20: one pass: mt_closest {len(calls)} launches, "
+          f"{sum(a.elapsed_time(z) for a, z in events):.3f} ms of events")
+    per_launch = _hold_queries("20", calls, labels)
+
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = PATHS_RES
+    small = b.compile("cam")
+    img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    _paths_agree("20", img_k, img_p)
+    return launches, per_launch
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -2082,6 +2358,8 @@ def main() -> int:
     cover_arms, cover_launches = _timed("17", phase17_cover, textured, forest,
                                         textured_img)
     texel_launches = _timed("18", phase18_texel_grads, textured)
+    caustic_launches, mt_caustic = _timed("19", phase19_caustic)
+    volume_launches, mt_volume = _timed("20", phase20_volume)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -2099,11 +2377,20 @@ def main() -> int:
          "source": "libyafaray_tpu_torch/csrc/mt_intersect.cu",
          "replaces": "libyafaray_tpu/accel/pallas_intersect.py:49",
          "launches": fwd_bwd_launches,
-         "max_abs_err": max(mt_err, mt_chunk["max_abs_err"]),
+         "max_abs_err": max(mt_err, mt_chunk["max_abs_err"],
+                            mt_caustic["max_abs_err"],
+                            mt_volume["max_abs_err"]),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
-             "glossy cornell forward, phase 13": glossy_launches},
+             "glossy cornell forward, phase 13": glossy_launches,
+             "caustic forward + backward 512x512, phase 19":
+                 caustic_launches,
+             "volume forward 512x512, phase 20": volume_launches},
+         "per_launch_by_path": {
+             "caustic, one forward + backward's queries, phase 19":
+                 mt_caustic,
+             "volume, one pass's queries, phase 20": mt_volume},
          "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
                      "mean per launch",
          "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],

@@ -1,15 +1,18 @@
 """libyafaray_tpu_torch: the PyTorch / CUDA port of libyafaray_tpu.
 
 A second package beside the JAX one, held against it module by module. It
-imports torch and numpy only. The forward path renders the Cornell box (with
-shiny-diffuse and glossy materials), the 203k-triangle terrain of BASELINE
-config 3 (untextured) and the forest (the terrain under true instances,
-some of them moving) under the `pathtracing` and `directlighting`
-integrators. Torch autograd runs through it: material and light parameters
-get gradients, which stop at the intersection queries as in the JAX
-package, and `make_train_step` takes an inverse-rendering SGD step on one
-device. `SceneBuilder.compile`, `render` and `make_train_step` run on the
-CUDA card unless the caller names another device. On the card every
+imports torch and numpy only. The forward path renders every BASELINE
+config of the JAX bench: the Cornell box (with shiny-diffuse and glossy
+materials), the 203k-triangle terrain of config 3 (image-textured), the
+glass caustic scene of config 4 and the single-scatter volume of config 5
+(a mesh light, `light_mat`, a uniform fog), and the forest (the terrain
+under true instances, some of them moving) under the `pathtracing` and
+`directlighting` integrators. Torch autograd runs through it: material
+and light parameters get gradients, which stop at the intersection
+queries as in the JAX package, and `make_train_step` takes an
+inverse-rendering SGD step on one device. `SceneBuilder.compile`, `render`
+and `make_train_step` run on the CUDA card unless the caller names another
+device. On the card every
 intersection query runs a hand-written kernel: `csrc/mt_intersect.cu` on
 the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
 (static, motion-blur and instancing arms) on the block accelerator

@@ -5,27 +5,35 @@ leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
 SceneData with the same tables (the motion keyframes, the true-instancing
 tables, the block accelerator's, the image texture pool and the shader-node
-program included), on the CPU. It reads attributes only and imports nothing
-of JAX. Scenes that use features the port does not carry yet raise
-NotImplementedError.
+program, the mesh lights' area CDF and the volume regions included), on the
+CPU. It reads attributes only and imports nothing of JAX. Scenes that use
+features the port does not carry yet raise NotImplementedError.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT,
-                          LIGHT_SUN, MAT_GLOSSY, MAT_SHINY_DIFFUSE,
-                          NODE_COLUMNS, Background, BlockAccel, Camera,
-                          Geometry, LightTable, MaterialTable, NodeProgram,
-                          SceneData, TexturePool)
+from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_MESH,
+                          LIGHT_POINT, LIGHT_SUN, MAT_GLASS, MAT_GLOSSY,
+                          MAT_LIGHT, MAT_SHINY_DIFFUSE, NODE_COLUMNS,
+                          Background, BlockAccel, Camera, Geometry,
+                          LightTable, MaterialTable, NodeProgram, SceneData,
+                          TexturePool, VolumeTable)
 from .textures import TEX_IMAGE
+from .volumes import VOL_UNIFORM
 
 
 _MAT_COLUMNS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
-                "emit_color", "specular_refl", "transparency", "translucency",
-                "diffuse_reflect", "glossy_reflect", "exponent", "exp_u",
-                "exp_v", "ior", "mat_flags")
+                "filter_color", "absorption", "emit_color", "specular_refl",
+                "transparency", "translucency", "diffuse_reflect",
+                "glossy_reflect", "exponent", "exp_u", "exp_v", "ior",
+                "dispersion", "sss_dist", "mat_flags")
+_LIGHT_COLUMNS = ("light_type", "position", "direction", "color", "edge1",
+                  "edge2", "area", "flags", "samples", "cos_start", "obj_id",
+                  "tri_start", "tri_count")
+_VOL_COLUMNS = ("vol_type", "bmin", "bmax", "sigma_a", "sigma_s",
+                "emission", "g")
 
 
 def _t(x) -> torch.Tensor:
@@ -52,12 +60,14 @@ def scene_from_numpy(tree) -> SceneData:
     if tree.accel_kind == "brute":
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
-    _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE, MAT_GLOSSY},
+    _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE, MAT_GLOSSY,
+                                      MAT_GLASS, MAT_LIGHT},
              f"material types {m.present_types}")
     _require(not (m.has_oren or m.has_blend or m.has_mask or m.has_beer
                   or m.has_sss), "Oren-Nayar, blend, mask or volume materials")
+    _require(not (np.asarray(m.dispersion) > 0).any(), "glass dispersion")
     _require(set(lt.present_types) <= {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN,
-                                       LIGHT_BACKGROUND},
+                                       LIGHT_MESH, LIGHT_BACKGROUND},
              f"light types {lt.present_types}")
     _require(tree.background.kind == "constant",
              f"background kind {tree.background.kind!r}")
@@ -66,7 +76,10 @@ def scene_from_numpy(tree) -> SceneData:
     cam = tree.camera
     _require(cam.kind == "perspective", f"camera kind {cam.kind!r}")
     _require(float(cam.aperture) == 0.0, "depth of field")
-    _require(tree.volumes is None, "volumes")
+    if tree.volumes is not None:
+        _require(tree.vol_atten is None, "the volume attenuation grid")
+        _require((np.asarray(tree.volumes.vol_type) == VOL_UNIFORM).all(),
+                 "volume types other than UniformVolume")
     if tree.textures is not None:
         _require(set(tree.textures.used_types) <= {TEX_IMAGE},
                  "procedural textures")
@@ -86,12 +99,11 @@ def scene_from_numpy(tree) -> SceneData:
     mats = MaterialTable(
         **{f: _t(getattr(m, f)) for f in _MAT_COLUMNS + NODE_COLUMNS},
         present_types=tuple(m.present_types),
-        has_fresnel=bool(m.has_fresnel), has_aniso=bool(m.has_aniso))
+        has_fresnel=bool(m.has_fresnel), has_aniso=bool(m.has_aniso),
+        has_beer=bool(m.has_beer), has_sss=bool(m.has_sss))
     lights = LightTable(
-        light_type=_t(lt.light_type), position=_t(lt.position),
-        direction=_t(lt.direction), color=_t(lt.color), edge1=_t(lt.edge1),
-        edge2=_t(lt.edge2), area=_t(lt.area), flags=_t(lt.flags),
-        samples=_t(lt.samples), cos_start=_t(lt.cos_start),
+        **{f: _t(getattr(lt, f)) for f in _LIGHT_COLUMNS},
+        **_opt(lt, ("tri_cdf",)),
         num_lights=int(lt.num_lights), bg_light_idx=int(lt.bg_light_idx),
         present_types=tuple(lt.present_types),
         samples_static=tuple(lt.samples_static))
@@ -119,7 +131,10 @@ def scene_from_numpy(tree) -> SceneData:
         has_cam_invisible=bool(tree.has_cam_invisible),
         textures=_textures(tree.textures), nodes=_nodes(tree.nodes, mats),
         pixel_spread=(None if tree.pixel_spread is None
-                      else _t(tree.pixel_spread)))
+                      else _t(tree.pixel_spread)),
+        volumes=(None if tree.volumes is None else VolumeTable(
+            **{k: _t(getattr(tree.volumes, k)) for k in _VOL_COLUMNS},
+            num_volumes=int(tree.volumes.num_volumes))))
 
 
 _POOL_COLUMNS = ("texel_pool", "texel_scale", "img_offset", "img_width",

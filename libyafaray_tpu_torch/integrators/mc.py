@@ -8,7 +8,9 @@ count, drawn from the same counter-based samples as the JAX package. In a
 motion-blurred scene every path carries one shutter time, drawn per sample,
 which its camera, bounce and shadow queries share. Primary hits carry their
 pixel footprint (`compute_differentials`) and every hit its bump-mapped
-normal (`bump_normal`), where the JAX package computes them.
+normal (`bump_normal`), where the JAX package computes them. In a scene
+with volume regions the camera segment ends with the single-scatter volume
+integrator (`integrators/volume.py`).
 """
 from __future__ import annotations
 
@@ -45,6 +47,18 @@ class IntegratorConfig:
     russian_roulette_min_bounces: int = 2
     no_recursive: bool = False
     clamp_indirect: float = 0.0
+    # the volume integrator (the reference's separate VolumeIntegrator
+    # entity): "single_scatter", "emission", "sky" or "none"; its step
+    # count, the attenuation-grid cache ("optimize") and adaptive marching
+    vol_kind: str = "single_scatter"
+    vol_steps: int = 16
+    vol_optimize: bool = False
+    vol_adaptive: bool = False
+
+
+_VOL_KINDS = {"EmissionIntegrator": "emission",
+              "SingleScatterIntegrator": "single_scatter",
+              "SkyIntegrator": "sky", "none": "none"}
 
 
 def _unsupported(feature: str):
@@ -70,7 +84,13 @@ def make_integrator(pm: dict) -> IntegratorConfig:
         russian_roulette_min_bounces=pm.get_int(
             "russian_roulette_min_bounces", 2),
         no_recursive=pm.get_bool("no_recursive", False),
-        clamp_indirect=pm.get_float("clamp_indirect", 0.0))
+        clamp_indirect=pm.get_float("clamp_indirect", 0.0),
+        vol_kind=_VOL_KINDS.get(
+            pm.get_string("volume_integrator", "SingleScatterIntegrator"),
+            "single_scatter"),
+        vol_steps=pm.get_int("volume_steps", 16),
+        vol_optimize=pm.get_bool("optimize", False),
+        vol_adaptive=pm.get_bool("adaptive", False))
 
 
 def integrate(scene: SceneData, cfg: IntegratorConfig,
@@ -79,6 +99,11 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     """Trace one wavefront of camera rays to completion.
 
     Returns (rgb f32[N,3], alpha f32[N])."""
+    if scene.materials.has_beer or scene.materials.has_sss:
+        raise _unsupported("glass interiors (Beer absorption, sss): the "
+                           "medium tracking of the bounce loop")
+    if cfg.vol_kind == "sky":
+        raise _unsupported("the sky volume integrator (SkyIntegrator)")
     n = ray_o.shape[0]
     dev = ray_o.device
     num_lights = scene.lights.num_lights
@@ -87,6 +112,7 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
     alive = ray_valid
     alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
+    first_hit_t = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
     o, d = ray_o, ray_d
     prev_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
     prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -124,6 +150,8 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
                 prev_pdf, L.background_pdf(scene, d)))
             bg_add = bg_add * bg_mis[..., None]
         radiance = radiance + torch.where(escaped[..., None], bg_add, 0.0)
+        if depth == 0:
+            first_hit_t = torch.where(hit.valid, hit.t, first_hit_t)
         alpha = torch.where(hit.valid & (depth == 0), 1.0, alpha)
         # lanes that bounced at least once keep alpha 1 when they escape
         if depth > 0:
@@ -188,4 +216,10 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         o = sp.p + ms.wi * scene.shadow_bias
         d = ms.wi
 
+    if scene.volumes is not None and cfg.vol_kind != "none":
+        # the camera segment through the volume regions
+        # (applyVolumetricEffects, integrator_tiled.cc)
+        from .volume import apply_volumetric
+        radiance = apply_volumetric(scene, cfg, radiance, ray_o, ray_d,
+                                    first_hit_t, pixel_id, sample_idx)
     return radiance, torch.clamp(alpha, 0.0, 1.0)

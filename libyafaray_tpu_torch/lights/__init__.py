@@ -1,10 +1,10 @@
-"""Light table sampling and pdfs: point lights, area lights, the sun and the
-background light.
+"""Light table sampling and pdfs: point lights, area lights, the sun, mesh
+lights and the background light.
 
 Counterpart of `libyafaray_tpu/lights/__init__.py` with the `LIGHT_POINT`,
-`LIGHT_AREA`, `LIGHT_SUN` and `LIGHT_BACKGROUND` arms (a constant background
-sampled uniformly over the sphere), the light types the port compiles so
-far.
+`LIGHT_AREA`, `LIGHT_SUN`, `LIGHT_MESH` and `LIGHT_BACKGROUND` arms (a
+constant background sampled uniformly over the sphere), the light types the
+port compiles so far.
 Every present type is evaluated for the whole wavefront and selected per
 lane by its type, as in the JAX package. `sample_light` returns solid-angle
 pdfs; the `color` column holds the emitted radiance.
@@ -18,8 +18,8 @@ import torch
 
 from ..backgrounds import eval_background
 from ..math import vec
-from ..scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT,
-                           LIGHT_SUN, SceneData)
+from ..scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_MESH,
+                           LIGHT_POINT, LIGHT_SUN, LightTable, SceneData)
 
 Tensor = torch.Tensor
 
@@ -28,7 +28,7 @@ FLAG_ENABLED = 2
 FLAG_PHOTON_ONLY = 4
 FLAG_DOUBLE_SIDED = 8
 
-_PORTED = {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN, LIGHT_BACKGROUND}
+_PORTED = {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN, LIGHT_MESH, LIGHT_BACKGROUND}
 
 
 @dataclass
@@ -45,7 +45,7 @@ def _check_types(lt) -> None:
     if not set(lt.present_types) <= _PORTED:
         raise NotImplementedError(
             f"light types {lt.present_types} include types other than point, "
-            "area, sun and background lights, which are not ported to "
+            "area, sun, mesh and background lights, which are not ported to "
             "libyafaray_tpu_torch yet")
 
 
@@ -53,6 +53,36 @@ def _has(lt, ty: int) -> bool:
     """Light families absent from the scene are not evaluated (an empty
     present_types means unknown)."""
     return not lt.present_types or ty in lt.present_types
+
+
+def sample_light_tri(lt: LightTable, num_faces: int, li: Tensor,
+                     u1: Tensor):
+    """Area-CDF triangle pick within mesh light li's faces [tri_start,
+    tri_start + tri_count) (light_object_light.cc's Pdf1D): a bisection
+    over the faces' normalised cumulative areas, so the density over the
+    light's surface is uniform, 1 / total area. Returns (face index, u1
+    rescaled to the picked face's share)."""
+    start = lt.tri_start[li]
+    cnt = torch.clamp_min(lt.tri_count[li], 1)
+    if lt.tri_cdf is None:   # no mesh light found its object: uniform pick
+        x = u1 * cnt.to(torch.float32)
+        tri = start + torch.minimum(torch.clamp_min(x.to(torch.int32), 0),
+                                    cnt - 1)
+        return tri, x - torch.floor(x)
+    lo = torch.zeros_like(start)
+    hi = cnt - 1
+    for _ in range(max(1, math.ceil(math.log2(max(2, num_faces))))):
+        mid = (lo + hi) // 2
+        go_hi = u1 > lt.tri_cdf[(start + mid).long()]
+        lo = torch.where(go_hi, mid + 1, lo)
+        hi = torch.where(go_hi, hi, mid)
+    idx = torch.minimum(torch.clamp_min(lo, 0), cnt - 1)
+    tri = start + idx
+    c1 = lt.tri_cdf[tri.long()]
+    c0 = torch.where(idx > 0,
+                     lt.tri_cdf[torch.clamp_min(tri - 1, 0).long()], 0.0)
+    u1r = torch.clamp((u1 - c0) / torch.clamp_min(c1 - c0, 1e-12), 0.0, 1.0)
+    return tri, u1r
 
 
 def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
@@ -118,6 +148,35 @@ def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
         rad = torch.where(m[..., None], col, rad)
         valid = valid & torch.where(m, cos_l > 1e-6, True)
 
+    # mesh light: an area-CDF face pick, then a uniform point on the face;
+    # it emits from both sides (light_object_light.cc)
+    if scene.geom.num_faces > 0 and _has(lt, LIGHT_MESH):
+        m = ty == LIGHT_MESH
+        g = scene.geom
+        tri, u1r = sample_light_tri(lt, g.num_faces, li, u1)
+        fidx = g.faces[tri.long()].long()
+        v0 = g.vertices[fidx[:, 0]]
+        v1 = g.vertices[fidx[:, 1]]
+        v2 = g.vertices[fidx[:, 2]]
+        b0, b1 = vec.sample_triangle_uniform(u1r, u2)
+        lp = (v0 * b0[..., None] + v1 * b1[..., None]
+              + v2 * (1 - b0 - b1)[..., None])
+        nrm = vec.cross(v1 - v0, v2 - v0)
+        n_l = nrm / torch.clamp_min(vec.length(nrm), 1e-12)[..., None]
+        to_m = lp - p
+        d2m = torch.clamp_min(vec.dot(to_m, to_m), 1e-12)
+        dist_m = torch.sqrt(d2m)
+        wi_m = to_m / dist_m[..., None]
+        cos_m = torch.abs(vec.dot(-wi_m, n_l))
+        # the area-CDF pick has the uniform density 1 / total area
+        pdf_m = d2m / torch.clamp_min(
+            lt.area[li] * torch.clamp_min(cos_m, 1e-9), 1e-12)
+        wi = torch.where(m[..., None], wi_m, wi)
+        dist = torch.where(m, dist_m, dist)
+        pdf = torch.where(m, pdf_m, pdf)
+        rad = torch.where(m[..., None], col, rad)
+        valid = valid & torch.where(m, cos_m > 1e-6, True)
+
     # background light, constant background: uniform over the sphere
     # (light_background.cc)
     if lt.bg_light_idx >= 0:
@@ -149,10 +208,13 @@ def light_pdf_hit(scene: SceneData, light_id: Tensor, p_hit: Tensor,
     cos_l = torch.abs(vec.dot(-wi, n_hit))
     pdf = torch.zeros(p_from.shape[:-1], dtype=torch.float32,
                       device=p_from.device)
-    if _has(lt, LIGHT_AREA):
-        m = lt.light_type[light_id] == LIGHT_AREA
-        pdf = torch.where(m, d2 / torch.clamp_min(
-            lt.area[light_id] * torch.clamp_min(cos_l, 1e-9), 1e-12), pdf)
+    # area and mesh lights: uniform density over the light's surface
+    for ty in (LIGHT_AREA, LIGHT_MESH):
+        if _has(lt, ty):
+            m = lt.light_type[light_id] == ty
+            pdf = torch.where(m, d2 / torch.clamp_min(
+                lt.area[light_id] * torch.clamp_min(cos_l, 1e-9), 1e-12),
+                pdf)
     return pdf
 
 

@@ -1,11 +1,15 @@
 """Vectorized BSDF table: eval / sample / emit for the whole wavefront.
 
 Counterpart of `libyafaray_tpu/materials/bsdf.py` with the shiny-diffuse
-(`MAT_SHINY_DIFFUSE`) and glossy (`MAT_GLOSSY`) materials, the families the
-port compiles so far. Their lobes, in the JAX package's numbering:
+(`MAT_SHINY_DIFFUSE`), glossy (`MAT_GLOSSY`), clear glass (`MAT_GLASS`) and
+light (`MAT_LIGHT`: emission only, no lobe) materials, the families the port
+compiles so far. Their lobes, in the JAX package's numbering:
 
-    lobe 0  delta reflect   (specular_reflect, optionally Fresnel-weighted)
-    lobe 1  delta transmit  (transparency: passes straight through)
+    lobe 0  delta reflect   (specular_reflect, optionally Fresnel-weighted;
+                             glass reflection)
+    lobe 1  delta transmit  (transparency: passes straight through; glass
+                             refraction, a reflection under total internal
+                             reflection)
     lobe 2  microfacet      (glossy: Blinn or Ashikhmin-Shirley reflection)
     lobe 3  diffuse reflect (Lambert)
     lobe 4  diffuse transmit (translucency)
@@ -32,8 +36,8 @@ import torch
 
 from ..math import vec
 from ..ops.fast_grad import take
-from ..scene_types import (MAT_GLOSSY, MAT_SHINY_DIFFUSE, MaterialTable,
-                           SceneData)
+from ..scene_types import (MAT_GLASS, MAT_GLOSSY, MAT_SHINY_DIFFUSE,
+                           MaterialTable, SceneData)
 from . import microfacet as mf
 
 Tensor = torch.Tensor
@@ -42,12 +46,13 @@ Tensor = torch.Tensor
 FLAG_FRESNEL = 1
 FLAG_ANISOTROPIC = 2
 FLAG_AS_DIFFUSE = 4
+FLAG_FAKE_SHADOWS = 8
 
 _INV_PI = 1.0 / math.pi
 
 # the float columns of the material table, gathered per lane
-_COLUMNS = ("diffuse_color", "glossy_color", "mirror_color", "emit_color",
-            "specular_refl", "transparency", "translucency",
+_COLUMNS = ("diffuse_color", "glossy_color", "mirror_color", "filter_color",
+            "emit_color", "specular_refl", "transparency", "translucency",
             "diffuse_reflect", "glossy_reflect", "exponent", "exp_u", "exp_v",
             "ior")
 
@@ -59,6 +64,7 @@ class MP:
     diffuse_color: Tensor
     glossy_color: Tensor
     mirror_color: Tensor
+    filter_color: Tensor
     emit_color: Tensor
     specular_refl: Tensor
     transparency: Tensor
@@ -106,13 +112,14 @@ def _flag(flags: Tensor, bit: int) -> Tensor:
 
 def lobe_weights(mp: MP, cos_wo: Tensor):
     """Per-lane weights of the five lobes, summing to <= 1: ShinyDiffuse's
-    cumulative component accumulation (material_shiny_diffuse.cc) and the
-    glossy material's split."""
+    cumulative component accumulation (material_shiny_diffuse.cc), the
+    glossy material's split and glass's Fresnel split."""
     zero = torch.zeros_like(cos_wo)
     w_dr = w_dt = w_mf = w_di = w_tl = zero
+    kr_ior = (vec.fresnel_dielectric(cos_wo, mp.ior)
+              if mp.has_fresnel or mp.has(MAT_GLASS) else None)
     if mp.has(MAT_SHINY_DIFFUSE):
         if mp.has_fresnel:
-            kr_ior = vec.fresnel_dielectric(cos_wo, mp.ior)
             use_fresnel = _flag(mp.mat_flags, FLAG_FRESNEL)
             m = mp.specular_refl * torch.where(use_fresnel, kr_ior, 1.0)
         else:
@@ -133,6 +140,11 @@ def lobe_weights(mp: MP, cos_wo: Tensor):
         w_mf = torch.where(is_gl, mp.glossy_reflect, w_mf)
         w_di = torch.where(is_gl, mp.diffuse_reflect
                            * (1.0 - mp.glossy_reflect), w_di)
+    if mp.has(MAT_GLASS):
+        # Fresnel split between delta reflect and delta transmit
+        is_gs = mp.mat_type == MAT_GLASS
+        w_dr = torch.where(is_gs, kr_ior, w_dr)
+        w_dt = torch.where(is_gs, 1.0 - kr_ior, w_dt)
     return w_dr, w_dt, w_mf, w_di, w_tl
 
 
@@ -237,8 +249,22 @@ def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
     sgn_wo = torch.where(sgn_wo == 0, 1.0, sgn_wo)
     # delta reflect: mirror about local z
     wi_dr = torch.stack([-wo_l[..., 0], -wo_l[..., 1], wo_l[..., 2]], dim=-1)
-    # delta transmit: shiny-diffuse transparency passes straight through
+    # delta transmit: shiny-diffuse transparency passes straight through,
+    # unfiltered; glass refracts through the local normal on wo's side by
+    # the relative IOR and transmits its filter colour, or reflects with its
+    # mirror colour under total internal reflection
     wi_dt = -wo_l
+    col_dt = torch.ones_like(mp.filter_color)
+    if mp.has(MAT_GLASS):
+        eta_rel = torch.where(wo_l[..., 2] > 0, mp.ior, 1.0 / mp.ior)
+        n_l = torch.cat([torch.zeros_like(wo_l[..., :2]), sgn_wo], dim=-1)
+        wt, tir = vec.refract(wo_l, n_l, eta_rel)
+        is_gs = mp.mat_type == MAT_GLASS
+        wi_dt = torch.where(is_gs[..., None], wt, wi_dt)
+        wi_dt = torch.where((is_gs & tir)[..., None], wi_dr, wi_dt)
+        col_dt = torch.where(is_gs[..., None], mp.filter_color, col_dt)
+        col_dt = torch.where((is_gs & tir)[..., None], mp.mirror_color,
+                             col_dt)
     # diffuse lobes
     d_loc = vec.cosine_sample_hemisphere(u1, u2)
     wi_di = d_loc * sgn_wo     # same hemisphere as wo
@@ -271,7 +297,7 @@ def _sample_single(mp: MP, wo_l: Tensor, u1: Tensor, u2: Tensor, u3: Tensor
     # delta weights: color * lobe_weight / p_lobe (cos cancels)
     p_lobe_delta = torch.where(pick_dr, p_dr, p_dt)
     w_lobe_delta = torch.where(pick_dr, w_dr, w_dt)
-    col_delta = torch.where(pick_dr[..., None], mp.mirror_color, 1.0)
+    col_delta = torch.where(pick_dr[..., None], mp.mirror_color, col_dt)
     weight_delta = col_delta * (w_lobe_delta / torch.clamp_min(
         p_lobe_delta, 1e-9))[..., None]
     # non-delta weight: f * cos / pdf with the combined-estimator pdf

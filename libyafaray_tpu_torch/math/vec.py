@@ -33,8 +33,28 @@ def cross(a: Tensor, b: Tensor) -> Tensor:
     return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], dim=-1)
 
 
+def length(v: Tensor) -> Tensor:
+    return torch.sqrt(torch.clamp_min(dot(v, v), 0.0))
+
+
 def normalize(v: Tensor, eps: float = 1e-20) -> Tensor:
     return v * torch.rsqrt(torch.clamp_min(dot(v, v, keepdim=True), eps))
+
+
+def refract(wi: Tensor, n: Tensor, eta: Tensor):
+    """Refract `wi` (unit, pointing away from the surface) through normal
+    `n` with relative IOR `eta` = n_inside / n_outside seen from the wi
+    side. Returns (wt, total internal reflection mask) (Vec3::refract,
+    batched and branchless)."""
+    if eta.dim() == wi.dim() - 1:
+        eta = eta[..., None]
+    cos_i = dot(wi, n, keepdim=True)
+    inv_eta = 1.0 / eta
+    sin2_t = inv_eta * inv_eta * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 1e-12))
+    wt = normalize(-wi * inv_eta + (inv_eta * cos_i - cos_t) * n)
+    return wt, tir[..., 0]
 
 
 def fresnel_dielectric(cos_i: Tensor, eta: Tensor) -> Tensor:

@@ -3,16 +3,16 @@ compiled to the torch tables of `scene_types.py`.
 
 Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
 port carries so far: `shinydiffusemat` and `glossy` materials (with the
-Lambert diffuse BRDF), image textures and the shader nodes that bind them to
-material channels, triangle meshes with motion-blur keyframes,
-instances (baked into copies, or true instances over the block
-accelerator), point lights, area lights (baked into the geometry as two
-emissive triangles), sun lights, a perspective camera and a
-constant background (with `ibl`, lighting the scene), over the brute-force
-or the block accelerator. `compile()` builds the same tables as the JAX
-compile, on the CUDA card unless the caller names another device. Every
-other entity type or option raises `NotImplementedError` naming the
-feature.
+Lambert diffuse BRDF), clear `glass` and `light_mat`, image textures and the
+shader nodes that bind them to material channels, triangle meshes with
+motion-blur keyframes, instances (baked into copies, or true instances over
+the block accelerator), point lights, area lights (baked into the geometry
+as two emissive triangles), sun lights, mesh lights, uniform volume
+regions, a perspective camera and a constant background (with `ibl`,
+lighting the scene), over the brute-force or the block accelerator.
+`compile()` builds the same tables as the JAX compile, on the CUDA card
+unless the caller names another device. Every other entity type or option
+raises `NotImplementedError` naming the feature.
 """
 from __future__ import annotations
 
@@ -28,13 +28,15 @@ from .accel.blocks import build_blocks
 from .accel.mt_intersect import MAX_TRIS, pack_tris
 from .backgrounds import make_background
 from .cameras import make_camera
-from .lights import FLAG_CAST_SHADOWS, FLAG_ENABLED, FLAG_PHOTON_ONLY
-from .materials.bsdf import FLAG_ANISOTROPIC, FLAG_AS_DIFFUSE, FLAG_FRESNEL
+from .lights import (FLAG_CAST_SHADOWS, FLAG_DOUBLE_SIDED, FLAG_ENABLED,
+                     FLAG_PHOTON_ONLY)
+from .materials.bsdf import (FLAG_ANISOTROPIC, FLAG_AS_DIFFUSE,
+                             FLAG_FAKE_SHADOWS, FLAG_FRESNEL)
 from .scene_types import (
-    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_POINT, LIGHT_SUN, MAT_GLOSSY,
-    MAT_SHINY_DIFFUSE, NODE_COLUMNS, VIS_INVISIBLE, VIS_NO_SHADOWS,
-    VIS_NORMAL, VIS_SHADOW_ONLY, Background, Geometry, LightTable,
-    MaterialTable, SceneData,
+    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_MESH, LIGHT_POINT, LIGHT_SUN,
+    MAT_GLASS, MAT_GLOSSY, MAT_LIGHT, MAT_SHINY_DIFFUSE, NODE_COLUMNS,
+    VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background,
+    Geometry, LightTable, MaterialTable, SceneData,
 )
 
 # material and light types the JAX package knows; the ones not ported yet
@@ -45,9 +47,13 @@ _MAT_TYPES = ("shinydiffusemat", "glossy", "coated_glossy", "glass",
 _LIGHT_TYPES = ("pointlight", "ieslight", "spotlight", "sunlight",
                 "directional", "arealight", "spherelight", "meshlight",
                 "objectlight", "bgPortalLight", "bglight")
-_LIGHT_TYPES_PORTED = ("arealight", "pointlight", "sunlight")
+_MAT_TYPES_PORTED = ("shinydiffusemat", "glossy", "glass", "light_mat")
+_LIGHT_TYPES_PORTED = ("arealight", "pointlight", "sunlight", "meshlight",
+                       "objectlight")
 # names that select the block accelerator (the reference's kd-tree names
 # map to it, as in the JAX package)
+_VOL_TYPES = ("UniformVolume", "ExpDensityVolume", "NoiseVolume",
+              "GridVolume", "SkyVolume")
 _ACCEL_BLOCKS = ("blocks", "yafaray-kdtree-original",
                  "yafaray-kdtree-multi-thread")
 BLOCKS_MIN_FACES = 2048  # the JAX compile defaults to blocks from here on
@@ -99,6 +105,7 @@ class SceneBuilder:
         self.objects: Dict[str, _MeshObject] = {}
         self.object_order: List[str] = []
         self.instances: List = []      # (base object name, [4x4 matrices])
+        self.volumes: Dict[str, P.ParamMap] = {}
         self.render_params = P.ParamMap()
         self.current_object: Optional[_MeshObject] = None
         self.current_material: int = 0
@@ -111,10 +118,18 @@ class SceneBuilder:
         ty = pm.get_string("type")
         if ty not in _MAT_TYPES:
             raise KeyError(f"material: unknown type {ty!r}")
-        if ty not in ("shinydiffusemat", "glossy"):
+        if ty not in _MAT_TYPES_PORTED:
             raise _unsupported(f"material type {ty!r}")
         if pm.get_string("diffuse_brdf", "lambert") == "oren_nayar":
             raise _unsupported("the Oren-Nayar diffuse BRDF")
+        if ty == "glass":
+            if pm.get_float("dispersion_power", 0.0) > 0.0:
+                raise _unsupported("glass dispersion (dispersion_power > 0)")
+            if "absorption" in pm:
+                raise _unsupported("glass absorption (the Beer volume "
+                                   "handler)")
+            if pm.get_string("volume_handler", "beer") == "sss":
+                raise _unsupported("the sss volume handler")
         if name not in self.materials:
             self.material_order.append(name)
         self.materials[name] = pm
@@ -152,7 +167,13 @@ class SceneBuilder:
             self.texture_images[name] = np.asarray(image, np.float32)
 
     def create_volume_region(self, name: str, pm: dict) -> None:
-        raise _unsupported("volume regions")
+        pm = P.ParamMap(pm)
+        ty = pm.get_string("type", "UniformVolume")
+        if ty not in _VOL_TYPES:
+            raise KeyError(f"volume region: unknown type {ty!r}")
+        if ty != "UniformVolume":
+            raise _unsupported(f"volume type {ty!r}")
+        self.volumes[name] = pm
 
     def create_render_view(self, name: str, pm: dict) -> None:
         raise _unsupported("render views")
@@ -273,8 +294,8 @@ class SceneBuilder:
         accelerator is built there."""
         materials = self._build_materials()
         textures, nodes, materials = self._build_textures_and_nodes(materials)
-        g = self._build_geometry()
-        lights, g = self._build_lights(g)
+        g, obj_face_ranges = self._build_geometry()
+        lights, g = self._build_lights(g, obj_face_ranges)
         geom = _geometry_tables(g).to(device)
         background = (make_background(self.background_params)
                       if self.background_params is not None
@@ -311,7 +332,7 @@ class SceneBuilder:
             ray_min_dist=f32(self.render_params.get_float("ray_min_dist",
                                                           5e-5)),
             has_cam_invisible=bool((g["face_vis"] & 4).any()),
-            textures=textures, nodes=nodes,
+            textures=textures, nodes=nodes, volumes=self._build_volumes(),
             pixel_spread=f32(1.0 / (max(camera.resx, 1) * focal))).to(device)
 
     def _build_textures_and_nodes(self, mat_table):
@@ -323,6 +344,13 @@ class SceneBuilder:
         nodes, mat_table = build_node_program(self, mat_table)
         return textures, nodes, mat_table
 
+    def _build_volumes(self):
+        """The volume regions' table, or None without any."""
+        if not self.volumes:
+            return None
+        from .volumes import build_volume_table
+        return build_volume_table(self)
+
     # ------------------------------------------------------------------
     def _build_materials(self) -> MaterialTable:
         n = max(len(self.material_order), 1)
@@ -331,18 +359,20 @@ class SceneBuilder:
         zi = lambda: np.zeros((n,), np.int32)
         cols = dict(
             mat_type=zi(), diffuse_color=z3(), glossy_color=z3(),
-            mirror_color=z3(), emit_color=z3(),
-            specular_refl=z(), transparency=z(), translucency=z(),
-            diffuse_reflect=z(), glossy_reflect=z(), exponent=z(), exp_u=z(),
-            exp_v=z(), ior=z() + 1.5, mat_flags=zi())
+            mirror_color=z3(), filter_color=z3(), absorption=z3(),
+            emit_color=z3(), specular_refl=z(), transparency=z(),
+            translucency=z(), diffuse_reflect=z(), glossy_reflect=z(),
+            exponent=z(), exp_u=z(), exp_v=z(), ior=z() + 1.5,
+            dispersion=z(), sss_dist=z(), mat_flags=zi())
         if not self.material_order:
             # default diffuse gray
             cols["diffuse_color"][0] = (0.8, 0.8, 0.8)
             cols["diffuse_reflect"][0] = 1.0
         for i, name in enumerate(self.material_order):
             pm = self.materials[name]
+            ty = pm.get_string("type")
             flags = 0
-            if pm.get_string("type") == "glossy":
+            if ty == "glossy":
                 # material_glossy.cc params
                 cols["mat_type"][i] = MAT_GLOSSY
                 cols["diffuse_color"][i] = pm.get_color("diffuse_color",
@@ -361,6 +391,22 @@ class SceneBuilder:
                     cols["exp_v"][i] = pm.get_float("exp_v", 50.0)
                 if pm.get_bool("as_diffuse", True):
                     flags |= FLAG_AS_DIFFUSE
+            elif ty == "glass":
+                # material_glass.cc params (clear glass: create_material
+                # rejects absorption, sss and dispersion)
+                cols["mat_type"][i] = MAT_GLASS
+                cols["ior"][i] = pm.get_float("IOR", 1.5)
+                cols["filter_color"][i] = pm.get_color("filter_color",
+                                                       (1, 1, 1))[:3]
+                cols["mirror_color"][i] = pm.get_color("mirror_color",
+                                                       (1, 1, 1))[:3]
+                if pm.get_bool("fake_shadows", False):
+                    flags |= FLAG_FAKE_SHADOWS
+            elif ty == "light_mat":
+                # material_light.cc: emits color * power, scatters nothing
+                cols["mat_type"][i] = MAT_LIGHT
+                cols["emit_color"][i] = (pm.get_color("color", (1, 1, 1))[:3]
+                                         * pm.get_float("power", 1.0))
             else:
                 # material_shiny_diffuse.cc params
                 cols["mat_type"][i] = MAT_SHINY_DIFFUSE
@@ -380,6 +426,10 @@ class SceneBuilder:
                 cols["ior"][i] = pm.get_float("IOR", 1.33)
                 if pm.get_bool("fresnel_effect", False):
                     flags |= FLAG_FRESNEL
+                cols["filter_color"][i] = (
+                    pm.get_color("transmit_filter", (1, 1, 1))[:3]
+                    * pm.get_float("transmit_filter_strength", 1.0)
+                    if "transmit_filter" in pm else (1, 1, 1))
             cols["mat_flags"][i] = flags
         cols.update({c: np.full((n,), -1, np.int32) for c in NODE_COLUMNS})
         return MaterialTable(
@@ -389,10 +439,11 @@ class SceneBuilder:
             **{k: torch.from_numpy(v) for k, v in cols.items()})
 
     # ------------------------------------------------------------------
-    def _build_geometry(self) -> dict:
+    def _build_geometry(self):
         """Concatenate all meshes, and the instances baked into copies, into
         flat numpy arrays; true instances go to the `__inst__` entry (the
-        JAX compile's `_build_geometry`, for meshes)."""
+        JAX compile's `_build_geometry`, for meshes). Returns the arrays and
+        each mesh object's (first face, face count)."""
         all_v, all_v1, all_v2, all_n, all_f, all_fuv = [], [], [], [], [], []
         all_uv = [np.zeros((1, 2), np.float32)]
         all_fmat, all_fobj, all_fsmooth, all_fvis = [], [], [], []
@@ -522,13 +573,14 @@ class SceneBuilder:
                                      for b_, _ in true_inst], np.int32),
                 inst_vis=np.asarray([_vis_bits(self.objects[b_].visibility)
                                      for b_, _ in true_inst], np.int32))
-        return g
+        return g, obj_face_ranges
 
     # ------------------------------------------------------------------
-    def _build_lights(self, g: dict):
+    def _build_lights(self, g: dict, obj_face_ranges: dict):
         """Parse the lights into the LightTable (plus the background light
         when the background has `ibl`) and bake each area light's quad into
-        the geometry, so BSDF-sampled rays can hit it (MIS)."""
+        the geometry, so BSDF-sampled rays can hit it (MIS). A mesh light
+        marks its object's faces with its id and keeps their area CDF."""
         specs = [self.lights[name] for name in self.light_order]
         bg = self.background_params
         if bg is not None and bg.get_bool("ibl", False):
@@ -541,8 +593,9 @@ class SceneBuilder:
         zi = lambda v=0: np.full((n,), v, np.int32)
         cols = dict(light_type=zi(), position=z3(), direction=z3(),
                     color=z3(), edge1=z3(), edge2=z3(), area=z(), flags=zi(),
-                    samples=zi(1), cos_start=z())
-        quads = []
+                    samples=zi(1), cos_start=z(), obj_id=zi(-1),
+                    tri_start=zi(), tri_count=zi())
+        quads, tri_cdfs = [], []
         bg_light_idx = -1
         for i, pm in enumerate(specs):
             ty = pm.get_string("type")
@@ -576,6 +629,32 @@ class SceneBuilder:
                 bg_light_idx = i
                 cols["samples"][i] = pm.get_int("samples", 16)
                 continue
+            if ty in ("meshlight", "objectlight"):
+                # light_object_light.cc: the object's faces emit color *
+                # power from both sides; sampled by an area-CDF triangle
+                # pick (uniform density 1 / total area)
+                cols["light_type"][i] = LIGHT_MESH
+                oname = pm.get_string("object_name")
+                if oname in obj_face_ranges:
+                    start, cnt = obj_face_ranges[oname]
+                    cols["tri_start"][i] = start
+                    cols["tri_count"][i] = cnt
+                    cols["obj_id"][i] = self.objects[oname].obj_id
+                    v = g["vertices"]
+                    f = g["faces"][start:start + cnt]
+                    areas = 0.5 * np.linalg.norm(np.cross(
+                        v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]]),
+                        axis=-1)
+                    total = float(areas.sum())
+                    cols["area"][i] = total
+                    tri_cdfs.append((start, cnt,
+                                     np.cumsum(areas) / max(total, 1e-30)))
+                    g["face_light"][start:start + cnt] = i
+                cols["color"][i] = col * power
+                if pm.get_bool("double_sided", False):
+                    cols["flags"][i] |= FLAG_DOUBLE_SIDED
+                cols["samples"][i] = pm.get_int("samples", 4)
+                continue
             cols["light_type"][i] = LIGHT_AREA
             corner = pm.get_vector("corner")
             p1 = pm.get_vector("point1")
@@ -599,9 +678,15 @@ class SceneBuilder:
             cols["flags"][0] = 0  # disabled placeholder
         if quads:
             g = _append_light_quads(g, quads)
+        tri_cdf = None
+        if tri_cdfs:
+            tri_cdf = np.zeros((len(g["faces"]),), np.float32)
+            for start, cnt, cum in tri_cdfs:
+                tri_cdf[start:start + cnt] = cum
+            tri_cdf = torch.from_numpy(tri_cdf)
         nl = len(specs)
         lights = LightTable(
-            num_lights=nl, bg_light_idx=bg_light_idx,
+            tri_cdf=tri_cdf, num_lights=nl, bg_light_idx=bg_light_idx,
             present_types=tuple(sorted({int(t) for t in
                                         cols["light_type"][:nl]})),
             samples_static=tuple(max(1, int(s)) for s in cols["samples"][:nl]),

@@ -19,12 +19,15 @@ Tensor = torch.Tensor
 # --- material type enum (same values as the JAX package) ---
 MAT_SHINY_DIFFUSE = 0   # "shinydiffusemat"
 MAT_GLOSSY = 1          # "glossy"
+MAT_GLASS = 3           # "glass"
+MAT_LIGHT = 7           # "light_mat"
 
 # --- light type enum (the values the port compiles) ---
 LIGHT_POINT = 0         # "pointlight"
 LIGHT_AREA = 3          # "arealight"
 LIGHT_SUN = 4           # "sunlight"
 LIGHT_BACKGROUND = 6    # "bglight" (the background's ibl)
+LIGHT_MESH = 7          # "meshlight" / "objectlight"
 
 # --- object visibility ---
 VIS_NORMAL = 0
@@ -131,6 +134,8 @@ class MaterialTable(_Table):
     diffuse_color: Tensor    # f32[M, 3]
     glossy_color: Tensor     # f32[M, 3]
     mirror_color: Tensor     # f32[M, 3]
+    filter_color: Tensor     # f32[M, 3] glass transmission filter
+    absorption: Tensor       # f32[M, 3] glass Beer absorption sigma_a
     emit_color: Tensor       # f32[M, 3]
     specular_refl: Tensor    # f32[M]
     transparency: Tensor     # f32[M]
@@ -141,8 +146,11 @@ class MaterialTable(_Table):
     exp_u: Tensor            # f32[M] anisotropic exponent u
     exp_v: Tensor            # f32[M] anisotropic exponent v
     ior: Tensor              # f32[M]
+    dispersion: Tensor       # f32[M] glass dispersion power
+    sss_dist: Tensor         # f32[M] glass interior scattering mean free
+                             #        path (0: none)
     mat_flags: Tensor        # i32[M] bit0 fresnel_effect, bit1 anisotropic,
-                             #        bit2 as_diffuse
+                             #        bit2 as_diffuse, bit3 fake_shadows
     # the mat_type values present (empty: unknown, every family); lobe math
     # of absent families is not evaluated
     present_types: tuple = ()
@@ -150,6 +158,10 @@ class MaterialTable(_Table):
     has_fresnel: bool = True
     # any row with the anisotropic flag
     has_aniso: bool = True
+    # any glass row with Beer absorption / an sss interior (the JAX
+    # package's medium tracking, not ported: such scenes raise)
+    has_beer: bool = False
+    has_sss: bool = False
     # shader-node bindings per channel (`materials/node_build.py`): the slot
     # of the node whose output overrides the channel, -1 for none
     node_diffuse: Optional[Tensor] = None          # i32[M]
@@ -192,6 +204,13 @@ class LightTable(_Table):
                             #        bit2 photon_only, bit3 double_sided
     samples: Tensor         # i32[L]
     cos_start: Tensor       # f32[L] sun: cosine of the cone half-angle
+    obj_id: Tensor          # i32[L] mesh light: its object (-1)
+    tri_start: Tensor       # i32[L] mesh light: first face
+    tri_count: Tensor       # i32[L] mesh light: face count
+    # mesh lights: each face's normalised cumulative area within its
+    # light's face range (the area-CDF pick), f32[F], 0 elsewhere; None
+    # without mesh lights
+    tri_cdf: Optional[Tensor] = None
     num_lights: int = 0
     # index of the background light (the background's ibl), or -1
     bg_light_idx: int = -1
@@ -310,6 +329,20 @@ class NodeProgram(_Table):
 
 
 @dataclass
+class VolumeTable(_Table):
+    """Volume regions, each a density in an axis-aligned box
+    (`volumes/__init__.py`; the uniform density only)."""
+    vol_type: Tensor     # i32[R] VOL_* (volumes/__init__.py)
+    bmin: Tensor         # f32[R, 3]
+    bmax: Tensor         # f32[R, 3]
+    sigma_a: Tensor      # f32[R, 3]
+    sigma_s: Tensor      # f32[R, 3]
+    emission: Tensor     # f32[R, 3]
+    g: Tensor            # f32[R] phase asymmetry
+    num_volumes: int = 0
+
+
+@dataclass
 class SceneData(_Table):
     """Everything the integrator needs."""
     geom: Geometry
@@ -327,3 +360,4 @@ class SceneData(_Table):
     nodes: Optional[NodeProgram] = None
     # angle of one pixel (the primary hits' texture footprint), f32[]
     pixel_spread: Optional[Tensor] = None
+    volumes: Optional[VolumeTable] = None

@@ -1,6 +1,7 @@
 """Built-in scenes, made with the port's own SceneBuilder: the Cornell box,
 its glossy variants (BASELINE config 2, and the scene of the glossy-exponent
-gradient) and the terrain of BASELINE config 3 (copies of `tests/scenes.py`
+gradient), the terrain of BASELINE config 3, the glass caustic scene of
+config 4 and the scattering volume of config 5 (copies of `tests/scenes.py`
 and `tests/test_gradients.py`), the forest (the terrain under 2,000
 instanced rocks, some of them moving) and the instanced cubes of the
 libYafaRay golden `tests/golden/instances_ref_160.hdr` (the scene of
@@ -85,6 +86,68 @@ def glossy_slab_builder() -> SceneBuilder:
     b.create_object("slab")
     b.set_current_material("gl")
     _box(b, (0.35, 0.35, 0.2), (0.3, 0.2, 0.35))
+    return b
+
+
+def volume_emissive_builder() -> SceneBuilder:
+    """BASELINE config 5: the Cornell box (lamp power 6) filled with a
+    homogeneous scattering medium (a UniformVolume over [0,1]^3, sigma_s
+    0.25, sigma_a 0.05, isotropic), and a glowing triangle: a light_mat
+    face that a mesh light samples (37 triangles in all)."""
+    b = cornell_builder(white_emit=6.0)
+    b.create_material("emit", {"type": "light_mat", "color": (1.0, 0.7, 0.4),
+                               "power": 4.0})
+    b.create_object("glow")
+    b.set_current_material("emit")
+    i0 = b.add_vertex(0.4, 0.5, 0.35)
+    i1 = b.add_vertex(0.6, 0.5, 0.35)
+    i2 = b.add_vertex(0.5, 0.5, 0.55)
+    b.add_triangle(i0, i1, i2)
+    b.create_light("glowl", {"type": "meshlight", "object_name": "glow",
+                             "color": (1.0, 0.7, 0.4), "power": 4.0,
+                             "samples": 1})
+    b.create_volume_region("fog", {"type": "UniformVolume", "sigma_s": 0.25,
+                                   "sigma_a": 0.05, "g": 0.0,
+                                   "minX": 0.0, "maxX": 1.0, "minY": 0.0,
+                                   "maxY": 1.0, "minZ": 0.0, "maxZ": 1.0})
+    return b
+
+
+def floor_texture() -> np.ndarray:
+    """The caustic scene's 32x32 RGB floor image: eight grey levels in
+    diagonal stripes, mapped to three colour ramps."""
+    tex = (np.indices((32, 32)).sum(0) % 8 / 7.0).astype(np.float32)
+    return np.stack([0.2 + 0.6 * tex, 0.5 * tex + 0.2, 0.9 - 0.5 * tex], -1)
+
+
+def caustic_grad_builder(resx: int = 512, resy: int = 512) -> SceneBuilder:
+    """BASELINE config 4: the Cornell box with a glass box (IOR 1.5, filter
+    colour 0.97) standing on an image-textured floor plane just above the
+    floor: refraction and caustic paths, whose gradients bench.py takes
+    with respect to the IOR and the floor texture's texels. 50 triangles
+    with the lamp's quad."""
+    b = cornell_builder(extras=[
+        ("glass", {"type": "glass", "IOR": 1.5,
+                   "filter_color": (0.97, 0.97, 0.97)})])
+    b.create_texture("floor_tex", {"type": "image"}, image=floor_texture())
+    b.create_material(
+        "floor_mat",
+        {"type": "shinydiffusemat", "color": (1, 1, 1),
+         "diffuse_shader": "diff"},
+        node_list=[{"name": "diff", "type": "texture_mapper",
+                    "texture": "floor_tex", "texco": "uv"}])
+    b.create_object("floor_plane")
+    b.set_current_material("floor_mat")
+    z = 0.002
+    verts = np.asarray([[0, 0, z], [1, 0, z], [1, 1, z], [0, 1, z]],
+                       np.float32)
+    faces = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    b.add_mesh_arrays(verts, faces, uvs=verts[:, :2].copy(), face_uvs=faces)
+    b.create_object("glassbox")
+    b.set_current_material("glass")
+    _box(b, (0.35, 0.35, 0.15), (0.3, 0.25, 0.35))
+    b.cameras["cam"]["resx"] = resx
+    b.cameras["cam"]["resy"] = resy
     return b
 
 
