@@ -150,6 +150,33 @@ Phases, each reporting on its own lines:
      in-scatter shadow queries last) held bit for bit against
      mt_closest_ref, each timed beside its bound; kernel path against
      plain path at 128x128, 1 spp.
+ 21. every camera type: the Cornell box at 1920x1080, 16 spp, 4 bounces
+     through `render` under the orthographic, architect, angular and
+     equirectangular cameras and the perspective camera with depth of field
+     (aperture 0.05, focus 2.0 on the back boxes; disk and hexagon bokeh):
+     ms per pass, camera rays/s, mt_closest's launches (10 a pass); each
+     at 256x256, 2 spp, kernel path against plain path; the four camera
+     goldens tests/golden/cornell_{ortho,archi,angular,equi}_128.hdr at
+     128x128, 24 spp, directlighting (image x pi): global scale within 1%,
+     4x4-downsampled mean and p99 relative error within
+     tests/test_refparity.py's bounds;
+ 22. the analytic skies: the textured terrain (phase 16's scene) with a
+     sunsky (add_sun, ibl) and a darksky at altitude 0 in place of its sun
+     and constant background, 720x720, 6 spp, 2 bounces: the pass as in
+     phase 16 (54 static-arm launches), one pass profiled (launches, device
+     busy share), kernel path against plain path at 128x128, 1 spp; the
+     sky goldens tests/golden/sky_{sunsky,darksky}_128.hdr at 4 spp
+     (tests/test_refparity.py's bounds);
+ 23. analytic spheres and environment maps: the glossy golden scene (a
+     sphere on a textured floor) at 1920x1080, 16 spp, 3 bounces on the
+     brute-force path (mt_closest and the sphere arm) and on blocks (the
+     tile kernel and `sphere_pass`), the two images within the slice bound;
+     the same scene lit by a 1024x512 environment map (a smooth sky and a
+     sun disc 1,000 times brighter; ibl through its importance tables)
+     with a curve, at the same size, and at 128x128 kernel path against
+     plain path; the golden tests/golden/glossy_ref_128.hdr at 64 spp
+     (region ratios and the floor profile's correlation,
+     tests/test_refparity.py's bounds).
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -2263,6 +2290,304 @@ def phase20_volume():
     return launches, per_launch
 
 
+# ------------------------------------------------------- phases 21 to 23
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "golden")
+CAMERA_GOLDEN_RES, CAMERA_GOLDEN_SPP = 128, 24
+# tests/test_refparity.py's bounds: 4x4-downsampled mean and p99 relative
+CAMERA_GOLDEN_TOL = {"orthographic": (0.04, 0.18),
+                     "equirectangular": (0.03, 0.12),
+                     "angular": (0.05, 0.14), "architect": (0.04, 0.20)}
+SKY_GOLDEN_SPP = 4
+SKY_GOLDEN_TOL = {"sunsky": (0.02, 0.10), "darksky": (0.01, 0.03)}
+GLOSSY_GOLDEN_SPP = 64
+GLOSSY_SPP, GLOSSY_BOUNCES = 16, 3          # phase 23 at 1920x1080
+ENV_W, ENV_H = 1024, 512                     # phase 23's environment map
+# depth of field on the back boxes (about 2 units along the view axis)
+DOF = {"aperture": 0.05, "dof_distance": 2.0}
+
+
+def _camera_variants():
+    """Phase 21's cameras: (label, camera params) for the Cornell box."""
+    from libyafaray_tpu_torch.scenes import GOLDEN_CAMERAS
+    base = {"from": (0.5, -1.35, 0.5), "to": (0.5, 0.5, 0.5),
+            "up": (0.5, -1.35, 1.5), "fov": 39.0}
+    out = [(kind, dict(base, **GOLDEN_CAMERAS[kind], type=kind))
+           for kind in ("orthographic", "architect", "angular",
+                        "equirectangular")]
+    out += [(f"perspective, aperture {DOF['aperture']}, {bokeh} bokeh",
+             dict(base, type="perspective", bokeh_type=bokeh, **DOF))
+            for bokeh in ("disk", "hexagon")]
+    return out
+
+
+def _full_render(phase, label, scene, cfg, spp):
+    """`spp` passes of `scene` at its camera's size after one warm-up pass,
+    with the kernel counts set to 0 just before and read just after. Prints
+    ms a pass, camera rays/s and the launches; returns (image, mt_closest
+    launches, tile kernel launches)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    cam = scene.camera
+    render(scene, cfg, spp=1)                       # warm-up pass
+    torch.cuda.synchronize()
+    MT.launches = TL.launches = 0
+    t0 = time.perf_counter()
+    film = render(scene, cfg, spp=spp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mt, tl = MT.launches, TL.launches
+    img = F.resolve(film).cpu().numpy()
+    if img.shape != (cam.resy, cam.resx, 4) or not np.isfinite(img).all():
+        raise AssertionError(f"phase {phase}: {label}: bad image, shape "
+                             f"{img.shape}, finite {np.isfinite(img).all()}")
+    print(f"phase {phase}: {label} {cam.resx}x{cam.resy} {spp} spp: "
+          f"{seconds * 1e3 / spp:.2f} ms/pass, "
+          f"{cam.resx * cam.resy * spp / seconds:.4g} camera rays/s, "
+          f"mt_closest {mt} launches, tile kernel {tl}; image mean "
+          f"{float(img[..., :3].mean()):.6f}, alpha mean "
+          f"{float(img[..., 3].mean()):.4f}")
+    return img, mt, tl
+
+
+def _golden_errors(img, ref, lit_min, down):
+    """(global scale, downsampled mean and p99 relative error) of an image
+    against a golden, tests/test_refparity.py's measures."""
+    import numpy as np
+    scale = img.mean() / ref.mean()
+    if down:
+        k = 4
+        pool = lambda x: x.reshape(x.shape[0] // k, k, x.shape[1] // k, k,
+                                   3).mean(axis=(1, 3))
+        ref, img = pool(ref), pool(img)
+    lit = ref.max(-1) > lit_min
+    rel = np.abs(img - ref).max(-1)[lit] / ref.max(-1)[lit]
+    return scale, float(rel.mean()), float(np.percentile(rel, 99))
+
+
+def phase21_cameras():
+    """Every camera type and depth of field on the Cornell box: returns the
+    mt_closest launches of the 1080p renders."""
+    import numpy as np
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.io import load_hdr
+    from libyafaray_tpu_torch.scenes import (GOLDEN_CAMERA_FILES,
+                                             camera_golden_builder,
+                                             cornell_builder)
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    launches = 0
+    for label, cam in _camera_variants():
+        b = cornell_builder()
+        b.create_camera("cam", dict(cam, resx=WIDTH, resy=HEIGHT))
+        scene = b.compile("cam")
+        if scene.camera.kind != cam["type"] or scene.camera.dof != (
+                "aperture" in cam):
+            raise AssertionError(f"phase 21: {label} compiled as "
+                                 f"{scene.camera.kind}")
+        img, mt, tl = _full_render("21", label, scene, cfg, SPP)
+        if mt != SPP * (BOUNCES + 1) * 2 or tl:
+            raise AssertionError(f"phase 21: {label}: {mt} mt_closest and "
+                                 f"{tl} tile kernel launches")
+        if not 0.0 < float(img[..., :3].mean()) < LAMP:
+            raise AssertionError(f"phase 21: {label}: image mean "
+                                 f"{img[..., :3].mean()}")
+        launches += mt
+        b.create_camera("cam", dict(cam, resx=SMALL, resy=SMALL))
+        small = b.compile("cam")
+        img_k = F.resolve(render(small, cfg, spp=2)).cpu().numpy()
+        with _plain(MT, "mt_closest", MT.mt_closest_ref):
+            img_p = F.resolve(render(small, cfg, spp=2)).cpu().numpy()
+        print(f"phase 21: {label}, kernel path against plain path:")
+        _paths_agree("21", img_k, img_p)
+    direct = make_integrator({"type": "directlighting"})
+    for kind, name in GOLDEN_CAMERA_FILES.items():
+        ref = load_hdr(os.path.join(GOLDEN_DIR, name))[..., :3]
+        scene = camera_golden_builder(kind, CAMERA_GOLDEN_RES).compile("cam")
+        img = F.resolve(render(scene, direct, spp=CAMERA_GOLDEN_SPP))[
+            ..., :3].cpu().numpy() * np.pi
+        scale, mean, p99 = _golden_errors(img, ref, 0.03, True)
+        tol_mean, tol_p99 = CAMERA_GOLDEN_TOL[kind]
+        print(f"phase 21: {kind} {CAMERA_GOLDEN_RES}x{CAMERA_GOLDEN_RES} "
+              f"{CAMERA_GOLDEN_SPP} spp directlighting against the libYafaRay "
+              f"golden {name}: global scale {scale:.6f}, 4x4-downsampled mean "
+              f"relative error {mean:.5f} (bound {tol_mean}), p99 {p99:.5f} "
+              f"(bound {tol_p99})")
+        if not (np.isfinite(img).all() and abs(scale - 1.0) < 0.01
+                and mean < tol_mean and p99 < tol_p99):
+            raise AssertionError(f"phase 21: the {kind} camera misses the "
+                                 "golden")
+    return launches
+
+
+def phase22_skies():
+    """The textured terrain under a sunsky (add_sun, ibl) and a darksky at
+    altitude 0; the sky goldens. Returns the tile kernel launches of the
+    two renders."""
+    import numpy as np
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.io import load_hdr
+    from libyafaray_tpu_torch.scenes import (TERRAIN_CAMERA, sky_builder,
+                                             sky_terrain_builder)
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    launches = {}
+    for kind in ("sunsky", "darksky"):
+        scene = sky_terrain_builder(kind, TERRAIN_GRID).compile("cam")
+        lt = scene.lights
+        if (scene.background.kind != kind or lt.bg_light_idx < 0
+                or lt.num_lights != 2 or scene.accel_kind != "blocks"):
+            raise AssertionError(f"phase 22: the {kind} terrain must compile "
+                                 "a background light and the sun on blocks")
+        img, n, arms = _slice_render("22", scene, TERRAIN_SPP,
+                                     TERRAIN_BOUNCES)
+        want = TERRAIN_SPP * (TERRAIN_BOUNCES + 1) * 3
+        if set(arms) != {"static"} or n != want:
+            raise AssertionError(f"phase 22: {kind}: {n} launches {arms}, "
+                                 f"want {want} of the static arm")
+        # the top row looks past the terrain into the sky
+        top = img[0, :, :3]
+        print(f"phase 22: {kind}: top row (the sky) mean "
+              f"{top.mean(0).round(5).tolist()}, alpha mean "
+              f"{float(img[..., 3].mean()):.4f}")
+        if img[0, :, 3].any() or not top.min() > 0.0:
+            raise AssertionError(f"phase 22: {kind}: the top row is not sky")
+        launches[kind] = n
+        n_k, busy, ms = _profile_pass(scene, cfg)
+        print(f"phase 22: one pass of the {kind} terrain: {n_k} kernel "
+              "launches, " + (f"device busy {busy:.2f} ms of {ms:.2f} ms "
+                              f"({100 * busy / ms:.1f}%)" if busy > 0 else
+                              "device busy not measured (no device time "
+                              "traced)"))
+        _kernel_vs_plain("22", scene, TERRAIN_CAMERA)
+    direct = make_integrator({"type": "directlighting"})
+    for kind, (tol_mean, tol_p99) in SKY_GOLDEN_TOL.items():
+        name = f"sky_{kind}_128.hdr"
+        ref = load_hdr(os.path.join(GOLDEN_DIR, name))[..., :3]
+        scene = sky_builder(kind, 128).compile("cam")
+        img = F.resolve(render(scene, direct, spp=SKY_GOLDEN_SPP))[
+            ..., :3].cpu().numpy()
+        # the sky is camera-ray radiance on both sides: no factor pi
+        scale, mean, p99 = _golden_errors(img, ref, 0.01, False)
+        print(f"phase 22: {kind} 128x128 {SKY_GOLDEN_SPP} spp against the "
+              f"libYafaRay golden {name}: global scale {scale:.6f}, mean "
+              f"relative error {mean:.5f} (bound {tol_mean}), p99 {p99:.5f} "
+              f"(bound {tol_p99})")
+        if not (np.isfinite(img).all() and abs(scale - 1.0) < 0.01
+                and mean < tol_mean and p99 < tol_p99):
+            raise AssertionError(f"phase 22: the {kind} sky misses the "
+                                 "golden")
+    return launches
+
+
+def phase23_spheres():
+    """The glossy golden scene (an analytic sphere) at 1920x1080 on both
+    accelerators, then lit by an environment map with a curve; the glossy
+    golden. Returns (mt_closest launches by render, tile kernel
+    launches)."""
+    import numpy as np
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.io import load_hdr
+    from libyafaray_tpu_torch.scenes import (env_glossy_builder,
+                                             glossy_golden_builder)
+    cfg = make_integrator({"type": "pathtracing", "bounces": GLOSSY_BOUNCES,
+                           "russian_roulette_min_bounces": 10})
+    per_pass = (GLOSSY_BOUNCES + 1) * 2     # a closest hit and a shadow ray
+    images, mt_launches = {}, {}
+    tile_launches = 0
+    for accel in ("brute", "blocks"):
+        b = glossy_golden_builder()
+        b.cameras["cam"]["resx"], b.cameras["cam"]["resy"] = WIDTH, HEIGHT
+        b.set_render_params({"scene_accelerator": accel})
+        scene = b.compile("cam")
+        if scene.accel_kind != accel or scene.geom.num_spheres != 1:
+            raise AssertionError(f"phase 23: the glossy scene compiled to "
+                                 f"{scene.accel_kind}")
+        img, mt, tl = _full_render("23", f"glossy sphere scene ({accel})",
+                                   scene, cfg, GLOSSY_SPP)
+        # the lamp is invisible to camera rays: the camera query is traced
+        # again past it (ops/intersect.camera_hit)
+        want = GLOSSY_SPP * (per_pass + 1)
+        if (accel == "brute" and (mt != want or tl)) or (
+                accel == "blocks" and (tl != want or mt)):
+            raise AssertionError(f"phase 23: {accel}: {mt} mt_closest and "
+                                 f"{tl} tile kernel launches, want {want}")
+        images[accel] = img
+        if accel == "brute":
+            mt_launches["glossy sphere scene"] = mt
+        else:
+            tile_launches = tl
+    print("phase 23: the glossy sphere scene, blocks against brute force:")
+    _paths_agree("23", images["blocks"], images["brute"])
+
+    t0 = time.perf_counter()
+    b = env_glossy_builder(WIDTH, ENV_W, ENV_H)
+    b.cameras["cam"]["resy"] = HEIGHT
+    scene = b.compile("cam")
+    bg = scene.background
+    print(f"phase 23: environment-map scene compiled in "
+          f"{time.perf_counter() - t0:.2f} s: env map {bg.env_shape[1]}x"
+          f"{bg.env_shape[0]}, importance tables max pdf "
+          f"{float(bg.env_pdf.max()):.4g}, median "
+          f"{float(bg.env_pdf.median()):.4g}; {scene.geom.num_faces} "
+          f"triangles ({scene.geom.num_faces - 6} of the curve)")
+    if bg.kind != "texture" or bg.env_shape != (ENV_H, ENV_W) or (
+            scene.lights.bg_light_idx < 0 or scene.geom.num_faces <= 6):
+        raise AssertionError("phase 23: the environment-map scene must "
+                             "compile its importance tables, its background "
+                             "light and the curve's ribbon")
+    img, mt, tl = _full_render("23", "environment-map scene with a curve",
+                               scene, cfg, GLOSSY_SPP)
+    if mt != GLOSSY_SPP * per_pass or tl:
+        raise AssertionError(f"phase 23: environment map: {mt} mt_closest "
+                             f"and {tl} tile kernel launches")
+    mt_launches["environment-map scene"] = mt
+    # the floor under the open sky is lit
+    floor = float(img[-HEIGHT // 8:, :, :3].mean())
+    print(f"phase 23: environment-map scene: floor band mean {floor:.6f}")
+    if not floor > 0.05:
+        raise AssertionError("phase 23: the environment map does not light "
+                             "the floor")
+    small = env_glossy_builder(PATHS_RES, ENV_W, ENV_H).compile("cam")
+    img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    print("phase 23: environment-map scene, kernel path against plain path:")
+    _paths_agree("23", img_k, img_p)
+
+    ref = load_hdr(os.path.join(GOLDEN_DIR, "glossy_ref_128.hdr"))[..., :3]
+    scene = glossy_golden_builder(128).compile("cam")
+    img = F.resolve(render(scene, cfg, spp=GLOSSY_GOLDEN_SPP))[
+        ..., :3].cpu().numpy() * np.pi
+    scale = img.mean() / ref.mean()
+    # tests/test_refparity.py's regions and bounds
+    regions = {"backwall": (np.s_[10:40], 0.05), "floor": (np.s_[95:125], 0.05),
+               "sphere": (np.s_[58:82, 40:88], 0.12)}
+    ratios = {k: float(img[sl].mean() / ref[sl].mean())
+              for k, (sl, _) in regions.items()}
+    cc = float(np.corrcoef(img[100:120, :, 0].mean(0),
+                           ref[100:120, :, 0].mean(0))[0, 1])
+    print(f"phase 23: glossy 128x128 {GLOSSY_GOLDEN_SPP} spp against the "
+          f"libYafaRay golden glossy_ref_128.hdr: global scale {scale:.6f} "
+          f"(bound 0.08), region ratios "
+          f"{ {k: round(v, 5) for k, v in ratios.items()} } (bounds 0.05, "
+          f"0.05, 0.12), floor profile correlation {cc:.5f} (> 0.98)")
+    if not (np.isfinite(img).all() and abs(scale - 1.0) < 0.08 and cc > 0.98
+            and all(abs(ratios[k] - 1.0) < tol
+                    for k, (_, tol) in regions.items())):
+        raise AssertionError("phase 23: the glossy scene misses the golden")
+    return mt_launches, tile_launches
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -2360,6 +2685,9 @@ def main() -> int:
     texel_launches = _timed("18", phase18_texel_grads, textured)
     caustic_launches, mt_caustic = _timed("19", phase19_caustic)
     volume_launches, mt_volume = _timed("20", phase20_volume)
+    camera_launches = _timed("21", phase21_cameras)
+    sky_launches = _timed("22", phase22_skies)
+    sphere_mt, sphere_tiles = _timed("23", phase23_spheres)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -2386,7 +2714,14 @@ def main() -> int:
              "glossy cornell forward, phase 13": glossy_launches,
              "caustic forward + backward 512x512, phase 19":
                  caustic_launches,
-             "volume forward 512x512, phase 20": volume_launches},
+             "volume forward 512x512, phase 20": volume_launches,
+             "cornell forward 1920x1080 under the orthographic, architect, "
+             "angular and equirectangular cameras and two thin lenses, "
+             "phase 21": camera_launches,
+             "glossy sphere scene forward 1920x1080 (brute force), phase 23":
+                 sphere_mt["glossy sphere scene"],
+             "environment-map scene with a curve forward 1920x1080, "
+             "phase 23": sphere_mt["environment-map scene"]},
          "per_launch_by_path": {
              "caustic, one forward + backward's queries, phase 19":
                  mt_caustic,
@@ -2418,7 +2753,13 @@ def main() -> int:
              "textured terrain forward in cover order, phase 17":
                  cover_launches,
              "textured terrain texel gradient 720x720, 1 spp, phase 18":
-                 texel_launches}},
+                 texel_launches,
+             "textured terrain under a sunsky forward, phase 22":
+                 sky_launches["sunsky"],
+             "textured terrain under a darksky forward, phase 22":
+                 sky_launches["darksky"],
+             "glossy sphere scene forward 1920x1080 on blocks, phase 23":
+                 sphere_tiles}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -16,7 +16,9 @@ kernel's 96 MiB VMEM budget to `_query_chunk`, its per-ray block loop. The
 port does not: its tile kernel stages each candidate slab through shared
 memory and serves tables of any size, with or without motion.
 
-Not carried yet: the `geo` / `meta` tables, `_query_chunk` and spheres.
+Analytic spheres are not in the blocks: a dense pass over them follows the
+walk, in sorted ray order (`query`). Not carried yet: the `geo` / `meta`
+tables and `_query_chunk`.
 """
 from __future__ import annotations
 
@@ -223,11 +225,10 @@ def query(acc: BlockAccel, geom: Geometry, o: Tensor, d: Tensor,
     """Full-wavefront query. Queries of more than SORT_MIN_RAYS rays are
     sorted by `sort_key` (a stable sort, as the JAX package's; the ray's
     shutter `time` rides along), traversed, and put back in their order
-    through the inverse permutation. Returns (t f32[N], prim i32[N] (-1 on
-    a miss), uv f32[N, 2])."""
-    if geom.num_spheres > 0:
-        raise NotImplementedError(
-            "sphere primitives are not ported to libyafaray_tpu_torch yet")
+    through the inverse permutation; the scene's analytic spheres are tested
+    after the walk (`ops.intersect.sphere_pass`). Returns (t f32[N], prim
+    i32[N] (-1 on a miss), uv f32[N, 2])."""
+    from ..ops.intersect import sphere_pass
     n = o.shape[0]
     t_min = t_min.expand(n)
     t_max = t_max.expand(n)
@@ -245,7 +246,10 @@ def query(acc: BlockAccel, geom: Geometry, o: Tensor, d: Tensor,
         blk_minv=acc.blk_minv, id_delta=acc.id_delta, inv_rows=acc.inv_rows,
         tab_t1=acc.tab_t1 if time is not None else None,
         tab_t2=acc.tab_t2 if time is not None else None, time=time)
-    buv = torch.stack([bu, bv], dim=-1)
+    # the analytic spheres, in sorted order (the pass is order-independent),
+    # before the rays go back to their order
+    bt, bp, buv = sphere_pass(geom, o, d, t_min, t_max, exclude, vis_bit, bt,
+                              bp, torch.stack([bu, bv], dim=-1))
     if perm is None:
         return bt, bp, buv
 

@@ -4,9 +4,10 @@
 leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
 SceneData with the same tables (the motion keyframes, the true-instancing
-tables, the block accelerator's, the image texture pool and the shader-node
-program, the mesh lights' area CDF and the volume regions included), on the
-CPU. It reads attributes only and imports nothing of JAX. Scenes that use
+tables, the analytic spheres, the block accelerator's, the image texture
+pool and the shader-node program, the mesh lights' area CDF, the volume
+regions, every camera kind and every background kind with the environment
+map's importance tables included), on the CPU. It reads attributes only and imports nothing of JAX. Scenes that use
 features the port does not carry yet raise NotImplementedError.
 """
 from __future__ import annotations
@@ -32,6 +33,14 @@ _MAT_COLUMNS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
 _LIGHT_COLUMNS = ("light_type", "position", "direction", "color", "edge1",
                   "edge2", "area", "flags", "samples", "cos_start", "obj_id",
                   "tri_start", "tri_count")
+_CAM_COLUMNS = ("origin", "cam_x", "cam_y", "cam_z", "focal", "aspect",
+                "aperture", "dof_distance", "angle", "max_radius",
+                "ortho_scale", "near_clip", "far_clip", "bokeh_rotation")
+_BG_COLUMNS = ("color", "power", "horizon_color", "zenith_color",
+               "ground_horizon_color", "ground_zenith_color", "rotation",
+               "ibl_blur", "env_alias_prob", "env_alias_idx", "env_pdf")
+_SKY_COLUMNS = ("sun_dir", "theta_s", "zenith_Y", "zenith_x", "zenith_y",
+                "perez_Y", "perez_x", "perez_y", "power")
 _VOL_COLUMNS = ("vol_type", "bmin", "bmax", "sigma_a", "sigma_s",
                 "emission", "g")
 
@@ -56,7 +65,6 @@ def scene_from_numpy(tree) -> SceneData:
     g, m, lt = tree.geom, tree.materials, tree.lights
     _require(tree.accel_kind in ("brute", "blocks"),
              f"the {tree.accel_kind!r} accelerator")
-    _require(g.num_spheres == 0, "sphere primitives")
     if tree.accel_kind == "brute":
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
@@ -69,13 +77,7 @@ def scene_from_numpy(tree) -> SceneData:
     _require(set(lt.present_types) <= {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN,
                                        LIGHT_MESH, LIGHT_BACKGROUND},
              f"light types {lt.present_types}")
-    _require(tree.background.kind == "constant",
-             f"background kind {tree.background.kind!r}")
-    _require(tree.background.env_alias_prob is None,
-             "environment-map importance sampling")
     cam = tree.camera
-    _require(cam.kind == "perspective", f"camera kind {cam.kind!r}")
-    _require(float(cam.aperture) == 0.0, "depth of field")
     if tree.volumes is not None:
         _require(tree.vol_atten is None, "the volume attenuation grid")
         _require((np.asarray(tree.volumes.vol_type) == VOL_UNIFORM).all(),
@@ -90,9 +92,11 @@ def scene_from_numpy(tree) -> SceneData:
         faces=_t(g.faces), face_uvs=_t(g.face_uvs), face_mat=_t(g.face_mat),
         face_obj=_t(g.face_obj), face_smooth=_t(g.face_smooth),
         face_light=_t(g.face_light), face_vis=_t(g.face_vis),
-        num_faces=int(g.num_faces), num_spheres=0,
+        num_faces=int(g.num_faces), num_spheres=int(g.num_spheres),
         has_motion=bool(g.has_motion), num_base_faces=int(g.num_base_faces),
-        **_opt(g, ("tri_table", "tri_table_t1", "tri_table_t2", "vertices_t1",
+        **_opt(g, ("sph_center", "sph_radius", "sph_mat", "sph_obj",
+                   "sph_light", "sph_vis", "tri_table", "tri_table_t1",
+                   "tri_table_t2", "vertices_t1",
                    "vertices_t2", "inst_mat", "inst_inv", "inst_nrm",
                    "inst_face_base", "inst_face_off", "inst_obj",
                    "inst_vis")))
@@ -107,14 +111,12 @@ def scene_from_numpy(tree) -> SceneData:
         num_lights=int(lt.num_lights), bg_light_idx=int(lt.bg_light_idx),
         present_types=tuple(lt.present_types),
         samples_static=tuple(lt.samples_static))
-    bg = tree.background
-    background = Background(kind="constant", color=_t(bg.color),
-                            power=_t(bg.power))
-    camera = Camera(kind="perspective", origin=_t(cam.origin),
-                    cam_x=_t(cam.cam_x), cam_y=_t(cam.cam_y),
-                    cam_z=_t(cam.cam_z), focal=_t(cam.focal),
-                    aspect=_t(cam.aspect), resx=int(cam.resx),
-                    resy=int(cam.resy))
+    camera = Camera(
+        kind=cam.kind, bokeh_kind=cam.bokeh_kind,
+        angular_projection=cam.angular_projection,
+        circular=bool(cam.circular), mirrored=bool(cam.mirrored),
+        dof=float(cam.aperture) > 0.0, resx=int(cam.resx),
+        resy=int(cam.resy), **_opt(cam, _CAM_COLUMNS))
     blocks = None
     if tree.accel_kind == "blocks":
         bl = tree.blocks
@@ -124,8 +126,9 @@ def scene_from_numpy(tree) -> SceneData:
                             **_opt(bl, ("tab_t1", "tab_t2", "blk_base",
                                         "blk_minv", "id_delta", "inv_rows")))
     return SceneData(
-        geom=geom, materials=mats, lights=lights, background=background,
-        camera=camera, shadow_bias=_t(tree.shadow_bias),
+        geom=geom, materials=mats, lights=lights,
+        background=_background(tree.background), camera=camera,
+        shadow_bias=_t(tree.shadow_bias),
         ray_min_dist=_t(tree.ray_min_dist), accel_kind=tree.accel_kind,
         blocks=blocks,
         has_cam_invisible=bool(tree.has_cam_invisible),
@@ -135,6 +138,22 @@ def scene_from_numpy(tree) -> SceneData:
         volumes=(None if tree.volumes is None else VolumeTable(
             **{k: _t(getattr(tree.volumes, k)) for k in _VOL_COLUMNS},
             num_volumes=int(tree.volumes.num_volumes))))
+
+
+def _background(bg) -> Background:
+    from .backgrounds import DarkSky, SunSky
+    sky = None
+    if bg.kind == "sunsky":
+        sky = SunSky(night=bool(bg.sunsky.night),
+                     **_opt(bg.sunsky, _SKY_COLUMNS))
+    elif bg.kind == "darksky":
+        sky = DarkSky(night=bool(bg.sunsky.night),
+                      color_space=bg.sunsky.color_space,
+                      **_opt(bg.sunsky, _SKY_COLUMNS + ("alt", "exposure")))
+    return Background(kind=bg.kind, tex_id=int(bg.tex_id),
+                      mapping=bg.mapping, sunsky=sky,
+                      env_shape=tuple(int(x) for x in bg.env_shape),
+                      **_opt(bg, _BG_COLUMNS))
 
 
 _POOL_COLUMNS = ("texel_pool", "texel_scale", "img_offset", "img_width",

@@ -2,9 +2,10 @@
 lights and the background light.
 
 Counterpart of `libyafaray_tpu/lights/__init__.py` with the `LIGHT_POINT`,
-`LIGHT_AREA`, `LIGHT_SUN`, `LIGHT_MESH` and `LIGHT_BACKGROUND` arms (a
-constant background sampled uniformly over the sphere), the light types the
-port compiles so far.
+`LIGHT_AREA`, `LIGHT_SUN`, `LIGHT_MESH` and `LIGHT_BACKGROUND` arms (an
+environment map importance-sampled through its alias tables, any other
+background uniformly over the sphere), the light types the port compiles
+so far.
 Every present type is evaluated for the whole wavefront and selected per
 lane by its type, as in the JAX package. `sample_light` returns solid-angle
 pdfs; the `color` column holds the emitted radiance.
@@ -20,6 +21,7 @@ from ..backgrounds import eval_background
 from ..math import vec
 from ..scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_MESH,
                            LIGHT_POINT, LIGHT_SUN, LightTable, SceneData)
+from ..textures import env_alias_sample, env_pdf_dir
 
 Tensor = torch.Tensor
 
@@ -177,13 +179,17 @@ def sample_light(scene: SceneData, li: Tensor, p: Tensor, ns: Tensor,
         rad = torch.where(m[..., None], col, rad)
         valid = valid & torch.where(m, cos_m > 1e-6, True)
 
-    # background light, constant background: uniform over the sphere
-    # (light_background.cc)
+    # background light (light_background.cc): an environment map by its
+    # importance tables, any other background uniformly over the sphere
     if lt.bg_light_idx >= 0:
         m = ty == LIGHT_BACKGROUND
-        wi_b = vec.uniform_sample_sphere(u1, u2)
+        if _has_env_tables(scene):
+            wi_b, pdf_b = env_alias_sample(scene, u1, u2)
+        else:
+            wi_b = vec.uniform_sample_sphere(u1, u2)
+            pdf_b = 1.0 / (4.0 * math.pi)
         wi = torch.where(m[..., None], wi_b, wi)
-        pdf = torch.where(m, 1.0 / (4.0 * math.pi), pdf)
+        pdf = torch.where(m, pdf_b, pdf)
         rad = torch.where(m[..., None], eval_background(scene, wi_b), rad)
 
     flags = lt.flags[li]
@@ -223,4 +229,11 @@ def background_pdf(scene: SceneData, d: Tensor) -> Tensor:
     f32 = dict(dtype=torch.float32, device=d.device)
     if scene.lights.bg_light_idx < 0:
         return torch.zeros(d.shape[:-1], **f32)
+    if _has_env_tables(scene):
+        return env_pdf_dir(scene, d)
     return torch.full(d.shape[:-1], 1.0 / (4.0 * math.pi), **f32)
+
+
+def _has_env_tables(scene: SceneData) -> bool:
+    bg = scene.background
+    return bg.env_alias_prob is not None and bg.env_shape[0] > 0

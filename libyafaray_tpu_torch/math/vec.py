@@ -130,6 +130,22 @@ def sample_triangle_uniform(u1: Tensor, u2: Tensor):
     return 1.0 - su1, u2 * su1
 
 
+def sample_disk_concentric(u1: Tensor, u2: Tensor):
+    """Concentric (Shirley) map of [0,1)^2 onto the unit disk."""
+    ox = 2.0 * u1 - 1.0
+    oy = 2.0 * u2 - 1.0
+    zero = (torch.abs(ox) < 1e-12) & (torch.abs(oy) < 1e-12)
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    safe_div = torch.where(
+        use_x, torch.where(ox == 0, 1.0, oy / torch.where(ox == 0, 1.0, ox)),
+        torch.where(oy == 0, 1.0, ox / torch.where(oy == 0, 1.0, oy)))
+    theta = torch.where(use_x, (math.pi / 4.0) * safe_div,
+                        (math.pi / 2.0) - (math.pi / 4.0) * safe_div)
+    r = torch.where(zero, 0.0, r)
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
 def power_heuristic(pdf_a: Tensor, pdf_b: Tensor) -> Tensor:
     """MIS power heuristic (beta=2): a^2 / (a^2 + b^2)."""
     a2 = pdf_a * pdf_a

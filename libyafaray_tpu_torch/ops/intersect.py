@@ -78,9 +78,6 @@ def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
             "brute-force intersection does not expand true instances; "
             "instanced scenes compile with the block accelerator (set "
             "instancing: 'baked' to force geometry duplication)")
-    if geom.num_spheres > 0:
-        raise NotImplementedError(
-            "sphere primitives are not ported to libyafaray_tpu_torch yet")
     n = o.shape[0]
     best_t = t_max
     best_prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
@@ -100,8 +97,38 @@ def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
         best_t = torch.where(bp >= 0, bt, best_t)
         best_prim = bp
         best_uv = torch.stack([bu, bv], dim=-1)
+    best_t, best_prim, best_uv = sphere_pass(
+        geom, o, d, t_min, best_t, exclude_prim, 2 if shadow else 1, best_t,
+        best_prim, best_uv)
     return Hit(valid=best_prim >= 0, t=best_t,
                prim=torch.clamp_min(best_prim, 0), uv=best_uv)
+
+
+def sphere_pass(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
+                t_max: Tensor, exclude: Optional[Tensor], vis_bit: int,
+                bt: Tensor, bp: Tensor, buv: Tensor):
+    """The analytic spheres after the triangles, dense over rays x spheres
+    (scenes carry few spheres): a sphere hit nearer than the triangle hit
+    (bp >= 0 at bt; a miss counts to t_max) takes its place, with prim id
+    num_faces + s and uv 0. Ties keep the triangle, as in the JAX package.
+    Returns (t, prim, uv)."""
+    s = geom.num_spheres
+    if s == 0:
+        return bt, bp, buv
+    best_t = torch.where(bp >= 0, bt, t_max)
+    hit, t = intersect_sphere(o[:, None, :], d[:, None, :],
+                              geom.sph_center[None], geom.sph_radius[None],
+                              t_min[..., None], best_t[:, None])
+    hit = hit & ((geom.sph_vis[None, :] & vis_bit) != 0)
+    sph_ids = geom.num_faces + torch.arange(s, dtype=torch.int32,
+                                            device=o.device)
+    if exclude is not None:
+        hit = hit & (sph_ids[None, :] != exclude[:, None])
+    t = torch.where(hit, t, torch.inf)
+    tj, j = torch.min(t, dim=1)
+    better = tj < best_t
+    return (torch.where(better, tj, bt), torch.where(better, sph_ids[j], bp),
+            torch.where(better[:, None], 0.0, buv))
 
 
 def _brute_any(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,

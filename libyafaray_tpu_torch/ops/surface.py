@@ -1,7 +1,7 @@
 """SurfacePoint construction: gather and interpolate the shading context.
 
-Counterpart of `libyafaray_tpu/ops/surface.py` for triangle meshes (sphere
-primitives are not ported yet and are rejected at compile). A true
+Counterpart of `libyafaray_tpu/ops/surface.py`: triangles, and analytic
+spheres (prim ids from num_faces on) by their own branch. A true
 instance's virtual face id resolves to its base face and instance: the
 vertices move world<-object and the normals by the inverse transpose. A
 moving triangle takes its frame from its shutter-open vertices, as in the
@@ -11,6 +11,7 @@ gives the primary hits their one-pixel footprint for texture filtering.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -53,10 +54,8 @@ class SurfacePoint:
 def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
                  ) -> SurfacePoint:
     g = scene.geom
-    if g.num_spheres > 0:
-        raise NotImplementedError(
-            "sphere primitives are not ported to libyafaray_tpu_torch yet")
-    tri = torch.where(hit.prim < g.num_faces, hit.prim, 0)
+    is_tri = hit.prim < g.num_faces
+    tri = torch.where(is_tri, hit.prim, 0)
     # invalid lanes carry t = t_max (possibly 1e30): clamp before forming
     # positions so no huge values enter downstream math
     t_safe = torch.where(hit.valid, hit.t, 1.0)
@@ -105,20 +104,44 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
     dp_du = torch.where(degen[:, None], fb_u, dp_du)
     dp_dv = torch.where(degen[:, None], fb_v, dp_dv)
 
+    mat_id = g.face_mat[tri]
+    obj_id = g.face_obj[tri]
+    if inst is not None:
+        obj_id = torch.where(inst >= 0,
+                             g.inst_obj[torch.clamp_min(inst, 0).long()],
+                             obj_id)
+    light_id = g.face_light[tri]
+
+    if g.num_spheres > 0:
+        # the sphere branch: the normal from the centre, uv from the
+        # spherical angles (primitive_sphere.cc)
+        sph = torch.clamp(hit.prim - g.num_faces, 0, g.num_spheres - 1).long()
+        n_sph = vec.normalize(p - g.sph_center[sph])
+        theta = torch.acos(torch.clamp(n_sph[:, 2], -1.0, 1.0))
+        phi = torch.atan2(n_sph[:, 1], n_sph[:, 0])
+        uv_sph = torch.stack([(phi / (2 * math.pi)) + 0.5, theta / math.pi],
+                             dim=-1)
+        su, sv = vec.orthonormal_basis(n_sph)
+        t3 = is_tri[:, None]
+        ng = torch.where(t3, ng, n_sph)
+        n = torch.where(t3, n, n_sph)
+        uv = torch.where(t3, uv, uv_sph)
+        dp_du = torch.where(t3, dp_du, su)
+        dp_dv = torch.where(t3, dp_dv, sv)
+        mat_id = torch.where(is_tri, mat_id, g.sph_mat[sph])
+        obj_id = torch.where(is_tri, obj_id, g.sph_obj[sph])
+        light_id = torch.where(is_tri, light_id, -1)
+
     # shading frame: Gram-Schmidt dp_du against n
     nu = vec.normalize(dp_du - n * vec.dot(dp_du, n, keepdim=True))
     nv = vec.cross(n, nu)
     valid = hit.valid
-    obj = g.face_obj[tri]
-    if inst is not None:
-        obj = torch.where(inst >= 0,
-                          g.inst_obj[torch.clamp_min(inst, 0).long()], obj)
     return SurfacePoint(
         valid=valid, p=p, n=n, ng=ng, nu=nu, nv=nv, uv=uv,
         dp_du=dp_du, dp_dv=dp_dv,
-        mat_id=torch.where(valid, g.face_mat[tri], 0),
-        obj_id=torch.where(valid, obj, 0),
-        light_id=torch.where(valid, g.face_light[tri], -1),
+        mat_id=torch.where(valid, mat_id, 0),
+        obj_id=torch.where(valid, obj_id, 0),
+        light_id=torch.where(valid, light_id, -1),
         prim=torch.where(valid, hit.prim, -1),
         t=hit.t, bary=hit.uv)
 

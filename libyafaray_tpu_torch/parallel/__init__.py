@@ -16,6 +16,7 @@ import torch
 
 from ..cameras import shoot_rays
 from ..integrators.mc import IntegratorConfig, integrate
+from ..render import _lens_samples
 from ..scene_types import SceneData
 
 Tensor = torch.Tensor
@@ -25,9 +26,10 @@ def _pixel_shard_radiance(scene: SceneData, cfg: IntegratorConfig,
                           px: Tensor, py: Tensor, pixel_id: Tensor,
                           sample_idx: int):
     """Camera rays -> integrator for the pixels `pixel_id` at film positions
-    (px, py): a pure function of the absolute pixel ids. The port's pinhole
-    camera takes no lens samples."""
-    o, d, valid = shoot_rays(scene.camera, px, py)
+    (px, py): a pure function of the absolute pixel ids (the lens samples
+    too, as in `render`)."""
+    lens_u, lens_v = _lens_samples(scene, pixel_id, sample_idx)
+    o, d, valid = shoot_rays(scene.camera, px, py, lens_u, lens_v)
     rgb, alpha = integrate(scene, cfg, o, d, valid, pixel_id, sample_idx)
     return rgb, alpha, valid
 

@@ -20,6 +20,16 @@ from .scene_types import SceneData
 Tensor = torch.Tensor
 
 
+def _lens_samples(scene: SceneData, pixel_id: Tensor, sample_idx):
+    """The lens samples (lens_u, lens_v) of a thin-lens camera, keyed on
+    (pixel_id, sample_idx) as in the JAX package; (None, None) for the
+    other cameras, which take none."""
+    if not scene.camera.dof:
+        return None, None
+    return (sampler.rand1(pixel_id, sample_idx, 0, 777),
+            sampler.rand1(pixel_id, sample_idx, 0, 778))
+
+
 def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
                 sample_idx: int, pixel_id: Tensor, live: Tensor) -> F.Film:
     """Render one sample for each pixel id in `pixel_id` (int64 [M]) and
@@ -36,7 +46,8 @@ def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
     ju, jv = sampler.ld02(sample_idx, scramble)
     px = xx.to(torch.float32) + ju
     py = yy.to(torch.float32) + jv
-    o, d, valid = shoot_rays(scene.camera, px, py)
+    o, d, valid = shoot_rays(scene.camera, px, py,
+                             *_lens_samples(scene, pixel_id, sample_idx))
     valid = valid & live
     rgb, alpha = integrate(scene, cfg, o, d, valid, pixel_id, sample_idx)
     layer_vals = {"combined": torch.cat([rgb, alpha[..., None]], dim=-1)}

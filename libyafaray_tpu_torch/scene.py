@@ -6,16 +6,19 @@ port carries so far: `shinydiffusemat` and `glossy` materials (with the
 Lambert diffuse BRDF), clear `glass` and `light_mat`, image textures and the
 shader nodes that bind them to material channels, triangle meshes with
 motion-blur keyframes, instances (baked into copies, or true instances over
-the block accelerator), point lights, area lights (baked into the geometry
+the block accelerator), analytic spheres, curves (strands extruded into
+ribbons of triangles), point lights, area lights (baked into the geometry
 as two emissive triangles), sun lights, mesh lights, uniform volume
-regions, a perspective camera and a constant background (with `ibl`,
-lighting the scene), over the brute-force or the block accelerator.
+regions, every camera type (with depth of field) and the constant,
+gradient, sunsky, darksky and texture backgrounds (with `ibl`, lighting
+the scene, and `add_sun`), over the brute-force or the block accelerator.
 `compile()` builds the same tables as the JAX compile, on the CUDA card
 unless the caller names another device. Every other entity type or option
 raises `NotImplementedError` naming the feature.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -26,7 +29,7 @@ import torch
 from . import params as P
 from .accel.blocks import build_blocks
 from .accel.mt_intersect import MAX_TRIS, pack_tris
-from .backgrounds import make_background
+from .backgrounds import make_background, sun_from_background
 from .cameras import make_camera
 from .lights import (FLAG_CAST_SHADOWS, FLAG_DOUBLE_SIDED, FLAG_ENABLED,
                      FLAG_PHOTON_ONLY)
@@ -86,6 +89,17 @@ class _MeshObject:
     smooth: bool = False
     # is_base_object: exists only to be instanced, its own copy never renders
     is_base: bool = False
+    # an analytic sphere (object type "sphere")
+    is_sphere: bool = False
+    sphere_center: Optional[np.ndarray] = None
+    sphere_radius: float = 1.0
+    # the material of a sphere or curve (no per-face material stream)
+    sphere_mat: int = 0
+    # a curve (object type "curve"): its vertices are strand control points
+    # that compile extrudes into a ribbon of width strand_start -> strand_end
+    is_curve: bool = False
+    strand_start: float = 0.01
+    strand_end: float = 0.0025
 
 
 class SceneBuilder:
@@ -152,10 +166,7 @@ class SceneBuilder:
         self.cameras[name] = P.ParamMap(pm)
 
     def create_background(self, pm: dict) -> None:
-        pm = P.ParamMap(pm)
-        if pm.get_bool("add_sun", False):
-            raise _unsupported("the background's sun (add_sun)")
-        self.background_params = pm
+        self.background_params = P.ParamMap(pm)
 
     def create_texture(self, name: str, pm: dict, image=None) -> None:
         """An image texture: its pixels (f32[H, W, 1|3|4]) or a filename in
@@ -186,11 +197,17 @@ class SceneBuilder:
     def create_object(self, name: str, pm: Optional[dict] = None) -> None:
         pm = P.ParamMap(pm or {})
         ty = pm.get_string("type", "mesh")
-        if ty != "mesh":
-            raise _unsupported(f"object type {ty!r}")
         obj = _MeshObject(name=name, obj_id=len(self.object_order))
         obj.visibility = _VIS_BY_NAME[pm.get_string("visibility", "normal")]
         obj.is_base = pm.get_bool("is_base_object", False)
+        if ty == "sphere":
+            obj.is_sphere = True
+            obj.sphere_center = pm.get_vector("center", (0, 0, 0))
+            obj.sphere_radius = pm.get_float("radius", 1.0)
+        elif ty == "curve":
+            obj.is_curve = True
+            obj.strand_start = pm.get_float("strand_start", 0.01)
+            obj.strand_end = pm.get_float("strand_end", 0.0025)
         self.objects[name] = obj
         self.object_order.append(name)
         self.current_object = obj
@@ -199,6 +216,10 @@ class SceneBuilder:
         if name not in self.material_order:
             raise KeyError(f"unknown material {name!r}")
         self.current_material = self.material_order.index(name)
+        # spheres and curves take the active material as a whole
+        obj = self.current_object
+        if obj is not None and (obj.is_sphere or obj.is_curve):
+            obj.sphere_mat = self.current_material
 
     def add_vertex(self, x, y, z) -> int:
         self.current_object.vertices.append((x, y, z))
@@ -283,6 +304,9 @@ class SceneBuilder:
         shutter time step (a moving instance)."""
         if base_name not in self.objects:
             raise KeyError(f"unknown object {base_name!r}")
+        base = self.objects[base_name]
+        if base.is_sphere or base.is_curve:
+            raise _unsupported("instancing of spheres and curves")
         m = np.asarray(matrix, np.float32)
         self.instances.append((base_name, list(m.reshape(-1, 4, 4))))
 
@@ -297,11 +321,24 @@ class SceneBuilder:
         g, obj_face_ranges = self._build_geometry()
         lights, g = self._build_lights(g, obj_face_ranges)
         geom = _geometry_tables(g).to(device)
-        background = (make_background(self.background_params)
+        background = (make_background(self.background_params,
+                                      tex_id=self._bg_tex_id())
                       if self.background_params is not None
                       else Background(kind="none"))
         if background.kind == "none":
             raise _unsupported("a scene without a background")
+        if background.kind == "texture" and background.tex_id < 0:
+            # the JAX compile accepts it and fails when the background is
+            # first looked up
+            raise ValueError("a texture background needs the name of a "
+                             "staged texture in its 'texture' param")
+        if background.kind == "texture":
+            # the environment map's importance tables, for its background
+            # light (the JAX compile builds them for any texture background)
+            from .textures.build import build_env_tables
+            background = build_env_tables(
+                background, self.texture_images,
+                self.texture_order[background.tex_id])
         if camera_name is None and self.cameras:
             camera_name = next(iter(self.cameras))
         if not camera_name:
@@ -334,6 +371,13 @@ class SceneBuilder:
             has_cam_invisible=bool((g["face_vis"] & 4).any()),
             textures=textures, nodes=nodes, volumes=self._build_volumes(),
             pixel_spread=f32(1.0 / (max(camera.resx, 1) * focal))).to(device)
+
+    def _bg_tex_id(self) -> int:
+        """The background's texture (its `texture` param), or -1."""
+        tname = self.background_params.get_string("texture", "")
+        if tname and tname in self.texture_order:
+            return self.texture_order.index(tname)
+        return -1
 
     def _build_textures_and_nodes(self, mat_table):
         """The texture pool and the node program (each None when the scene
@@ -447,11 +491,23 @@ class SceneBuilder:
         all_v, all_v1, all_v2, all_n, all_f, all_fuv = [], [], [], [], [], []
         all_uv = [np.zeros((1, 2), np.float32)]
         all_fmat, all_fobj, all_fsmooth, all_fvis = [], [], [], []
+        sph = dict(center=[], radius=[], mat=[], obj=[], vis=[])
         obj_face_ranges = {}
         v_off, uv_off, f_count = 0, 1, 0   # uv 0 is the unused-uv slot
 
         def emit_mesh(obj: _MeshObject, matrix):
             nonlocal v_off, uv_off, f_count
+            if obj.is_sphere:
+                sph["center"].append(obj.sphere_center.astype(np.float32))
+                sph["radius"].append(obj.sphere_radius)
+                sph["mat"].append(obj.faces[-1][6] if obj.faces
+                                  else obj.sphere_mat)
+                sph["obj"].append(obj.obj_id)
+                sph["vis"].append(0 if obj.is_base
+                                  else _vis_bits(obj.visibility))
+                return
+            if obj.is_curve and obj.vertices:
+                obj = _extrude_curve(obj)
             if not obj.faces:
                 return
             v = np.asarray(obj.vertices, np.float32).reshape(-1, 3)
@@ -551,7 +607,14 @@ class SceneBuilder:
             face_obj=cat(all_fobj, np.zeros((0,), np.int32)),
             face_smooth=cat(all_fsmooth, np.zeros((0,), bool)),
             face_vis=cat(all_fvis, np.zeros((0,), np.int32)),
-            face_light=np.full((f_count,), -1, np.int32))
+            face_light=np.full((f_count,), -1, np.int32),
+            sph_center=(np.stack(sph["center"]) if sph["center"]
+                        else np.zeros((0, 3), np.float32)),
+            sph_radius=np.asarray(sph["radius"], np.float32),
+            sph_mat=np.asarray(sph["mat"], np.int32),
+            sph_obj=np.asarray(sph["obj"], np.int32),
+            sph_vis=np.asarray(sph["vis"], np.int32),
+            sph_light=np.full((len(sph["radius"]),), -1, np.int32))
         if true_inst:
             mats4 = np.stack([m for _, m in true_inst])
             counts = np.asarray([obj_face_ranges[b_][1]
@@ -587,6 +650,9 @@ class SceneBuilder:
             specs.append(P.ParamMap({
                 "type": "bglight", "samples": bg.get_int("ibl_samples", 16),
                 "cast_shadows": bg.get_bool("cast_shadows", True)}))
+        sun = sun_from_background(bg) if bg is not None else None
+        if sun is not None:
+            specs.append(sun)
         n = max(len(specs), 1)
         z = lambda: np.zeros((n,), np.float32)
         z3 = lambda: np.zeros((n, 3), np.float32)
@@ -733,7 +799,8 @@ def _geometry_tables(g: dict) -> Geometry:
     f = int(inst["inst_face_off"][-1]) if inst else f0
     tensors = {k: torch.from_numpy(v)
                for k, v in {**g, **(inst or {})}.items() if v is not None}
-    geom = Geometry(num_faces=f, num_base_faces=f0, num_spheres=0,
+    geom = Geometry(num_faces=f, num_base_faces=f0,
+                    num_spheres=int(len(g["sph_radius"])),
                     has_motion=g["vertices_t1"] is not None, **tensors)
     if 0 < f <= MAX_TRIS and inst is None:
         # the brute-force path's tables, packed once here instead of per
@@ -750,6 +817,36 @@ def _geometry_tables(g: dict) -> Geometry:
             if geom.vertices_t2 is not None:
                 geom.tri_table_t2 = table(geom.vertices_t2)
     return geom
+
+
+def _extrude_curve(obj: _MeshObject) -> _MeshObject:
+    """A copy of the curve with its strand control points extruded into a
+    two-sided ribbon of triangles (the reference's CurveObject): the side
+    vector is perpendicular to the strand and a stable reference axis, the
+    width lerps strand_start -> strand_end (the JAX compile's
+    `_extrude_curve`, which extrudes the staged object in place)."""
+    pts = np.asarray(obj.vertices, np.float32).reshape(-1, 3)
+    mat = obj.faces[-1][6] if obj.faces else obj.sphere_mat
+    obj = dataclasses.replace(obj, vertices=[], faces=[])
+    n = len(pts)
+    if n < 2:
+        return obj
+    for k in range(n):
+        t = k / max(n - 1, 1)
+        w = 0.5 * (obj.strand_start * (1 - t) + obj.strand_end * t)
+        d = pts[min(k + 1, n - 1)] - pts[max(k - 1, 0)]
+        d = d / max(np.linalg.norm(d), 1e-12)
+        ref = (np.array([0, 0, 1], np.float32) if abs(d[2]) < 0.9
+               else np.array([1, 0, 0], np.float32))
+        side = np.cross(d, ref)
+        side = side / max(np.linalg.norm(side), 1e-12)
+        obj.vertices.append(tuple(pts[k] - side * w))
+        obj.vertices.append(tuple(pts[k] + side * w))
+    for k in range(n - 1):
+        i0, i1, i2, i3 = 2 * k, 2 * k + 1, 2 * k + 2, 2 * k + 3
+        obj.faces.append((i0, i1, i3, -1, -1, -1, mat))
+        obj.faces.append((i0, i3, i2, -1, -1, -1, mat))
+    return obj
 
 
 def _vis_bits(vis: int) -> int:

@@ -68,6 +68,14 @@ class Geometry(_Table):
     # bit0 hit by camera/bounce rays, bit1 casts shadows,
     # bit2 (value 4) invisible to camera rays only
     face_vis: Tensor        # i32[F]
+    # analytic spheres (object type "sphere"); their prim ids follow the
+    # faces: num_faces + s
+    sph_center: Optional[Tensor] = None     # f32[S, 3]
+    sph_radius: Optional[Tensor] = None     # f32[S]
+    sph_mat: Optional[Tensor] = None        # i32[S]
+    sph_obj: Optional[Tensor] = None        # i32[S]
+    sph_light: Optional[Tensor] = None      # i32[S] light id or -1
+    sph_vis: Optional[Tensor] = None        # i32[S] visibility bits
     # packed f32[C, 16] table for the closest-hit kernel
     # (accel/mt_intersect.py pack_tris), built once at scene compile
     tri_table: Optional[Tensor] = None
@@ -221,15 +229,38 @@ class LightTable(_Table):
 
 @dataclass
 class Background(_Table):
-    """Constant background (colour times power)."""
+    """The scene's one background; `kind` is "constant", "gradient",
+    "sunsky", "darksky", "texture" or "none", and only its own fields are
+    set (`backgrounds/__init__.py`)."""
     kind: str = "constant"
     color: Optional[Tensor] = None   # f32[3]
     power: Optional[Tensor] = None   # f32[]
+    # gradient
+    horizon_color: Optional[Tensor] = None          # f32[3]
+    zenith_color: Optional[Tensor] = None           # f32[3]
+    ground_horizon_color: Optional[Tensor] = None   # f32[3]
+    ground_zenith_color: Optional[Tensor] = None    # f32[3]
+    # texture (environment map): its texture, rotation about z (radians)
+    # and mapping ("sphere" or "angular")
+    tex_id: int = -1
+    rotation: Optional[Tensor] = None               # f32[]
+    mapping: str = "sphere"
+    ibl_blur: Optional[Tensor] = None               # f32[]
+    # sunsky / darksky coefficients (a SunSky or DarkSky table)
+    sunsky: Optional[_Table] = None
+    # the environment map's importance tables (alias method), built for
+    # its background light; env_shape is (H, W), (0, 0) without tables
+    env_alias_prob: Optional[Tensor] = None         # f32[H*W]
+    env_alias_idx: Optional[Tensor] = None          # i32[H*W]
+    env_pdf: Optional[Tensor] = None                # f32[H*W] solid angle
+    env_shape: tuple = (0, 0)
 
 
 @dataclass
 class Camera(_Table):
-    """Perspective camera frame."""
+    """Camera frame; `kind` is "perspective", "architect", "orthographic",
+    "angular" or "equirectangular". A thin lens (aperture > 0: depth of
+    field) samples its aperture through the bokeh shape `bokeh_kind`."""
     kind: str = "perspective"
     origin: Optional[Tensor] = None  # f32[3]
     cam_x: Optional[Tensor] = None   # f32[3] right
@@ -237,6 +268,21 @@ class Camera(_Table):
     cam_z: Optional[Tensor] = None   # f32[3] forward (unit)
     focal: Optional[Tensor] = None   # f32[] focal distance in screen units
     aspect: Optional[Tensor] = None  # f32[] resy / resx
+    aperture: Optional[Tensor] = None       # f32[] lens radius
+    dof_distance: Optional[Tensor] = None   # f32[] focus distance
+    angle: Optional[Tensor] = None          # f32[] angular camera (radians)
+    # angular camera: clip radius in image half-widths (max_angle / angle)
+    max_radius: Optional[Tensor] = None     # f32[]
+    ortho_scale: Optional[Tensor] = None    # f32[]
+    near_clip: Optional[Tensor] = None      # f32[]
+    far_clip: Optional[Tensor] = None       # f32[]
+    bokeh_rotation: Optional[Tensor] = None  # f32[]
+    bokeh_kind: str = "disk"
+    angular_projection: str = "equidistant"
+    circular: bool = True
+    mirrored: bool = False
+    # aperture > 0 when the camera was made: the thin-lens arm runs
+    dof: bool = False
     resx: int = 256
     resy: int = 256
 

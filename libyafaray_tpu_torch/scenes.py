@@ -3,9 +3,12 @@ its glossy variants (BASELINE config 2, and the scene of the glossy-exponent
 gradient), the terrain of BASELINE config 3, the glass caustic scene of
 config 4 and the scattering volume of config 5 (copies of `tests/scenes.py`
 and `tests/test_gradients.py`), the forest (the terrain under 2,000
-instanced rocks, some of them moving) and the instanced cubes of the
-libYafaRay golden `tests/golden/instances_ref_160.hdr` (the scene of
-`tools/refparity/instances_ref.c`)."""
+instanced rocks, some of them moving) and the scenes of the libYafaRay goldens
+in `tests/golden/` (`tools/refparity/*.c`; `tests/test_refparity.py`): the
+instanced cubes, the Cornell box under the four other camera types, the
+empty sky under sunsky and darksky, and the glossy sphere on a textured
+floor; and the larger scenes built on them: the terrain under an analytic
+sky, and the glossy scene lit by an environment map, with a curve."""
 from __future__ import annotations
 
 import numpy as np
@@ -342,4 +345,186 @@ def instances_builder() -> SceneBuilder:
     b.create_camera("cam", {"type": "perspective", "from": (0.0, -5.5, 3.5),
                             "to": (0.0, 0.0, 0.4), "up": (0.0, -5.5, 4.5),
                             "resx": 160, "resy": 160, "fov": 50.0})
+    return b
+
+
+# the cameras of the libYafaRay camera goldens
+# tests/golden/cornell_{ortho,equi,angular,archi}_128.hdr
+# (tools/refparity/cornell_ref.c; tests/test_refparity.py)
+GOLDEN_CAMERAS = {
+    "orthographic": {"from": (0.5, -1.35, 0.5), "to": (0.5, 0.5, 0.5),
+                     "up": (0.5, -1.35, 1.5), "scale": 1.4},
+    "equirectangular": {"from": (0.5, 0.5, 0.5), "to": (0.5, 1.5, 0.5),
+                        "up": (0.5, 0.5, 1.5)},
+    "angular": {"from": (0.5, -1.35, 0.5), "to": (0.5, 0.5, 0.5),
+                "up": (0.5, -1.35, 1.5), "angle": 90.0, "max_angle": 90.0},
+    # tilted up: the vertical-line-preserving projection differs from
+    # the perspective one here
+    "architect": {"from": (0.5, -1.35, 0.2), "to": (0.5, 0.5, 0.8),
+                  "up": (0.5, -1.6, 1.1), "fov": 39.0},
+}
+GOLDEN_CAMERA_FILES = {"orthographic": "cornell_ortho_128.hdr",
+                       "equirectangular": "cornell_equi_128.hdr",
+                       "angular": "cornell_angular_128.hdr",
+                       "architect": "cornell_archi_128.hdr"}
+
+
+def camera_golden_builder(kind: str, res: int = 128) -> SceneBuilder:
+    """The Cornell box of the camera goldens: the lamp invisible to camera
+    rays with one light sample (the reference's area lights are never
+    scene primitives), seen by a res x res camera of type `kind`
+    (GOLDEN_CAMERAS)."""
+    b = cornell_builder()
+    b.lights["lamp"]["visibility"] = "invisible"
+    b.lights["lamp"]["samples"] = 1
+    b.create_camera("cam", dict(GOLDEN_CAMERAS[kind], type=kind, resx=res,
+                                resy=res))
+    return b
+
+
+def sky_builder(kind: str, res: int = 128) -> SceneBuilder:
+    """The empty sky of the sky goldens tests/golden/sky_{sunsky,darksky}_
+    128.hdr (tools/refparity/sky_ref.c): a sunsky or darksky background
+    (sun toward (0.4, 0.3, 0.6), turbidity 3) seen through an
+    equirectangular camera, with one far-away triangle below the horizon
+    (a scene needs geometry)."""
+    b = SceneBuilder()
+    b.create_material("m", {"type": "shinydiffusemat",
+                            "color": (0.5, 0.5, 0.5)})
+    b.create_object("dummy")
+    b.set_current_material("m")
+    a0 = b.add_vertex(500, 500, -500)
+    a1 = b.add_vertex(501, 500, -500)
+    a2 = b.add_vertex(500, 501, -500)
+    b.add_triangle(a0, a1, a2)
+    bgp = {"type": kind, "from": (0.4, 0.3, 0.6), "turbidity": 3.0,
+           "power": 1.0, "add_sun": False, "background_light": False}
+    if kind == "darksky":
+        bgp.update({"altitude": 0.0, "night": False, "exposure": 1.0})
+    b.create_background(bgp)
+    b.create_camera("cam", {"type": "equirectangular", "resx": res,
+                            "resy": res, "from": (0, 0, 0), "to": (0, 1, 0),
+                            "up": (0, 0, 1)})
+    return b
+
+
+def sky_terrain_builder(kind: str, res: int = 320) -> SceneBuilder:
+    """The textured terrain of `bigmesh_builder(res)` under an analytic
+    sky in place of its sun and constant background: a "sunsky" (turbidity
+    3) whose add_sun makes the sun light, or a "darksky" at altitude 0 with
+    add_sun; either lights the scene with ibl (2 samples, as the constant
+    background did), with the sun toward (0.3, 0.3, 0.8)."""
+    b = bigmesh_builder(res)
+    del b.lights["sun"]
+    b.light_order.remove("sun")
+    bgp = {"type": kind, "from": (0.3, 0.3, 0.8), "turbidity": 3.0,
+           "add_sun": True, "sun_power": 1.0, "ibl": True, "ibl_samples": 2}
+    if kind == "darksky":
+        bgp.update({"altitude": 0.0, "exposure": 1.0})
+    b.create_background(bgp)
+    return b
+
+
+def glossy_golden_builder(res: int = 128) -> SceneBuilder:
+    """The scene of tests/golden/glossy_ref_128.hdr
+    (tools/refparity/glossy_ref.c): a uv-textured floor (a 64x64 image
+    through a texture_mapper node), a white back wall, an analytic glossy
+    sphere (radius 0.25, exponent 25, as_diffuse off) and an overhead area
+    light invisible to camera rays, seen by a res x res camera."""
+    b = SceneBuilder()
+    i = np.arange(64)[None, :]
+    j = np.arange(64)[:, None]
+    img = np.zeros((64, 64, 3), np.float32)
+    img[..., 0] = 0.25 + 0.25 * (1 + np.sin(0.35 * i))
+    img[..., 1] = 0.25 + 0.25 * (1 + np.sin(0.35 * j))
+    img[..., 2] = 0.5
+    b.create_texture("TexFloor", {"type": "image"}, image=img)
+    b.create_material("floor", {"type": "shinydiffusemat", "color": (1, 1, 1),
+                                "diffuse_shader": "map0"},
+                      node_list=[{"type": "texture_mapper", "name": "map0",
+                                  "texture": "TexFloor", "texco": "uv"}])
+    b.create_material("white", {"type": "shinydiffusemat",
+                                "color": (0.73, 0.73, 0.73)})
+    b.create_material("gloss", {"type": "glossy", "color": (0.8, 0.8, 0.8),
+                                "diffuse_color": (0.3, 0.25, 0.2),
+                                "glossy_reflect": 0.7, "diffuse_reflect": 1.0,
+                                "exponent": 25.0, "as_diffuse": False})
+    b.create_object("floorobj")
+    b.set_current_material("floor")
+    a = [b.add_vertex(*p) for p in ((0, 0, 0), (1, 0, 0), (1, 1, 0),
+                                    (0, 1, 0))]
+    u = [b.add_uv(*q) for q in ((0, 0), (1, 0), (1, 1), (0, 1))]
+    b.add_triangle(a[0], a[1], a[2], (u[0], u[1], u[2]))
+    b.add_triangle(a[0], a[2], a[3], (u[0], u[2], u[3]))
+    b.create_object("back")
+    b.set_current_material("white")
+    c = [b.add_vertex(*p) for p in ((0, 1, 0), (1, 1, 0), (1, 1, 1),
+                                    (0, 1, 1))]
+    b.add_quad(*c)
+    b.create_object("ball", {"type": "sphere", "center": (0.5, 0.5, 0.3),
+                             "radius": 0.25})
+    b.set_current_material("gloss")
+    b.create_light("lamp", {"type": "arealight", "corner": (0.3, 0.3, 1.2),
+                            "point1": (0.3, 0.7, 1.2),
+                            "point2": (0.7, 0.3, 1.2),
+                            "color": (1.0, 0.95, 0.9), "power": 6.0,
+                            "samples": 4, "visibility": "invisible"})
+    b.create_background({"type": "constant", "color": (0, 0, 0)})
+    b.create_camera("cam", {"type": "perspective", "from": (0.5, -0.9, 0.55),
+                            "to": (0.5, 0.5, 0.3), "up": (0.5, -0.9, 1.55),
+                            "resx": res, "resy": res, "fov": 50.0})
+    return b
+
+
+def env_map(width: int = 1024, height: int = 512,
+            sun_deg: float = 3.0) -> np.ndarray:
+    """An equirectangular HDR sky, f32[height, width, 3]: a smooth gradient
+    from a blue zenith to a pale horizon and a dim ground, and a small sun
+    disc (sun_deg across) 1,000 times brighter than the sky, 45 degrees up,
+    so that importance sampling matters."""
+    v = (np.arange(height, dtype=np.float32) + 0.5) / height   # 0: zenith
+    u = (np.arange(width, dtype=np.float32) + 0.5) / width
+    theta = v * np.pi
+    up = np.cos(theta)[:, None, None]
+    sky = np.where(up > 0,
+                   np.array([0.35, 0.5, 0.9], np.float32) * up
+                   + np.array([0.9, 0.9, 0.85], np.float32) * (1 - up),
+                   np.array([0.25, 0.22, 0.2], np.float32))
+    img = np.broadcast_to(sky, (height, width, 3)).copy()
+    # the sun: phi and theta of the disc centre (u = 0.6, 45 degrees up)
+    phi = (u - 0.5) * 2.0 * np.pi
+    d = np.stack([np.sin(theta)[:, None] * np.cos(phi)[None, :],
+                  np.sin(theta)[:, None] * np.sin(phi)[None, :],
+                  np.broadcast_to(np.cos(theta)[:, None], (height, width))],
+                 -1)
+    sun_phi, sun_theta = (0.6 - 0.5) * 2.0 * np.pi, np.pi / 4
+    sun = np.array([np.sin(sun_theta) * np.cos(sun_phi),
+                    np.sin(sun_theta) * np.sin(sun_phi), np.cos(sun_theta)])
+    disc = (d @ sun) > np.cos(np.radians(0.5 * sun_deg))
+    img[disc] = 1000.0 * np.array([0.9, 0.9, 0.85], np.float32)
+    return img.astype(np.float32)
+
+
+def env_glossy_builder(res: int = 128, width: int = 1024,
+                       height: int = 512) -> SceneBuilder:
+    """The glossy golden scene lit by an environment map instead of its
+    area light: a texture background (`env_map(width, height)`, sphere
+    mapping) with ibl, 16 samples; and one curve object: a strand of 24
+    control points winding up from the floor beside the sphere, extruded
+    into a ribbon 0.02 wide at its root and 0.005 at its tip."""
+    b = glossy_golden_builder(res)
+    del b.lights["lamp"]
+    b.light_order.remove("lamp")
+    b.create_texture("env", {"type": "image"}, image=env_map(width, height))
+    b.create_background({"type": "textureback", "texture": "env",
+                         "ibl": True, "ibl_samples": 16, "power": 1.0})
+    b.create_material("hair", {"type": "shinydiffusemat",
+                               "color": (0.6, 0.35, 0.15)})
+    b.create_object("strand", {"type": "curve", "strand_start": 0.02,
+                               "strand_end": 0.005})
+    b.set_current_material("hair")
+    for j in range(24):
+        t = j / 23.0
+        b.add_vertex(0.18 + 0.04 * np.cos(9.0 * t),
+                     0.35 + 0.04 * np.sin(9.0 * t), 0.5 * t)
     return b

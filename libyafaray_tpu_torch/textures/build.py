@@ -6,15 +6,18 @@ so trilinear and EWA sampling are gathers and lerps. The pool's dtype
 follows the `image_optimization` parameters (the reference's image.h:47-48):
 f32 unless every image asks for "optimized" (f16) or "compressed" (uint8
 with a scale per texture). Procedural texture types raise
-NotImplementedError naming the type; the environment map's importance
-tables (`build_env_tables`) are not ported yet.
+NotImplementedError naming the type. `build_env_tables` builds a texture
+background's importance tables (the alias method), the JAX package's
+exactly.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from ..scene_types import TexturePool
+from ..scene_types import Background, TexturePool
 from . import MAX_MIPS, RAMP_MAX, TEX_IMAGE
 
 _TEX_TYPES = ("image", "blend", "clouds", "marble", "wood", "voronoi",
@@ -183,3 +186,49 @@ def build_pool(builder) -> TexturePool:
         extend=t(extend), adj=t(adj), num_textures=n,
         used_types=tuple(sorted({int(x) for x in tex_type})),
         used_interps=tuple(sorted({int(x) for x in interp})))
+
+
+def build_env_tables(bg: Background, tex_images: dict,
+                     tex_name: str) -> Background:
+    """bg with the alias-method importance tables of its equirectangular
+    environment map (the pixels staged as `tex_name`): each texel weighted
+    by its mean RGB times sin(theta), a Walker alias table over them, and
+    each texel's solid-angle pdf. bg as it is without the pixels or with a
+    black map. On the host, in numpy, in the JAX package's order, so the
+    tables are the same."""
+    img = tex_images.get(tex_name)
+    if img is None:
+        return bg
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, -1)
+    h, w = img.shape[:2]
+    lum = img[..., :3].mean(-1)
+    # the solid-angle weight of each row: sin(theta)
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    flat = (lum * np.sin(theta)[:, None]).reshape(-1).astype(np.float64)
+    total = flat.sum()
+    if total <= 0:
+        return bg
+    prob = flat / total
+    n = h * w
+    texel_sa = (2 * np.pi / w) * (np.pi / h) * np.sin(theta)[:, None]
+    pdf_sa = (prob.reshape(h, w) / np.maximum(texel_sa, 1e-12)).reshape(-1)
+    # Walker's alias table
+    scaled = prob * n
+    alias = np.arange(n, dtype=np.int64)
+    accept = np.ones(n)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        big = large.pop()
+        accept[s] = scaled[s]
+        alias[s] = big
+        scaled[big] = scaled[big] - (1.0 - scaled[s])
+        (small if scaled[big] < 1.0 else large).append(big)
+    t = torch.from_numpy
+    return dataclasses.replace(
+        bg, env_alias_prob=t(accept.astype(np.float32)),
+        env_alias_idx=t(alias.astype(np.int32)),
+        env_pdf=t(pdf_sa.astype(np.float32)), env_shape=(h, w))
