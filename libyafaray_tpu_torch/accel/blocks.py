@@ -29,6 +29,7 @@ import torch
 
 from ..scene_types import BlockAccel, Geometry, SceneData
 from . import tiles
+from .spheres import sphere_pass
 from .morton import morton3d
 
 Tensor = torch.Tensor
@@ -226,9 +227,8 @@ def query(acc: BlockAccel, geom: Geometry, o: Tensor, d: Tensor,
     sorted by `sort_key` (a stable sort, as the JAX package's; the ray's
     shutter `time` rides along), traversed, and put back in their order
     through the inverse permutation; the scene's analytic spheres are tested
-    after the walk (`ops.intersect.sphere_pass`). Returns (t f32[N], prim
+    after the walk (`spheres.sphere_pass`). Returns (t f32[N], prim
     i32[N] (-1 on a miss), uv f32[N, 2])."""
-    from ..ops.intersect import sphere_pass
     n = o.shape[0]
     t_min = t_min.expand(n)
     t_max = t_max.expand(n)

@@ -57,7 +57,6 @@ class SunSky(_Table):
     perez_x: Tensor        # f32[5]
     perez_y: Tensor        # f32[5]
     power: Tensor          # f32[]
-    night: bool = False
 
 
 def _perez(coef, cos_theta, gamma, cos_gamma):
@@ -67,7 +66,7 @@ def _perez(coef, cos_theta, gamma, cos_gamma):
             * (1.0 + c * torch.exp(d * gamma) + e * cos_gamma * cos_gamma))
 
 
-def make_sunsky(pm: P.ParamMap, dark: bool = False) -> SunSky:
+def make_sunsky(pm: P.ParamMap) -> SunSky:
     sd = np.asarray(pm.get_vector("from", (0.0, 0.0, 1.0)), np.float64)
     sd = sd / max(np.linalg.norm(sd), 1e-12)
     T = pm.get_float("turbidity", 3.0)
@@ -99,8 +98,7 @@ def make_sunsky(pm: P.ParamMap, dark: bool = False) -> SunSky:
         sun_dir=_f32(sd), theta_s=_f32(theta_s), zenith_Y=_f32(zenith_Y),
         zenith_x=_f32(zenith_x), zenith_y=_f32(zenith_y),
         perez_Y=_f32(perez_Y), perez_x=_f32(perez_x), perez_y=_f32(perez_y),
-        power=_f32(pm.get_float("power", 1.0)),
-        night=dark and theta_s > math.pi / 2)
+        power=_f32(pm.get_float("power", 1.0)))
 
 
 def _eval_sunsky(ss: SunSky, d: Tensor) -> Tensor:
@@ -314,8 +312,7 @@ def make_background(pm: P.ParamMap, tex_id: int = -1) -> Background:
         return Background(
             kind="texture", tex_id=tex_id,
             rotation=_f32(pm.get_float("rotation", 0.0) * math.pi / 180.0),
-            mapping=pm.get_string("mapping", "sphere"), power=power,
-            ibl_blur=_f32(pm.get_float("smartibl_blur", 0.0)))
+            mapping=pm.get_string("mapping", "sphere"), power=power)
     raise KeyError(f"background: unknown type {kind!r}")
 
 

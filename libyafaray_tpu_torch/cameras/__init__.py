@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import params as P
+from .. import sampler
 from ..math import vec
 from ..scene_types import Camera
 
@@ -110,6 +111,16 @@ def _sample_bokeh(kind: str, u1: Tensor, u2: Tensor, rotation: Tensor):
     w0 = 1.0 - b0 - b1
     return (torch.cos(a0) * w0 + torch.cos(a1) * b1,
             torch.sin(a0) * w0 + torch.sin(a1) * b1)
+
+
+def lens_samples(cam: Camera, pixel_id: Tensor, sample_idx):
+    """The lens samples (lens_u, lens_v) of a thin-lens camera, keyed on
+    (pixel_id, sample_idx) as in the JAX package; (None, None) for the
+    other cameras, which take none."""
+    if not cam.dof:
+        return None, None
+    return (sampler.rand1(pixel_id, sample_idx, 0, 777),
+            sampler.rand1(pixel_id, sample_idx, 0, 778))
 
 
 def shoot_rays(cam: Camera, px: Tensor, py: Tensor,

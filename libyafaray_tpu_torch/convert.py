@@ -38,7 +38,7 @@ _CAM_COLUMNS = ("origin", "cam_x", "cam_y", "cam_z", "focal", "aspect",
                 "ortho_scale", "near_clip", "far_clip", "bokeh_rotation")
 _BG_COLUMNS = ("color", "power", "horizon_color", "zenith_color",
                "ground_horizon_color", "ground_zenith_color", "rotation",
-               "ibl_blur", "env_alias_prob", "env_alias_idx", "env_pdf")
+               "env_alias_prob", "env_alias_idx", "env_pdf")
 _SKY_COLUMNS = ("sun_dir", "theta_s", "zenith_Y", "zenith_x", "zenith_y",
                 "perez_Y", "perez_x", "perez_y", "power")
 _VOL_COLUMNS = ("vol_type", "bmin", "bmax", "sigma_a", "sigma_s",
@@ -144,8 +144,7 @@ def _background(bg) -> Background:
     from .backgrounds import DarkSky, SunSky
     sky = None
     if bg.kind == "sunsky":
-        sky = SunSky(night=bool(bg.sunsky.night),
-                     **_opt(bg.sunsky, _SKY_COLUMNS))
+        sky = SunSky(**_opt(bg.sunsky, _SKY_COLUMNS))
     elif bg.kind == "darksky":
         sky = DarkSky(night=bool(bg.sunsky.night),
                       color_space=bg.sunsky.color_space,

@@ -5,7 +5,8 @@ every triangle query goes through `accel.mt_intersect.mt_closest`; on the
 block accelerator (`accel_kind == "blocks"`, scenes of 2048+ faces by
 default) through `accel.blocks`, whose traversal is `accel.tiles`. Each is a
 CUDA kernel for tensors on the card and its plain PyTorch version for
-tensors on the CPU. Intersections carry no gradient, so the queries run
+tensors on the CPU. The scene's analytic spheres follow the triangles on
+both paths (`accel.spheres`). Intersections carry no gradient, so the queries run
 under `torch.no_grad()` on detached inputs. Motion-blurred scenes
 (`geom.has_motion`) take each ray's shutter `time`; the queries pass it on
 only for such scenes, as the JAX package does.
@@ -19,6 +20,7 @@ import torch
 
 from ..accel import blocks as BL
 from ..accel import mt_intersect as MT
+from ..accel.spheres import sphere_pass
 from ..math import vec
 from ..scene_types import Geometry, SceneData
 
@@ -53,23 +55,6 @@ def moller_trumbore(o: Tensor, d: Tensor, v0: Tensor, v1: Tensor, v2: Tensor,
     return hit, t, u, v
 
 
-def intersect_sphere(o: Tensor, d: Tensor, center: Tensor, radius: Tensor,
-                     t_min, t_max):
-    """Batched analytic sphere; returns (hit, t) with the nearest root in
-    range."""
-    oc = o - center
-    b = vec.dot(oc, d)
-    c = vec.dot(oc, oc) - radius * radius
-    disc = b * b - c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-    t0 = -b - sq
-    t1 = -b + sq
-    t0_in = (t0 > t_min) & (t0 <= t_max)
-    t1_in = (t1 > t_min) & (t1 <= t_max)
-    t = torch.where(t0_in, t0, t1)
-    return (disc >= 0.0) & (t0_in | t1_in), t
-
-
 def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
                    t_max: Tensor, exclude_prim: Optional[Tensor] = None,
                    shadow: bool = False, time: Optional[Tensor] = None) -> Hit:
@@ -102,33 +87,6 @@ def _brute_closest(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
         best_prim, best_uv)
     return Hit(valid=best_prim >= 0, t=best_t,
                prim=torch.clamp_min(best_prim, 0), uv=best_uv)
-
-
-def sphere_pass(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
-                t_max: Tensor, exclude: Optional[Tensor], vis_bit: int,
-                bt: Tensor, bp: Tensor, buv: Tensor):
-    """The analytic spheres after the triangles, dense over rays x spheres
-    (scenes carry few spheres): a sphere hit nearer than the triangle hit
-    (bp >= 0 at bt; a miss counts to t_max) takes its place, with prim id
-    num_faces + s and uv 0. Ties keep the triangle, as in the JAX package.
-    Returns (t, prim, uv)."""
-    s = geom.num_spheres
-    if s == 0:
-        return bt, bp, buv
-    best_t = torch.where(bp >= 0, bt, t_max)
-    hit, t = intersect_sphere(o[:, None, :], d[:, None, :],
-                              geom.sph_center[None], geom.sph_radius[None],
-                              t_min[..., None], best_t[:, None])
-    hit = hit & ((geom.sph_vis[None, :] & vis_bit) != 0)
-    sph_ids = geom.num_faces + torch.arange(s, dtype=torch.int32,
-                                            device=o.device)
-    if exclude is not None:
-        hit = hit & (sph_ids[None, :] != exclude[:, None])
-    t = torch.where(hit, t, torch.inf)
-    tj, j = torch.min(t, dim=1)
-    better = tj < best_t
-    return (torch.where(better, tj, bt), torch.where(better, sph_ids[j], bp),
-            torch.where(better[:, None], 0.0, buv))
 
 
 def _brute_any(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,

@@ -14,9 +14,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..cameras import shoot_rays
+from ..cameras import lens_samples, shoot_rays
 from ..integrators.mc import IntegratorConfig, integrate
-from ..render import _lens_samples
 from ..scene_types import SceneData
 
 Tensor = torch.Tensor
@@ -28,7 +27,7 @@ def _pixel_shard_radiance(scene: SceneData, cfg: IntegratorConfig,
     """Camera rays -> integrator for the pixels `pixel_id` at film positions
     (px, py): a pure function of the absolute pixel ids (the lens samples
     too, as in `render`)."""
-    lens_u, lens_v = _lens_samples(scene, pixel_id, sample_idx)
+    lens_u, lens_v = lens_samples(scene.camera, pixel_id, sample_idx)
     o, d, valid = shoot_rays(scene.camera, px, py, lens_u, lens_v)
     rgb, alpha = integrate(scene, cfg, o, d, valid, pixel_id, sample_idx)
     return rgb, alpha, valid

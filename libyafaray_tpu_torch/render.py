@@ -13,21 +13,11 @@ import torch
 
 from . import film as F
 from . import sampler
-from .cameras import shoot_rays
+from .cameras import lens_samples, shoot_rays
 from .integrators.mc import IntegratorConfig, integrate
 from .scene_types import SceneData
 
 Tensor = torch.Tensor
-
-
-def _lens_samples(scene: SceneData, pixel_id: Tensor, sample_idx):
-    """The lens samples (lens_u, lens_v) of a thin-lens camera, keyed on
-    (pixel_id, sample_idx) as in the JAX package; (None, None) for the
-    other cameras, which take none."""
-    if not scene.camera.dof:
-        return None, None
-    return (sampler.rand1(pixel_id, sample_idx, 0, 777),
-            sampler.rand1(pixel_id, sample_idx, 0, 778))
 
 
 def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
@@ -46,8 +36,8 @@ def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
     ju, jv = sampler.ld02(sample_idx, scramble)
     px = xx.to(torch.float32) + ju
     py = yy.to(torch.float32) + jv
-    o, d, valid = shoot_rays(scene.camera, px, py,
-                             *_lens_samples(scene, pixel_id, sample_idx))
+    lens_u, lens_v = lens_samples(scene.camera, pixel_id, sample_idx)
+    o, d, valid = shoot_rays(scene.camera, px, py, lens_u, lens_v)
     valid = valid & live
     rgb, alpha = integrate(scene, cfg, o, d, valid, pixel_id, sample_idx)
     layer_vals = {"combined": torch.cat([rgb, alpha[..., None]], dim=-1)}

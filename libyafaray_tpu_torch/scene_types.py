@@ -245,7 +245,6 @@ class Background(_Table):
     tex_id: int = -1
     rotation: Optional[Tensor] = None               # f32[]
     mapping: str = "sphere"
-    ibl_blur: Optional[Tensor] = None               # f32[]
     # sunsky / darksky coefficients (a SunSky or DarkSky table)
     sunsky: Optional[_Table] = None
     # the environment map's importance tables (alias method), built for

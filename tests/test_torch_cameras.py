@@ -147,6 +147,24 @@ def test_lensless_rays_are_unchanged_bit_for_bit(rng):
     assert not tc.dof
 
 
+@pytest.mark.parametrize("sample_idx", [0, 5])
+def test_lens_samples_match_jax_bit_for_bit(sample_idx):
+    """`lens_samples` draws the thin lens's (lens_u, lens_v) as the JAX
+    render does, `rand1(pixel_id, s, 0, 777 / 778)`, equal bit for bit; a
+    camera without an aperture draws none."""
+    from libyafaray_tpu import sampler as JSMP
+    jc, tc = _cams(CAMERAS["dof"])
+    pid = np.arange(0, 64 * 48, 7, dtype=np.int32)
+    lu, lv = C.lens_samples(tc, torch.from_numpy(pid.astype(np.int64)),
+                            sample_idx)
+    for got, salt in ((lu, 777), (lv, 778)):
+        want = jax.jit(lambda p, s=salt: JSMP.rand1(p, sample_idx, 0, s))(pid)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _, pinhole = _cams(CAMERAS["perspective"])
+    assert C.lens_samples(pinhole, torch.from_numpy(pid), sample_idx) == (
+        None, None)
+
+
 @pytest.mark.parametrize("name", ["perspective", "architect", "orthographic",
                                   "dof"])
 def test_project_matches(rng, name):

@@ -19,6 +19,7 @@ import chip_smoke
 from libyafaray_tpu.accel import pallas_intersect as JP
 from libyafaray_tpu.ops import intersect as JI
 from libyafaray_tpu_torch.accel import mt_intersect as MT
+from libyafaray_tpu_torch.accel import spheres as SP
 from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.ops import intersect as TI
 from scenes import cornell_builder
@@ -207,7 +208,7 @@ def test_moller_trumbore_and_sphere_match(rng):
     r = rng.uniform(0.2, 1.0, (1, 8)).astype(np.float32)
     jh, jt = jax.jit(lambda *a: JI.intersect_sphere(*a, 1e-4, 1e30))(
         o[:, None], d[:, None], c, r)
-    th, tt = TI.intersect_sphere(T(o)[:, None], T(d)[:, None], T(c), T(r),
+    th, tt = SP.intersect_sphere(T(o)[:, None], T(d)[:, None], T(c), T(r),
                                  1e-4, 1e30)
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     m = np.asarray(jh)

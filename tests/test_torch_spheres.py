@@ -36,6 +36,7 @@ from libyafaray_tpu.render import render as jrender
 from libyafaray_tpu_torch import SceneBuilder
 from libyafaray_tpu_torch import film as F
 from libyafaray_tpu_torch import make_integrator, render
+from libyafaray_tpu_torch.accel import spheres as SP
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.ops import surface as S
 from libyafaray_tpu_torch.scenes import glossy_golden_builder
@@ -59,7 +60,7 @@ def test_intersect_sphere_matches(rng):
     r = rng.uniform(0.3, 0.9, (1, s)).astype(np.float32)
     t_max = np.where(rng.random((n, 1)) < 0.2, 0.5, 1e30).astype(np.float32)
     jh, jt = JI.intersect_sphere(o, d, c, r, 1e-4, t_max)
-    h, t = I.intersect_sphere(T(o), T(d), T(c), T(r), 1e-4, T(t_max))
+    h, t = SP.intersect_sphere(T(o), T(d), T(c), T(r), 1e-4, T(t_max))
     np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
     hit = h.numpy()
     assert 0.05 < hit.mean() < 0.8
