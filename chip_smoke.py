@@ -177,6 +177,29 @@ Phases, each reporting on its own lines:
      plain path; the golden tests/golden/glossy_ref_128.hdr at 64 spp
      (region ratios and the floor profile's correlation,
      tests/test_refparity.py's bounds).
+ 24. every material and light type: the materials Cornell box
+     (materials_cornell_builder: Oren-Nayar, coated glossy, a blend and a
+     mask by a texture node, rough glass, dispersive glass with Beer
+     absorption, sss glass, a transparent veil, a null quad; area, spot,
+     IES, sphere and directional lights) at 1920x1080, 16 spp, 4 bounces,
+     transparent shadows at depth 4, on brute force (130 mt_closest
+     launches a pass: the camera query, 4 bounces and 125 closest-shadow
+     queries of the walk, 5 lights x 5 steps x 5 depths), ms a pass,
+     camera rays/s, one pass's launches by kind with their time against
+     their bounds, one pass profiled (device busy share), peak device
+     memory; the same on blocks (130 tile-kernel launches a pass) within
+     the slice bound of brute force; kernel path against plain path at
+     128x128 (brute force bit for bit; blocks the slice bound); eight
+     closest-shadow queries of a pass held against mt_closest_ref (bit for
+     bit, each timed beside its bound) and against tile_walk_ref; forward
+     + backward at 1920x1080, 2 spp, in chunks of 270 rows wrt the
+     coated-glossy colour, the Oren-Nayar sigma, the light colours and the
+     glass absorption, and the same gradients kernel path against plain
+     path at 128x128 (rtol 1e-5);
+ 25. the portal room (portal_room_builder: a bgPortalLight over the window
+     of a closed room) at 1920x1080, 16 spp, 4 bounces: ms a pass,
+     launches (10 a pass), the floor under the window lit; kernel path
+     against plain path at 128x128 bit for bit.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -821,27 +844,41 @@ def _arm_tables(acc, motion, instanced):
     return kw
 
 
+@contextlib.contextmanager
+def _kept_calls(module, name, keep):
+    """Inside the context the calls of module.name at positions `keep`
+    (in call order) are recorded as (arguments, keywords, outputs), their
+    tensors cloned; the yielded list fills as the work runs."""
+    import torch
+    real, position, kept = getattr(module, name), itertools.count(), []
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def keep_call(*a, **k):
+        i = next(position)
+        out = real(*a, **k)
+        if i in keep:
+            kept.append((tuple(copy(x) for x in a),
+                         {key: copy(x) for key, x in k.items()},
+                         tuple(x.clone() for x in out)))
+        return out
+
+    setattr(module, name, keep_call)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, real)
+
+
 def _capture_walks(scene, keep):
     """The tile_walk calls at the positions `keep` (in pass order) of one
     pass of `scene` at its camera's size (sample 0, TERRAIN_BOUNCES), each
     as ((rays, cand, ent, count, tab), keywords)."""
     from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import tiles as TL
-    position, kept, real = itertools.count(), {}, TL.tile_walk
-
-    def keep_call(*a, **k):
-        i = next(position)
-        if i in keep:
-            kept[i] = (a, k)
-        return real(*a, **k)
-
-    TL.tile_walk = keep_call
-    try:
+    with _kept_calls(TL, "tile_walk", set(keep)) as kept:
         render(scene, make_integrator({"type": "pathtracing",
                                        "bounces": TERRAIN_BOUNCES}), spp=1)
-    finally:
-        TL.tile_walk = real
-    return [kept[i] for i in keep]
+    return [(a, k) for a, k, _ in kept]
 
 
 def phase3c_arms(forest, static_cam_ms):
@@ -2588,6 +2625,274 @@ def phase23_spheres():
     return mt_launches, tile_launches
 
 
+# ------------------------------------------------------- phases 24 and 25
+
+MATS_SPP = 16            # the materials Cornell box and the portal room
+# the materials box's forward + backward: 2 spp of the 16-spp image keep
+# the script in its time (a 16-spp image took 283.3 s in chunks of 270
+# rows on the H100: the walk's eager ops make each chunk launch-bound)
+MATS_GRAD_SPP = 2
+MATS_LIGHTS = 5          # lamp, spot, IES, sphere and directional
+SHADOW_DEPTH = 4         # transpShad's default shadowDepth
+# the gradient columns of tests/test_torch_materials_slice.py that the
+# materials Cornell box reads: the coated glossy's colour, the Oren-Nayar
+# sigma, the light colours and the dispersive slab's absorption (its blend
+# takes its factor from a texture node, so the blend_value column is not
+# read here)
+MATS_GRADS = ("materials.glossy_color", "materials.sigma", "lights.color",
+              "materials.absorption")
+
+
+@contextlib.contextmanager
+def _mt_classified():
+    """Inside the context every mt_closest call is classified as it
+    launches (the first of a pass the camera query, then closest-hit
+    bounces, and shadow-visibility queries: the transparent walk) and timed
+    by CUDA events beside its bound (mt_bound); the yielded dict fills as
+    the work runs. Nothing is cloned."""
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    real = MT.mt_closest
+    rec = dict(kinds=[], events=[], bounds=[])
+
+    def classified(*a, **k):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = real(*a, **k)
+        e[1].record()
+        rec["events"].append(e)
+        rec["kinds"].append("shadow walk" if k.get("shadow") else
+                            "camera" if not rec["kinds"] else "bounce")
+        rec["bounds"].append(mt_bound(a, k))
+        return out
+
+    MT.mt_closest = classified
+    try:
+        yield rec
+    finally:
+        MT.mt_closest = real
+
+
+def _mats_scene(accel, width=None, height=None):
+    """The materials Cornell box on `accel` (1920x1080 by default)."""
+    from libyafaray_tpu_torch.scenes import materials_cornell_builder
+    b = materials_cornell_builder(width or WIDTH, height or HEIGHT)
+    b.set_render_params({"scene_accelerator": accel})
+    scene = b.compile("cam")
+    if scene.accel_kind != accel:
+        raise AssertionError(f"the materials Cornell box compiled to "
+                             f"{scene.accel_kind}, not {accel}")
+    return scene
+
+
+def _bit_for_bit(phase, label, img_k, img_p):
+    import numpy as np
+    diff = float(np.abs(img_k - img_p).max())
+    print(f"phase {phase}: {label} {img_k.shape[1]}x{img_k.shape[0]}, "
+          f"kernel path against plain path: max |diff| {diff:.3g}")
+    if not np.isfinite(img_k).all() or diff != 0.0:
+        raise AssertionError(f"phase {phase}: {label}: the kernel path is "
+                             "not the plain path bit for bit")
+
+
+def phase24_materials():
+    """The materials Cornell box (every material and light type) at
+    1920x1080: forward on brute force and on blocks, kernel against plain
+    paths at 128x128, forward + backward in chunks, and captured
+    closest-shadow queries of the transparent walk against both plain
+    versions. Returns (mt_closest launches, tiles_traverse launches,
+    per-launch numbers of the captured walk queries)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.scenes import MATERIALS_INTEGRATOR
+    cfg = make_integrator(MATERIALS_INTEGRATOR)
+    if cfg.transparent_shadows != SHADOW_DEPTH:
+        raise AssertionError("phase 24: transpShad at its default depth")
+    depths = BOUNCES + 1
+    walk = MATS_LIGHTS * (SHADOW_DEPTH + 1)
+    per_pass = depths + depths * walk     # closest queries + walk steps
+    scene = _mats_scene("brute")
+    m = scene.materials
+    lt = scene.lights
+    print(f"phase 24: materials Cornell box: {scene.geom.num_faces} "
+          f"triangles, material types {m.present_types}, light types "
+          f"{lt.present_types}, {lt.num_lights} lights; Oren-Nayar "
+          f"{m.has_oren}, blend {m.has_blend}, mask {m.has_mask}, dispersion "
+          f"{m.has_dispersion}, Beer {m.has_beer}, sss {m.has_sss}; node "
+          f"bindings {scene.nodes.bound}")
+    # every material type but plain glossy and light_mat (ported before)
+    if lt.num_lights != MATS_LIGHTS or m.present_types != (
+            0, 2, 3, 4, 5, 6, 8, 9):
+        raise AssertionError("phase 24: the scene lacks a type")
+    torch.cuda.reset_peak_memory_stats()
+    img, mt, tl = _full_render("24", "materials Cornell box (brute force)",
+                               scene, cfg, MATS_SPP)
+    peak = torch.cuda.max_memory_allocated()
+    if mt != MATS_SPP * per_pass or tl:
+        raise AssertionError(f"phase 24: {mt} mt_closest and {tl} tile "
+                             f"launches, want {MATS_SPP * per_pass} and 0")
+    # the walls: red-dominant left (Oren-Nayar), green-dominant right
+    band = WIDTH * 12 // 64
+    left = img[:, :band, :3].reshape(-1, 3).mean(0)
+    right = img[:, -band:, :3].reshape(-1, 3).mean(0)
+    print(f"phase 24: walls left {left.round(4).tolist()} right "
+          f"{right.round(4).tolist()}; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError("phase 24: the walls' colours are wrong")
+
+    # one pass instrumented: each launch by kind, its time and its bound
+    with _mt_classified() as rec:
+        pass_ev = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+        pass_ev[0].record()
+        render(scene, cfg, spp=1, start_sample=MATS_SPP)
+        pass_ev[1].record()
+        torch.cuda.synchronize()
+    pass_ms = pass_ev[0].elapsed_time(pass_ev[1])
+    by_kind = {}
+    for kind, (a, z), (_, _, bound, _) in zip(rec["kinds"], rec["events"],
+                                               rec["bounds"]):
+        k = by_kind.setdefault(kind, [0, 0.0, 0.0])
+        k[0] += 1
+        k[1] += a.elapsed_time(z)
+        k[2] += bound
+    kernel_ms = sum(k[1] for k in by_kind.values())
+    print(f"phase 24: one instrumented pass {pass_ms:.2f} ms, mt_closest "
+          f"{kernel_ms:.2f} ms of it ({100 * kernel_ms / pass_ms:.1f}%): "
+          + "; ".join(f"{kind} {n} launches, {ms:.3f} ms (bound {b:.4f} ms, "
+                      f"at {100 * b / max(ms, 1e-9):.1f}% of it)"
+                      for kind, (n, ms, b) in by_kind.items()))
+    if [by_kind.get(k, [0])[0] for k in ("camera", "bounce", "shadow walk")
+        ] != [1, BOUNCES, depths * walk]:
+        raise AssertionError(f"phase 24: launches by kind {by_kind}")
+    n_k, busy, ms = _profile_pass(scene, cfg)
+    print(f"phase 24: one pass profiled: {n_k} kernel launches, "
+          + (f"device busy {busy:.2f} ms of {ms:.2f} ms "
+             f"({100 * busy / ms:.1f}%)" if busy > 0 else
+             "device busy not measured (no device time traced)"))
+
+    # blocks: kernel b on every query, the image within the slice bound
+    blocks = _mats_scene("blocks")
+    img_b, mt_b, tl_b = _full_render(
+        "24", "materials Cornell box (blocks)", blocks, cfg, MATS_SPP)
+    if tl_b != MATS_SPP * per_pass or mt_b:
+        raise AssertionError(f"phase 24: blocks: {mt_b} mt_closest and "
+                             f"{tl_b} tile launches")
+    print("phase 24: blocks against brute force:")
+    _paths_agree("24", img_b, img)
+
+    # kernel paths against plain paths at 128x128
+    for accel, module, name, ref in (
+            ("brute", MT, "mt_closest", MT.mt_closest_ref),
+            ("blocks", TL, "tile_walk", TL.tile_walk_ref)):
+        small = _mats_scene(accel, PATHS_RES, PATHS_RES)
+        img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        with _plain(module, name, ref):
+            img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        if accel == "brute":
+            _bit_for_bit("24", "brute force", img_k, img_p)
+        else:
+            print("phase 24: blocks, kernel path against plain path:")
+            _paths_agree("24", img_k, img_p)
+
+    # captured closest-shadow queries, held against the plain versions:
+    # at depth 0 the first two steps of the lamp's and the spot's walks and
+    # the first of the IES, sphere and directional lights' (launches 1, 2,
+    # 6, 7, 11, 16, 21 of a pass), at depth 1 the lamp's first (after the
+    # pass's second closest hit)
+    keep = {1, 2, 6, 7, 11, 16, 21, 2 + walk}
+    with _kept_calls(MT, "mt_closest", keep) as calls:
+        render(scene, cfg, spp=1, start_sample=MATS_SPP + 1)
+    if not all(k.get("shadow") for _, k, _ in calls):
+        raise AssertionError("phase 24: a kept query is not a shadow query")
+    per_launch = _hold_queries("24", calls, [
+        f"walk query at launch {i}" for i in sorted(keep)])
+    with _kept_calls(TL, "tile_walk", keep) as walks:
+        render(blocks, cfg, spp=1, start_sample=MATS_SPP + 1)
+    tl_err = 0.0
+    for i, (a, k, _) in zip(sorted(keep), walks):
+        if not k.get("shadow") or k.get("any_hit"):
+            raise AssertionError("phase 24: a kept walk is not a closest "
+                                 "shadow query")
+        n = a[0].shape[0]
+        _, tl_err = _walk_case(f"walk query at launch {i}", (n,) + a[:4],
+                               a[4], {key: x for key, x in k.items()},
+                               tl_err, phase="24")
+
+    # forward + backward at 1080p in chunks of 270 rows
+    _check_fp32_precision()
+    sc, leaves = _leaf_scene(scene, list(MATS_GRADS))
+    chunks = [_pixels(WIDTH, r, min(r + CHUNK_ROWS, HEIGHT), DEVICE)
+              for r in range(0, HEIGHT, CHUNK_ROWS)]
+    _fwd_bwd(sc, cfg, leaves, chunks[0], 0)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MT.launches = 0
+    total = [torch.zeros_like(x) for x in leaves]
+    t0 = time.perf_counter()
+    for s in range(MATS_GRAD_SPP):
+        for ch in chunks:
+            for t, g in zip(total, _fwd_bwd(sc, cfg, leaves, ch, s)):
+                t += g
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grad_launches = MT.launches
+    grads = [t.cpu().numpy() for t in total]
+    print(f"phase 24: forward + backward {WIDTH}x{HEIGHT} {MATS_GRAD_SPP} "
+          f"spp in {len(chunks)} chunks of {CHUNK_ROWS} rows wrt "
+          f"{', '.join(MATS_GRADS)}: {seconds * 1e3:.2f} ms, "
+          f"{seconds * 1e3 / MATS_GRAD_SPP:.2f} ms per spp pass, mt_closest "
+          f"{grad_launches} launches, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"gradient max |g| "
+          f"{[float(np.abs(g).max()) for g in grads]}")
+    if grad_launches != MATS_GRAD_SPP * len(chunks) * per_pass or not all(
+            np.isfinite(g).all() and np.abs(g).max() > 0 for g in grads):
+        raise AssertionError("phase 24: the gradients or their launches")
+    small = _mats_scene("brute", PATHS_RES, PATHS_RES)
+    got = _image_grads(small, cfg, list(MATS_GRADS), 1)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        want = _image_grads(small, cfg, list(MATS_GRADS), 1)
+    _grads_agree("24", MATS_GRADS, got, want, GRAD_RTOL)
+    return dict(forward=mt, forward_blocks=tl_b, grads=grad_launches), \
+        per_launch, tl_err
+
+
+def phase25_portal():
+    """The portal room at 1920x1080, 16 spp; kernel path against plain
+    path at 128x128. Returns mt_closest's launches."""
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.scene_types import LIGHT_BGPORTAL
+    from libyafaray_tpu_torch.scenes import portal_room_builder
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    scene = portal_room_builder().compile("cam")
+    if scene.lights.present_types != (LIGHT_BGPORTAL,):
+        raise AssertionError("phase 25: the room must be lit by its portal")
+    img, mt, tl = _full_render("25", "portal room", scene, cfg, MATS_SPP)
+    if mt != MATS_SPP * (BOUNCES + 1) * 2 or tl:
+        raise AssertionError(f"phase 25: {mt} mt_closest and {tl} tile "
+                             "launches")
+    # lit only through the window: the floor band under it
+    floor = float(img[-HEIGHT // 6:, WIDTH // 3: 2 * WIDTH // 3, :3].mean())
+    print(f"phase 25: floor under the window mean {floor:.6f}")
+    if not floor > 0.05:
+        raise AssertionError("phase 25: the portal does not light the room")
+    small = portal_room_builder(PATHS_RES, PATHS_RES).compile("cam")
+    img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+    _bit_for_bit("25", "portal room", img_k, img_p)
+    return mt
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -2688,6 +2993,8 @@ def main() -> int:
     camera_launches = _timed("21", phase21_cameras)
     sky_launches = _timed("22", phase22_skies)
     sphere_mt, sphere_tiles = _timed("23", phase23_spheres)
+    mats_launches, mt_walk, tl_walk_err = _timed("24", phase24_materials)
+    portal_launches = _timed("25", phase25_portal)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -2707,7 +3014,8 @@ def main() -> int:
          "launches": fwd_bwd_launches,
          "max_abs_err": max(mt_err, mt_chunk["max_abs_err"],
                             mt_caustic["max_abs_err"],
-                            mt_volume["max_abs_err"]),
+                            mt_volume["max_abs_err"],
+                            mt_walk["max_abs_err"]),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -2721,8 +3029,16 @@ def main() -> int:
              "glossy sphere scene forward 1920x1080 (brute force), phase 23":
                  sphere_mt["glossy sphere scene"],
              "environment-map scene with a curve forward 1920x1080, "
-             "phase 23": sphere_mt["environment-map scene"]},
+             "phase 23": sphere_mt["environment-map scene"],
+             "materials cornell forward 1920x1080 (transparent shadows), "
+             "phase 24": mats_launches["forward"],
+             "materials cornell forward + backward 1920x1080 2 spp, "
+             "phase 24":
+                 mats_launches["grads"],
+             "portal room forward 1920x1080, phase 25": portal_launches},
          "per_launch_by_path": {
+             "materials cornell, closest-shadow queries of the "
+             "transparent walk, phase 24": mt_walk,
              "caustic, one forward + backward's queries, phase 19":
                  mt_caustic,
              "volume, one pass's queries, phase 20": mt_volume},
@@ -2739,7 +3055,8 @@ def main() -> int:
          "replaces": "libyafaray_tpu/accel/tiles.py:277",
          "cover_order_replaces": "libyafaray_tpu/accel/tiles.py:300-306 "
                                  "and :158-161",
-         "launches": forest_launches, "max_abs_err": max(tl_err, arm_err),
+         "launches": forest_launches,
+         "max_abs_err": max(tl_err, arm_err, tl_walk_err),
          "ms": arm_times[main_arm]["ms"],
          "plain_ms": arm_times[main_arm]["plain_ms"],
          "bound_ms": arm_times[main_arm]["bound_ms"],
@@ -2759,7 +3076,9 @@ def main() -> int:
              "textured terrain under a darksky forward, phase 22":
                  sky_launches["darksky"],
              "glossy sphere scene forward 1920x1080 on blocks, phase 23":
-                 sphere_tiles}},
+                 sphere_tiles,
+             "materials cornell forward 1920x1080 on blocks (transparent "
+             "shadows), phase 24": mats_launches["forward_blocks"]}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

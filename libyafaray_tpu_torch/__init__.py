@@ -7,7 +7,12 @@ materials), the 203k-triangle terrain of config 3 (image-textured), the
 glass caustic scene of config 4 and the single-scatter volume of config 5
 (a mesh light, `light_mat`, a uniform fog), and the forest (the terrain
 under true instances, some of them moving) under the `pathtracing` and
-`directlighting` integrators. Torch autograd runs through it: material
+`directlighting` integrators, with every material and light type of the
+JAX package, transparent shadows, chromatic dispersion and the Beer and
+sss glass interiors. Still unported, and raising NotImplementedError:
+ambient occlusion, procedural textures and orco coordinates, render
+views, the other integrators (photon mapping, SPPM, bidirectional,
+debug) and volume types, AOV layers and the `bvh` accelerator. Torch autograd runs through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an
 inverse-rendering SGD step on one device. `SceneBuilder.compile`, `render`

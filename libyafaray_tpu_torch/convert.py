@@ -7,20 +7,20 @@ SceneData with the same tables (the motion keyframes, the true-instancing
 tables, the analytic spheres, the block accelerator's, the image texture
 pool and the shader-node program, the mesh lights' area CDF, the volume
 regions, every camera kind and every background kind with the environment
-map's importance tables included), on the CPU. It reads attributes only and imports nothing of JAX. Scenes that use
-features the port does not carry yet raise NotImplementedError.
+map's importance tables included, every material type with its Oren-Nayar,
+GGX, blend, mask, dispersion and glass-interior columns, and every light
+type with the IES profiles), on the CPU. It reads attributes only and
+imports nothing of JAX. Scenes that use features the port does not carry
+yet raise NotImplementedError.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .scene_types import (LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_MESH,
-                          LIGHT_POINT, LIGHT_SUN, MAT_GLASS, MAT_GLOSSY,
-                          MAT_LIGHT, MAT_SHINY_DIFFUSE, NODE_COLUMNS,
-                          Background, BlockAccel, Camera, Geometry,
-                          LightTable, MaterialTable, NodeProgram, SceneData,
-                          TexturePool, VolumeTable)
+from .scene_types import (NODE_COLUMNS, Background, BlockAccel, Camera,
+                          Geometry, LightTable, MaterialTable, NodeProgram,
+                          SceneData, TexturePool, VolumeTable)
 from .textures import TEX_IMAGE
 from .volumes import VOL_UNIFORM
 
@@ -29,10 +29,12 @@ _MAT_COLUMNS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
                 "filter_color", "absorption", "emit_color", "specular_refl",
                 "transparency", "translucency", "diffuse_reflect",
                 "glossy_reflect", "exponent", "exp_u", "exp_v", "ior",
-                "dispersion", "sss_dist", "mat_flags")
+                "dispersion", "sss_dist", "mat_flags", "sigma", "alpha",
+                "sss_scatter_col", "blend_a", "blend_b", "blend_value")
 _LIGHT_COLUMNS = ("light_type", "position", "direction", "color", "edge1",
                   "edge2", "area", "flags", "samples", "cos_start", "obj_id",
-                  "tri_start", "tri_count")
+                  "tri_start", "tri_count", "radius", "cos_end", "falloff",
+                  "ies_id", "ies_pool")
 _CAM_COLUMNS = ("origin", "cam_x", "cam_y", "cam_z", "focal", "aspect",
                 "aperture", "dof_distance", "angle", "max_radius",
                 "ortho_scale", "near_clip", "far_clip", "bokeh_rotation")
@@ -68,15 +70,6 @@ def scene_from_numpy(tree) -> SceneData:
     if tree.accel_kind == "brute":
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
-    _require(set(m.present_types) <= {MAT_SHINY_DIFFUSE, MAT_GLOSSY,
-                                      MAT_GLASS, MAT_LIGHT},
-             f"material types {m.present_types}")
-    _require(not (m.has_oren or m.has_blend or m.has_mask or m.has_beer
-                  or m.has_sss), "Oren-Nayar, blend, mask or volume materials")
-    _require(not (np.asarray(m.dispersion) > 0).any(), "glass dispersion")
-    _require(set(lt.present_types) <= {LIGHT_POINT, LIGHT_AREA, LIGHT_SUN,
-                                       LIGHT_MESH, LIGHT_BACKGROUND},
-             f"light types {lt.present_types}")
     cam = tree.camera
     if tree.volumes is not None:
         _require(tree.vol_atten is None, "the volume attenuation grid")
@@ -104,7 +97,11 @@ def scene_from_numpy(tree) -> SceneData:
         **{f: _t(getattr(m, f)) for f in _MAT_COLUMNS + NODE_COLUMNS},
         present_types=tuple(m.present_types),
         has_fresnel=bool(m.has_fresnel), has_aniso=bool(m.has_aniso),
-        has_beer=bool(m.has_beer), has_sss=bool(m.has_sss))
+        has_oren=bool(m.has_oren), has_blend=bool(m.has_blend),
+        has_mask=bool(m.has_mask),
+        has_dispersion=bool((np.asarray(m.dispersion) > 0).any()),
+        has_beer=bool(m.has_beer),
+        has_sss=bool(m.has_sss))
     lights = LightTable(
         **{f: _t(getattr(lt, f)) for f in _LIGHT_COLUMNS},
         **_opt(lt, ("tri_cdf",)),
@@ -177,9 +174,6 @@ def _nodes(prog, mats: MaterialTable):
         return None
     bound = tuple(sorted(c for c in NODE_COLUMNS
                          if bool((getattr(mats, c) >= 0).any())))
-    _require(not set(bound) & {"node_filter_color", "node_sigma_oren",
-                               "node_blend"},
-             "shader nodes bound to the filter colour, sigma or blend")
     _require(all(im[0] != 2 for t, im in zip(prog.meta, prog.imeta)
                  if t[0] == 0), "orco texture coordinates")
     return NodeProgram(**{k: _t(getattr(prog, k)) for k in _NODE_TABLES},

@@ -8,12 +8,18 @@ count, drawn from the same counter-based samples as the JAX package. In a
 motion-blurred scene every path carries one shutter time, drawn per sample,
 which its camera, bounce and shadow queries share. Primary hits carry their
 pixel footprint (`compute_differentials`) and every hit its bump-mapped
-normal (`bump_normal`), where the JAX package computes them. In a scene
-with volume regions the camera segment ends with the single-scatter volume
-integrator (`integrators/volume.py`).
+normal (`bump_normal`), where the JAX package computes them. Shadow rays
+pass through transparent surfaces with `transpShad` (up to `shadowDepth`
+of them); a path through dispersive glass carries a wavelength; a path
+inside glass with Beer absorption or an sss interior is attenuated, and
+scattered, along its segments there. In a scene with volume regions the
+camera segment ends with the single-scatter volume integrator
+(`integrators/volume.py`). Ambient occlusion (`do_AO`) and the photon,
+SPPM, bidirectional and debug integrators still raise NotImplementedError.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -23,11 +29,13 @@ from .. import lights as L
 from .. import params as P
 from .. import sampler
 from ..backgrounds import eval_background
+from ..color import wl_to_rgb
 from ..materials import bsdf as B
 from ..materials.nodes import bump_normal
 from ..math import vec
 from ..ops import intersect as I
 from ..ops import surface as S
+from ..ops.fast_grad import take
 from ..scene_types import SceneData
 from . import common
 
@@ -47,6 +55,9 @@ class IntegratorConfig:
     russian_roulette_min_bounces: int = 2
     no_recursive: bool = False
     clamp_indirect: float = 0.0
+    # transparent shadows ("transpShad"): the walk's depth ("shadowDepth",
+    # 4 by default), 0 when off
+    transparent_shadows: int = 0
     # the volume integrator (the reference's separate VolumeIntegrator
     # entity): "single_scatter", "emission", "sky" or "none"; its step
     # count, the attenuation-grid cache ("optimize") and adaptive marching
@@ -74,8 +85,6 @@ def make_integrator(pm: dict) -> IntegratorConfig:
         raise _unsupported(f"integrator type {kind!r}")
     if kind not in _KINDS:
         raise KeyError(f"integrator: unknown type {kind!r}")
-    if pm.get_bool("transpShad", False):
-        raise _unsupported("transparent shadows (transpShad)")
     if pm.get_bool("do_AO", False):
         raise _unsupported("ambient occlusion (do_AO)")
     return IntegratorConfig(
@@ -85,6 +94,8 @@ def make_integrator(pm: dict) -> IntegratorConfig:
             "russian_roulette_min_bounces", 2),
         no_recursive=pm.get_bool("no_recursive", False),
         clamp_indirect=pm.get_float("clamp_indirect", 0.0),
+        transparent_shadows=(pm.get_int("shadowDepth", 4)
+                             if pm.get_bool("transpShad", False) else 0),
         vol_kind=_VOL_KINDS.get(
             pm.get_string("volume_integrator", "SingleScatterIntegrator"),
             "single_scatter"),
@@ -99,13 +110,11 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     """Trace one wavefront of camera rays to completion.
 
     Returns (rgb f32[N,3], alpha f32[N])."""
-    if scene.materials.has_beer or scene.materials.has_sss:
-        raise _unsupported("glass interiors (Beer absorption, sss): the "
-                           "medium tracking of the bounce loop")
     if cfg.vol_kind == "sky":
         raise _unsupported("the sky volume integrator (SkyIntegrator)")
     n = ray_o.shape[0]
     dev = ray_o.device
+    mats = scene.materials
     num_lights = scene.lights.num_lights
     direct_only = cfg.kind == "directlighting"
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -121,6 +130,19 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     # per-sample shutter time for motion blur
     ray_time = (sampler.rand1(pixel_id, sample_idx, 0, 556)
                 if scene.geom.has_motion else None)
+    # chromatic dispersion (integrator_montecarlo.cc's dispersive branch):
+    # each path carries a wavelength; its first dispersive refraction tints
+    # the throughput by 3 * wl_to_rgb(wavelength)
+    path_wl = chromatic = None
+    if mats.has_dispersion:
+        path_wl = sampler.rand1(pixel_id, sample_idx, 0, 555)
+        chromatic = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # the glass interiors (the reference's 'beer' and 'sss' volume
+    # handlers, integrator_path_tracer.cc): the material whose interior
+    # each path is in, or -1
+    track_medium = (mats.has_beer or mats.has_sss) and not direct_only
+    if track_medium:
+        medium_mat = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
     max_depth = cfg.bounces + 1
     for depth in range(max_depth):
@@ -133,6 +155,40 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             hit = I.closest_hit(scene, o, d, scene.ray_min_dist, t_far,
                                 exclude_prim=prev_prim, time=ray_time)
         hit.valid = hit.valid & alive
+        scat = None
+        if track_medium:
+            in_med = (medium_mat >= 0) & alive
+            mm = torch.clamp_min(medium_mat, 0).long()
+            t_seg = torch.where(hit.valid & in_med, hit.t, 0.0)
+            if mats.has_sss:
+                # an exponential free path of mean sss_dist
+                # (volumehandler_sss.cc): where it ends before the surface
+                # the lane scatters isotropically there instead, tinted by
+                # scatter_col
+                r = sampler.rand4(pixel_id, sample_idx, depth, 61)
+                u_sc, u_s1, u_s2 = r[..., 0], r[..., 1], r[..., 2]
+                sdist = take(mats.sss_dist, mm)
+                sc_dist = -sdist * torch.log(torch.clamp_min(u_sc, 1e-12))
+                scat = (in_med & (sdist > 0.0) & hit.valid
+                        & (sc_dist < hit.t))
+                t_seg = torch.where(scat, sc_dist, t_seg)
+                scat_p = o + d * t_seg[..., None]
+                cz = 1.0 - 2.0 * u_s1
+                szr = torch.sqrt(torch.clamp_min(1.0 - cz * cz, 0.0))
+                phi_s = 2.0 * math.pi * u_s2
+                scat_d = torch.stack([szr * torch.cos(phi_s),
+                                      szr * torch.sin(phi_s), cz], -1)
+                throughput = torch.where(
+                    scat[..., None],
+                    throughput * take(mats.sss_scatter_col, mm), throughput)
+            if mats.has_beer:
+                # Beer-law transmittance of the interior, e^(-sigma_a t)
+                beer_tr = torch.exp(-take(mats.absorption, mm)
+                                    * t_seg[..., None])
+                throughput = torch.where(in_med[..., None],
+                                         throughput * beer_tr, throughput)
+            if scat is not None:
+                hit.valid = hit.valid & ~scat
         sp = S.make_surface(scene, hit, o, d)
         if depth == 0:
             # primary hits carry their footprint for texture filtering
@@ -144,6 +200,8 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         # light's samples when the background lights the scene (every light
         # is sampled at each bounce, so the pick probability is 1)
         escaped = alive & ~hit.valid
+        if scat is not None:
+            escaped = escaped & ~scat
         bg_add = throughput * eval_background(scene, d)
         if scene.lights.bg_light_idx >= 0:
             bg_mis = torch.where(prev_delta, 1.0, vec.power_heuristic(
@@ -178,8 +236,9 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             for k in range(ns):
                 u1, u2 = sampler.rand2(pixel_id, sample_idx, depth,
                                        10 + 2 * li_static + 100 * k)
-                c = common.estimate_one_light(scene, sp, wo, li, u1, u2,
-                                              time=ray_time)
+                c = common.estimate_one_light(
+                    scene, sp, wo, li, u1, u2, cfg.transparent_shadows,
+                    time=ray_time)
                 radiance = radiance + torch.where(
                     alive[..., None], throughput * c * (1.0 / ns), 0.0)
 
@@ -189,12 +248,17 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         # BSDF sampling / continuation
         r = sampler.rand4(pixel_id, sample_idx, depth, 2)
         u1, u2, u3, u_rr = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
-        ms = B.sample_bsdf(scene, sp, wo, u1, u2, u3)
+        ms = B.sample_bsdf(scene, sp, wo, u1, u2, u3, wl=path_wl)
         cont = alive & ms.valid
         if direct_only or cfg.no_recursive:
             # only delta continuation (recursiveRaytrace analogue)
             cont = cont & ms.is_delta
         new_thr = throughput * ms.weight
+        if chromatic is not None:
+            first = ms.dispersed & ~chromatic
+            new_thr = torch.where(first[..., None],
+                                  new_thr * wl_to_rgb(path_wl) * 3.0, new_thr)
+            chromatic = chromatic | ms.dispersed
         if cfg.clamp_indirect > 0.0 and depth > 0:
             mx = torch.amax(new_thr, dim=-1, keepdim=True)
             new_thr = torch.where(
@@ -208,6 +272,15 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             new_thr = new_thr / p_survive[..., None]
             cont = cont & ~kill
         throughput = torch.where(cont[..., None], new_thr, throughput)
+        if track_medium:
+            # a transmission across the geometric normal enters or leaves
+            # the dielectric's interior
+            cos_in = vec.dot(ms.wi, sp.ng)
+            crossed = cont & (cos_in * vec.dot(wo, sp.ng) < 0.0)
+            going_in = cos_in < 0.0
+            medium_mat = torch.where(
+                crossed & going_in, sp.mat_id,
+                torch.where(crossed & ~going_in, -1, medium_mat))
         alive = cont
         prev_p = sp.p
         prev_prim = sp.prim
@@ -215,6 +288,13 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         prev_delta = ms.is_delta
         o = sp.p + ms.wi * scene.shadow_bias
         d = ms.wi
+        if scat is not None:
+            # scattered lanes go on inside the medium along their new ray
+            alive = alive | scat
+            o = torch.where(scat[..., None], scat_p, o)
+            d = torch.where(scat[..., None], scat_d, d)
+            prev_prim = torch.where(scat, -1, prev_prim)
+            prev_delta = prev_delta | scat
 
     if scene.volumes is not None and cfg.vol_kind != "none":
         # the camera segment through the volume regions

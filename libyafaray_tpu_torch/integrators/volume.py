@@ -81,7 +81,8 @@ def light_tau(scene: SceneData, p: Tensor, light_pos: Tensor,
 
 def in_scatter(scene: SceneData, o: Tensor, d: Tensor, t_hit: Tensor,
                pixel_id: Tensor, sample_idx,
-               steps: int = DEFAULT_STEPS) -> Tensor:
+               steps: int = DEFAULT_STEPS,
+               transparent_shadows: int = 0) -> Tensor:
     """Single scattering plus emission [N,3] along each camera segment
     (SingleScatterIntegrator::integrate): one light sample a step, from
     rand4(pixel, sample, 40 + step, 5), shadowed through the scene geometry
@@ -108,7 +109,8 @@ def in_scatter(scene: SceneData, o: Tensor, d: Tensor, t_hit: Tensor,
             li = torch.clamp((ul * num_lights).to(torch.int32), 0,
                              num_lights - 1)
             ls = L.sample_light(scene, li, p, up, u1, u2)
-            vis = common.trace_shadow(scene, p, no_prim, ls.wi, ls.dist)
+            vis = common.trace_shadow(scene, p, no_prim, ls.wi, ls.dist,
+                                      transparent_shadows)
             lp = p + ls.wi * torch.clamp_max(ls.dist, 1e6)[..., None]
             vis = vis * torch.exp(-light_tau(scene, p, lp))
             phase = _hg_phase(vec.dot(d, ls.wi), g_mean)
@@ -137,4 +139,5 @@ def apply_volumetric(scene: SceneData, cfg, radiance: Tensor, o: Tensor,
                 f"{feature} is not ported to libyafaray_tpu_torch yet")
     tr = transmittance(scene, o, d, t_hit, cfg.vol_steps)
     return tr * radiance + in_scatter(scene, o, d, t_hit, pixel_id,
-                                      sample_idx, cfg.vol_steps)
+                                      sample_idx, cfg.vol_steps,
+                                      cfg.transparent_shadows)

@@ -1,11 +1,10 @@
-"""Microfacet distributions of the glossy material: Blinn and
-Ashikhmin-Shirley anisotropic.
+"""Microfacet distributions: Blinn and Ashikhmin-Shirley anisotropic (the
+glossy and coated-glossy materials) and GGX (rough glass).
 
-Counterpart of the Blinn and Ashikhmin-Shirley functions of
-`libyafaray_tpu/materials/microfacet.py` (libYafaRay's
-material_utils_microfacet.h blinnD, asAnisoD, asAnisoSample). The GGX
-functions belong to rough glass and come with it. Every direction is in the
-local shading frame (z = the shading normal).
+Counterpart of `libyafaray_tpu/materials/microfacet.py` (libYafaRay's
+material_utils_microfacet.h blinnD, asAnisoD, asAnisoSample, GGX_D,
+GGX_Sample, Smith G1). Every direction is in the local shading frame
+(z = the shading normal).
 """
 from __future__ import annotations
 
@@ -69,3 +68,37 @@ def as_aniso_sample_h(u1: Tensor, u2: Tensor, exp_u: Tensor, exp_v: Tensor
 def as_aniso_pdf_h(h: Tensor, exp_u: Tensor, exp_v: Tensor) -> Tensor:
     norm = torch.sqrt((exp_u + 1.0) * (exp_v + 1.0)) * (0.5 * INV_PI)
     return norm * _as_aniso_power(h, exp_u, exp_v)
+
+
+# --- GGX (rough glass; material_utils_microfacet.h) ---
+
+def ggx_d(cos_h: Tensor, alpha2: Tensor) -> Tensor:
+    cos_h = torch.clamp_min(cos_h, 0.0)
+    c2 = cos_h * cos_h
+    denom = c2 * (alpha2 - 1.0) + 1.0
+    return alpha2 * INV_PI / torch.clamp_min(denom * denom, 1e-12)
+
+
+def ggx_sample_h(u1: Tensor, u2: Tensor, alpha: Tensor) -> Tensor:
+    """A GGX half vector, pdf_h = D(h) cos(h)."""
+    phi = 2.0 * math.pi * u2
+    tan2 = alpha * alpha * u1 / torch.clamp_min(1.0 - u1, 1e-9)
+    cos_t = torch.rsqrt(1.0 + tan2)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 1e-12))
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t],
+                       dim=-1)
+
+
+def ggx_smith_g1(cos_v: Tensor, alpha2: Tensor) -> Tensor:
+    cos_v = torch.abs(cos_v)
+    c2 = cos_v * cos_v
+    return 2.0 * cos_v / torch.clamp_min(
+        cos_v + torch.sqrt(alpha2 + (1.0 - alpha2) * c2), 1e-12)
+
+
+def ggx_g(cos_i: Tensor, cos_o: Tensor, alpha2: Tensor) -> Tensor:
+    return ggx_smith_g1(cos_i, alpha2) * ggx_smith_g1(cos_o, alpha2)
+
+
+def ggx_pdf_h(cos_h: Tensor, alpha2: Tensor) -> Tensor:
+    return ggx_d(cos_h, alpha2) * torch.clamp_min(cos_h, 0.0)

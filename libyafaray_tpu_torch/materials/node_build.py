@@ -7,9 +7,7 @@ src/shader/shader_node.cc:36-39). The node stacks of all materials are
 merged into one table in topological order, and the material table's
 node_* columns name the slot whose output overrides each channel. The
 schema of a node is the JAX package's (see its module docstring). The
-port raises NotImplementedError for orco texture coordinates and for
-bindings to channels that no ported material reads (filter colour,
-Oren-Nayar sigma, blend and mask factors).
+port raises NotImplementedError for orco texture coordinates.
 """
 from __future__ import annotations
 
@@ -54,10 +52,6 @@ _CHANNEL_COLUMNS = {
     "mask_shader": "node_blend",
     "blend_shader": "node_blend",
 }
-
-
-# channels whose binding no ported material reads
-_UNREAD = ("node_filter_color", "node_sigma_oren", "node_blend")
 
 
 def _unsupported(feature: str):
@@ -194,11 +188,6 @@ def compile_nodes(builder, mat_table):
 
     if not rows:
         return None, mat_table
-
-    for col_name in _UNREAD:
-        if (mat_cols[col_name] >= 0).any():
-            raise _unsupported(f"a shader node bound to {col_name!r} (no "
-                               "ported material reads that channel)")
 
     def col(key, dtype=np.int32):
         return torch.from_numpy(np.asarray([r[key] for r in rows], dtype))

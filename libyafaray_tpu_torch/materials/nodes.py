@@ -17,12 +17,14 @@ from ..scene_types import SceneData
 
 Tensor = torch.Tensor
 
-# MP field -> the material table's node binding column (the channels the
-# port's materials read; the others raise at compile, node_build._UNREAD)
+# MP field -> the material table's node binding column (the blend and
+# mask factor's column, node_blend, is read by bsdf.blend_factor)
 _COLOR_CHANNELS = {"diffuse_color": "node_diffuse",
                    "glossy_color": "node_glossy",
-                   "mirror_color": "node_mirror"}
+                   "mirror_color": "node_mirror",
+                   "filter_color": "node_filter_color"}
 _SCALAR_CHANNELS = {"specular_refl": "node_mirror_strength",
+                    "sigma": "node_sigma_oren",
                     "transparency": "node_transparency",
                     "translucency": "node_translucency",
                     "diffuse_reflect": "node_diffuse_reflect",
@@ -42,9 +44,19 @@ def build_node_program(builder, mat_table):
 
 def eval_program(scene: SceneData, sp) -> Tuple[Tensor, Tensor]:
     """Every node's outputs for all lanes: (colours f32[N, Nn, 4], values
-    f32[N, Nn])."""
+    f32[N, Nn]). The outputs depend on the scene's node and texture tables
+    and the shading points only, so they are kept on `sp` and each
+    SurfacePoint runs the program once, however many channels, blend and
+    mask factors read it (the JAX package evaluates it at each read, and
+    XLA merges the equal computations)."""
     from .node_eval import run_program
-    return run_program(scene, sp)
+    kept = getattr(sp, "_node_outputs", None)
+    if (kept is not None and kept[0] is scene.nodes
+            and kept[1] is scene.textures):
+        return kept[2]
+    out = run_program(scene, sp)
+    sp._node_outputs = (scene.nodes, scene.textures, out)
+    return out
 
 
 def _pick_col(tab: Tensor, idx: Tensor) -> Tensor:
@@ -81,8 +93,12 @@ def apply_overrides(scene: SceneData, sp, mat_id: Tensor, mp):
     cols, floats = eval_program(scene, sp)
     idx = mat_id.long()
     for field, column, is_color in channels:
-        nid = getattr(mats, column)[idx]
         cur = getattr(mp, field)
+        if cur is None:
+            # sigma of a scene without an Oren-Nayar row: not evaluated,
+            # as in the JAX package
+            continue
+        nid = getattr(mats, column)[idx]
         if is_color:
             val = _pick_col(cols, torch.clamp_min(nid, 0))[..., :3]
             val = torch.where((nid >= 0)[..., None], val, cur)

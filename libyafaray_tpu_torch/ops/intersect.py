@@ -174,3 +174,18 @@ def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
     if _blocks(scene):
         return BL.blocks_any(scene, *args, time=_time(scene, time))
     return _brute_any(scene.geom, *args, time=_time(scene, time))
+
+
+@torch.no_grad()
+def shadow_hit_surface(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
+                       exclude_prim: Optional[Tensor] = None) -> Hit:
+    """Closest hit over the shadow casters (the visibility bit of shadow
+    rays): a step of the transparent-shadow walk (Accelerator::intersectTs
+    analogue). The JAX package traces it at the shutter-open geometry, and
+    so does the port (ROADMAP section 3)."""
+    t_min, t_max = _query(o, t_min, t_max)
+    args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
+            exclude_prim)
+    if _blocks(scene):
+        return BL.blocks_closest(scene, *args, shadow=True)
+    return _brute_closest(scene.geom, *args, shadow=True)

@@ -1,20 +1,25 @@
 """Host-side scene builder: named-entity registries and geometry streaming,
 compiled to the torch tables of `scene_types.py`.
 
-Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder` for the features the
-port carries so far: `shinydiffusemat` and `glossy` materials (with the
-Lambert diffuse BRDF), clear `glass` and `light_mat`, image textures and the
+Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder`: every material
+type (shiny-diffuse, glossy and coated glossy with the Lambert or the
+Oren-Nayar BRDF, glass with dispersion and the Beer or sss interior, rough
+glass, mirror, null, `light_mat`, blend and mask), image textures and the
 shader nodes that bind them to material channels, triangle meshes with
 motion-blur keyframes, instances (baked into copies, or true instances over
 the block accelerator), analytic spheres, curves (strands extruded into
-ribbons of triangles), point lights, area lights (baked into the geometry
-as two emissive triangles), sun lights, mesh lights, uniform volume
-regions, every camera type (with depth of field) and the constant,
-gradient, sunsky, darksky and texture backgrounds (with `ibl`, lighting
-the scene, and `add_sun`), over the brute-force or the block accelerator.
-`compile()` builds the same tables as the JAX compile, on the CUDA card
-unless the caller names another device. Every other entity type or option
-raises `NotImplementedError` naming the feature.
+ribbons of triangles), every light type (point, IES, spot, sun,
+directional, area lights baked into the geometry as two emissive
+triangles, sphere, mesh, background portal and the background light),
+uniform volume regions, every camera type (with depth of field) and the
+constant, gradient, sunsky, darksky and texture backgrounds (with `ibl`,
+lighting the scene, and `add_sun`), over the brute-force or the block
+accelerator. `compile()` builds the same tables as the JAX compile, on the
+CUDA card unless the caller names another device. What the port does not
+carry yet raises `NotImplementedError` naming the feature: procedural
+textures, orco coordinates, volume types other than UniformVolume, render
+views, instances of spheres and curves, the `bvh` accelerator and the
+brute-force path above 16,384 faces.
 """
 from __future__ import annotations
 
@@ -33,26 +38,28 @@ from .backgrounds import make_background, sun_from_background
 from .cameras import make_camera
 from .lights import (FLAG_CAST_SHADOWS, FLAG_DOUBLE_SIDED, FLAG_ENABLED,
                      FLAG_PHOTON_ONLY)
+from .lights.ies import ies_grid, parse_ies
 from .materials.bsdf import (FLAG_ANISOTROPIC, FLAG_AS_DIFFUSE,
                              FLAG_FAKE_SHADOWS, FLAG_FRESNEL)
 from .scene_types import (
-    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_MESH, LIGHT_POINT, LIGHT_SUN,
-    MAT_GLASS, MAT_GLOSSY, MAT_LIGHT, MAT_SHINY_DIFFUSE, NODE_COLUMNS,
+    LIGHT_AREA, LIGHT_BACKGROUND, LIGHT_BGPORTAL, LIGHT_DIRECTIONAL,
+    LIGHT_IES, LIGHT_MESH, LIGHT_POINT, LIGHT_SPHERE, LIGHT_SPOT, LIGHT_SUN,
+    MAT_BLEND, MAT_COATED_GLOSSY, MAT_GLASS, MAT_GLOSSY, MAT_LIGHT, MAT_MASK,
+    MAT_MIRROR, MAT_NULL, MAT_ROUGH_GLASS, MAT_SHINY_DIFFUSE, NODE_COLUMNS,
     VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background,
     Geometry, LightTable, MaterialTable, SceneData,
 )
 
-# material and light types the JAX package knows; the ones not ported yet
-# raise NotImplementedError, unknown names raise KeyError as there
-_MAT_TYPES = ("shinydiffusemat", "glossy", "coated_glossy", "glass",
-              "rough_glass", "mirror", "null", "light_mat", "blend_mat",
-              "mask_mat")
+# material and light types (the JAX package's); unknown names raise
+# KeyError as there
+_MAT_TYPE_BY_NAME = {
+    "shinydiffusemat": MAT_SHINY_DIFFUSE, "glossy": MAT_GLOSSY,
+    "coated_glossy": MAT_COATED_GLOSSY, "glass": MAT_GLASS,
+    "rough_glass": MAT_ROUGH_GLASS, "mirror": MAT_MIRROR, "null": MAT_NULL,
+    "light_mat": MAT_LIGHT, "blend_mat": MAT_BLEND, "mask_mat": MAT_MASK}
 _LIGHT_TYPES = ("pointlight", "ieslight", "spotlight", "sunlight",
                 "directional", "arealight", "spherelight", "meshlight",
                 "objectlight", "bgPortalLight", "bglight")
-_MAT_TYPES_PORTED = ("shinydiffusemat", "glossy", "glass", "light_mat")
-_LIGHT_TYPES_PORTED = ("arealight", "pointlight", "sunlight", "meshlight",
-                       "objectlight")
 # names that select the block accelerator (the reference's kd-tree names
 # map to it, as in the JAX package)
 _VOL_TYPES = ("UniformVolume", "ExpDensityVolume", "NoiseVolume",
@@ -130,20 +137,8 @@ class SceneBuilder:
                         node_list: Optional[List[dict]] = None) -> int:
         pm = P.ParamMap(pm)
         ty = pm.get_string("type")
-        if ty not in _MAT_TYPES:
+        if ty not in _MAT_TYPE_BY_NAME:
             raise KeyError(f"material: unknown type {ty!r}")
-        if ty not in _MAT_TYPES_PORTED:
-            raise _unsupported(f"material type {ty!r}")
-        if pm.get_string("diffuse_brdf", "lambert") == "oren_nayar":
-            raise _unsupported("the Oren-Nayar diffuse BRDF")
-        if ty == "glass":
-            if pm.get_float("dispersion_power", 0.0) > 0.0:
-                raise _unsupported("glass dispersion (dispersion_power > 0)")
-            if "absorption" in pm:
-                raise _unsupported("glass absorption (the Beer volume "
-                                   "handler)")
-            if pm.get_string("volume_handler", "beer") == "sss":
-                raise _unsupported("the sss volume handler")
         if name not in self.materials:
             self.material_order.append(name)
         self.materials[name] = pm
@@ -156,8 +151,6 @@ class SceneBuilder:
         ty = pm.get_string("type")
         if ty not in _LIGHT_TYPES:
             raise KeyError(f"light: unknown type {ty!r}")
-        if ty not in _LIGHT_TYPES_PORTED:
-            raise _unsupported(f"light type {ty!r}")
         if name not in self.lights:
             self.light_order.append(name)
         self.lights[name] = pm
@@ -397,6 +390,8 @@ class SceneBuilder:
 
     # ------------------------------------------------------------------
     def _build_materials(self) -> MaterialTable:
+        """The material table: the JAX compile's `_build_materials`, with
+        each type's reference params (material_*.cc)."""
         n = max(len(self.material_order), 1)
         z = lambda: np.zeros((n,), np.float32)
         z3 = lambda: np.zeros((n, 3), np.float32)
@@ -407,53 +402,22 @@ class SceneBuilder:
             emit_color=z3(), specular_refl=z(), transparency=z(),
             translucency=z(), diffuse_reflect=z(), glossy_reflect=z(),
             exponent=z(), exp_u=z(), exp_v=z(), ior=z() + 1.5,
-            dispersion=z(), sss_dist=z(), mat_flags=zi())
+            dispersion=z(), sss_dist=z(), mat_flags=zi(), sigma=z(),
+            alpha=z(), sss_scatter_col=z3(), blend_a=zi(), blend_b=zi(),
+            blend_value=z())
         if not self.material_order:
             # default diffuse gray
             cols["diffuse_color"][0] = (0.8, 0.8, 0.8)
             cols["diffuse_reflect"][0] = 1.0
+        has_blend = has_mask = False
         for i, name in enumerate(self.material_order):
             pm = self.materials[name]
-            ty = pm.get_string("type")
+            ty = _MAT_TYPE_BY_NAME[pm.get_string("type")]
+            cols["mat_type"][i] = ty
             flags = 0
-            if ty == "glossy":
-                # material_glossy.cc params
-                cols["mat_type"][i] = MAT_GLOSSY
-                cols["diffuse_color"][i] = pm.get_color("diffuse_color",
-                                                        (0.5,) * 3)[:3]
-                cols["glossy_color"][i] = pm.get_color("color", (1, 1, 1))[:3]
-                cols["mirror_color"][i] = pm.get_color("mirror_color",
-                                                       (1, 1, 1))[:3]
-                cols["diffuse_reflect"][i] = pm.get_float("diffuse_reflect",
-                                                          1.0)
-                cols["glossy_reflect"][i] = pm.get_float("glossy_reflect", 1.0)
-                cols["exponent"][i] = pm.get_float("exponent", 50.0)
-                cols["ior"][i] = pm.get_float("IOR", 1.5)
-                if pm.get_bool("anisotropic", False):
-                    flags |= FLAG_ANISOTROPIC
-                    cols["exp_u"][i] = pm.get_float("exp_u", 50.0)
-                    cols["exp_v"][i] = pm.get_float("exp_v", 50.0)
-                if pm.get_bool("as_diffuse", True):
-                    flags |= FLAG_AS_DIFFUSE
-            elif ty == "glass":
-                # material_glass.cc params (clear glass: create_material
-                # rejects absorption, sss and dispersion)
-                cols["mat_type"][i] = MAT_GLASS
-                cols["ior"][i] = pm.get_float("IOR", 1.5)
-                cols["filter_color"][i] = pm.get_color("filter_color",
-                                                       (1, 1, 1))[:3]
-                cols["mirror_color"][i] = pm.get_color("mirror_color",
-                                                       (1, 1, 1))[:3]
-                if pm.get_bool("fake_shadows", False):
-                    flags |= FLAG_FAKE_SHADOWS
-            elif ty == "light_mat":
-                # material_light.cc: emits color * power, scatters nothing
-                cols["mat_type"][i] = MAT_LIGHT
-                cols["emit_color"][i] = (pm.get_color("color", (1, 1, 1))[:3]
-                                         * pm.get_float("power", 1.0))
-            else:
+            oren = pm.get_string("diffuse_brdf", "lambert") == "oren_nayar"
+            if ty == MAT_SHINY_DIFFUSE:
                 # material_shiny_diffuse.cc params
-                cols["mat_type"][i] = MAT_SHINY_DIFFUSE
                 cols["diffuse_color"][i] = pm.get_color("color",
                                                         (0.8, 0.8, 0.8))[:3]
                 cols["mirror_color"][i] = pm.get_color("mirror_color",
@@ -467,6 +431,7 @@ class SceneBuilder:
                 cols["emit_color"][i] = (pm.get_float("emit", 0.0)
                                          * pm.get_color("color",
                                                         (0.8, 0.8, 0.8))[:3])
+                cols["sigma"][i] = pm.get_float("sigma", 0.0) if oren else 0.0
                 cols["ior"][i] = pm.get_float("IOR", 1.33)
                 if pm.get_bool("fresnel_effect", False):
                     flags |= FLAG_FRESNEL
@@ -474,13 +439,88 @@ class SceneBuilder:
                     pm.get_color("transmit_filter", (1, 1, 1))[:3]
                     * pm.get_float("transmit_filter_strength", 1.0)
                     if "transmit_filter" in pm else (1, 1, 1))
+            elif ty in (MAT_GLOSSY, MAT_COATED_GLOSSY):
+                # material_glossy.cc / material_coated_glossy.cc params
+                cols["diffuse_color"][i] = pm.get_color("diffuse_color",
+                                                        (0.5,) * 3)[:3]
+                cols["glossy_color"][i] = pm.get_color("color", (1, 1, 1))[:3]
+                cols["mirror_color"][i] = pm.get_color("mirror_color",
+                                                       (1, 1, 1))[:3]
+                cols["diffuse_reflect"][i] = pm.get_float("diffuse_reflect",
+                                                          1.0)
+                cols["glossy_reflect"][i] = pm.get_float("glossy_reflect", 1.0)
+                cols["exponent"][i] = pm.get_float("exponent", 50.0)
+                cols["ior"][i] = pm.get_float("IOR", 1.5)
+                cols["sigma"][i] = pm.get_float("sigma", 0.0) if oren else 0.0
+                if pm.get_bool("anisotropic", False):
+                    flags |= FLAG_ANISOTROPIC
+                    cols["exp_u"][i] = pm.get_float("exp_u", 50.0)
+                    cols["exp_v"][i] = pm.get_float("exp_v", 50.0)
+                if pm.get_bool("as_diffuse", True):
+                    flags |= FLAG_AS_DIFFUSE
+            elif ty in (MAT_GLASS, MAT_ROUGH_GLASS):
+                # material_glass.cc / material_rough_glass.cc params
+                cols["ior"][i] = pm.get_float("IOR", 1.5)
+                cols["filter_color"][i] = pm.get_color("filter_color",
+                                                       (1, 1, 1))[:3]
+                cols["mirror_color"][i] = pm.get_color("mirror_color",
+                                                       (1, 1, 1))[:3]
+                # the interior Beer handler (material_glass.cc): the
+                # 'absorption' colour over 'absorption_dist' becomes
+                # sigma_a = -log(absorption) / dist per channel
+                if "absorption" in pm:
+                    absorp = np.clip(pm.get_color("absorption",
+                                                  (1, 1, 1))[:3], 1e-38, 1.0)
+                    dist = pm.get_float("absorption_dist", 1.0)
+                    sigma_a = -np.log(absorp)
+                    if dist != 0.0:
+                        sigma_a /= dist
+                    cols["absorption"][i] = sigma_a
+                # the interior 'sss' handler (volumehandler_sss.cc):
+                # exponential free paths of mean absorption_dist, an
+                # isotropic scatter tinted by scatter_col
+                if pm.get_string("volume_handler", "beer") == "sss":
+                    cols["sss_scatter_col"][i] = pm.get_color(
+                        "scatter_col", (0.8, 0.8, 0.8))[:3]
+                    cols["sss_dist"][i] = max(
+                        pm.get_float("absorption_dist", 1.0), 1e-6)
+                cols["dispersion"][i] = pm.get_float("dispersion_power", 0.0)
+                cols["alpha"][i] = max(pm.get_float("alpha", 0.25), 1e-4)
+                if pm.get_bool("fake_shadows", False):
+                    flags |= FLAG_FAKE_SHADOWS
+            elif ty == MAT_MIRROR:
+                cols["mirror_color"][i] = pm.get_color("color", (1, 1, 1))[:3]
+                cols["specular_refl"][i] = pm.get_float("reflect", 1.0)
+            elif ty == MAT_LIGHT:
+                # material_light.cc: emits color * power, scatters nothing
+                cols["emit_color"][i] = (pm.get_color("color", (1, 1, 1))[:3]
+                                         * pm.get_float("power", 1.0))
+            elif ty in (MAT_BLEND, MAT_MASK):
+                # material_blend.cc / material_mask.cc: two sub-materials
+                # by name, a blend factor or a mask threshold
+                has_blend = has_blend or ty == MAT_BLEND
+                has_mask = has_mask or ty == MAT_MASK
+                cols["blend_a"][i] = self._mat_id(pm.get_string("material1"))
+                cols["blend_b"][i] = self._mat_id(pm.get_string("material2"))
+                cols["blend_value"][i] = pm.get_float(
+                    "blend_value", pm.get_float("threshold", 0.5))
             cols["mat_flags"][i] = flags
         cols.update({c: np.full((n,), -1, np.int32) for c in NODE_COLUMNS})
         return MaterialTable(
             present_types=tuple(sorted({int(t) for t in cols["mat_type"]})),
             has_fresnel=bool(np.any(cols["mat_flags"] & FLAG_FRESNEL)),
             has_aniso=bool(np.any(cols["mat_flags"] & FLAG_ANISOTROPIC)),
+            has_oren=bool(np.any(cols["sigma"] > 0.0)),
+            has_blend=has_blend, has_mask=has_mask,
+            has_dispersion=bool(np.any(cols["dispersion"] > 0.0)),
+            has_beer=bool(np.any(cols["absorption"] > 0.0)),
+            has_sss=bool(np.any(cols["sss_dist"] > 0.0)),
             **{k: torch.from_numpy(v) for k, v in cols.items()})
+
+    def _mat_id(self, name: str) -> int:
+        if name not in self.material_order:
+            raise KeyError(f"unknown material {name!r}")
+        return self.material_order.index(name)
 
     # ------------------------------------------------------------------
     def _build_geometry(self):
@@ -660,8 +700,9 @@ class SceneBuilder:
         cols = dict(light_type=zi(), position=z3(), direction=z3(),
                     color=z3(), edge1=z3(), edge2=z3(), area=z(), flags=zi(),
                     samples=zi(1), cos_start=z(), obj_id=zi(-1),
-                    tri_start=zi(), tri_count=zi())
-        quads, tri_cdfs = [], []
+                    tri_start=zi(), tri_count=zi(), radius=z(), cos_end=z(),
+                    falloff=z(), ies_id=zi(-1))
+        quads, tri_cdfs, ies_profiles = [], [], []
         bg_light_idx = -1
         for i, pm in enumerate(specs):
             ty = pm.get_string("type")
@@ -678,6 +719,33 @@ class SceneBuilder:
                 cols["position"][i] = pm.get_vector("from")
                 cols["color"][i] = col * power
                 continue
+            if ty in ("ieslight", "spotlight"):
+                # light_ies.cc / light_spot.cc: a point aimed from -> to
+                fr = pm.get_vector("from")
+                d = pm.get_vector("to", (0, 0, 0)) - fr
+                cols["position"][i] = fr
+                cols["direction"][i] = d / max(np.linalg.norm(d), 1e-12)
+                cols["color"][i] = col * power
+                if ty == "spotlight":
+                    # a smooth edge between the inner and the outer cone
+                    cols["light_type"][i] = LIGHT_SPOT
+                    cone = pm.get_float("cone_angle", 45.0) * math.pi / 180.0
+                    blend = pm.get_float("blend", 0.15)
+                    cols["cos_end"][i] = math.cos(cone)
+                    cols["cos_start"][i] = math.cos(cone * (1.0 - blend))
+                    cols["falloff"][i] = pm.get_float("falloff", 1.0)
+                    continue
+                # the profile: a file's path or text ('file'), or its text
+                # or a vertical candela array ('ies_data')
+                cols["light_type"][i] = LIGHT_IES
+                src = pm.get_string("file", "") or pm.get("ies_data")
+                if src is not None and not (isinstance(src, str)
+                                            and src == ""):
+                    cols["ies_id"][i] = len(ies_profiles)
+                    ies_profiles.append(
+                        np.asarray(src, np.float32)
+                        if not isinstance(src, str) else parse_ies(src))
+                continue
             if ty == "sunlight":
                 cols["light_type"][i] = LIGHT_SUN
                 d = pm.get_vector("direction", (0, 0, 1))
@@ -690,17 +758,45 @@ class SceneBuilder:
                 cols["color"][i] = col * power / max(omega, 1e-9)
                 cols["samples"][i] = pm.get_int("samples", 4)
                 continue
+            if ty == "directional":
+                # light_directional.cc: parallel light along -direction
+                cols["light_type"][i] = LIGHT_DIRECTIONAL
+                d = pm.get_vector("direction", (0, 0, 1))
+                d = d / max(np.linalg.norm(d), 1e-12)
+                cols["direction"][i] = -d
+                cols["color"][i] = col * power
+                continue
+            if ty == "spherelight":
+                # light_sphere.cc: the reference's contribution is
+                # color * power * omega / pi (its cone pdf lacks the 2 pi),
+                # which with the true solid-angle pdf is a radiance of
+                # color * power / pi
+                cols["light_type"][i] = LIGHT_SPHERE
+                r = pm.get_float("radius", 1.0)
+                cols["position"][i] = pm.get_vector("from")
+                cols["radius"][i] = r
+                cols["area"][i] = 4.0 * math.pi * r * r
+                cols["color"][i] = col * power / math.pi
+                cols["samples"][i] = pm.get_int("samples", 4)
+                continue
             if ty == "bglight":
                 cols["light_type"][i] = LIGHT_BACKGROUND
                 bg_light_idx = i
                 cols["samples"][i] = pm.get_int("samples", 16)
                 continue
-            if ty in ("meshlight", "objectlight"):
+            if ty in ("meshlight", "objectlight", "bgPortalLight"):
                 # light_object_light.cc: the object's faces emit color *
-                # power from both sides; sampled by an area-CDF triangle
-                # pick (uniform density 1 / total area)
-                cols["light_type"][i] = LIGHT_MESH
+                # power from both sides; light_background_portal.cc: they
+                # let the background in, times power, from their front.
+                # Both sample by an area-CDF face pick (uniform density 1 /
+                # total area)
+                portal = ty == "bgPortalLight"
+                cols["light_type"][i] = LIGHT_BGPORTAL if portal else LIGHT_MESH
                 oname = pm.get_string("object_name")
+                if portal and oname not in obj_face_ranges:
+                    raise ValueError(f"bgPortalLight {oname!r}: a portal "
+                                     "needs a staged mesh object by its "
+                                     "'object_name'")
                 if oname in obj_face_ranges:
                     start, cnt = obj_face_ranges[oname]
                     cols["tri_start"][i] = start
@@ -716,7 +812,8 @@ class SceneBuilder:
                     tri_cdfs.append((start, cnt,
                                      np.cumsum(areas) / max(total, 1e-30)))
                     g["face_light"][start:start + cnt] = i
-                cols["color"][i] = col * power
+                # a portal's color column holds its power multiplier
+                cols["color"][i] = power if portal else col * power
                 if pm.get_bool("double_sided", False):
                     cols["flags"][i] |= FLAG_DOUBLE_SIDED
                 cols["samples"][i] = pm.get_int("samples", 4)
@@ -751,8 +848,12 @@ class SceneBuilder:
                 tri_cdf[start:start + cnt] = cum
             tri_cdf = torch.from_numpy(tri_cdf)
         nl = len(specs)
+        ies_pool = torch.from_numpy(
+            np.stack([ies_grid(p) for p in ies_profiles]) if ies_profiles
+            else np.zeros((1, 1, 64), np.float32))
         lights = LightTable(
-            tri_cdf=tri_cdf, num_lights=nl, bg_light_idx=bg_light_idx,
+            tri_cdf=tri_cdf, ies_pool=ies_pool, num_lights=nl,
+            bg_light_idx=bg_light_idx,
             present_types=tuple(sorted({int(t) for t in
                                         cols["light_type"][:nl]})),
             samples_static=tuple(max(1, int(s)) for s in cols["samples"][:nl]),

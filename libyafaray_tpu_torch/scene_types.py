@@ -19,15 +19,26 @@ Tensor = torch.Tensor
 # --- material type enum (same values as the JAX package) ---
 MAT_SHINY_DIFFUSE = 0   # "shinydiffusemat"
 MAT_GLOSSY = 1          # "glossy"
+MAT_COATED_GLOSSY = 2   # "coated_glossy"
 MAT_GLASS = 3           # "glass"
+MAT_ROUGH_GLASS = 4     # "rough_glass"
+MAT_MIRROR = 5          # "mirror"
+MAT_NULL = 6            # "null"
 MAT_LIGHT = 7           # "light_mat"
+MAT_BLEND = 8           # "blend_mat"
+MAT_MASK = 9            # "mask_mat"
 
-# --- light type enum (the values the port compiles) ---
+# --- light type enum (same values as the JAX package) ---
 LIGHT_POINT = 0         # "pointlight"
+LIGHT_SPHERE = 1        # "spherelight"
+LIGHT_SPOT = 2          # "spotlight"
 LIGHT_AREA = 3          # "arealight"
 LIGHT_SUN = 4           # "sunlight"
+LIGHT_DIRECTIONAL = 5   # "directional"
 LIGHT_BACKGROUND = 6    # "bglight" (the background's ibl)
 LIGHT_MESH = 7          # "meshlight" / "objectlight"
+LIGHT_IES = 8           # "ieslight"
+LIGHT_BGPORTAL = 9      # "bgPortalLight"
 
 # --- object visibility ---
 VIS_NORMAL = 0
@@ -159,6 +170,12 @@ class MaterialTable(_Table):
                              #        path (0: none)
     mat_flags: Tensor        # i32[M] bit0 fresnel_effect, bit1 anisotropic,
                              #        bit2 as_diffuse, bit3 fake_shadows
+    sigma: Tensor            # f32[M] Oren-Nayar sigma (0: Lambert)
+    alpha: Tensor            # f32[M] GGX roughness (rough glass)
+    sss_scatter_col: Tensor  # f32[M, 3] glass sss interior scatter tint
+    blend_a: Tensor          # i32[M] blend / mask sub-material 1
+    blend_b: Tensor          # i32[M] blend / mask sub-material 2
+    blend_value: Tensor      # f32[M] blend factor / mask threshold
     # the mat_type values present (empty: unknown, every family); lobe math
     # of absent families is not evaluated
     present_types: tuple = ()
@@ -166,8 +183,16 @@ class MaterialTable(_Table):
     has_fresnel: bool = True
     # any row with the anisotropic flag
     has_aniso: bool = True
-    # any glass row with Beer absorption / an sss interior (the JAX
-    # package's medium tracking, not ported: such scenes raise)
+    # any row with an Oren-Nayar sigma > 0
+    has_oren: bool = False
+    # any blend / mask material: their indirections run only then
+    has_blend: bool = False
+    has_mask: bool = False
+    # any row with dispersion_power > 0: sample_bsdf shifts the IOR by the
+    # path's wavelength only then
+    has_dispersion: bool = False
+    # any glass row with Beer absorption / an sss interior: the bounce
+    # loop tracks the medium each path is in only then
     has_beer: bool = False
     has_sss: bool = False
     # shader-node bindings per channel (`materials/node_build.py`): the slot
@@ -211,13 +236,21 @@ class LightTable(_Table):
     flags: Tensor           # i32[L] bit0 cast_shadows, bit1 enabled,
                             #        bit2 photon_only, bit3 double_sided
     samples: Tensor         # i32[L]
-    cos_start: Tensor       # f32[L] sun: cosine of the cone half-angle
-    obj_id: Tensor          # i32[L] mesh light: its object (-1)
-    tri_start: Tensor       # i32[L] mesh light: first face
-    tri_count: Tensor       # i32[L] mesh light: face count
-    # mesh lights: each face's normalised cumulative area within its
-    # light's face range (the area-CDF pick), f32[F], 0 elsewhere; None
-    # without mesh lights
+    cos_start: Tensor       # f32[L] sun: cosine of the cone half-angle;
+                            #   spot: cosine of the inner cone
+    obj_id: Tensor          # i32[L] mesh light / portal: its object (-1)
+    tri_start: Tensor       # i32[L] mesh light / portal: first face
+    tri_count: Tensor       # i32[L] mesh light / portal: face count
+    radius: Tensor          # f32[L] sphere light radius
+    cos_end: Tensor         # f32[L] spot: cosine of the outer cone
+    falloff: Tensor         # f32[L] spot: falloff exponent
+    ies_id: Tensor          # i32[L] IES light: its profile in ies_pool (-1)
+    # IES candela grids (periodic horizontal x clamped vertical),
+    # f32[P, IES_RES_H, IES_RES]; f32[1, 1, 64] zeros without IES profiles
+    ies_pool: Optional[Tensor] = None
+    # mesh lights and portals: each face's normalised cumulative area
+    # within its light's face range (the area-CDF pick), f32[F], 0
+    # elsewhere; None without such lights
     tri_cdf: Optional[Tensor] = None
     num_lights: int = 0
     # index of the background light (the background's ibl), or -1

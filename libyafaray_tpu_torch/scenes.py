@@ -7,8 +7,12 @@ instanced rocks, some of them moving) and the scenes of the libYafaRay goldens
 in `tests/golden/` (`tools/refparity/*.c`; `tests/test_refparity.py`): the
 instanced cubes, the Cornell box under the four other camera types, the
 empty sky under sunsky and darksky, and the glossy sphere on a textured
-floor; and the larger scenes built on them: the terrain under an analytic
-sky, and the glossy scene lit by an environment map, with a curve."""
+floor; the larger scenes built on them: the terrain under an analytic
+sky, and the glossy scene lit by an environment map, with a curve; and the
+Cornell box with every material and light type (`materials_cornell_builder`)
+and a room lit through a background portal (`portal_room_builder`). These
+two take the builder to fill, so that the JAX package's SceneBuilder can
+stage the same scene."""
 from __future__ import annotations
 
 import numpy as np
@@ -527,4 +531,183 @@ def env_glossy_builder(res: int = 128, width: int = 1024,
         t = j / 23.0
         b.add_vertex(0.18 + 0.04 * np.cos(9.0 * t),
                      0.35 + 0.04 * np.sin(9.0 * t), 0.5 * t)
+    return b
+
+
+# An IESNA LM-63 profile (Type C, bilateral: horizontal planes 0, 90 and
+# 180 degrees): a downlight whose beam narrows from the 0-degree plane to
+# the 180-degree plane
+IES_PROFILE = """IESNA:LM-63-1995
+[TEST] downlight with a bilateral beam
+TILT=NONE
+1 1000.0 1.0 5 3 1 2 0.3 0.3 0.3
+1.0 1.0 0.0
+0.0 30.0 60.0 90.0 180.0
+0.0 90.0 180.0
+1000.0 900.0 500.0 100.0 0.0
+1000.0 700.0 250.0 50.0 0.0
+1000.0 400.0 80.0 10.0 0.0
+"""
+
+# the integrator of the materials Cornell box: 4 bounces, transparent
+# shadows at the default depth (shadowDepth 4)
+MATERIALS_INTEGRATOR = {"type": "pathtracing", "bounces": 4,
+                        "transpShad": True}
+
+
+def materials_cornell_builder(resx: int = 1920, resy: int = 1080,
+                              builder=None):
+    """The Cornell box with every material and light type: the left wall
+    Oren-Nayar (sigma 0.3), the back wall a mask_mat of white and green
+    over a texture, the tall box coated glossy, the short box a blend_mat
+    of a mirror and a shiny-diffuse by the same texture, a rough-glass box,
+    a glass slab with dispersion_power 0.5 and Beer absorption, a glass
+    cube with an sss interior, a shiny-diffuse quad with transparency 0.5
+    under the lamp (it casts a transparent shadow with
+    MATERIALS_INTEGRATOR) and a null quad; lit by the area lamp, a
+    spotlight, an IES light (IES_PROFILE), a sphere light and a
+    directional light through the open front. The glass boxes float clear
+    of the floor (a face coplanar with another ties, and the tie breaks by
+    the last bit of the refracted direction). The texture (floor_texture)
+    reaches the blend and mask factors through texture_mapper nodes on
+    global coordinates. `builder` is the SceneBuilder to fill (the port's
+    by default)."""
+    b = SceneBuilder() if builder is None else builder
+    b.create_texture("pattern", {"type": "image"}, image=floor_texture())
+    b.create_material("white", {"type": "shinydiffusemat",
+                                "color": (0.73, 0.73, 0.73)})
+    b.create_material("red", {"type": "shinydiffusemat",
+                              "color": (0.65, 0.05, 0.05),
+                              "diffuse_brdf": "oren_nayar", "sigma": 0.3})
+    b.create_material("green", {"type": "shinydiffusemat",
+                                "color": (0.12, 0.45, 0.15)})
+    b.create_material("mirror", {"type": "mirror",
+                                 "color": (0.9, 0.9, 0.95)})
+    b.create_material("blue", {"type": "shinydiffusemat",
+                               "color": (0.2, 0.35, 0.8),
+                               "specular_reflect": 0.2})
+    pattern = {"type": "texture_mapper", "texture": "pattern",
+               "texco": "global"}
+    b.create_material("blend", {"type": "blend_mat", "material1": "mirror",
+                                "material2": "blue", "blend_value": 0.5,
+                                "blend_shader": "bf"},
+                      node_list=[dict(pattern, name="bf")])
+    b.create_material("mask", {"type": "mask_mat", "material1": "white",
+                               "material2": "green", "threshold": 0.53,
+                               "mask_shader": "mf"},
+                      node_list=[dict(pattern, name="mf")])
+    b.create_material("coated", {"type": "coated_glossy",
+                                 "color": (0.9, 0.8, 0.6),
+                                 "diffuse_color": (0.6, 0.3, 0.2),
+                                 "IOR": 1.5, "exponent": 80.0,
+                                 "glossy_reflect": 0.6})
+    b.create_material("rough", {"type": "rough_glass", "IOR": 1.5,
+                                "alpha": 0.2,
+                                "filter_color": (0.9, 1.0, 0.9)})
+    b.create_material("prism", {"type": "glass", "IOR": 1.5,
+                                "dispersion_power": 0.5,
+                                "absorption": (0.6, 0.8, 0.9),
+                                "absorption_dist": 0.3})
+    b.create_material("jade", {"type": "glass", "IOR": 1.3,
+                               "volume_handler": "sss",
+                               "absorption_dist": 0.2,
+                               "scatter_col": (0.6, 0.9, 0.7)})
+    b.create_material("veil", {"type": "shinydiffusemat",
+                               "color": (0.9, 0.5, 0.2),
+                               "transparency": 0.5})
+    b.create_material("nothing", {"type": "null"})
+
+    def quad(p0, p1, p2, p3):
+        i = [b.add_vertex(*q) for q in (p0, p1, p2, p3)]
+        b.add_quad(*i)
+
+    b.create_object("walls")
+    b.set_current_material("white")
+    quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0))          # floor
+    quad((0, 0, 1), (0, 1, 1), (1, 1, 1), (1, 0, 1))          # ceiling
+    b.set_current_material("mask")
+    quad((0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1))          # back
+    b.set_current_material("red")
+    quad((0, 0, 0), (0, 1, 0), (0, 1, 1), (0, 0, 1))          # left
+    b.set_current_material("green")
+    quad((1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))          # right
+    for name, mat, origin, size, rot in (
+            ("short", "blend", (0.55, 0.45, 0.0), (0.30, 0.30, 0.30), -0.30),
+            ("tall", "coated", (0.15, 0.6, 0.0), (0.30, 0.30, 0.60), 0.35),
+            ("rough", "rough", (0.62, 0.12, 0.01), (0.16, 0.16, 0.16), 0.5),
+            ("prism", "prism", (0.1, 0.15, 0.01), (0.3, 0.08, 0.2), 0.2),
+            ("jade", "jade", (0.66, 0.52, 0.3), (0.14, 0.14, 0.14), 0.7)):
+        b.create_object(name)
+        b.set_current_material(mat)
+        _box(b, origin, size, rot=rot)
+    b.create_object("veil")
+    b.set_current_material("veil")
+    quad((0.3, 0.2, 0.75), (0.6, 0.2, 0.75), (0.6, 0.5, 0.75),
+         (0.3, 0.5, 0.75))
+    b.create_object("nothing")
+    b.set_current_material("nothing")
+    quad((0.4, 0.05, 0.35), (0.6, 0.05, 0.35), (0.6, 0.05, 0.55),
+         (0.4, 0.05, 0.55))
+
+    b.create_light("lamp", {
+        "type": "arealight", "corner": (0.35, 0.35, 0.999),
+        "point1": (0.35, 0.65, 0.999), "point2": (0.65, 0.35, 0.999),
+        "color": (1.0, 0.9, 0.8), "power": 8.0, "samples": 1})
+    b.create_light("spot", {"type": "spotlight", "from": (0.85, 0.15, 0.95),
+                            "to": (0.6, 0.55, 0.0), "color": (1.0, 0.8, 0.5),
+                            "power": 1.5, "cone_angle": 25.0, "blend": 0.3,
+                            "falloff": 2.0})
+    b.create_light("ies", {"type": "ieslight", "from": (0.25, 0.75, 0.95),
+                           "to": (0.25, 0.75, 0.0), "color": (0.7, 0.8, 1.0),
+                           "power": 0.8, "ies_data": IES_PROFILE})
+    b.create_light("bulb", {"type": "spherelight", "from": (0.8, 0.8, 0.8),
+                            "radius": 0.05, "color": (1.0, 1.0, 0.9),
+                            "power": 4.0, "samples": 1})
+    b.create_light("sun", {"type": "directional",
+                           "direction": (0.3, -1.0, 0.5),
+                           "color": (1.0, 0.95, 0.85), "power": 0.6})
+    b.create_camera("cam", {"type": "perspective",
+                            "from": (0.5, -1.35, 0.5), "to": (0.5, 0.5, 0.5),
+                            "up": (0.5, -1.35, 1.5),
+                            "resx": resx, "resy": resy, "fov": 39.0})
+    b.create_background({"type": "constant", "color": (0, 0, 0)})
+    return b
+
+
+def portal_room_builder(resx: int = 1920, resy: int = 1080, builder=None):
+    """A closed room with one window in its +y wall, lit only through it:
+    a bgPortalLight over the window lets in a constant background (the room
+    of the JAX package's tests/test_lights.py, at resx x resy). `builder`
+    is the SceneBuilder to fill (the port's by default)."""
+    b = SceneBuilder() if builder is None else builder
+    b.create_material("white", {"type": "shinydiffusemat",
+                                "color": (0.7, 0.7, 0.7)})
+    b.create_object("walls")
+    b.set_current_material("white")
+
+    def quad(p0, p1, p2, p3):
+        i = [b.add_vertex(*q) for q in (p0, p1, p2, p3)]
+        b.add_quad(*i)
+
+    quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0))           # floor
+    quad((0, 0, 1), (0, 1, 1), (1, 1, 1), (1, 0, 1))           # ceiling
+    quad((0, 0, 0), (0, 1, 0), (0, 1, 1), (0, 0, 1))           # left
+    quad((1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))           # right
+    # the +y wall around a window over x, z in [0.3, 0.7]
+    quad((0, 1, 0), (1, 1, 0), (1, 1, 0.3), (0, 1, 0.3))
+    quad((0, 1, 0.7), (1, 1, 0.7), (1, 1, 1), (0, 1, 1))
+    quad((0, 1, 0.3), (0.3, 1, 0.3), (0.3, 1, 0.7), (0, 1, 0.7))
+    quad((0.7, 1, 0.3), (1, 1, 0.3), (1, 1, 0.7), (0.7, 1, 0.7))
+    # the portal: its normal points into the room (its emitting side)
+    b.create_object("portal")
+    b.set_current_material("white")
+    quad((0.3, 1.0, 0.3), (0.7, 1.0, 0.3), (0.7, 1.0, 0.7), (0.3, 1.0, 0.7))
+    b.create_light("portal", {"type": "bgPortalLight",
+                              "object_name": "portal", "power": 1.0,
+                              "samples": 4})
+    b.create_background({"type": "constant", "color": (2.0, 1.6, 1.2)})
+    b.create_camera("cam", {"type": "perspective",
+                            "from": (0.5, 0.08, 0.5), "to": (0.5, 1.0, 0.45),
+                            "up": (0.5, 0.08, 1.5),
+                            "resx": resx, "resy": resy, "fov": 70.0})
     return b

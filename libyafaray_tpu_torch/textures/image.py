@@ -73,9 +73,12 @@ def _cr_weights(t: Tensor):
 
 
 def _sample_level(pool: TexturePool, tex_id: Tensor, u: Tensor, v: Tensor,
-                  base: Tensor, w: Tensor, h: Tensor, interp: Tensor):
+                  base: Tensor, w: Tensor, h: Tensor, interp: Tensor,
+                  modes=(0, 1, 2)):
     """One mip level at (u, v) in [0, 1): nearest, bilinear or bicubic per
-    lane (all three are computed, as in the JAX package)."""
+    lane. The JAX package computes all three; here nearest (0) and bicubic
+    (2) are computed only when `modes`, the interpolations the lanes may
+    ask for, holds them, which picks the same values."""
     pf = pool.params_f[tex_id]
     extend = pool.extend[tex_id]
     mx = pf[..., 6]
@@ -88,8 +91,6 @@ def _sample_level(pool: TexturePool, tex_id: Tensor, u: Tensor, v: Tensor,
     ty = fy - y0.to(torch.float32)
     fetch = lambda xi, yi: _fetch(pool, base, w, h, xi, yi, extend, mx, my)
 
-    near = fetch(torch.round(fx).to(torch.int32),
-                 torch.round(fy).to(torch.int32))
     c00 = fetch(x0, y0)
     c10 = fetch(x0 + 1, y0)
     c01 = fetch(x0, y0 + 1)
@@ -98,7 +99,13 @@ def _sample_level(pool: TexturePool, tex_id: Tensor, u: Tensor, v: Tensor,
     tye = ty[..., None]
     bil = ((c00 * (1 - txe) + c10 * txe) * (1 - tye)
            + (c01 * (1 - txe) + c11 * txe) * tye)
-    out = torch.where((interp == 0)[..., None], near, bil)
+    out = bil
+    if 0 in modes:
+        near = fetch(torch.round(fx).to(torch.int32),
+                     torch.round(fy).to(torch.int32))
+        out = torch.where((interp == 0)[..., None], near, bil)
+    if 2 not in modes:
+        return out
 
     # bicubic Catmull-Rom (interp 2)
     wx = _cr_weights(tx)
@@ -148,7 +155,7 @@ def sample_image(pool: TexturePool, tex_id: Tensor, uv: Tensor,
     h0 = pool.img_height[tex_id]
     out = _sample_level(pool, tex_id, torch.remainder(u, 1.0),
                         torch.remainder(v, 1.0), pool.img_offset[tex_id], w0,
-                        h0, interp)
+                        h0, interp, pool.used_interps)
 
     # the trilinear / EWA machinery runs only when a texture uses it
     any_mip = 3 in pool.used_interps or 4 in pool.used_interps
@@ -168,7 +175,7 @@ def sample_image(pool: TexturePool, tex_id: Tensor, uv: Tensor,
             return _sample_level(pool, tex_id, torch.remainder(uq, 1.0),
                                  torch.remainder(vq, 1.0),
                                  torch.clamp_min(base, 0), wl, hl,
-                                 torch.ones_like(interp))
+                                 torch.ones_like(interp), (1,))
         return level(l0) * (1 - fl) + level(l1) * fl
 
     nm_f = torch.clamp_min(num_mips - 1, 0).to(torch.float32)

@@ -4,8 +4,7 @@ JAX package: `vec.refract`, the glass arm of `lobe_weights` and of
 image and its gradients with respect to the IOR column and the floor
 texture's texel pool against `jax.grad` of the same loss (bench.py's
 `bench_caustic_grad`: pixel centres, lens samples 777/778, mean(rgb)), the
-IOR gradient against central finite differences, and the glass variants
-that still raise.
+IOR gradient against central finite differences.
 
 The per-lane functions are called on the JAX side eagerly (each op its own
 computation, so XLA contracts nothing across them into fused multiply-adds,
@@ -53,7 +52,6 @@ from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.integrators.mc import integrate
 from libyafaray_tpu_torch.materials import bsdf as B
 from libyafaray_tpu_torch.math import vec as V
-from libyafaray_tpu_torch.scene import SceneBuilder
 from libyafaray_tpu_torch.scene_types import MAT_GLASS
 from libyafaray_tpu_torch.scenes import caustic_grad_builder as port_caustic
 from scenes import caustic_grad_builder
@@ -277,23 +275,3 @@ def test_ior_grad_matches_finite_differences(caustic):
         fd = (float(loss(up)) - float(loss(down))) / (2 * e)
     assert abs(fd) > 1e-5
     assert ad == pytest.approx(fd, rel=0.25, abs=1e-6), (ad, fd)
-
-
-# ------------------------------------------------------- still unported
-
-def _glass(pm):
-    return lambda: SceneBuilder().create_material(
-        "g", dict({"type": "glass", "IOR": 1.5}, **pm))
-
-
-@pytest.mark.parametrize("make", [
-    _glass({"dispersion_power": 0.5}),
-    _glass({"absorption": (0.5, 0.5, 0.5), "absorption_dist": 2.0}),
-    _glass({"volume_handler": "sss"}),
-    lambda: SceneBuilder().create_material("g", {"type": "rough_glass"}),
-    lambda: SceneBuilder().create_light("p", {"type": "bgPortalLight",
-                                              "object_name": "w"}),
-], ids=["dispersion", "absorption", "sss", "rough_glass", "bgPortalLight"])
-def test_unported_glass_variants_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
