@@ -181,7 +181,7 @@ Phases, each reporting on its own lines:
      (materials_cornell_builder: Oren-Nayar, coated glossy, a blend and a
      mask by a texture node, rough glass, dispersive glass with Beer
      absorption, sss glass, a transparent veil, a null quad; area, spot,
-     IES, sphere and directional lights) at 1920x1080, 16 spp, 4 bounces,
+     IES, sphere and directional lights) at 1920x1080, 8 spp, 4 bounces,
      transparent shadows at depth 4, on brute force (130 mt_closest
      launches a pass: the camera query, 4 bounces and 125 closest-shadow
      queries of the walk, 5 lights x 5 steps x 5 depths), ms a pass,
@@ -197,9 +197,33 @@ Phases, each reporting on its own lines:
      glass absorption, and the same gradients kernel path against plain
      path at 128x128 (rtol 1e-5);
  25. the portal room (portal_room_builder: a bgPortalLight over the window
-     of a closed room) at 1920x1080, 16 spp, 4 bounces: ms a pass,
+     of a closed room) at 1920x1080, 8 spp, 4 bounces: ms a pass,
      launches (10 a pass), the floor under the window lit; kernel path
      against plain path at 128x128 bit for bit.
+ 26. procedural textures and orco coordinates: the procedural Cornell box
+     (procedural_cornell_builder: blend, clouds, marble, wood, voronoi,
+     musgrave, distorted noise and rgb cube over the newperlin, stdperlin
+     and cellnoise bases, a colour ramp, bump through clouds, a cube that
+     streams orco coordinates and a slab mapped on its own vertices) at
+     1920x1080, 16 spp, 4 bounces through `render` on brute force (10
+     mt_closest launches a pass) and on blocks (10 tile-kernel launches),
+     the two images within the slice bound; ms a pass, camera rays/s, one
+     pass profiled (kernel launches, device busy share, the node
+     program's device time), peak device memory; kernel path against
+     plain path at 128x128 on both (brute force bit for bit);
+ 27. the rest of the volume path at 512x512, 8 spp, 3 bounces through
+     `render` (volume_regions_builder): the exponential, noise, grid and
+     sky regions under single scatter (28 mt_closest launches a pass, the
+     last 16 the in-medium shadow queries), the exponential and noise
+     regions with "optimize" (the attenuation grid's build timed), the
+     grid with "adaptive", the noise region under the EmissionIntegrator
+     (it emits) and the Cornell box under a constant background with the
+     SkyIntegrator; each: ms a pass, launches a pass, the image changed
+     by the volume against the same scene without it, kernel path against
+     plain path at 128x128; one pass of the grid profiled; the in-medium
+     shadow queries of one pass of the exponential, grid and sky regions
+     held bit for bit against mt_closest_ref and timed beside their
+     bounds.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -2627,7 +2651,10 @@ def phase23_spheres():
 
 # ------------------------------------------------------- phases 24 and 25
 
-MATS_SPP = 16            # the materials Cornell box and the portal room
+# the materials Cornell box and the portal room: 8 of the 16-spp image's
+# passes (a pass is measured the same way; the script's time made room
+# for phases 26-27)
+MATS_SPP = 8
 # the materials box's forward + backward: 2 spp of the 16-spp image keep
 # the script in its time (a 16-spp image took 283.3 s in chunks of 270
 # rows on the H100: the walk's eager ops make each chunk launch-bound)
@@ -2865,7 +2892,7 @@ def phase24_materials():
 
 
 def phase25_portal():
-    """The portal room at 1920x1080, 16 spp; kernel path against plain
+    """The portal room at 1920x1080, MATS_SPP spp; kernel path against plain
     path at 128x128. Returns mt_closest's launches."""
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
@@ -2891,6 +2918,238 @@ def phase25_portal():
         img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
     _bit_for_bit("25", "portal room", img_k, img_p)
     return mt
+
+
+# ------------------------------------------------------- phases 26 and 27
+
+PROC_SPP = 16            # the procedural Cornell box
+
+
+def _texture_path_ms(scene, cfg):
+    """(kernel launches, device busy ms, ms, the node program's ms) of one
+    pass of `scene`: the launches and busy time from the profiler and the
+    ms from an unprofiled pass (`_profile_pass`), and the node program's
+    share (the texture path: texture coordinates, noise, procedural types,
+    ramps) from CUDA events around each of its runs in one more pass."""
+    import torch
+    from libyafaray_tpu_torch import render
+    from libyafaray_tpu_torch.materials import node_eval as NE
+    n_k, busy, ms = _profile_pass(scene, cfg)
+    real, events = NE.run_program, []
+
+    def timed(*a, **k):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = real(*a, **k)
+        e[1].record()
+        events.append(e)
+        return out
+
+    NE.run_program = timed
+    try:
+        render(scene, cfg, spp=1, start_sample=1)
+        torch.cuda.synchronize()
+    finally:
+        NE.run_program = real
+    return n_k, busy, ms, sum(a.elapsed_time(z) for a, z in events), \
+        len(events)
+
+
+def _proc_scene(accel, width=None, height=None):
+    """The procedural Cornell box on `accel` (1920x1080 by default)."""
+    from libyafaray_tpu_torch.scenes import procedural_cornell_builder
+    b = procedural_cornell_builder(width or WIDTH, height or HEIGHT)
+    b.set_render_params({"scene_accelerator": accel})
+    scene = b.compile("cam")
+    if scene.accel_kind != accel:
+        raise AssertionError(f"the procedural Cornell box compiled to "
+                             f"{scene.accel_kind}, not {accel}")
+    return scene
+
+
+def phase26_procedural():
+    """The procedural Cornell box (every procedural texture type, three
+    noise bases, a colour ramp, bump through clouds, orco coordinates
+    streamed and not) at 1920x1080, 16 spp, 4 bounces on brute force and
+    on blocks; kernel against plain paths at 128x128. Returns the
+    mt_closest and tiles_traverse launches of the two renders."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    per_pass = 2 * (BOUNCES + 1)     # a closest and a shadow query a depth
+    scene = _proc_scene("brute")
+    tp = scene.textures
+    print(f"phase 26: procedural Cornell box: {scene.geom.num_faces} "
+          f"triangles, texture types {tp.used_types}, noise bases "
+          f"{tp.used_noise}, up to {tp.max_octaves} octaves, "
+          f"{scene.nodes.num_nodes} nodes (bump reads "
+          f"{scene.nodes.bump_nodes}), orco table "
+          f"{tuple(scene.geom.orcos.shape)}")
+    if tp.used_types != tuple(range(1, 9)) or len(tp.used_noise) < 3:
+        raise AssertionError("phase 26: the scene lacks a type or a basis")
+    torch.cuda.reset_peak_memory_stats()
+    img, mt, tl = _full_render("26", "procedural Cornell box (brute force)",
+                               scene, cfg, PROC_SPP)
+    peak = torch.cuda.max_memory_allocated()
+    if mt != PROC_SPP * per_pass or tl:
+        raise AssertionError(f"phase 26: {mt} mt_closest and {tl} tile "
+                             f"launches, want {PROC_SPP * per_pass} and 0")
+    band = WIDTH * 12 // 64
+    left = img[:, :band, :3].reshape(-1, 3).mean(0)
+    right = img[:, -band:, :3].reshape(-1, 3).mean(0)
+    spread = float(img[..., :3].std())
+    print(f"phase 26: walls left {left.round(4).tolist()} right "
+          f"{right.round(4).tolist()}, image std {spread:.4f}; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    if not (left[0] > left[1] and right[1] > right[0] and spread > 0.02):
+        raise AssertionError("phase 26: the walls' colours are wrong")
+    n_k, busy, ms, tex_ms, runs = _texture_path_ms(scene, cfg)
+    print(f"phase 26: one pass profiled: {n_k} kernel launches, "
+          + (f"device busy {busy:.2f} ms of {ms:.2f} ms "
+             f"({100 * busy / ms:.1f}%)" if busy > 0 else
+             "device busy not measured (no device time traced)")
+          + f"; the texture path, {runs} node-program runs a pass, "
+          f"{tex_ms:.2f} ms of a pass by CUDA events")
+
+    blocks = _proc_scene("blocks")
+    img_b, mt_b, tl_b = _full_render(
+        "26", "procedural Cornell box (blocks)", blocks, cfg, PROC_SPP)
+    if tl_b != PROC_SPP * per_pass or mt_b:
+        raise AssertionError(f"phase 26: blocks: {mt_b} mt_closest and "
+                             f"{tl_b} tile launches")
+    print("phase 26: blocks against brute force:")
+    _paths_agree("26", img_b, img)
+
+    for accel, module, name, ref in (
+            ("brute", MT, "mt_closest", MT.mt_closest_ref),
+            ("blocks", TL, "tile_walk", TL.tile_walk_ref)):
+        small = _proc_scene(accel, PATHS_RES, PATHS_RES)
+        img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        with _plain(module, name, ref):
+            img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        if accel == "brute":
+            _bit_for_bit("26", "brute force", img_k, img_p)
+        else:
+            print("phase 26: blocks, kernel path against plain path:")
+            _paths_agree("26", img_k, img_p)
+    return dict(brute=mt, blocks=tl_b)
+
+
+SKY_PM = {"type": "directlighting", "volume_integrator": "SkyIntegrator",
+          "alpha": 0.5, "turbidity": 3.0, "sigma_t": 0.4}
+# phase 27's runs: (label, region kind or None for the sky integrator's
+# Cornell box, integrator params)
+VOLUME_RUNS = (
+    ("exp", "exp", {}), ("noise", "noise", {}), ("grid", "grid", {}),
+    ("sky region", "sky", {}),
+    ("exp, optimize", "exp", {"optimize": True}),
+    ("noise, optimize", "noise", {"optimize": True}),
+    ("grid, adaptive", "grid", {"adaptive": True}),
+    ("noise, EmissionIntegrator", "noise",
+     {"volume_integrator": "EmissionIntegrator"}),
+    ("Cornell box, SkyIntegrator", None, SKY_PM))
+VOLUME_EMIT = 0.5        # the emission run's region emits (l_e)
+# the runs whose in-medium shadow queries of one pass are held against
+# mt_closest_ref (the noise region's pass costs most, its queries are the
+# same kind)
+HELD_RUNS = ("exp", "grid", "sky region")
+
+
+def _volume_run_scene(kind, res, emit=0.0):
+    from libyafaray_tpu_torch.scenes import (cornell_builder,
+                                             volume_regions_builder)
+    if kind is not None:
+        return volume_regions_builder(kind, res, emit=emit).compile("cam")
+    b = cornell_builder()
+    b.create_background({"type": "constant", "color": (2.0, 2.0, 2.5)})
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = res
+    return b.compile("cam")
+
+
+def phase27_volumes():
+    """Every volume region type and volume-integrator arm at 512x512, 8 spp,
+    3 bounces through `render`: ms a pass, mt_closest launches a pass, the
+    volume visible against the same scene without it, kernel path against
+    plain path at 128x128; the attenuation grid's build; the in-medium
+    shadow queries of one pass of the exponential, grid and sky regions
+    held bit for bit against mt_closest_ref. Returns (launches by run, per-launch numbers of
+    the held queries)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.integrators import volume as VI
+    launches, calls_all, labels_all = {}, [], []
+    for label, kind, extra in VOLUME_RUNS:
+        pm = dict({"type": "pathtracing", "bounces": VOLUME_BOUNCES}, **extra)
+        cfg = make_integrator(pm)
+        emit = VOLUME_EMIT if cfg.vol_kind == "emission" else 0.0
+        scene = _volume_run_scene(kind, VOLUME_RES, emit)
+        if cfg.vol_optimize:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid = VI.build_attenuation_grid(scene)
+            torch.cuda.synchronize()
+            print(f"phase 27: {label}: the attenuation grid "
+                  f"{tuple(grid.atten.shape)} built in "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms (render "
+                  "builds it once per call)")
+        img, mt, tl = _full_render("27", label, scene, cfg, VOLUME_SPP)
+        launches[label] = mt
+        lights = scene.lights.num_lights
+        want = None
+        if cfg.kind == "pathtracing":
+            want = (VOLUME_BOUNCES + 1) * (1 + lights) + (
+                cfg.vol_steps if cfg.vol_kind == "single_scatter" else 0)
+        if tl or (want is not None and mt != VOLUME_SPP * want) or not mt:
+            raise AssertionError(f"phase 27: {label}: {mt} mt_closest and "
+                                 f"{tl} tile launches, want "
+                                 f"{VOLUME_SPP} x {want}")
+        clear = F.resolve(render(dataclasses.replace(scene, volumes=None),
+                                 make_integrator(dict(
+                                     pm, volume_integrator="none")),
+                                 spp=VOLUME_SPP)).cpu().numpy()
+        diff = np.abs(img - clear)[..., :3].max(-1)
+        changed = [float((diff > t).mean()) for t in (1e-4, 1e-6)]
+        print(f"phase 27: {label}: image mean {float(img[..., :3].mean()):.6f}"
+              f" against {float(clear[..., :3].mean()):.6f} without the "
+              f"volume; {100 * changed[0]:.2f}% of pixels changed by more "
+              f"than 1e-4, {100 * changed[1]:.2f}% by more than 1e-6")
+        # the sky's atmosphere is thin at the box's scale: its share is
+        # small, but on every pixel
+        if changed[1] < 0.5 or (kind is not None and changed[0] < 0.5):
+            raise AssertionError(f"phase 27: {label}: the volume is not "
+                                 "visible")
+        if label == "grid":
+            n_k, busy, ms = _profile_pass(scene, cfg)
+            print(f"phase 27: {label}: one pass profiled: {n_k} kernel "
+                  f"launches, device busy {busy:.2f} of {ms:.2f} ms "
+                  f"({100 * busy / max(ms, 1e-9):.1f}%)")
+        if label in HELD_RUNS:
+            # one pass's in-medium shadow queries (the last vol_steps)
+            with _mt_captured() as (calls, _):
+                render(scene, cfg, spp=1, start_sample=VOLUME_SPP)
+                torch.cuda.synchronize()
+            medium = calls[-cfg.vol_steps:]
+            if not all(k.get("shadow") for _, k, _ in medium):
+                raise AssertionError("phase 27: an in-scatter query is not "
+                                     "a shadow query")
+            calls_all += medium
+            labels_all += [f"{label} in-scatter step {i}"
+                           for i in range(cfg.vol_steps)]
+        small = _volume_run_scene(kind, PATHS_RES, emit)
+        img_k = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        with _plain(MT, "mt_closest", MT.mt_closest_ref):
+            img_p = F.resolve(render(small, cfg, spp=1)).cpu().numpy()
+        _paths_agree("27", img_k, img_p)
+    per_launch = _hold_queries("27", calls_all, labels_all)
+    return launches, per_launch
 
 
 def _probe():
@@ -2995,6 +3254,8 @@ def main() -> int:
     sphere_mt, sphere_tiles = _timed("23", phase23_spheres)
     mats_launches, mt_walk, tl_walk_err = _timed("24", phase24_materials)
     portal_launches = _timed("25", phase25_portal)
+    proc_launches = _timed("26", phase26_procedural)
+    vol_launches, mt_regions = _timed("27", phase27_volumes)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -3015,7 +3276,8 @@ def main() -> int:
          "max_abs_err": max(mt_err, mt_chunk["max_abs_err"],
                             mt_caustic["max_abs_err"],
                             mt_volume["max_abs_err"],
-                            mt_walk["max_abs_err"]),
+                            mt_walk["max_abs_err"],
+                            mt_regions["max_abs_err"]),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -3035,13 +3297,19 @@ def main() -> int:
              "materials cornell forward + backward 1920x1080 2 spp, "
              "phase 24":
                  mats_launches["grads"],
-             "portal room forward 1920x1080, phase 25": portal_launches},
+             "portal room forward 1920x1080, phase 25": portal_launches,
+             "procedural cornell forward 1920x1080, phase 26":
+                 proc_launches["brute"],
+             **{f"volume regions 512x512 {label}, phase 27": n
+                for label, n in vol_launches.items()}},
          "per_launch_by_path": {
              "materials cornell, closest-shadow queries of the "
              "transparent walk, phase 24": mt_walk,
              "caustic, one forward + backward's queries, phase 19":
                  mt_caustic,
-             "volume, one pass's queries, phase 20": mt_volume},
+             "volume, one pass's queries, phase 20": mt_volume,
+             "volume regions, in-medium shadow queries of one pass "
+             "(exp, grid, sky), phase 27": mt_regions},
          "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
                      "mean per launch",
          "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],
@@ -3078,7 +3346,9 @@ def main() -> int:
              "glossy sphere scene forward 1920x1080 on blocks, phase 23":
                  sphere_tiles,
              "materials cornell forward 1920x1080 on blocks (transparent "
-             "shadows), phase 24": mats_launches["forward_blocks"]}},
+             "shadows), phase 24": mats_launches["forward_blocks"],
+             "procedural cornell forward 1920x1080 on blocks, phase 26":
+                 proc_launches["blocks"]}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

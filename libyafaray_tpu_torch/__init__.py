@@ -9,10 +9,13 @@ glass caustic scene of config 4 and the single-scatter volume of config 5
 under true instances, some of them moving) under the `pathtracing` and
 `directlighting` integrators, with every material and light type of the
 JAX package, transparent shadows, chromatic dispersion and the Beer and
-sss glass interiors. Still unported, and raising NotImplementedError:
-ambient occlusion, procedural textures and orco coordinates, render
-views, the other integrators (photon mapping, SPPM, bidirectional,
-debug) and volume types, AOV layers and the `bvh` accelerator. Torch autograd runs through it: material
+sss glass interiors, every procedural texture type over its noise bases,
+orco coordinates, every volume region type and the emission,
+single-scatter (with its attenuation grid and adaptive marching) and sky
+volume integrators. Still unported, and raising NotImplementedError:
+ambient occlusion, render views, the other surface integrators (photon
+mapping, SPPM, bidirectional, debug), AOV layers and the `bvh`
+accelerator. Torch autograd runs through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an
 inverse-rendering SGD step on one device. `SceneBuilder.compile`, `render`

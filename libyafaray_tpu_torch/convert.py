@@ -3,10 +3,12 @@
 `scene_from_numpy(tree)` takes a `libyafaray_tpu` SceneData whose array
 leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
-SceneData with the same tables (the motion keyframes, the true-instancing
-tables, the analytic spheres, the block accelerator's, the image texture
-pool and the shader-node program, the mesh lights' area CDF, the volume
-regions, every camera kind and every background kind with the environment
+SceneData with the same tables (the motion keyframes, the orco
+coordinates, the true-instancing tables, the analytic spheres, the block
+accelerator's, the texture pool with its procedural types and the
+shader-node program, the mesh lights' area CDF, every volume region type
+with its grid pool and the attenuation grid when one is set, every camera
+kind and every background kind with the environment
 map's importance tables included, every material type with its Oren-Nayar,
 GGX, blend, mask, dispersion and glass-interior columns, and every light
 type with the IES profiles), on the CPU. It reads attributes only and
@@ -20,9 +22,9 @@ import torch
 
 from .scene_types import (NODE_COLUMNS, Background, BlockAccel, Camera,
                           Geometry, LightTable, MaterialTable, NodeProgram,
-                          SceneData, TexturePool, VolumeTable)
-from .textures import TEX_IMAGE
-from .volumes import VOL_UNIFORM
+                          SceneData, TexturePool, VolAtten)
+from .textures.build import texture_statics
+from .volumes import volume_table
 
 
 _MAT_COLUMNS = ("mat_type", "diffuse_color", "glossy_color", "mirror_color",
@@ -44,7 +46,7 @@ _BG_COLUMNS = ("color", "power", "horizon_color", "zenith_color",
 _SKY_COLUMNS = ("sun_dir", "theta_s", "zenith_Y", "zenith_x", "zenith_y",
                 "perez_Y", "perez_x", "perez_y", "power")
 _VOL_COLUMNS = ("vol_type", "bmin", "bmax", "sigma_a", "sigma_s",
-                "emission", "g")
+                "emission", "g", "params_f", "noise_tex", "grid_id")
 
 
 def _t(x) -> torch.Tensor:
@@ -71,13 +73,6 @@ def scene_from_numpy(tree) -> SceneData:
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
     cam = tree.camera
-    if tree.volumes is not None:
-        _require(tree.vol_atten is None, "the volume attenuation grid")
-        _require((np.asarray(tree.volumes.vol_type) == VOL_UNIFORM).all(),
-                 "volume types other than UniformVolume")
-    if tree.textures is not None:
-        _require(set(tree.textures.used_types) <= {TEX_IMAGE},
-                 "procedural textures")
     _require(tree.fixed_wavelength is None, "render views")
 
     geom = Geometry(
@@ -90,7 +85,7 @@ def scene_from_numpy(tree) -> SceneData:
         **_opt(g, ("sph_center", "sph_radius", "sph_mat", "sph_obj",
                    "sph_light", "sph_vis", "tri_table", "tri_table_t1",
                    "tri_table_t2", "vertices_t1",
-                   "vertices_t2", "inst_mat", "inst_inv", "inst_nrm",
+                   "vertices_t2", "orcos", "inst_mat", "inst_inv", "inst_nrm",
                    "inst_face_base", "inst_face_off", "inst_obj",
                    "inst_vis")))
     mats = MaterialTable(
@@ -132,9 +127,12 @@ def scene_from_numpy(tree) -> SceneData:
         textures=_textures(tree.textures), nodes=_nodes(tree.nodes, mats),
         pixel_spread=(None if tree.pixel_spread is None
                       else _t(tree.pixel_spread)),
-        volumes=(None if tree.volumes is None else VolumeTable(
-            **{k: _t(getattr(tree.volumes, k)) for k in _VOL_COLUMNS},
-            num_volumes=int(tree.volumes.num_volumes))))
+        volumes=(None if tree.volumes is None else volume_table(
+            {k: np.asarray(getattr(tree.volumes, k)) for k in _VOL_COLUMNS},
+            np.asarray(tree.volumes.grids),
+            int(tree.volumes.num_volumes))),
+        vol_atten=(None if tree.vol_atten is None else VolAtten(
+            *(_t(x) for x in tree.vol_atten))))
 
 
 def _background(bg) -> Background:
@@ -166,6 +164,11 @@ def _textures(pool):
     return TexturePool(**{k: _t(getattr(pool, k)) for k in _POOL_COLUMNS},
                        num_textures=int(pool.num_textures),
                        used_types=tuple(pool.used_types),
+                       used_noise=tuple(pool.used_noise),
+                       max_octaves=int(pool.max_octaves),
+                       statics=texture_statics(
+                           pool.tex_type, pool.params_f, pool.ramp_count,
+                           int(pool.max_octaves)),
                        used_interps=tuple(pool.used_interps))
 
 
@@ -174,9 +177,10 @@ def _nodes(prog, mats: MaterialTable):
         return None
     bound = tuple(sorted(c for c in NODE_COLUMNS
                          if bool((getattr(mats, c) >= 0).any())))
-    _require(all(im[0] != 2 for t, im in zip(prog.meta, prog.imeta)
-                 if t[0] == 0), "orco texture coordinates")
+    from .materials.node_build import closure
     return NodeProgram(**{k: _t(getattr(prog, k)) for k in _NODE_TABLES},
                        num_nodes=int(prog.num_nodes), meta=tuple(prog.meta),
                        imeta=tuple(prog.imeta), has_bump=bool(prog.has_bump),
-                       bound=bound)
+                       bound=bound, bump_nodes=closure(
+                           prog.meta, set(np.asarray(mats.node_bump)
+                                          .tolist())))

@@ -13,9 +13,11 @@ pass through transparent surfaces with `transpShad` (up to `shadowDepth`
 of them); a path through dispersive glass carries a wavelength; a path
 inside glass with Beer absorption or an sss interior is attenuated, and
 scattered, along its segments there. In a scene with volume regions the
-camera segment ends with the single-scatter volume integrator
-(`integrators/volume.py`). Ambient occlusion (`do_AO`) and the photon,
-SPPM, bidirectional and debug integrators still raise NotImplementedError.
+camera segment ends with the volume integrator (`integrators/volume.py`:
+single scatter, with the attenuation grid and adaptive marching, or
+emission), and under the sky integrator with the atmosphere, regions or
+not. Ambient occlusion (`do_AO`) and the photon, SPPM, bidirectional and
+debug integrators still raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -61,10 +63,17 @@ class IntegratorConfig:
     # the volume integrator (the reference's separate VolumeIntegrator
     # entity): "single_scatter", "emission", "sky" or "none"; its step
     # count, the attenuation-grid cache ("optimize") and adaptive marching
+    # with its density substeps per step
     vol_kind: str = "single_scatter"
     vol_steps: int = 16
     vol_optimize: bool = False
     vol_adaptive: bool = False
+    vol_substeps: int = 8
+    # the sky integrator (SkyIntegrator::factory, integrator_sky.cc:198):
+    # "alpha", "turbidity" and the scale "sigma_t"
+    sky_alpha: float = 0.5
+    sky_turbidity: float = 3.0
+    sky_scale: float = 0.1
 
 
 _VOL_KINDS = {"EmissionIntegrator": "emission",
@@ -101,7 +110,11 @@ def make_integrator(pm: dict) -> IntegratorConfig:
             "single_scatter"),
         vol_steps=pm.get_int("volume_steps", 16),
         vol_optimize=pm.get_bool("optimize", False),
-        vol_adaptive=pm.get_bool("adaptive", False))
+        vol_adaptive=pm.get_bool("adaptive", False),
+        vol_substeps=pm.get_int("adaptive_substeps", 8),
+        sky_alpha=pm.get_float("alpha", 0.5),
+        sky_turbidity=pm.get_float("turbidity", 3.0),
+        sky_scale=pm.get_float("sigma_t", 0.1))
 
 
 def integrate(scene: SceneData, cfg: IntegratorConfig,
@@ -110,8 +123,6 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     """Trace one wavefront of camera rays to completion.
 
     Returns (rgb f32[N,3], alpha f32[N])."""
-    if cfg.vol_kind == "sky":
-        raise _unsupported("the sky volume integrator (SkyIntegrator)")
     n = ray_o.shape[0]
     dev = ray_o.device
     mats = scene.materials
@@ -296,8 +307,9 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             prev_prim = torch.where(scat, -1, prev_prim)
             prev_delta = prev_delta | scat
 
-    if scene.volumes is not None and cfg.vol_kind != "none":
-        # the camera segment through the volume regions
+    if (scene.volumes is not None or cfg.vol_kind == "sky") \
+            and cfg.vol_kind != "none":
+        # the camera segment through the volume regions or the atmosphere
         # (applyVolumetricEffects, integrator_tiled.cc)
         from .volume import apply_volumetric
         radiance = apply_volumetric(scene, cfg, radiance, ray_o, ray_d,

@@ -6,8 +6,8 @@ NodeMaterial::loadNodes + solveNodesOrder, src/material/material_node.cc:
 src/shader/shader_node.cc:36-39). The node stacks of all materials are
 merged into one table in topological order, and the material table's
 node_* columns name the slot whose output overrides each channel. The
-schema of a node is the JAX package's (see its module docstring). The
-port raises NotImplementedError for orco texture coordinates.
+schema of a node is the JAX package's (see its module docstring), every
+texture coordinate system included.
 """
 from __future__ import annotations
 
@@ -54,9 +54,18 @@ _CHANNEL_COLUMNS = {
 }
 
 
-def _unsupported(feature: str):
-    return NotImplementedError(
-        f"{feature} is not ported to libyafaray_tpu_torch yet")
+def closure(meta, roots) -> tuple:
+    """The sorted node slots that the nodes `roots` read, themselves
+    included (their inputs, transitively): all a program run must evaluate
+    for those nodes' outputs."""
+    need, todo = set(), [int(r) for r in roots]
+    while todo:
+        i = todo.pop()
+        if i < 0 or i in need:
+            continue
+        need.add(i)
+        todo.extend(meta[i][1:4])
+    return tuple(sorted(need))
 
 
 def compile_nodes(builder, mat_table):
@@ -117,8 +126,6 @@ def compile_nodes(builder, mat_table):
                 if texname not in builder.texture_order:
                     raise KeyError(f"texture_mapper: unknown texture "
                                    f"{texname!r}")
-                if pm.get_string("texco", "global") == "orco":
-                    raise _unsupported("orco texture coordinates")
                 row["tex_id"] = builder.texture_order.index(texname)
                 row["params_i"][0] = COORD_BY_NAME.get(
                     pm.get_string("texco", "global"), 1)
@@ -196,18 +203,19 @@ def compile_nodes(builder, mat_table):
         return torch.from_numpy(np.stack([np.asarray(r[key], dtype)
                                           for r in rows]))
 
+    meta = tuple((int(r["node_type"]), int(r["in_a"]), int(r["in_b"]),
+                  int(r["in_fac"]), int(r["tex_id"])) for r in rows)
     prog = NodeProgram(
         node_type=col("node_type"), tex_id=col("tex_id"),
         in_a=col("in_a"), in_b=col("in_b"), in_fac=col("in_fac"),
         const_a=stack("const_a"), const_b=stack("const_b"),
         const_fac=col("const_fac", np.float32),
         params_f=stack("params_f"), params_i=stack("params_i", np.int32),
-        num_nodes=len(rows),
-        meta=tuple((int(r["node_type"]), int(r["in_a"]), int(r["in_b"]),
-                    int(r["in_fac"]), int(r["tex_id"])) for r in rows),
+        num_nodes=len(rows), meta=meta,
         imeta=tuple(tuple(int(x) for x in r["params_i"]) for r in rows),
         has_bump=bool((mat_cols["node_bump"] >= 0).any()),
         bound=tuple(sorted(c for c, v in mat_cols.items() if (v >= 0).any())),
+        bump_nodes=closure(meta, set(mat_cols["node_bump"].tolist())),
     )
     mat_table = dataclasses.replace(
         mat_table, **{c: torch.from_numpy(v) for c, v in mat_cols.items()})

@@ -35,7 +35,7 @@ def _affine(pt: Tensor, m: Tensor) -> Tensor:
 def _tex_coords(scene: SceneData, sp, i: int, p: Tensor = None) -> Tensor:
     """The texture-mapper input point (TextureMapperNode's coordinates and
     projection, shader_node_basic.cc doMapping); `p` replaces sp.p for the
-    bump offsets. orco coordinates raise at compile."""
+    bump offsets (orco coordinates ignore it, as in the JAX package)."""
     prog = scene.nodes
     imeta = prog.imeta[i]
     coords, proj = imeta[0], imeta[1]
@@ -45,6 +45,8 @@ def _tex_coords(scene: SceneData, sp, i: int, p: Tensor = None) -> Tensor:
         pt = torch.stack([2.0 * sp.uv[..., 0] - 1.0,
                           2.0 * sp.uv[..., 1] - 1.0,
                           torch.zeros_like(sp.uv[..., 0])], -1)
+    elif coords == 2:    # orco
+        pt = sp.p if sp.orco is None else sp.orco
     elif coords in (4, 5):   # normal; reflect (approximated by n, as JAX)
         pt = sp.n
     else:                # global / window / transformed
@@ -114,13 +116,17 @@ def _eval_node(scene: SceneData, sp, i: int, cols, vals, p=None) -> None:
             # the footprint through the whole mapping chain: _tex_coords at
             # the uv-offset surface point (exact for the linear uv
             # mappings, first order for the projections)
+            orco = sp.p if sp.orco is None else sp.orco
             pt_x = _tex_coords(scene, dataclasses.replace(
-                sp, uv=sp.uv + sp.duv_dx, p=sp.p + sp.dp_dx), i)
+                sp, uv=sp.uv + sp.duv_dx, p=sp.p + sp.dp_dx,
+                orco=orco + sp.dp_dx), i)
             pt_y = _tex_coords(scene, dataclasses.replace(
-                sp, uv=sp.uv + sp.duv_dy, p=sp.p + sp.dp_dy), i)
+                sp, uv=sp.uv + sp.duv_dy, p=sp.p + sp.dp_dy,
+                orco=orco + sp.dp_dy), i)
             duv_dx = 0.5 * (pt_x[..., :2] - pt[..., :2])
             duv_dy = 0.5 * (pt_y[..., :2] - pt[..., :2])
-        rgba = sample_texture(scene, tid, pt, uv, duv_dx, duv_dy)
+        rgba = sample_texture(scene, tid, pt, uv, duv_dx, duv_dy,
+                              static_tex=tex_id)
         cols.append(rgba)
         vals.append(mean_rgb(rgba))
     elif ty == NODE_VALUE:
@@ -171,27 +177,39 @@ def _eval_node(scene: SceneData, sp, i: int, cols, vals, p=None) -> None:
         vals.append(torch.zeros((n,), dtype=torch.float32, device=dev))
 
 
-def run_program(scene: SceneData, sp, p=None) -> Tuple[Tensor, Tensor]:
-    """Every node's outputs: (colours f32[N, Nn, 4], values f32[N, Nn])."""
+def run_program(scene: SceneData, sp, p=None,
+                only=None) -> Tuple[Tensor, Tensor]:
+    """Every node's outputs: (colours f32[N, Nn, 4], values f32[N, Nn]).
+    With `only` (a set of slots that holds its members' inputs) the other
+    slots are zeros: a node's outputs depend on its inputs alone."""
     cols, vals = [], []
+    n, dev = sp.p.shape[0], sp.p.device
     for i in range(scene.nodes.num_nodes):
-        _eval_node(scene, sp, i, cols, vals, p)
+        if only is None or i in only:
+            _eval_node(scene, sp, i, cols, vals, p)
+        else:
+            cols.append(torch.zeros((n, 4), dtype=torch.float32, device=dev))
+            vals.append(torch.zeros((n,), dtype=torch.float32, device=dev))
     return torch.stack(cols, dim=1), torch.stack(vals, dim=1)
 
 
 def eval_bump(scene: SceneData, sp):
     """Bump mapping: the bump node's value differenced along the surface
     tangents tilts the shading normal (TextureMapperNode::evalDerivative's
-    analogue, shader_node_basic.cc)."""
+    analogue, shader_node_basic.cc). The three program runs evaluate the
+    bump nodes and their inputs only (`NodeProgram.bump_nodes`); the JAX
+    package runs every node and reads the same slots."""
     if not scene.nodes.has_bump:
         return sp
     from .nodes import _pick_col
     nb = scene.materials.node_bump[sp.mat_id.long()]
     has = nb >= 0
     eps = 1e-4
-    _, v0 = run_program(scene, sp)
-    _, vu = run_program(scene, sp, p=sp.p + eps * sp.nu)
-    _, vv = run_program(scene, sp, p=sp.p + eps * sp.nv)
+    # only the bump nodes and their inputs: the other slots are not read
+    only = set(scene.nodes.bump_nodes)
+    _, v0 = run_program(scene, sp, only=only)
+    _, vu = run_program(scene, sp, p=sp.p + eps * sp.nu, only=only)
+    _, vv = run_program(scene, sp, p=sp.p + eps * sp.nv, only=only)
     idx = torch.clamp_min(nb, 0)
     du = (_pick_col(vu, idx) - _pick_col(v0, idx)) / eps
     dv = (_pick_col(vv, idx) - _pick_col(v0, idx)) / eps

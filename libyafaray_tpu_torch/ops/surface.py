@@ -1,7 +1,10 @@
 """SurfacePoint construction: gather and interpolate the shading context.
 
 Counterpart of `libyafaray_tpu/ops/surface.py`: triangles, and analytic
-spheres (prim ids from num_faces on) by their own branch. A true
+spheres (prim ids from num_faces on) by their own branch. Each hit carries
+its orco point: the face's orco coordinates interpolated by its
+barycentrics when the scene has any, else (and on spheres) the hit point
+itself. A true
 instance's virtual face id resolves to its base face and instance: the
 vertices move world<-object and the normals by the inverse transpose. A
 moving triangle takes its frame from its shutter-open vertices, as in the
@@ -49,6 +52,9 @@ class SurfacePoint:
     dp_dy: Optional[Tensor] = None   # f32[N,3]
     duv_dx: Optional[Tensor] = None  # f32[N,2]
     duv_dy: Optional[Tensor] = None  # f32[N,2]
+    # object-space original coordinates; make_surface always sets them (p
+    # when the scene has none), None reads as p
+    orco: Optional[Tensor] = None    # f32[N,3]
 
 
 def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
@@ -83,6 +89,16 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
         n0, n1, n2 = (inst_transform_normal(g, inst, x) for x in (n0, n1, n2))
     n_smooth = vec.normalize(w[:, None] * n0 + u[:, None] * n1 + v[:, None] * n2)
     n = torch.where(g.face_smooth[tri][:, None], n_smooth, ng)
+    # orco: the streamed (or untransformed) object-space coordinates by
+    # barycentrics; the hit point when no object streamed orcos. The
+    # area-light quads appended at compile have no orco rows: their
+    # indices clamp to the last row, as XLA clamps an out-of-range gather
+    if g.orcos is not None:
+        oi = torch.clamp_max(fidx, g.orcos.shape[0] - 1)
+        orco = (w[:, None] * g.orcos[oi[:, 0]] + u[:, None] * g.orcos[oi[:, 1]]
+                + v[:, None] * g.orcos[oi[:, 2]])
+    else:
+        orco = p
     # texture uv interpolation
     fuv = g.face_uvs[tri].long()
     uv0 = g.uvs[fuv[:, 0]]
@@ -131,6 +147,7 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
         mat_id = torch.where(is_tri, mat_id, g.sph_mat[sph])
         obj_id = torch.where(is_tri, obj_id, g.sph_obj[sph])
         light_id = torch.where(is_tri, light_id, -1)
+        orco = torch.where(t3, orco, p)
 
     # shading frame: Gram-Schmidt dp_du against n
     nu = vec.normalize(dp_du - n * vec.dot(dp_du, n, keepdim=True))
@@ -143,7 +160,7 @@ def make_surface(scene: SceneData, hit: Hit, ray_o: Tensor, ray_d: Tensor
         obj_id=torch.where(valid, obj_id, 0),
         light_id=torch.where(valid, light_id, -1),
         prim=torch.where(valid, hit.prim, -1),
-        t=hit.t, bary=hit.uv)
+        t=hit.t, bary=hit.uv, orco=orco)
 
 
 def compute_differentials(scene: SceneData, sp: SurfacePoint,

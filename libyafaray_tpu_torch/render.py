@@ -3,10 +3,12 @@
 Counterpart of `libyafaray_tpu/render.py` (`render`, `render_pass_fn`,
 `_render_ids`) for one AA pass of `spp` samples: the whole image is one
 batch of rays per sample, run eagerly on the card (or on the device the
-caller names).
+caller names). Before the passes, the single-scatter integrator's
+"optimize" mode gets its attenuation grid, built once per render.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -65,6 +67,14 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
     width = scene.camera.resx if width is None else width
     height = scene.camera.resy if height is None else height
     scene = scene.to(device)
+    if (scene.volumes is not None and cfg.vol_kind == "single_scatter"
+            and cfg.vol_optimize and scene.vol_atten is None
+            and scene.lights.num_lights > 0):
+        # the per-light attenuation grid ("optimize",
+        # integrator_single_scatter.cc:35-108)
+        from .integrators.volume import build_attenuation_grid
+        scene = dataclasses.replace(scene,
+                                    vol_atten=build_attenuation_grid(scene))
     film = F.make_film(width, height, device)
     for s in range(start_sample, start_sample + spp):
         film = render_pass_fn(scene, cfg, film, s)

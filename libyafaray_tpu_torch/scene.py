@@ -4,22 +4,23 @@ compiled to the torch tables of `scene_types.py`.
 Counterpart of `libyafaray_tpu/scene.py` `SceneBuilder`: every material
 type (shiny-diffuse, glossy and coated glossy with the Lambert or the
 Oren-Nayar BRDF, glass with dispersion and the Beer or sss interior, rough
-glass, mirror, null, `light_mat`, blend and mask), image textures and the
-shader nodes that bind them to material channels, triangle meshes with
-motion-blur keyframes, instances (baked into copies, or true instances over
-the block accelerator), analytic spheres, curves (strands extruded into
-ribbons of triangles), every light type (point, IES, spot, sun,
-directional, area lights baked into the geometry as two emissive
+glass, mirror, null, `light_mat`, blend and mask), image and procedural
+textures and the shader nodes that bind them to material channels (on any
+texture coordinates, orco included), triangle meshes with motion-blur
+keyframes and orco coordinates, instances (baked into copies, or true
+instances over the block accelerator), analytic spheres, curves (strands
+extruded into ribbons of triangles), every light type (point, IES, spot,
+sun, directional, area lights baked into the geometry as two emissive
 triangles, sphere, mesh, background portal and the background light),
-uniform volume regions, every camera type (with depth of field) and the
-constant, gradient, sunsky, darksky and texture backgrounds (with `ibl`,
-lighting the scene, and `add_sun`), over the brute-force or the block
-accelerator. `compile()` builds the same tables as the JAX compile, on the
-CUDA card unless the caller names another device. What the port does not
-carry yet raises `NotImplementedError` naming the feature: procedural
-textures, orco coordinates, volume types other than UniformVolume, render
-views, instances of spheres and curves, the `bvh` accelerator and the
-brute-force path above 16,384 faces.
+every volume region type (uniform, exponential, noise, grid and sky),
+every camera type (with depth of field) and the constant, gradient,
+sunsky, darksky and texture backgrounds (with `ibl`, lighting the scene,
+and `add_sun`), over the brute-force or the block accelerator. `compile()`
+builds the same tables as the JAX compile, on the CUDA card unless the
+caller names another device. What the port does not carry yet raises
+`NotImplementedError` naming the feature: render views, instances of
+spheres and curves, the `bvh` accelerator and the brute-force path above
+16,384 faces.
 """
 from __future__ import annotations
 
@@ -91,6 +92,7 @@ class _MeshObject:
     vertices_t2: List = field(default_factory=list)  # keyframe 2 (b-spline)
     normals: List = field(default_factory=list)
     uvs: List = field(default_factory=list)
+    orcos: List = field(default_factory=list)     # streamed orco coordinates
     faces: List = field(default_factory=list)     # (a,b,c, uva,uvb,uvc, mat)
     visibility: int = VIS_NORMAL
     smooth: bool = False
@@ -162,8 +164,8 @@ class SceneBuilder:
         self.background_params = P.ParamMap(pm)
 
     def create_texture(self, name: str, pm: dict, image=None) -> None:
-        """An image texture: its pixels (f32[H, W, 1|3|4]) or a filename in
-        pm (procedural types raise at compile)."""
+        """A texture: a procedural type's parameters, or an image texture's
+        with its pixels (f32[H, W, 1|3|4]) or a filename in pm."""
         if name not in self.textures:
             self.texture_order.append(name)
         self.textures[name] = P.ParamMap(pm)
@@ -175,8 +177,6 @@ class SceneBuilder:
         ty = pm.get_string("type", "UniformVolume")
         if ty not in _VOL_TYPES:
             raise KeyError(f"volume region: unknown type {ty!r}")
-        if ty != "UniformVolume":
-            raise _unsupported(f"volume type {ty!r}")
         self.volumes[name] = pm
 
     def create_render_view(self, name: str, pm: dict) -> None:
@@ -241,13 +241,15 @@ class SceneBuilder:
 
     def add_mesh_arrays(self, vertices, faces, uvs=None, face_uvs=None,
                         normals=None, face_mats=None, orcos=None) -> None:
-        """Attach whole vertex / face arrays to the current object."""
-        if orcos is not None:
-            raise _unsupported("orco coordinates")
+        """Attach whole vertex / face arrays (and orco coordinates, one per
+        vertex) to the current object."""
         obj = self.current_object
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         faces = np.asarray(faces, np.int32).reshape(-1, 3)
         obj.vertices.extend(map(tuple, vertices))
+        if orcos is not None:
+            obj.orcos.extend(map(tuple, np.asarray(orcos, np.float32)
+                                 .reshape(-1, 3)))
         if normals is not None:
             obj.normals.extend(map(tuple, np.asarray(normals, np.float32)
                                    .reshape(-1, 3)))
@@ -268,8 +270,11 @@ class SceneBuilder:
         obj = self.objects[name] if name else self.current_object
         obj.smooth = True
 
-    def add_vertex_with_orco(self, *args) -> int:
-        raise _unsupported("orco coordinates")
+    def add_vertex_with_orco(self, x, y, z, ox, oy, oz) -> int:
+        """A vertex and its object-space original coordinates (the
+        reference's addVertexWithOrco; texco "orco" maps through them)."""
+        self.current_object.orcos.append((ox, oy, oz))
+        return self.add_vertex(x, y, z)
 
     def add_vertex_time_step(self, x, y, z) -> None:
         """Motion-blur position of a vertex at a later time step. The first
@@ -529,6 +534,7 @@ class SceneBuilder:
         JAX compile's `_build_geometry`, for meshes). Returns the arrays and
         each mesh object's (first face, face count)."""
         all_v, all_v1, all_v2, all_n, all_f, all_fuv = [], [], [], [], [], []
+        all_orco = []
         all_uv = [np.zeros((1, 2), np.float32)]
         all_fmat, all_fobj, all_fsmooth, all_fvis = [], [], [], []
         sph = dict(center=[], radius=[], mat=[], obj=[], vis=[])
@@ -558,6 +564,11 @@ class SceneBuilder:
                       if obj.vertices_t2
                       and len(obj.vertices_t2) == len(obj.vertices)
                       else v1_arr)
+            # orco: the streamed coordinates, else the untransformed
+            # object-space vertices (a baked instance keeps its object's)
+            orco = (np.asarray(obj.orcos, np.float32).reshape(-1, 3)
+                    if obj.orcos and len(obj.orcos) == len(obj.vertices)
+                    else v.copy())
             if matrix is not None:
                 # one matrix per shutter time step: [0] at shutter open,
                 # the later ones move the motion keyframes
@@ -589,6 +600,7 @@ class SceneBuilder:
             all_v.append(v)
             all_v1.append(v1_arr)
             all_v2.append(v2_arr)
+            all_orco.append(orco)
             all_n.append(n_arr)
             if uv.size:
                 all_uv.append(uv)
@@ -634,9 +646,13 @@ class SceneBuilder:
                                    for n in self.object_order)
         has_motion2 = has_motion and any(self.objects[n].vertices_t2
                                          for n in self.object_order)
+        # the orco table exists once any object streamed orcos, as in the
+        # JAX compile; without it surfaces use the hit point
+        has_orco = any(self.objects[n].orcos for n in self.object_order)
         cat = lambda xs, empty: np.concatenate(xs) if xs else empty
         g = dict(
             vertices=cat(all_v, np.zeros((1, 3), np.float32)),
+            orcos=cat(all_orco, None) if has_orco else None,
             vertices_t1=cat(all_v1, None) if has_motion else None,
             vertices_t2=cat(all_v2, None) if has_motion2 else None,
             normals=cat(all_n, np.zeros((1, 3), np.float32)),

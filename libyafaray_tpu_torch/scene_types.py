@@ -97,6 +97,11 @@ class Geometry(_Table):
     vertices_t2: Optional[Tensor] = None    # f32[V, 3]
     tri_table_t1: Optional[Tensor] = None   # f32[C, 16] keyframe tables
     tri_table_t2: Optional[Tensor] = None
+    # object-space "original coordinates" per vertex (the reference's
+    # addVertexWithOrco / SurfacePoint::orco): an object that streamed
+    # orcos has them here, the others their untransformed vertices. None
+    # when no object streamed any: the surface then uses the hit point.
+    orcos: Optional[Tensor] = None          # f32[V_orco, 3]
     # true instancing (None when every instance is baked)
     inst_mat: Optional[Tensor] = None        # f32[K, 3, 4] world<-object
     inst_inv: Optional[Tensor] = None        # f32[K, 3, 4] object<-world
@@ -374,10 +379,17 @@ class TexturePool(_Table):
     # [mult r, g, b, intensity, contrast, saturation, hue, clamp]
     adj: Tensor             # f32[T, 8]
     num_textures: int = 0
-    # the texture types and interpolation modes present: the evaluator
-    # runs only their code, as the JAX package traces only theirs
+    # the texture types, noise bases and interpolation modes present, and
+    # the octaves the procedural loops run: the evaluator runs only their
+    # code, as the JAX package traces only theirs
     used_types: tuple = ()
+    used_noise: tuple = ()
+    max_octaves: int = 2
     used_interps: tuple = (0, 1, 2, 3, 4)
+    # per texture (type, noise bases, octaves, has a ramp): the static sets
+    # with which a lookup of one known texture runs its own code alone
+    # (`build.texture_statics`)
+    statics: tuple = ()
 
 
 @dataclass
@@ -404,12 +416,16 @@ class NodeProgram(_Table):
     has_bump: bool = False
     # the material table's node_* columns that some material binds
     bound: tuple = ()
+    # the slots the bump nodes read (`node_build.closure`): the bump's
+    # extra program runs evaluate only these
+    bump_nodes: tuple = ()
 
 
 @dataclass
 class VolumeTable(_Table):
     """Volume regions, each a density in an axis-aligned box
-    (`volumes/__init__.py`; the uniform density only)."""
+    (`volumes/__init__.py`): uniform, exponential in height, a noise
+    texture, a voxel grid or the sky's (uniform) density."""
     vol_type: Tensor     # i32[R] VOL_* (volumes/__init__.py)
     bmin: Tensor         # f32[R, 3]
     bmax: Tensor         # f32[R, 3]
@@ -417,7 +433,27 @@ class VolumeTable(_Table):
     sigma_s: Tensor      # f32[R, 3]
     emission: Tensor     # f32[R, 3]
     g: Tensor            # f32[R] phase asymmetry
+    params_f: Tensor     # f32[R, 8] exp: a, b; noise: sharpness, cover,
+                         #           density
+    noise_tex: Tensor    # i32[R] a noise region's texture, or -1
+    grid_id: Tensor      # i32[R] a grid region's grid, or -1
+    grids: Tensor        # f32[G, D, H, W] zero-padded grid pool
+                         #           ((1, 1, 1, 1) zeros without grids)
     num_volumes: int = 0
+    # static copies of vol_type and noise_tex: density runs only the
+    # branches of the types present, as the JAX package's where() keeps
+    kinds: tuple = ()
+    noise_texs: tuple = ()
+
+
+@dataclass
+class VolAtten(_Table):
+    """The single-scatter attenuation grid ("optimize"): exp(-tau) from
+    each cell centre of a G^3 grid over the regions' box toward each
+    light (`integrators/volume.build_attenuation_grid`)."""
+    atten: Tensor        # f32[L, G, G, G, 3]
+    bmin: Tensor         # f32[3]
+    bmax: Tensor         # f32[3]
 
 
 @dataclass
@@ -439,3 +475,6 @@ class SceneData(_Table):
     # angle of one pixel (the primary hits' texture footprint), f32[]
     pixel_spread: Optional[Tensor] = None
     volumes: Optional[VolumeTable] = None
+    # the attenuation grid of the single-scatter integrator's "optimize"
+    # mode, built by `render` before its passes
+    vol_atten: Optional[VolAtten] = None

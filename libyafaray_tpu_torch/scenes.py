@@ -10,9 +10,11 @@ empty sky under sunsky and darksky, and the glossy sphere on a textured
 floor; the larger scenes built on them: the terrain under an analytic
 sky, and the glossy scene lit by an environment map, with a curve; and the
 Cornell box with every material and light type (`materials_cornell_builder`)
-and a room lit through a background portal (`portal_room_builder`). These
-two take the builder to fill, so that the JAX package's SceneBuilder can
-stage the same scene."""
+and a room lit through a background portal (`portal_room_builder`); the
+Cornell box with every procedural texture type (`procedural_cornell_builder`)
+and config 5's room with each other volume region type
+(`volume_regions_builder`). These four take the builder to fill, so that
+the JAX package's SceneBuilder can stage the same scene."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,13 +22,15 @@ import numpy as np
 from .scene import SceneBuilder
 
 
-def cornell_builder(white_emit: float = 12.0, extras=()) -> SceneBuilder:
+def cornell_builder(white_emit: float = 12.0, extras=(),
+                    builder=None) -> SceneBuilder:
     """Cornell box in [0,1]^3 (camera looks +y, z up): floor, ceiling and
     back wall white, left wall red, right wall green, two rotated boxes and
     a ceiling area light. 34 triangles, plus the light's 2-triangle quad.
     `extras` are further (name, params) materials, created after the
-    three of the walls."""
-    b = SceneBuilder()
+    three of the walls; `builder` is the SceneBuilder to fill (the port's
+    by default)."""
+    b = SceneBuilder() if builder is None else builder
     b.create_material("white", {"type": "shinydiffusemat",
                                 "color": (0.73, 0.73, 0.73)})
     b.create_material("red", {"type": "shinydiffusemat",
@@ -96,12 +100,13 @@ def glossy_slab_builder() -> SceneBuilder:
     return b
 
 
-def volume_emissive_builder() -> SceneBuilder:
+def volume_emissive_builder(builder=None) -> SceneBuilder:
     """BASELINE config 5: the Cornell box (lamp power 6) filled with a
     homogeneous scattering medium (a UniformVolume over [0,1]^3, sigma_s
     0.25, sigma_a 0.05, isotropic), and a glowing triangle: a light_mat
-    face that a mesh light samples (37 triangles in all)."""
-    b = cornell_builder(white_emit=6.0)
+    face that a mesh light samples (37 triangles in all). `builder` is the
+    SceneBuilder to fill (the port's by default)."""
+    b = cornell_builder(white_emit=6.0, builder=builder)
     b.create_material("emit", {"type": "light_mat", "color": (1.0, 0.7, 0.4),
                                "power": 4.0})
     b.create_object("glow")
@@ -710,4 +715,225 @@ def portal_room_builder(resx: int = 1920, resy: int = 1080, builder=None):
                             "from": (0.5, 0.08, 0.5), "to": (0.5, 1.0, 0.45),
                             "up": (0.5, 0.08, 1.5),
                             "resx": resx, "resy": resy, "fov": 70.0})
+    return b
+
+
+# ------------------------------------------------------------------
+# procedural textures, orco coordinates and the other volume regions
+
+def _cube(b, origin, size, orco: bool = False) -> None:
+    """An axis-aligned box (12 triangles) into the current object; with
+    `orco` its vertices stream orco coordinates: the box's own corners in
+    [-1, 1]^3."""
+    ox, oy, oz = origin
+    sx, sy, sz = size
+    idx = []
+    for k in range(8):
+        c = (k & 1, (k >> 1) & 1, (k >> 2) & 1)
+        p = (ox + c[0] * sx, oy + c[1] * sy, oz + c[2] * sz)
+        if orco:
+            idx.append(b.add_vertex_with_orco(*p, *(2.0 * x - 1.0
+                                                    for x in c)))
+        else:
+            idx.append(b.add_vertex(*p))
+    for q in ((0, 2, 3, 1), (4, 5, 7, 6), (0, 1, 5, 4), (2, 6, 7, 3),
+              (0, 4, 6, 2), (1, 3, 7, 5)):
+        b.add_quad(*(idx[i] for i in q))
+
+
+def procedural_cornell_builder(resx: int = 1920, resy: int = 1080,
+                               builder=None):
+    """The Cornell box with every procedural texture type on its surfaces,
+    each through a texture_mapper node on the diffuse colour: the ceiling
+    a blend (ease) mixed with a ridged musgrave, the back wall a radial
+    blend through an HSV colour ramp, the left wall hard clouds, the right
+    wall green with bump through soft clouds, the floor marble, the short
+    box wood rings, the tall box wood bands with noise, a cube that streams
+    orco coordinates under voronoi on texco "orco", a slab that streams
+    none under an fBm musgrave on texco "orco" (its untransformed
+    vertices), a pillar of distorted noise and a panel of rgb cube. The
+    noise bases are newperlin, stdperlin and cellnoise, so the noise
+    loops select among several per lane. `builder` is the SceneBuilder to
+    fill (the port's by default)."""
+    b = SceneBuilder() if builder is None else builder
+    tex = {
+        "ceil_blend": {"type": "blend", "stype": "ease",
+                       "color1": (0.55, 0.55, 0.6), "color2": (0.9, 0.85,
+                                                               0.8)},
+        "back_blend": {"type": "blend", "stype": "radial",
+                       "use_color_ramp": True, "ramp_color_mode": "hsv",
+                       "ramp_items": [
+                           {"position": 0.0, "color": (0.85, 0.8, 0.7, 1)},
+                           {"position": 0.5, "color": (0.3, 0.45, 0.8, 1)},
+                           {"position": 1.0, "color": (0.85, 0.8, 0.7, 1)}]},
+        "left_clouds": {"type": "clouds", "size": 4.0, "depth": 2,
+                        "hard": True, "noise_type": "newperlin",
+                        "color1": (0.45, 0.03, 0.03),
+                        "color2": (0.85, 0.2, 0.1)},
+        "bump_clouds": {"type": "clouds", "size": 8.0, "depth": 1,
+                        "noise_type": "stdperlin"},
+        "floor_marble": {"type": "marble", "size": 3.0, "depth": 2,
+                         "turbulence": 4.0, "sharpness": 1.5,
+                         "noise_type": "stdperlin", "shape": "sin",
+                         "color1": (0.35, 0.35, 0.4),
+                         "color2": (0.85, 0.85, 0.8)},
+        "wood_rings": {"type": "wood", "wood_type": "rings", "shape": "saw",
+                       "size": 1.0, "depth": 1, "noise_type": "newperlin",
+                       "color1": (0.4, 0.25, 0.1), "color2": (0.8, 0.55, 0.3)},
+        "wood_band": {"type": "wood", "wood_type": "bandnoise",
+                      "shape": "tri", "size": 6.0, "depth": 2,
+                      "turbulence": 0.5, "noise_type": "cellnoise",
+                      "color1": (0.5, 0.35, 0.2), "color2": (0.9, 0.7, 0.45)},
+        "voronoi": {"type": "voronoi", "size": 1.5, "weight1": 1.0,
+                    "weight2": -0.5, "intensity": 1.2,
+                    "color1": (0.1, 0.3, 0.5), "color2": (0.8, 0.9, 1.0)},
+        "musgrave_fbm": {"type": "musgrave", "musgrave_type": "fBm",
+                         "size": 4.0, "H": 0.8, "octaves": 2.5,
+                         "noise_type": "stdperlin",
+                         "color1": (0.2, 0.4, 0.15),
+                         "color2": (0.7, 0.85, 0.4)},
+        "musgrave_ridged": {"type": "musgrave", "musgrave_type": "ridgedmf",
+                            "size": 3.0, "H": 1.0, "octaves": 3.0,
+                            "offset": 1.0, "gain": 2.0, "intensity": 0.8,
+                            "noise_type": "newperlin"},
+        "distorted": {"type": "distorted_noise", "size": 5.0,
+                      "distort": 1.5, "noise_type1": "cellnoise",
+                      "noise_type2": "newperlin",
+                      "color1": (0.6, 0.2, 0.5), "color2": (0.95, 0.8, 0.4)},
+        "rgb_cube": {"type": "rgb_cube"},
+    }
+    for name, pm in tex.items():
+        b.create_texture(name, pm)
+
+    def mapper(name, texture, texco="global", **kw):
+        return dict({"name": name, "type": "texture_mapper",
+                     "texture": texture, "texco": texco}, **kw)
+
+    def textured(mat, texture, texco="global", **pm):
+        b.create_material(mat, dict({"type": "shinydiffusemat",
+                                     "diffuse_shader": "m"}, **pm),
+                          node_list=[mapper("m", texture, texco)])
+
+    # the ceiling first: material 0, which the lamp's quad also takes
+    b.create_material("ceiling", {"type": "shinydiffusemat",
+                                  "diffuse_shader": "mix"},
+                      node_list=[mapper("a", "ceil_blend"),
+                                 mapper("b", "musgrave_ridged"),
+                                 {"name": "mix", "type": "mix",
+                                  "input1": "a", "input2": "b",
+                                  "value": 0.35}])
+    textured("back", "back_blend")
+    textured("left", "left_clouds")
+    b.create_material("right", {"type": "shinydiffusemat",
+                                "color": (0.12, 0.45, 0.15),
+                                "bump_shader": "bump"},
+                      node_list=[mapper("bump", "bump_clouds",
+                                        bump_strength=0.02)])
+    textured("floor", "floor_marble")
+    textured("rings", "wood_rings")
+    textured("bands", "wood_band")
+    textured("cells", "voronoi", texco="orco")
+    textured("moss", "musgrave_fbm", texco="orco")
+    textured("warp", "distorted")
+    textured("cube", "rgb_cube", specular_reflect=0.1)
+
+    def quad(mat, p0, p1, p2, p3):
+        b.set_current_material(mat)
+        b.add_quad(*[b.add_vertex(*q) for q in (p0, p1, p2, p3)])
+
+    b.create_object("walls")
+    quad("floor", (0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0))
+    quad("ceiling", (0, 0, 1), (0, 1, 1), (1, 1, 1), (1, 0, 1))
+    quad("back", (0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1))
+    quad("left", (0, 0, 0), (0, 1, 0), (0, 1, 1), (0, 0, 1))
+    quad("right", (1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))
+    for name, mat, origin, size, rot in (
+            ("short", "rings", (0.55, 0.45, 0.0), (0.30, 0.30, 0.30), -0.30),
+            ("tall", "bands", (0.15, 0.6, 0.0), (0.30, 0.30, 0.60), 0.35)):
+        b.create_object(name)
+        b.set_current_material(mat)
+        _box(b, origin, size, rot=rot)
+    b.create_object("orco_cube")        # streams orco coordinates
+    b.set_current_material("cells")
+    _cube(b, (0.66, 0.1, 0.0), (0.18, 0.18, 0.18), orco=True)
+    b.create_object("slab")             # texco orco, streams none
+    b.set_current_material("moss")
+    _cube(b, (0.08, 0.12, 0.0), (0.3, 0.14, 0.1))
+    b.create_object("pillar")
+    b.set_current_material("warp")
+    _cube(b, (0.44, 0.2, 0.0), (0.1, 0.1, 0.4))
+    b.create_object("panel")
+    b.set_current_material("cube")
+    quad("cube", (0.3, 0.985, 0.55), (0.7, 0.985, 0.55), (0.7, 0.985, 0.9),
+         (0.3, 0.985, 0.9))
+
+    b.create_light("lamp", {
+        "type": "arealight", "corner": (0.35, 0.35, 0.999),
+        "point1": (0.35, 0.65, 0.999), "point2": (0.65, 0.35, 0.999),
+        "color": (1.0, 0.9, 0.8), "power": 12.0, "samples": 1})
+    b.create_camera("cam", {"type": "perspective",
+                            "from": (0.5, -1.35, 0.5), "to": (0.5, 0.5, 0.5),
+                            "up": (0.5, -1.35, 1.5),
+                            "resx": resx, "resy": resy, "fov": 39.0})
+    b.create_background({"type": "constant", "color": (0, 0, 0)})
+    return b
+
+
+# volume_regions_builder's kinds and each one's region type
+VOLUME_KINDS = {"exp": "ExpDensityVolume", "noise": "NoiseVolume",
+                "grid": "GridVolume", "sky": "SkyVolume"}
+
+
+def density_grid(res: int = 64, seed: int = 7) -> np.ndarray:
+    """A smooth res^3 density grid [D, H, W] from a seed: twelve gaussian
+    blobs of random centre, radius and weight, between 0 and about 2."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(res, dtype=np.float32) + 0.5) / res
+    zz, yy, xx = np.meshgrid(c, c, c, indexing="ij")
+    g = np.zeros((res, res, res), np.float32)
+    for _ in range(12):
+        cx, cy, cz = rng.uniform(0.15, 0.85, 3)
+        r = rng.uniform(0.08, 0.22)
+        w = rng.uniform(0.5, 1.5)
+        g += w * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2 + (zz - cz) ** 2)
+                        / (2 * r * r))
+    return g.astype(np.float32)
+
+
+def volume_regions_builder(kind: str, res: int = 512, builder=None,
+                           emit: float = 0.0):
+    """BASELINE config 5's room (the Cornell box with its glowing triangle
+    and mesh light) at res x res with one region of `kind` over [0, 1]^3 in
+    place of its uniform fog: "exp" a height fog (ExpDensityVolume, a 1.2,
+    b 3), "noise" clouds through a NoiseVolume (a clouds texture, sharpness
+    1, cover 0.8, density 2), "grid" a 64^3 GridVolume of blobs
+    (`density_grid`), "sky" a SkyVolume; the region emits `emit` (its
+    l_e) per unit density. `builder` is the SceneBuilder to fill (the
+    port's by default)."""
+    b = cornell_builder(white_emit=6.0, builder=builder)
+    b.create_material("emit", {"type": "light_mat", "color": (1.0, 0.7, 0.4),
+                               "power": 4.0})
+    b.create_object("glow")
+    b.set_current_material("emit")
+    b.add_triangle(b.add_vertex(0.4, 0.5, 0.35), b.add_vertex(0.6, 0.5, 0.35),
+                   b.add_vertex(0.5, 0.5, 0.55))
+    b.create_light("glowl", {"type": "meshlight", "object_name": "glow",
+                             "color": (1.0, 0.7, 0.4), "power": 4.0,
+                             "samples": 1})
+    pm = {"type": VOLUME_KINDS[kind], "sigma_s": 0.3, "sigma_a": 0.05,
+          "g": 0.2, "l_e": emit, "minX": 0.0, "maxX": 1.0, "minY": 0.0,
+          "maxY": 1.0, "minZ": 0.0, "maxZ": 1.0}
+    if kind == "exp":
+        pm.update(a=1.2, b=3.0)
+    elif kind == "noise":
+        b.create_texture("fog_clouds", {"type": "clouds", "size": 3.0,
+                                        "depth": 2})
+        pm.update(texture="fog_clouds", sharpness=1.0, cover=0.8,
+                  density=2.0)
+    elif kind == "grid":
+        pm.update(grid_data=density_grid())
+    else:
+        pm.update(sigma_s=0.15, sigma_a=0.02)
+    b.create_volume_region("fog", pm)
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = res
     return b

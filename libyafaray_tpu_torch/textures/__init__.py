@@ -1,13 +1,14 @@
-"""Textures: the image texel pool and its per-lane evaluation.
+"""Textures: the image texel pool, the procedural types and their per-lane
+evaluation.
 
-Counterpart of `libyafaray_tpu/textures/__init__.py` for image textures:
-the type enum, `build_texture_pool` (textures/build.py), `sample_texture`
-(textures/eval.py, which samples through textures/image.py) and the
-environment map of texture backgrounds: its lookup `sample_env` and the
-importance sampling of its background light (`env_alias_sample`,
-`env_pdf_dir`, over the alias tables of `build.build_env_tables`).
-Procedural textures are not ported yet: they raise NotImplementedError at
-compile.
+Counterpart of `libyafaray_tpu/textures/__init__.py`: the type enum,
+`build_texture_pool` (textures/build.py), `sample_texture`
+(textures/eval.py, which evaluates the procedural types through
+textures/procedural.py and textures/noise.py, and samples images through
+textures/image.py) and the environment map of texture backgrounds: its
+lookup `sample_env` and the importance sampling of its background light
+(`env_alias_sample`, `env_pdf_dir`, over the alias tables of
+`build.build_env_tables`).
 """
 from __future__ import annotations
 
@@ -47,12 +48,15 @@ def build_texture_pool(builder) -> Optional[TexturePool]:
 
 def sample_texture(scene: SceneData, tex_id: Tensor, p: Tensor, uv: Tensor,
                    duv_dx: Optional[Tensor] = None,
-                   duv_dy: Optional[Tensor] = None) -> Tensor:
+                   duv_dy: Optional[Tensor] = None,
+                   static_tex: Optional[int] = None) -> Tensor:
     """rgba f32[N, 4] of texture tex_id (per lane) at the texture-space
     point p and uv; the uv-space screen derivatives, when given, drive the
-    mipmap and EWA filters."""
+    mipmap and EWA filters. `static_tex` names the texture when every lane
+    reads the same one: only its own code runs."""
     from .eval import eval_textures
-    return eval_textures(scene, tex_id, p, uv, duv_dx=duv_dx, duv_dy=duv_dy)
+    return eval_textures(scene, tex_id, p, uv, duv_dx=duv_dx, duv_dy=duv_dy,
+                         static_tex=static_tex)
 
 
 def _dir_to_equirect_uv(d: Tensor, rotation: Tensor) -> Tensor:
@@ -79,7 +83,8 @@ def sample_env(scene: SceneData, d: Tensor, bg) -> Tensor:
         uv = _dir_to_equirect_uv(d, bg.rotation)
     tex_id = torch.full(d.shape[:-1], bg.tex_id, dtype=torch.int32,
                         device=d.device)
-    return sample_texture(scene, tex_id, d, uv)[..., :3]
+    return sample_texture(scene, tex_id, d, uv,
+                          static_tex=bg.tex_id)[..., :3]
 
 
 def env_alias_sample(scene: SceneData, u1: Tensor, u2: Tensor):

@@ -1,12 +1,13 @@
-"""Per-lane texture evaluation: the image sampler, the colour ramp and the
-adjustments.
+"""Per-lane texture evaluation: the procedural types, the image sampler,
+the colour ramp and the adjustments.
 
 Counterpart of `libyafaray_tpu/textures/eval.py`, the single entry point
 behind `textures.sample_texture`. Every lane carries its own texture id.
-The JAX package evaluates the procedural types present in the pool
-(`TexturePool.used_types`) masked beside the image lanes; the port's pools
-hold images only (a procedural type raises at compile), so that branch is
-gated off statically here. Then the Blender-style colour ramp
+The procedural types present in the pool (`TexturePool.used_types`) are
+evaluated masked beside the image lanes, as in the JAX package; a lookup
+of one known texture (`static_tex`: a texture-mapper node's, a texture
+background's, a noise region's) runs only its own type, noise bases and
+octaves, and its ramp only if it has one, which gives the same values. Then the Blender-style colour ramp
 (src/color/color_ramp.cc) and the adj_* post adjustments (texture.h
 applyAdjustments) apply, as in the JAX package.
 """
@@ -17,7 +18,9 @@ from typing import Optional
 import torch
 
 from ..scene_types import SceneData
+from . import TEX_IMAGE
 from .image import sample_image
+from .procedural import eval_procedural
 
 Tensor = torch.Tensor
 
@@ -162,14 +165,33 @@ def apply_adjustments(pool, tex_id: Tensor, col: Tensor) -> Tensor:
 def eval_textures(scene: SceneData, tex_id: Tensor, p: Tensor, uv: Tensor,
                   lod: Optional[Tensor] = None,
                   duv_dx: Optional[Tensor] = None,
-                  duv_dy: Optional[Tensor] = None) -> Tensor:
-    """rgba f32[N, 4] per lane for per-lane texture ids."""
+                  duv_dy: Optional[Tensor] = None,
+                  static_tex: Optional[int] = None) -> Tensor:
+    """rgba f32[N, 4] per lane for per-lane texture ids; `static_tex`, when
+    given, is the one texture every lane reads."""
     pool = scene.textures
     if pool is None or pool.num_textures == 0:
         return torch.zeros(p.shape[:-1] + (4,), dtype=torch.float32,
                            device=p.device)
     tex_id = torch.clamp(tex_id, 0, pool.num_textures - 1).long()
-    col = sample_image(pool, tex_id, uv, lod, duv_dx, duv_dy)
-    inten = mean_rgb(col)
-    col = apply_ramp(pool, tex_id, inten, col)
+    if static_tex is None:
+        types, noise, octs = (pool.used_types, pool.used_noise,
+                              pool.max_octaves)
+        ramped = any(st[3] for st in pool.statics)
+    else:
+        ty, noise, octs, ramped = pool.statics[static_tex]
+        types = (ty,)
+    procedural = any(t != TEX_IMAGE for t in types)
+    if procedural:
+        col, inten = eval_procedural(pool, tex_id, p, types, noise, octs)
+    if TEX_IMAGE in types:
+        img = sample_image(pool, tex_id, uv, lod, duv_dx, duv_dy)
+        if procedural:
+            is_img = pool.tex_type[tex_id] == TEX_IMAGE
+            col = torch.where(is_img[..., None], img, col)
+            inten = torch.where(is_img, mean_rgb(img), inten)
+        else:
+            col, inten = img, mean_rgb(img)
+    if ramped:       # without a ramp apply_ramp returns col as it is
+        col = apply_ramp(pool, tex_id, inten, col)
     return apply_adjustments(pool, tex_id, col)

@@ -210,27 +210,6 @@ def _true_instances_on_the_brute_path(b):
                                 torch.tensor([[0.0, 1.0, 0.0]]), 1e-4, 1e30)
 
 
-def _orco(b):
-    b.add_vertex_with_orco(0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
-
-
-def _texture(b):
-    # a procedural texture (image textures are ported)
-    b.create_texture("t", {"type": "clouds"})
-    b.compile("cam", device="cpu")
-
-
-def _nodes(b):
-    # a texture_mapper on orco coordinates (uv, global, normal and the
-    # projections are ported)
-    b.create_texture("t", {"type": "image"}, image=np.zeros((2, 2, 3)))
-    b.create_material("n", {"type": "shinydiffusemat",
-                            "diffuse_shader": "x"},
-                      node_list=[{"name": "x", "type": "texture_mapper",
-                                  "texture": "t", "texco": "orco"}])
-    b.compile("cam", device="cpu")
-
-
 def _photon(b):
     P.make_integrator({"type": "photonmapping"})
 
@@ -247,10 +226,6 @@ def _bidir(b):
     P.make_integrator({"type": "bidirectional"})
 
 
-def _noise_volume(b):
-    b.create_volume_region("n", {"type": "NoiseVolume"})
-
-
 def _sphere_instance(b):
     # spheres and curves are not instanced yet (the JAX package bakes them)
     b.create_object("ball", {"type": "sphere", "radius": 0.1})
@@ -263,10 +238,6 @@ _UNPORTED = [
     (_big_mesh, "brute-force intersection above 16384 faces"),
     (_sphere_instance, "instancing of spheres and curves"),
     (_true_instances_on_the_brute_path, "does not expand true instances"),
-    (_orco, "orco coordinates"),
-    (_texture, "procedural texture type 'clouds'"),
-    (_nodes, "orco texture coordinates"),
-    (_noise_volume, "volume type 'NoiseVolume'"),
     (_photon, "integrator type 'photonmapping'"),
     (_sppm, "integrator type 'SPPM'"),
     (_bidir, "integrator type 'bidirectional'"),

@@ -2,8 +2,8 @@
 the JAX package: the compiled tables of `volume_emissive_builder` (BASELINE
 config 5), mesh-light sampling and pdfs (on a light of two unequal
 triangles), the uniform volume's transmittance, `in_scatter` and
-`apply_volumetric`, the whole scene rendered, and the volume variants that
-still raise.
+`apply_volumetric`, and the whole scene rendered. The other region types
+and volume integrators are held in tests/test_torch_volume_regions.py.
 
 The JAX functions run under `jax.jit`, as the JAX package's renders do.
 
@@ -42,7 +42,6 @@ from libyafaray_tpu_torch import make_integrator, render, sampler
 from libyafaray_tpu_torch.cameras import shoot_rays
 from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.integrators import volume as VI
-from libyafaray_tpu_torch.integrators.mc import integrate
 from libyafaray_tpu_torch.math import vec
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.ops import surface as S
@@ -271,35 +270,3 @@ def test_volume_render_matches_jax(volume):
                              device="cpu")).numpy()
     changed = np.abs(img - clear)[..., :3].max(-1) > 1e-4
     assert changed.all()
-
-
-# ------------------------------------------------------- still unported
-
-def _region(ty):
-    return lambda: SceneBuilder().create_volume_region("v", {"type": ty})
-
-
-def _integrate_with(pm):
-    """integrate on the config 5 scene with an integrator option the port
-    does not carry: raises where the JAX package would take that path."""
-    def run():
-        ts = port_volume().compile("cam", device="cpu")
-        o, d, valid = shoot_rays(ts.camera, torch.tensor([32.0]),
-                                 torch.tensor([32.0]))
-        integrate(ts, make_integrator(dict({"type": "pathtracing"}, **pm)),
-                  o, d, valid, torch.tensor([0]), 0)
-    return run
-
-
-@pytest.mark.parametrize("make", [
-    _region("ExpDensityVolume"), _region("NoiseVolume"),
-    _region("GridVolume"), _region("SkyVolume"),
-    _integrate_with({"volume_integrator": "SkyIntegrator"}),
-    _integrate_with({"volume_integrator": "EmissionIntegrator"}),
-    _integrate_with({"optimize": True}),
-    _integrate_with({"adaptive": True}),
-], ids=["ExpDensityVolume", "NoiseVolume", "GridVolume", "SkyVolume",
-        "sky", "emission", "optimize", "adaptive"])
-def test_unported_volume_variants_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
