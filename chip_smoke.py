@@ -205,13 +205,13 @@ Phases, each reporting on its own lines:
      musgrave, distorted noise and rgb cube over the newperlin, stdperlin
      and cellnoise bases, a colour ramp, bump through clouds, a cube that
      streams orco coordinates and a slab mapped on its own vertices) at
-     1920x1080, 16 spp, 4 bounces through `render` on brute force (10
+     1920x1080, 8 spp, 4 bounces through `render` on brute force (10
      mt_closest launches a pass) and on blocks (10 tile-kernel launches),
      the two images within the slice bound; ms a pass, camera rays/s, one
      pass profiled (kernel launches, device busy share, the node
      program's device time), peak device memory; kernel path against
      plain path at 128x128 on both (brute force bit for bit);
- 27. the rest of the volume path at 512x512, 8 spp, 3 bounces through
+ 27. the rest of the volume path at 512x512, 4 spp, 3 bounces through
      `render` (volume_regions_builder): the exponential, noise, grid and
      sky regions under single scatter (28 mt_closest launches a pass, the
      last 16 the in-medium shadow queries), the exponential and noise
@@ -224,6 +224,31 @@ Phases, each reporting on its own lines:
      shadow queries of one pass of the exponential, grid and sky regions
      held bit for bit against mt_closest_ref and timed beside their
      bounds.
+ 28. the render loop as users drive it: the Cornell box at 1920x1080, 4
+     bounces, through `render` with no device argument, adaptive AA (4
+     samples, then 3 passes of 2 on the flagged pixels, threshold 0.05,
+     the curve's dark detection), the Gauss filter of width 1.5 and 17 AOV
+     layers (first-hit, accumulated and flush kinds), on brute force (10
+     mt_closest launches a sample) and on blocks (10 tile-kernel
+     launches), every layer within the slice bound of the other's (the
+     curve flags every pixel, so its later passes are compacted
+     wavefronts of the whole image); the same with a flat threshold,
+     whose compacted wavefronts hold a fifth of it or less. Per pass its
+     kind, lanes, ms and the flagged fraction; one more render of each
+     accelerator with every query timed (live rays, ms, bound per pass
+     kind) and the filter splat's ms; the first compacted sample's
+     queries held bit for bit against mt_closest_ref on brute force, and
+     against tile_walk_ref on blocks (prim ids, t/u/v within 1e-6
+     relative, hit/miss on the any hits), each timed beside its bound; a
+     pass with 17
+     layers against one with combined alone; peak memory. At 256x256 both
+     adaptive renders through the kernel path against the plain path:
+     every layer and noise mask bit for bit on brute force, every layer
+     within the slice bound on blocks. Then directlighting with ambient
+     occlusion (8 samples: 8 more launches a pass; the AO queries of one
+     pass held bit for bit and timed), one debug-integrator pass (one
+     launch), and 2 + 2 spp saved to a film file and resumed, equal bit
+     for bit to 4 spp.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -1400,7 +1425,7 @@ def _fwd_bwd(scene, cfg, leaves, pixels, sample, events=None):
     if events:
         events[0].record()
     o, d, valid = shoot_rays(scene.camera, px, py)
-    rgb, _ = integrate(scene, cfg, o, d, valid, pid, sample)
+    rgb, _, _ = integrate(scene, cfg, o, d, valid, pid, sample)
     loss = rgb.mean()
     if events:
         events[1].record()
@@ -1486,6 +1511,43 @@ def _hold_queries(phase, calls, labels):
               f"{rows} rows kept: mt_closest {ms:.4f} ms, mt_closest_ref "
               f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), at "
               f"{100 * bound / ms:.1f}% of it")
+    n = len(rows_out)
+    ms, plain, bound = (sum(x) / n for x in zip(*rows_out))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=max(bound_by, key=bound_by.get))
+
+
+def _hold_walks(phase, calls, labels):
+    """Each captured tile_walk call held against tile_walk_ref (prim ids
+    equal and t/u/v within rtol 1e-6 on closest hits, hit/miss equal on
+    any hits), then timed alone beside the plain version and its bound.
+    Returns the max error and per-launch means (ms, plain_ms, bound_ms,
+    bound_by)."""
+    import torch
+    from libyafaray_tpu_torch.accel import tiles as TL
+    err, rows_out, bound_by = 0.0, [], {}
+    for label, (a, k, got) in zip(labels, calls):
+        want = TL.tile_walk_ref(*a, **k)
+        if k.get("any_hit"):
+            torch.cuda.synchronize()
+            mism = int(((got[1] >= 0) != (want[1] >= 0)).sum())
+            if mism:
+                raise AssertionError(f"phase {phase}: {label}: hit/miss "
+                                     f"differs on {mism} rays")
+        else:
+            err = _compare(label, got, want, err, phase=phase)
+        ms = _cuda_ms(lambda: TL.tile_walk(*a, **k), 10)
+        plain = _cuda_ms(lambda: TL.tile_walk_ref(*a, **k), 1)
+        pairs, bound, by = _walk_bound(a, got, k)
+        rows_out.append((ms, plain, bound))
+        bound_by[by] = bound_by.get(by, 0.0) + bound
+        rays = a[0]
+        print(f"phase {phase}: {label} ({_kind(k)}"
+              f"{', any hit' if k.get('any_hit') else ''}): {rays.shape[0]} "
+              f"rays, {int((rays[:, 7] > rays[:, 6]).sum())} live, "
+              f"{int((got[1] >= 0).sum())} hits, {pairs} pair tests needed: "
+              f"tile_walk {ms:.4f} ms, tile_walk_ref {plain:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), at {100 * bound / ms:.1f}% of it")
     n = len(rows_out)
     ms, plain, bound = (sum(x) / n for x in zip(*rows_out))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
@@ -2922,7 +2984,7 @@ def phase25_portal():
 
 # ------------------------------------------------------- phases 26 and 27
 
-PROC_SPP = 16            # the procedural Cornell box
+PROC_SPP = 8             # the procedural Cornell box (cut from 16 for time)
 
 
 def _texture_path_ms(scene, cfg):
@@ -2971,7 +3033,7 @@ def _proc_scene(accel, width=None, height=None):
 def phase26_procedural():
     """The procedural Cornell box (every procedural texture type, three
     noise bases, a colour ramp, bump through clouds, orco coordinates
-    streamed and not) at 1920x1080, 16 spp, 4 bounces on brute force and
+    streamed and not) at 1920x1080, 8 spp, 4 bounces on brute force and
     on blocks; kernel against plain paths at 128x128. Returns the
     mt_closest and tiles_traverse launches of the two renders."""
     import numpy as np
@@ -3054,6 +3116,7 @@ VOLUME_RUNS = (
      {"volume_integrator": "EmissionIntegrator"}),
     ("Cornell box, SkyIntegrator", None, SKY_PM))
 VOLUME_EMIT = 0.5        # the emission run's region emits (l_e)
+REGIONS_SPP = 4          # phase 27's passes a run (cut from 8 for time)
 # the runs whose in-medium shadow queries of one pass are held against
 # mt_closest_ref (the noise region's pass costs most, its queries are the
 # same kind)
@@ -3072,7 +3135,7 @@ def _volume_run_scene(kind, res, emit=0.0):
 
 
 def phase27_volumes():
-    """Every volume region type and volume-integrator arm at 512x512, 8 spp,
+    """Every volume region type and volume-integrator arm at 512x512, 4 spp,
     3 bounces through `render`: ms a pass, mt_closest launches a pass, the
     volume visible against the same scene without it, kernel path against
     plain path at 128x128; the attenuation grid's build; the in-medium
@@ -3100,21 +3163,21 @@ def phase27_volumes():
                   f"{tuple(grid.atten.shape)} built in "
                   f"{(time.perf_counter() - t0) * 1e3:.2f} ms (render "
                   "builds it once per call)")
-        img, mt, tl = _full_render("27", label, scene, cfg, VOLUME_SPP)
+        img, mt, tl = _full_render("27", label, scene, cfg, REGIONS_SPP)
         launches[label] = mt
         lights = scene.lights.num_lights
         want = None
         if cfg.kind == "pathtracing":
             want = (VOLUME_BOUNCES + 1) * (1 + lights) + (
                 cfg.vol_steps if cfg.vol_kind == "single_scatter" else 0)
-        if tl or (want is not None and mt != VOLUME_SPP * want) or not mt:
+        if tl or (want is not None and mt != REGIONS_SPP * want) or not mt:
             raise AssertionError(f"phase 27: {label}: {mt} mt_closest and "
                                  f"{tl} tile launches, want "
-                                 f"{VOLUME_SPP} x {want}")
+                                 f"{REGIONS_SPP} x {want}")
         clear = F.resolve(render(dataclasses.replace(scene, volumes=None),
                                  make_integrator(dict(
                                      pm, volume_integrator="none")),
-                                 spp=VOLUME_SPP)).cpu().numpy()
+                                 spp=REGIONS_SPP)).cpu().numpy()
         diff = np.abs(img - clear)[..., :3].max(-1)
         changed = [float((diff > t).mean()) for t in (1e-4, 1e-6)]
         print(f"phase 27: {label}: image mean {float(img[..., :3].mean()):.6f}"
@@ -3134,7 +3197,7 @@ def phase27_volumes():
         if label in HELD_RUNS:
             # one pass's in-medium shadow queries (the last vol_steps)
             with _mt_captured() as (calls, _):
-                render(scene, cfg, spp=1, start_sample=VOLUME_SPP)
+                render(scene, cfg, spp=1, start_sample=REGIONS_SPP)
                 torch.cuda.synchronize()
             medium = calls[-cfg.vol_steps:]
             if not all(k.get("shadow") for _, k, _ in medium):
@@ -3150,6 +3213,575 @@ def phase27_volumes():
         _paths_agree("27", img_k, img_p)
     per_launch = _hold_queries("27", calls_all, labels_all)
     return launches, per_launch
+
+
+# ------------------------------------------------------------- phase 28
+
+# the AOV render: two or more layers of each kind (first-hit, accumulated,
+# flush), adaptive AA and the Gauss filter as libYafaRay's clients set them
+AOV_LAYERS = ("combined", "normal-geom", "z-depth-abs", "albedo", "uv",
+              "mat-index-auto", "debug-wireframe", "env", "shadow",
+              "indirect", "diffuse", "diffuse-indirect", "reflect",
+              "mat-index-mask-all", "debug-aa-samples", "toon",
+              "debug-faces-edges")
+AOV_AA = dict(aa_samples=4, aa_passes=4, aa_inc_samples=2, threshold=0.05,
+              dark_detection_type="curve")
+# the curve's thresholds on the dark box flag every pixel at 4 spp, so its
+# compacted wavefronts hold the whole image; the flat threshold flags a
+# fifth of it
+AOV_AA_FLAT = dict(AOV_AA, dark_detection_type="none")
+AOV_FILTER = dict(flt_kind="gauss", flt_width=1.5)
+AO_SAMPLES = 8
+AOV_PER_LAUNCH = {"ao": "the ambient-occlusion shadow queries of one pass",
+                  "compacted": "the queries of the first compacted adaptive "
+                               "sample"}
+AOV_SMALL = 256          # kernel path against plain path
+
+
+def _render_module():
+    """The port's render module (the package exports its function under the
+    same name)."""
+    import importlib
+    return importlib.import_module("libyafaray_tpu_torch.render")
+
+
+def _cornell(accel, width, height):
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    b = cornell_builder()
+    b.cameras["cam"]["resx"] = width
+    b.cameras["cam"]["resy"] = height
+    if accel == "blocks":
+        b.set_render_params({"scene_accelerator": "blocks"})
+    scene = b.compile("cam")
+    if scene.accel_kind != accel:
+        raise AssertionError(f"the Cornell box compiled to "
+                             f"{scene.accel_kind}, not {accel}")
+    return scene
+
+
+@contextlib.contextmanager
+def _passes_logged():
+    """Inside, every pass of `render` is logged in order as a dict: the
+    full and compacted sample passes with their lanes and ms
+    (host clock between synchronisations), and each noise detection with
+    its flagged fraction. `state["kind"]` names the pass under way."""
+    import torch
+    R = _render_module()
+    log, state = [], {"kind": None}
+    real_full, real_ids, real_mask = (R.render_pass_fn, R._render_ids,
+                                      R.compute_resample_mask)
+
+    def timed(kind, lanes, sample, fn, *a):
+        state["kind"] = kind
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        log.append(dict(kind=kind, lanes=lanes, sample=sample,
+                        ms=(time.perf_counter() - t0) * 1e3))
+        state["kind"] = None
+        return out
+
+    def full(scene, cfg, film, s):
+        return timed("full", film.width * film.height, s, real_full, scene,
+                     cfg, film, s)
+
+    def ids(scene, cfg, film, s, pixel_id, live):
+        if state["kind"] is not None:        # inside a full pass
+            return real_ids(scene, cfg, film, s, pixel_id, live)
+        return timed("compacted", pixel_id.numel(), s, real_ids, scene, cfg,
+                     film, s, pixel_id, live)
+
+    def mask(film, aa):
+        m = real_mask(film, aa)
+        log.append(dict(kind="mask", flagged=float(m.mean())))
+        return m
+
+    R.render_pass_fn, R._render_ids, R.compute_resample_mask = full, ids, mask
+    try:
+        yield log, state
+    finally:
+        R.render_pass_fn, R._render_ids, R.compute_resample_mask = (
+            real_full, real_ids, real_mask)
+
+
+def _print_passes(label, log):
+    """One line per pass of a logged render."""
+    flagged = None
+    for e in log:
+        if e["kind"] == "mask":
+            flagged = e["flagged"]
+            continue
+        extra = ("" if e["kind"] == "full" else
+                 f", {100 * flagged:.2f}% flagged")
+        print(f"phase 28: {label}: sample {e['sample']} {e['kind']} pass: "
+              f"{e['lanes']} lanes, {e['ms']:.2f} ms{extra}")
+
+
+@contextlib.contextmanager
+def _queries_timed(state, keep=lambda tag: False):
+    """Inside, every mt_closest and tile_walk call is timed by CUDA events
+    and tagged with the pass under way (`state`, from `_passes_logged`) and
+    whether ambient occlusion issued it; its live rays and bound are kept as
+    device tensors and read after the work (no synchronisation in the
+    pass). Calls whose tag `keep` accepts are also kept whole, as
+    `_mt_captured` keeps them. Yields the list of records."""
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.integrators import mc
+    real_mt, real_walk, real_ao = (MT.mt_closest, TL.tile_walk,
+                                   mc._sample_ambient_occlusion)
+    recs, ao = [], {"on": False}
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def events():
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        return e
+
+    def mt(*a, **k):
+        e = events()
+        out = real_mt(*a, **k)
+        e[1].record()
+        tab, o, d, t_min, t_max, excl = a
+        tag = (state["kind"], ao["on"])
+        rec = dict(kernel="mt_closest", tag=tag, events=e, rays=o.shape[0],
+                   live=(t_max > t_min).sum(),
+                   rows=(tab[:, 10 if k.get("shadow") else 9] > 0.5).sum(),
+                   nbytes=_nbytes(*a) + 16 * o.shape[0])
+        if keep(tag):
+            rec["call"] = (tuple(copy(x) for x in a),
+                           {key: copy(x) for key, x in k.items()},
+                           tuple(x.clone() for x in out))
+        recs.append(rec)
+        return out
+
+    def walk(*a, **k):
+        e = events()
+        out = real_walk(*a, **k)
+        e[1].record()
+        rays, cand, ent, count, tab = a
+        need = _needed(cand, ent, count, out, bool(k.get("any_hit")))
+        tabs = [x for x in k.values() if isinstance(x, torch.Tensor)]
+        tag = (state["kind"], ao["on"])
+        rec = dict(kernel="tile_walk", tag=tag, events=e,
+                   rays=rays.shape[0], live=(rays[:, 7] > rays[:, 6]).sum(),
+                   pairs=need.sum() * TL.RAY_TILE * tab.shape[2],
+                   nbytes=_nbytes(*a, *tabs) + 16 * rays.shape[0])
+        if keep(tag):
+            rec["call"] = (tuple(copy(x) for x in a),
+                           {key: copy(x) for key, x in k.items()},
+                           tuple(x.clone() for x in out))
+        recs.append(rec)
+        return out
+
+    def ao_term(*a, **k):
+        ao["on"] = True
+        try:
+            return real_ao(*a, **k)
+        finally:
+            ao["on"] = False
+
+    MT.mt_closest, TL.tile_walk, mc._sample_ambient_occlusion = mt, walk, \
+        ao_term
+    try:
+        yield recs
+    finally:
+        MT.mt_closest, TL.tile_walk, mc._sample_ambient_occlusion = (
+            real_mt, real_walk, real_ao)
+
+
+def _query_rows(recs):
+    """The timed queries with their live rays, ms, bound and what bounds it
+    (read after the work)."""
+    import torch
+    torch.cuda.synchronize()
+    out = []
+    for r in recs:
+        live = int(r["live"])
+        if r["kernel"] == "mt_closest":
+            flops = live * int(r["rows"]) * FLOPS_PER_PAIR
+        else:
+            flops = int(r["pairs"]) * FLOPS_PER_PAIR
+        bound, by = _bound_ms(flops, r["nbytes"])
+        out.append(dict(r, live=live, ms=r["events"][0].elapsed_time(
+            r["events"][1]), bound=bound, by=by))
+    return out
+
+
+def _print_queries(label, rows):
+    """Per pass kind: the launches, their live rays, device ms and bound;
+    and one line per launch of the first pass of each kind."""
+    seen = set()
+    for kind in ("full", "compacted"):
+        for ao in (False, True):
+            sel = [r for r in rows if r["tag"] == (kind, ao)]
+            if not sel:
+                continue
+            name = f"{kind} passes" + (", ambient occlusion" if ao else "")
+            ms = sum(r["ms"] for r in sel)
+            bound = sum(r["bound"] for r in sel)
+            print(f"phase 28: {label}: {name}: {len(sel)} {sel[0]['kernel']} "
+                  f"launches, live rays {min(r['live'] for r in sel)}-"
+                  f"{max(r['live'] for r in sel)} of {sel[0]['rays']}-"
+                  f"{max(r['rays'] for r in sel)}, {ms:.3f} ms, bound "
+                  f"{bound:.4f} ms ({100 * bound / max(ms, 1e-9):.1f}% of "
+                  "it)")
+            if (kind, ao) in seen:
+                continue
+            seen.add((kind, ao))
+            first = sel[:AO_SAMPLES if ao else 2 * (BOUNCES + 1)]
+            for i, r in enumerate(first):
+                print(f"phase 28: {label}: {name}, launch {i}: {r['rays']} "
+                      f"rays, {r['live']} live, {r['ms']:.4f} ms, bound "
+                      f"{r['bound']:.4f} ms ({r['by']})")
+
+
+def _aov_images(film, label):
+    """Every layer of the film resolved on the host, checked finite and of
+    its shape."""
+    import numpy as np
+    from libyafaray_tpu_torch import film as F
+    out = {}
+    for name in film.layers:
+        img = F.resolve(film, name).cpu().numpy()
+        c = F.LAYER_CHANNELS[name]
+        if img.shape != (film.height, film.width, c) or \
+                not np.isfinite(img).all():
+            raise AssertionError(f"phase 28: {label}: layer {name}: shape "
+                                 f"{img.shape}, finite "
+                                 f"{np.isfinite(img).all()}")
+        out[name] = img
+    return out
+
+
+def _aov_render(accel, aa_params=AOV_AA):
+    """The adaptive AOV render of the Cornell box at 1920x1080 on `accel`
+    through `render` with no device argument, with the kernel counts set
+    to 0 just before and read just after. Returns (images, mt_closest
+    launches, tile kernel launches, the passes' log)."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    R = _render_module()
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    scene = _cornell(accel, WIDTH, HEIGHT)
+    render(scene, cfg, spp=1, layer_names=AOV_LAYERS,        # warm-up
+           **AOV_FILTER)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    label = (f"AOV render ({accel}, dark detection "
+             f"{aa_params['dark_detection_type']})")
+    MT.launches = TL.launches = 0
+    with _passes_logged() as (log, _):
+        t0 = time.perf_counter()
+        film = render(scene, cfg, aa=R.AAParams(**aa_params),
+                      layer_names=AOV_LAYERS, **AOV_FILTER)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    mt, tl = MT.launches, TL.launches
+    peak = torch.cuda.max_memory_allocated()
+    passes = [e for e in log if e["kind"] != "mask"]
+    samples = len(passes)
+    per = 2 * (BOUNCES + 1)
+    want = (samples * per, 0) if accel == "brute" else (0, samples * per)
+    if (mt, tl) != want:
+        raise AssertionError(f"phase 28: {label}: {mt} mt_closest and {tl} "
+                             f"tile launches, want {want}")
+    _print_passes(label, log)
+    imgs = _aov_images(film, label)
+    img = imgs["combined"][..., :3]
+    band = WIDTH * 12 // 64
+    left = img[:, :band].reshape(-1, 3).mean(0)
+    right = img[:, -band:].reshape(-1, 3).mean(0)
+    spp = imgs["debug-aa-samples"]
+    print(f"phase 28: {label} {WIDTH}x{HEIGHT}, {len(AOV_LAYERS)} layers, "
+          f"gauss 1.5: {samples} sample passes in {seconds:.3f} s "
+          f"({seconds * 1e3 / samples:.2f} ms a pass), mt_closest {mt} "
+          f"launches, tile kernel {tl}; filter weight per pixel "
+          f"{float(spp.min()):.3f}-{float(spp.max()):.3f}; walls left "
+          f"{left.round(4).tolist()} right {right.round(4).tolist()}; peak "
+          f"device memory {peak / 2**30:.3f} GiB")
+    if not (left[0] > left[1] and right[1] > right[0]):
+        raise AssertionError(f"phase 28: {label}: the walls' colours")
+    if not (0 <= imgs["normal-geom"].min() and imgs["normal-geom"].max() <= 1
+            and imgs["shadow"].max() > 0 and imgs["indirect"].max() > 0
+            and 0 < imgs["toon"].mean() < 1):
+        raise AssertionError(f"phase 28: {label}: a layer is empty or out "
+                             "of range")
+    if samples <= aa_params["aa_samples"]:
+        raise AssertionError(f"phase 28: {label}: the adaptive passes "
+                             "resampled nothing")
+    return imgs, mt, tl, log
+
+
+def _aov_instrumented(accel):
+    """One more adaptive render on `accel` (the flat threshold's, which
+    compacts) with every query timed: per pass kind the launches, live
+    rays, ms and bounds, and the filter splat's ms (CUDA events around
+    add_samples). Returns the first compacted sample's queries, kept whole:
+    mt_closest's calls on brute force, tile_walk's on blocks."""
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    R = _render_module()
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    scene = _cornell(accel, WIDTH, HEIGHT)
+    real_add, splats = F.add_samples, []
+
+    def add(*a, **k):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = real_add(*a, **k)
+        e[1].record()
+        splats.append(e)
+        return out
+
+    per = 2 * (BOUNCES + 1)
+    kept, taken = [], [0]
+
+    def keep(tag):
+        # the first compacted sample's queries
+        take = tag == ("compacted", False) and taken[0] < per
+        taken[0] += take
+        return take
+
+    F.add_samples = add
+    try:
+        with _passes_logged() as (log, state), \
+                _queries_timed(state, keep) as recs:
+            render(scene, cfg, aa=R.AAParams(**AOV_AA_FLAT),
+                   layer_names=AOV_LAYERS, **AOV_FILTER)
+            kept += [r["call"] for r in recs if "call" in r]
+    finally:
+        F.add_samples = real_add
+    rows = _query_rows(recs)
+    _print_queries(f"AOV render ({accel}), instrumented", rows)
+    splat_ms = [a.elapsed_time(z) for a, z in splats]
+    print(f"phase 28: AOV render ({accel}): the filter splat (9 taps, "
+          f"{len(AOV_LAYERS)} layers) {min(splat_ms):.3f}-"
+          f"{max(splat_ms):.3f} ms a pass by CUDA events "
+          f"({sum(splat_ms):.2f} ms over {len(splat_ms)} passes)")
+    return kept
+
+
+def _aov_overhead():
+    """ms a pass of the 1080p Cornell box, Gauss 1.5, with combined alone
+    and with the AOV layers (two passes each, after a warm-up)."""
+    import torch
+    from libyafaray_tpu_torch import make_integrator, render
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    scene = _cornell("brute", WIDTH, HEIGHT)
+    out = {}
+    for names in (("combined",), AOV_LAYERS, ("combined",), AOV_LAYERS):
+        render(scene, cfg, spp=1, layer_names=names, **AOV_FILTER)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(scene, cfg, spp=2, start_sample=1, layer_names=names,
+               **AOV_FILTER)
+        torch.cuda.synchronize()
+        out.setdefault(len(names), []).append(
+            (time.perf_counter() - t0) * 1e3 / 2)
+    base, aov = min(out[1]), min(out[len(AOV_LAYERS)])
+    print(f"phase 28: AOV overhead: a pass with combined alone "
+          f"{base:.2f} ms, with {len(AOV_LAYERS)} layers {aov:.2f} ms "
+          f"(+{100 * (aov - base) / base:.1f}%; best of two runs each)")
+
+
+def _aov_paths():
+    """At 256x256 the adaptive AOV render (the curve's dark detection and
+    the flat threshold) through the kernel path against the plain path:
+    every layer and every noise mask bit for bit on brute force, every
+    layer within `_paths_agree`'s bounds on blocks."""
+    import numpy as np
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    R = _render_module()
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    real_mask = R.compute_resample_mask
+    for (accel, module, name, ref), params in itertools.product((
+            ("brute", MT, "mt_closest", MT.mt_closest_ref),
+            ("blocks", TL, "tile_walk", TL.tile_walk_ref)),
+            (AOV_AA, AOV_AA_FLAT)):
+        aa = R.AAParams(**params)
+        label = f"{accel}, dark detection {params['dark_detection_type']}"
+        small = _cornell(accel, AOV_SMALL, AOV_SMALL)
+        out = []
+        for plain in (False, True):
+            masks = []
+
+            def mask(film, aa_):
+                m = real_mask(film, aa_)
+                masks.append(m.cpu().numpy())
+                return m
+
+            R.compute_resample_mask = mask
+            try:
+                with (_plain(module, name, ref) if plain
+                      else contextlib.nullcontext()):
+                    film = render(small, cfg, aa=aa, layer_names=AOV_LAYERS,
+                                  **AOV_FILTER)
+            finally:
+                R.compute_resample_mask = real_mask
+            out.append((_aov_images(film, label), masks))
+        (got, m_k), (want, m_p) = out
+        flagged = [round(float(m.mean()), 4) for m in m_k]
+        if accel == "brute":
+            diff = max(float(np.abs(got[k] - want[k]).max()) for k in got)
+            masks_equal = len(m_k) == len(m_p) and all(
+                np.array_equal(a, b) for a, b in zip(m_k, m_p))
+            print(f"phase 28: {label} {AOV_SMALL}x{AOV_SMALL}, kernel "
+                  f"path against plain path: {len(got)} layers, max |diff| "
+                  f"{diff:.3g}; {len(m_k)} noise masks (flagged "
+                  f"{flagged}) equal: {masks_equal}")
+            if diff != 0.0 or not masks_equal:
+                raise AssertionError("phase 28: the kernel path is not the "
+                                     "plain path bit for bit")
+        else:
+            same = [float((a == b).mean()) for a, b in zip(m_k, m_p)]
+            print(f"phase 28: {label} {AOV_SMALL}x{AOV_SMALL}, kernel path "
+                  f"against plain path, every layer (flagged {flagged}, "
+                  f"masks equal on {same} of pixels):")
+            for k in got:
+                if np.abs(want[k]).max() > 0:
+                    _paths_agree("28", got[k], want[k])
+                elif np.abs(got[k]).max() > 0:
+                    raise AssertionError(f"phase 28: {label}: layer {k} is "
+                                         "empty on the plain path only")
+
+
+def _ao_debug_resume():
+    """At 1080p on brute force: directlighting with ambient occlusion (its
+    AO_SAMPLES shadow queries per pass held bit for bit against
+    mt_closest_ref and timed beside their bounds), one debug pass, and a
+    2 + 2-spp render saved and resumed from its film file against 4 spp.
+    Returns (launches by path, the AO queries' per-launch numbers)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    scene = _cornell("brute", WIDTH, HEIGHT)
+    launches = {}
+    dl = {"type": "directlighting", "bounces": BOUNCES}
+    imgs = {}
+    for label, pm in (("directlighting", dl),
+                      ("directlighting with AO",
+                       dict(dl, do_AO=True, AO_samples=AO_SAMPLES))):
+        cfg = make_integrator(pm)
+        names = ("combined", "ao") if cfg.use_ao else ("combined",)
+        render(scene, cfg, spp=1, layer_names=names)      # warm-up
+        torch.cuda.synchronize()
+        MT.launches = 0
+        t0 = time.perf_counter()
+        film = render(scene, cfg, spp=2, layer_names=names)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        launches[label] = MT.launches
+        imgs[label] = {k: F.resolve(film, k).cpu().numpy() for k in names}
+        print(f"phase 28: {label} {WIDTH}x{HEIGHT} 2 spp: {ms:.2f} ms a "
+              f"pass, mt_closest {MT.launches} launches; image mean "
+              f"{float(imgs[label]['combined'][..., :3].mean()):.6f}")
+    extra = launches["directlighting with AO"] - launches["directlighting"]
+    ao = imgs["directlighting with AO"]["ao"]
+    print(f"phase 28: ambient occlusion: {extra} more launches over 2 "
+          f"passes, AO layer mean {float(ao.mean()):.4f}, min "
+          f"{float(ao.min()):.4f}")
+    if extra != 2 * AO_SAMPLES or not 0 < float(ao.mean()) < 1:
+        raise AssertionError("phase 28: the AO term's queries or layer")
+    if not (imgs["directlighting with AO"]["combined"][..., :3].mean()
+            > imgs["directlighting"]["combined"][..., :3].mean()):
+        raise AssertionError("phase 28: AO adds no light")
+    cfg = make_integrator(dict(dl, do_AO=True, AO_samples=AO_SAMPLES))
+    with _mt_captured() as (calls, _):
+        with _passes_logged() as (_, state), \
+                _queries_timed(state) as recs:
+            render(scene, cfg, spp=1, start_sample=2)
+    ao_calls = [c for c, r in zip(calls, recs) if r["tag"][1]]
+    if len(ao_calls) != AO_SAMPLES:
+        raise AssertionError(f"phase 28: {len(ao_calls)} AO queries a pass")
+    per_ao = _hold_queries("28", ao_calls, [f"AO shadow query {i}"
+                                            for i in range(AO_SAMPLES)])
+
+    cfg = make_integrator({"type": "debug"})
+    MT.launches = 0
+    t0 = time.perf_counter()
+    film = render(scene, cfg, spp=1)
+    torch.cuda.synchronize()
+    launches["debug"] = MT.launches
+    img = F.resolve(film).cpu().numpy()
+    print(f"phase 28: debug integrator {WIDTH}x{HEIGHT} one pass: "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms, mt_closest "
+          f"{MT.launches} launches, alpha mean {float(img[..., 3].mean()):.4f}"
+          f", rgb {float(img[..., :3].min()):.4f}-"
+          f"{float(img[..., :3].max()):.4f}")
+    if MT.launches != 1 or not (0 <= img.min() and img.max() <= 1
+                                and img[..., 3].mean() > 0.9):
+        raise AssertionError("phase 28: the debug pass")
+
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    kw = dict(layer_names=("combined", "normal-geom", "indirect"),
+              **AOV_FILTER)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cornell.film.npz")
+        MT.launches = 0
+        render(scene, cfg, spp=2, film_path=path, film_load_save_mode="save",
+               **kw)
+        resumed = render(scene, cfg, spp=2, film_path=path,
+                         film_load_save_mode="load", **kw)
+        launches["resume"] = MT.launches
+        straight = render(scene, cfg, spp=4, **kw)
+        equal = all(torch.equal(resumed.layers[k], straight.layers[k])
+                    for k in straight.layers) and torch.equal(
+            resumed.weights, straight.weights)
+        size = os.path.getsize(path)
+    print(f"phase 28: 2 + 2 spp saved ({size / 2**20:.1f} MiB film file) and "
+          f"resumed against 4 spp at {WIDTH}x{HEIGHT}: equal bit for bit: "
+          f"{equal}; mt_closest {launches['resume']} launches")
+    if not equal or launches["resume"] != 4 * 2 * (BOUNCES + 1):
+        raise AssertionError("phase 28: the resumed render differs")
+    return launches, per_ao
+
+
+def phase28_aov():
+    """The render loop as users drive it: the adaptive, Gauss-filtered AOV
+    render of the Cornell box at 1920x1080 on both accelerators, ambient
+    occlusion, the debug integrator and a resumed render; kernel path
+    against plain path at 256x256. Returns (mt_closest launches by path,
+    tiles_traverse launches, the compacted and AO queries' per-launch
+    numbers, those of the compacted queries on blocks)."""
+    import numpy as np
+    launches = {}
+    imgs, launches["aov brute"], _, _ = _aov_render("brute")
+    imgs_b, _, tile_launches, _ = _aov_render("blocks")
+    print("phase 28: the AOV render on blocks against brute force, every "
+          "layer:")
+    for k in imgs:
+        if np.abs(imgs[k]).max() > 0:
+            _paths_agree("28", imgs_b[k], imgs[k])
+    _, launches["aov brute flat"], _, log = _aov_render("brute", AOV_AA_FLAT)
+    if not any(e["kind"] == "compacted" for e in log):
+        raise AssertionError("phase 28: no adaptive pass was compacted")
+    compacted = _aov_instrumented("brute")
+    per_launch = {"compacted": _hold_queries(
+        "28", compacted, [f"first compacted sample, query {i}"
+                          for i in range(len(compacted))])}
+    walks = _aov_instrumented("blocks")
+    per_walk = _hold_walks("28", walks, [
+        f"blocks, first compacted sample, query {i}"
+        for i in range(len(walks))])
+    _aov_overhead()
+    _aov_paths()
+    more, per_launch["ao"] = _ao_debug_resume()
+    launches.update(more)
+    return launches, tile_launches, per_launch, per_walk
 
 
 def _probe():
@@ -3256,6 +3888,7 @@ def main() -> int:
     portal_launches = _timed("25", phase25_portal)
     proc_launches = _timed("26", phase26_procedural)
     vol_launches, mt_regions = _timed("27", phase27_volumes)
+    aov_launches, aov_tiles, aov_per, aov_walk = _timed("28", phase28_aov)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -3277,7 +3910,8 @@ def main() -> int:
                             mt_caustic["max_abs_err"],
                             mt_volume["max_abs_err"],
                             mt_walk["max_abs_err"],
-                            mt_regions["max_abs_err"]),
+                            mt_regions["max_abs_err"],
+                            *(v["max_abs_err"] for v in aov_per.values())),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -3301,7 +3935,18 @@ def main() -> int:
              "procedural cornell forward 1920x1080, phase 26":
                  proc_launches["brute"],
              **{f"volume regions 512x512 {label}, phase 27": n
-                for label, n in vol_launches.items()}},
+                for label, n in vol_launches.items()},
+             "cornell adaptive AOV render 1920x1080 (4 + 3 x 2 samples, "
+             "gauss 1.5, 17 layers), phase 28": aov_launches["aov brute"],
+             "cornell adaptive AOV render 1920x1080, flat threshold (its "
+             "later passes compacted), phase 28":
+                 aov_launches["aov brute flat"],
+             "cornell directlighting with AO (8 samples) 1920x1080 2 spp, "
+             "phase 28": aov_launches["directlighting with AO"],
+             "cornell debug integrator 1920x1080 one pass, phase 28":
+                 aov_launches["debug"],
+             "cornell 2 + 2 spp saved and resumed 1920x1080, phase 28":
+                 aov_launches["resume"]},
          "per_launch_by_path": {
              "materials cornell, closest-shadow queries of the "
              "transparent walk, phase 24": mt_walk,
@@ -3309,7 +3954,9 @@ def main() -> int:
                  mt_caustic,
              "volume, one pass's queries, phase 20": mt_volume,
              "volume regions, in-medium shadow queries of one pass "
-             "(exp, grid, sky), phase 27": mt_regions},
+             "(exp, grid, sky), phase 27": mt_regions,
+             **{f"cornell 1080p, {AOV_PER_LAUNCH[k]}, phase 28": v
+                for k, v in aov_per.items()}},
          "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
                      "mean per launch",
          "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],
@@ -3324,7 +3971,8 @@ def main() -> int:
          "cover_order_replaces": "libyafaray_tpu/accel/tiles.py:300-306 "
                                  "and :158-161",
          "launches": forest_launches,
-         "max_abs_err": max(tl_err, arm_err, tl_walk_err),
+         "max_abs_err": max(tl_err, arm_err, tl_walk_err,
+                            aov_walk["max_abs_err"]),
          "ms": arm_times[main_arm]["ms"],
          "plain_ms": arm_times[main_arm]["plain_ms"],
          "bound_ms": arm_times[main_arm]["bound_ms"],
@@ -3348,7 +3996,12 @@ def main() -> int:
              "materials cornell forward 1920x1080 on blocks (transparent "
              "shadows), phase 24": mats_launches["forward_blocks"],
              "procedural cornell forward 1920x1080 on blocks, phase 26":
-                 proc_launches["blocks"]}},
+                 proc_launches["blocks"],
+             "cornell adaptive AOV render 1920x1080 on blocks, phase 28":
+                 aov_tiles},
+         "per_launch_by_path": {
+             "cornell 1080p on blocks, the first compacted sample's "
+             "queries, phase 28": aov_walk}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

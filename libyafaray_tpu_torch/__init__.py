@@ -12,9 +12,13 @@ JAX package, transparent shadows, chromatic dispersion and the Beer and
 sss glass interiors, every procedural texture type over its noise bases,
 orco coordinates, every volume region type and the emission,
 single-scatter (with its attenuation grid and adaptive marching) and sky
-volume integrators. Still unported, and raising NotImplementedError:
-ambient occlusion, render views, the other surface integrators (photon
-mapping, SPPM, bidirectional, debug), AOV layers and the `bvh`
+volume integrators, ambient occlusion and the debug integrator. `render`
+runs the multi-pass loop of libYafaRay's clients: adaptive AA over
+compacted wavefronts of the flagged pixels, the reconstruction filters,
+every AOV layer of the JAX package but `adv-radiance`, film save, resume
+and merge in its `.film.npz` format; `io` writes and reads its image
+files. Still unported, and raising NotImplementedError: render views,
+the photon-mapping, SPPM and bidirectional integrators and the `bvh`
 accelerator. Torch autograd runs through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an

@@ -1,16 +1,45 @@
-"""The wavelength-to-RGB fit of chromatic dispersion.
+"""The sRGB curves and the wavelength-to-RGB fit of chromatic dispersion.
 
-Counterpart of `wl_to_rgb` in `libyafaray_tpu/color.py` (the reference's
-spectrum::wl2Rgb, src/color/spectrum.cc, there as a smooth analytic fit of
-its CIE table), the one colour function the port's integrator calls: the
-first dispersive refraction of a path tints its throughput by
-3 * wl_to_rgb(wavelength).
+Counterpart of the functions of `libyafaray_tpu/color.py` that the port
+calls: the sRGB encode and decode of the image writers and readers (the
+reference's ColorSpace conversions, include/color/color.h) and the
+wavelength-to-RGB fit (spectrum::wl2Rgb, src/color/spectrum.cc, as a
+smooth analytic fit of its CIE table): the first dispersive refraction of
+a path tints its throughput by 3 * wl_to_rgb(wavelength). The rest of the
+JAX module (luminance, XYZ, the output-space dispatch) comes with the
+first slice that calls it.
+
+The sRGB curves raise to a float32 power in float64 and round once. XLA's
+float32 pow is not torch's: computed in float32, torch's differs from it by
+an ulp on 1.5% of inputs, enough to move an 8-bit value now and then; the
+rounded float64 power agrees with it on every 8-bit level and gives the
+same 8-bit output on a dense grid of [0, 1] (`tests/test_torch_film.py`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+
+def _pow(c: Tensor, e: float) -> Tensor:
+    """c ** e for float32 c and the float32 exponent nearest e, computed in
+    float64 and rounded once."""
+    return torch.pow(c.double(), float(np.float32(e))).to(c.dtype)
+
+
+def linear_to_srgb(c: Tensor) -> Tensor:
+    c = torch.clamp_min(c, 0.0)
+    return torch.where(c <= 0.0031308, 12.92 * c,
+                       1.055 * _pow(c, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(c: Tensor) -> Tensor:
+    c = torch.clamp_min(c, 0.0)
+    return torch.where(c <= 0.04045, c / 12.92,
+                       _pow((c + 0.055) / 1.055, 2.4))
+
 
 # (weight, centre nm, width below, width above) of each Gaussian lobe
 _R = ((1.056, 599.8, 37.9, 31.0), (0.362, 442.0, 16.0, 26.7),

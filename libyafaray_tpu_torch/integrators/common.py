@@ -84,14 +84,20 @@ def trace_shadow(scene: SceneData, p: Tensor, prim: Tensor, wi: Tensor,
 
 def estimate_one_light(scene: SceneData, sp, wo: Tensor, li: Tensor,
                        u1: Tensor, u2: Tensor, transparent_shadows: int = 0,
-                       time: Optional[Tensor] = None) -> Tensor:
+                       time: Optional[Tensor] = None,
+                       with_shadow_info: bool = False,
+                       with_family_split: bool = False):
     """One-sample NEE toward light index `li` with MIS against BSDF sampling
     (areaLightSampleLight analogue), its shadow ray through up to
     `transparent_shadows` transparent surfaces. Returns the contribution
-    [N,3]."""
+    [N,3]; with_shadow_info also the unshadowed contribution (the shadow
+    layer accumulates unoccluded - occluded), with_family_split also a dict
+    of the per-BSDF-family and per-technique contributions of the adv-* and
+    debug-light-estimation-* layers: (contrib[, unshadowed][, families])."""
     ls = L.sample_light(scene, li, sp.p, sp.n, u1, u2)
     cos_s = vec.dot(ls.wi, sp.n)
-    f, bsdf_pdf = B.eval_bsdf(scene, sp, wo, ls.wi)
+    ev = B.eval_bsdf(scene, sp, wo, ls.wi, split=with_family_split)
+    f, bsdf_pdf = ev[:2]
     potential = ls.valid & sp.valid & (torch.amax(f, dim=-1) > 0.0)
     casts = (scene.lights.flags[li.long()] & L.FLAG_CAST_SHADOWS) != 0
     shadow_needed = potential & casts
@@ -101,7 +107,23 @@ def estimate_one_light(scene: SceneData, sp, wo: Tensor, li: Tensor,
     mis_w = torch.where(ls.is_dirac, 1.0,
                         vec.power_heuristic(ls.pdf, bsdf_pdf))
     k = ls.radiance * (torch.abs(cos_s) * mis_w / ls.pdf)[..., None]
-    return torch.where(potential[..., None], f * k * tr, 0.0)
+    base = f * k
+    pot = potential[..., None]
+    contrib = torch.where(pot, base * tr, 0.0)
+    if not (with_shadow_info or with_family_split):
+        return contrib
+    out = (contrib,)
+    if with_shadow_info:
+        out += (torch.where(pot, base, 0.0),)
+    if with_family_split:
+        fam = {name: torch.where(pot, fam_f * k * tr, 0.0)
+               for name, fam_f in ev[2].items()}
+        fam["diffuse-noshadow"] = torch.where(pot, ev[2]["diffuse"] * k, 0.0)
+        dirac = ls.is_dirac[..., None]
+        fam["light-dirac"] = torch.where(dirac, contrib, 0.0)
+        fam["light-sampling"] = torch.where(dirac, 0.0, contrib)
+        out += (fam,)
+    return out
 
 
 def emitted_radiance(scene: SceneData, sp, wo: Tensor) -> Tensor:

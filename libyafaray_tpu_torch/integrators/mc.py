@@ -16,14 +16,22 @@ scattered, along its segments there. In a scene with volume regions the
 camera segment ends with the volume integrator (`integrators/volume.py`:
 single scatter, with the attenuation grid and adaptive marching, or
 emission), and under the sky integrator with the atmosphere, regions or
-not. Ambient occlusion (`do_AO`) and the photon, SPPM, bidirectional and
-debug integrators still raise NotImplementedError.
+not. Ambient occlusion (`do_AO`) adds its term at the first hit under
+every integrator kind, as in the JAX package, and the debug integrator
+renders the shading normal. `integrate` returns the AOV layers that
+`cfg.aov_layers` names beside the radiance: the first-hit layers, and the
+accumulated ones (env, shadow, indirect and its first-lobe splits, the
+per-family direct splits, reflect and refract, the index-mask composites,
+the volume parts). Every accumulator is gated on `cfg.aov_layers`, so a
+render of `combined` alone runs what it ran without them. The photon,
+SPPM and bidirectional integrators still raise NotImplementedError (and
+`adv-radiance`, written under photon mapping only, stays empty).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -39,14 +47,14 @@ from ..ops import intersect as I
 from ..ops import surface as S
 from ..ops.fast_grad import take
 from ..scene_types import SceneData
+from ..textures.eval import mean_rgb
 from . import common
 
 Tensor = torch.Tensor
 
-_KINDS = ("directlighting", "pathtracing")
+_KINDS = ("directlighting", "pathtracing", "DebugIntegrator", "debug")
 # integrator types of the JAX package that are not ported yet
-_KINDS_JAX = ("DebugIntegrator", "debug", "photonmapping", "SPPM",
-              "bidirectional")
+_KINDS_JAX = ("photonmapping", "SPPM", "bidirectional")
 
 
 @dataclass(frozen=True)
@@ -74,6 +82,18 @@ class IntegratorConfig:
     sky_alpha: float = 0.5
     sky_turbidity: float = 3.0
     sky_scale: float = 0.1
+    # ambient occlusion ("do_AO", TiledIntegrator::sampleAmbientOcclusion):
+    # its samples, ray length and colour
+    use_ao: bool = False
+    ao_samples: int = 8
+    ao_distance: float = 1.0
+    ao_color: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    # the AOV layers to return beside combined (`render` sets them from its
+    # layer_names), and the index-mask layers' material / object index
+    aov_layers: Tuple[str, ...] = ()
+    mask_mat_index: int = 0
+    mask_obj_index: int = 0
+    mask_invert: bool = False
 
 
 _VOL_KINDS = {"EmissionIntegrator": "emission",
@@ -94,8 +114,6 @@ def make_integrator(pm: dict) -> IntegratorConfig:
         raise _unsupported(f"integrator type {kind!r}")
     if kind not in _KINDS:
         raise KeyError(f"integrator: unknown type {kind!r}")
-    if pm.get_bool("do_AO", False):
-        raise _unsupported("ambient occlusion (do_AO)")
     return IntegratorConfig(
         kind=kind,
         bounces=pm.get_int("bounces", pm.get_int("raydepth", 4)),
@@ -114,21 +132,80 @@ def make_integrator(pm: dict) -> IntegratorConfig:
         vol_substeps=pm.get_int("adaptive_substeps", 8),
         sky_alpha=pm.get_float("alpha", 0.5),
         sky_turbidity=pm.get_float("turbidity", 3.0),
-        sky_scale=pm.get_float("sigma_t", 0.1))
+        sky_scale=pm.get_float("sigma_t", 0.1),
+        use_ao=pm.get_bool("do_AO", False),
+        ao_samples=pm.get_int("AO_samples", 8),
+        ao_distance=pm.get_float("AO_distance", 1.0),
+        ao_color=tuple(pm.get_color("AO_color", (1, 1, 1))[:3].tolist()),
+        mask_mat_index=pm.get_int("layer_mask_mat_index", 0),
+        mask_obj_index=pm.get_int("layer_mask_obj_index", 0),
+        mask_invert=pm.get_bool("layer_mask_invert", False))
+
+
+def _sample_ambient_occlusion(scene: SceneData, cfg: IntegratorConfig, sp,
+                              pixel_id: Tensor, sample_idx) -> Tensor:
+    """The AO estimate at the hits (TiledIntegrator::sampleAmbientOcclusion,
+    integrator_tiled.cc:644): `ao_samples` cosine-distributed shadow rays
+    of length `ao_distance`, each a query of its own."""
+    col = torch.zeros_like(sp.p)
+    ao_col = torch.tensor(cfg.ao_color, dtype=torch.float32,
+                          device=sp.p.device)
+    dist = torch.full(sp.t.shape, cfg.ao_distance, dtype=torch.float32,
+                      device=sp.p.device)
+    for s in range(cfg.ao_samples):
+        u1, u2 = sampler.rand2(pixel_id, sample_idx, 900 + s, 0)
+        wi = vec.from_local(vec.cosine_sample_hemisphere(u1, u2), sp.nu,
+                            sp.nv, sp.n)
+        tr = common.trace_shadow(scene, sp.p, sp.prim, wi, dist,
+                                 cfg.transparent_shadows, needed=sp.valid)
+        col = col + ao_col * tr / cfg.ao_samples
+    return torch.where(sp.valid[..., None], col, 0.0)
+
+
+# the AOV layers of each accumulator (JAX integrators/mc.py:277-309)
+_IND_LAYERS = ("indirect", "diffuse-indirect", "glossy-indirect",
+               "adv-indirect", "adv-diffuse-indirect", "adv-glossy-indirect",
+               "adv-trans-indirect", "adv-subsurface-indirect")
+_SHADOW_LAYERS = ("shadow", "mat-index-mask-shadow", "obj-index-mask-shadow")
+_FAMILY_LAYERS = ("diffuse", "diffuse-noshadow", "adv-glossy", "adv-trans",
+                  "adv-subsurface", "debug-light-estimation-light-dirac",
+                  "debug-light-estimation-light-sampling")
+_FAMILIES = ("diffuse", "glossy", "trans", "subsurface", "diffuse-noshadow",
+             "light-dirac", "light-sampling")
+# first-bounce lobe splits of indirect; lobe ids: 0 delta reflect, 1 delta
+# transmit, 2 microfacet, 3 diffuse, 4 translucent
+_LOBE_SPLITS = (("diffuse-indirect", (3,)), ("adv-diffuse-indirect", (3,)),
+                ("glossy-indirect", (2,)), ("adv-glossy-indirect", (2,)),
+                ("adv-trans-indirect", (1,)),
+                ("adv-subsurface-indirect", (4,)),
+                # light arriving through a first specular / delta bounce
+                ("adv-indirect", (0, 1)))
+_FAMILY_NAMES = (("diffuse", "diffuse"),
+                 ("diffuse-noshadow", "diffuse-noshadow"),
+                 ("glossy", "adv-glossy"), ("trans", "adv-trans"),
+                 ("subsurface", "adv-subsurface"),
+                 ("light-dirac", "debug-light-estimation-light-dirac"),
+                 ("light-sampling", "debug-light-estimation-light-sampling"))
+_VOLPART_LAYERS = ("adv-surface-integration", "adv-volume-integration",
+                   "adv-volume-transmittance")
 
 
 def integrate(scene: SceneData, cfg: IntegratorConfig,
               ray_o: Tensor, ray_d: Tensor, ray_valid: Tensor,
-              pixel_id: Tensor, sample_idx) -> Tuple[Tensor, Tensor]:
+              pixel_id: Tensor, sample_idx
+              ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
     """Trace one wavefront of camera rays to completion.
 
-    Returns (rgb f32[N,3], alpha f32[N])."""
+    Returns (rgb f32[N,3], alpha f32[N], {AOV layer: f32[N,C]})."""
+    if cfg.kind in ("debug", "DebugIntegrator"):
+        return _integrate_debug(scene, ray_o, ray_d, ray_valid)
     n = ray_o.shape[0]
     dev = ray_o.device
     mats = scene.materials
     num_lights = scene.lights.num_lights
     direct_only = cfg.kind == "directlighting"
-    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    zeros3 = lambda: torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    radiance = zeros3()
     throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
     alive = ray_valid
     alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -154,6 +231,28 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     track_medium = (mats.has_beer or mats.has_sss) and not direct_only
     if track_medium:
         medium_mat = torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    # the accumulated AOV layers, each only when a layer of it is asked
+    # for: env, shadow and indirect with its first-lobe splits accumulate
+    # during the walk (the reference's layer_definitions.h:36-111)
+    layers = cfg.aov_layers
+    want_env = "env" in layers
+    want_ind = any(x in layers for x in _IND_LAYERS)
+    want_shadow = any(x in layers for x in _SHADOW_LAYERS)
+    # per-BSDF-family and per-technique direct-light splits at the first
+    # hit (ColorLayerAccum in doLightEstimation, integrator_montecarlo.cc)
+    want_family = any(x in layers for x in _FAMILY_LAYERS)
+    want_matsamp = "debug-light-estimation-mat-sampling" in layers
+    aux: Dict[str, Tensor] = {}
+    env_acc = zeros3() if (want_env or want_ind) else None
+    shadow_acc = zeros3() if want_shadow else None
+    fam_acc = {k: zeros3() for k in _FAMILIES} if want_family else None
+    matsamp_acc = zeros3() if want_matsamp else None
+    env_d0 = None
+    # the first bounce's lobe, read by the indirect lobe splits (set at
+    # depth 0; -1 where no bounce was taken)
+    first_lobe = (torch.full((n,), -1, dtype=torch.int32, device=dev)
+                  if want_ind else None)
 
     max_depth = cfg.bounces + 1
     for depth in range(max_depth):
@@ -218,9 +317,15 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             bg_mis = torch.where(prev_delta, 1.0, vec.power_heuristic(
                 prev_pdf, L.background_pdf(scene, d)))
             bg_add = bg_add * bg_mis[..., None]
-        radiance = radiance + torch.where(escaped[..., None], bg_add, 0.0)
+        bg_add = torch.where(escaped[..., None], bg_add, 0.0)
+        radiance = radiance + bg_add
+        if env_acc is not None:
+            env_acc = env_acc + bg_add
         if depth == 0:
+            aux = _first_hit_layers(scene, cfg, sp, d)
             first_hit_t = torch.where(hit.valid, hit.t, first_hit_t)
+            first_mat_id, first_obj_id = sp.mat_id, sp.obj_id
+            first_valid = sp.valid
         alpha = torch.where(hit.valid & (depth == 0), 1.0, alpha)
         # lanes that bounced at least once keep alpha 1 when they escape
         if depth > 0:
@@ -231,14 +336,22 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         mis_w = common.hit_light_mis_weight(scene, sp, prev_p, prev_pdf,
                                             prev_delta)
         emit = common.emitted_radiance(scene, sp, wo)
-        radiance = radiance + torch.where(
+        emit_add = torch.where(
             alive[..., None], throughput * emit * mis_w[..., None], 0.0)
+        radiance = radiance + emit_add
+        if want_matsamp and depth > 0:
+            # the material-sampling share of the light estimate: emission
+            # reached by a sampled non-delta bounce, MIS-weighted
+            matsamp_acc = matsamp_acc + torch.where(
+                (~prev_delta)[..., None], emit_add, 0.0)
         # area-light quads (face_obj == -1) are pure emitters
         alive = alive & ~((sp.light_id >= 0) & (sp.obj_id < 0))
 
         # next-event estimation: every light, every bounce (the JAX
         # package's default); direct lighting honours each light's sample
         # count, the path tracer takes one sample per light
+        want_si = want_shadow and depth == 0
+        want_fs = want_family and depth == 0
         for li_static in range(num_lights):
             ns = 1
             if direct_only and scene.lights.samples_static:
@@ -247,11 +360,42 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             for k in range(ns):
                 u1, u2 = sampler.rand2(pixel_id, sample_idx, depth,
                                        10 + 2 * li_static + 100 * k)
-                c = common.estimate_one_light(
+                res = common.estimate_one_light(
                     scene, sp, wo, li, u1, u2, cfg.transparent_shadows,
-                    time=ray_time)
+                    time=ray_time, with_shadow_info=want_si,
+                    with_family_split=want_fs)
+                c = res[0] if (want_si or want_fs) else res
+                wt = 1.0 / ns
                 radiance = radiance + torch.where(
-                    alive[..., None], throughput * c * (1.0 / ns), 0.0)
+                    alive[..., None], throughput * c * wt, 0.0)
+                if want_si:
+                    shadow_acc = shadow_acc + torch.where(
+                        alive[..., None], (res[1] - c) * wt, 0.0)
+                if want_fs:
+                    for k_ in fam_acc:
+                        fam_acc[k_] = fam_acc[k_] + torch.where(
+                            alive[..., None], throughput * res[-1][k_] * wt,
+                            0.0)
+
+        if cfg.use_ao and depth == 0:
+            # ambient occlusion at the first hit, under every integrator
+            # kind as in the JAX package (the reference's direct-light
+            # option)
+            ao = _sample_ambient_occlusion(scene, cfg, sp, pixel_id,
+                                           sample_idx)
+            mp = B.resolve_mp(scene, sp)
+            radiance = radiance + torch.where(
+                alive[..., None],
+                throughput * ao * mp.diffuse_color / math.pi, 0.0)
+            for name in ("ao", "ao-clay"):
+                if name in layers:
+                    aux[name] = torch.where(alive[..., None], ao, 0.0)
+
+        if depth == 0:
+            # what arrives after the first hit is the first bounce's: the
+            # snapshot for indirect, reflect and refract
+            radiance_d0 = radiance
+            env_d0 = env_acc
 
         if depth == max_depth - 1:
             break
@@ -260,6 +404,16 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
         r = sampler.rand4(pixel_id, sample_idx, depth, 2)
         u1, u2, u3, u_rr = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
         ms = B.sample_bsdf(scene, sp, wo, u1, u2, u3, wl=path_wl)
+        if depth == 0 and layers:
+            transmitted = vec.dot(ms.wi, sp.ng) * vec.dot(wo, sp.ng) < 0.0
+            side = torch.where(transmitted, 2, 1)
+            path_kind = torch.where(alive & ms.valid & ms.is_delta, side, 0)
+            if want_ind:
+                first_lobe = torch.where(alive & ms.valid, ms.lobe, -1)
+            # ReflectAll / RefractAll: any non-diffuse first bounce (delta
+            # or microfacet), split by side
+            nondiff = alive & ms.valid & (ms.lobe != 3) & (ms.lobe != 4)
+            path_kind_all = torch.where(nondiff, side, 0)
         cont = alive & ms.valid
         if direct_only or cfg.no_recursive:
             # only delta continuation (recursiveRaytrace analogue)
@@ -307,11 +461,205 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
             prev_prim = torch.where(scat, -1, prev_prim)
             prev_delta = prev_delta | scat
 
+    if want_env:
+        aux["env"] = env_acc
+    if want_shadow:
+        aux["shadow"] = shadow_acc
+    if want_ind:
+        # indirect: everything added after the first hit but the
+        # background's share, so combined == radiance_d0 + env_after_d0 +
+        # indirect (the closure tests/test_render.py pins for JAX)
+        indirect = radiance - radiance_d0 - (env_acc - env_d0)
+        if "indirect" in layers:
+            aux["indirect"] = indirect
+        for name, lobes in _LOBE_SPLITS:
+            if name in layers:
+                m = torch.zeros_like(first_lobe, dtype=torch.bool)
+                for lb in lobes:
+                    m = m | (first_lobe == lb)
+                aux[name] = torch.where(m[..., None], indirect, 0.0)
+    if max_depth > 1 and any(x in layers for x in (
+            "reflect", "refract", "adv-reflect", "adv-refract")):
+        # reflect / refract: any non-diffuse first bounce (ReflectAll /
+        # RefractAll); adv-reflect / adv-refract: the delta-only pair
+        extra = radiance - radiance_d0
+        for name, kind, which in (("reflect", path_kind_all, 1),
+                                  ("refract", path_kind_all, 2),
+                                  ("adv-reflect", path_kind, 1),
+                                  ("adv-refract", path_kind, 2)):
+            if name in layers:
+                aux[name] = torch.where((kind == which)[..., None], extra,
+                                        0.0)
+    if want_family:
+        for src, name in _FAMILY_NAMES:
+            if name in layers:
+                aux[name] = fam_acc[src]
+    if want_matsamp:
+        aux["debug-light-estimation-mat-sampling"] = matsamp_acc
+    # the index-mask composites (MatIndexMaskAll / Shadow)
+    for prefix, ids, want_idx in (("mat", first_mat_id, cfg.mask_mat_index),
+                                  ("obj", first_obj_id, cfg.mask_obj_index)):
+        m_all = f"{prefix}-index-mask-all"
+        m_sh = f"{prefix}-index-mask-shadow"
+        if m_all in layers or m_sh in layers:
+            msk = first_valid & (ids == want_idx)
+            if cfg.mask_invert:
+                msk = first_valid & ~msk
+            if m_all in layers:
+                aux[m_all] = torch.where(msk[..., None], radiance, 0.0)
+            if m_sh in layers:
+                aux[m_sh] = torch.where(msk[..., None], shadow_acc, 0.0)
+
+    # the camera segment through the volume regions or the atmosphere
+    # (applyVolumetricEffects, integrator_tiled.cc):
+    # L = T(segment) * L_surface + L_volume(segment)
+    want_volparts = any(x in layers for x in _VOLPART_LAYERS)
+    if want_volparts:
+        aux["adv-surface-integration"] = radiance
     if (scene.volumes is not None or cfg.vol_kind == "sky") \
             and cfg.vol_kind != "none":
-        # the camera segment through the volume regions or the atmosphere
-        # (applyVolumetricEffects, integrator_tiled.cc)
         from .volume import apply_volumetric
-        radiance = apply_volumetric(scene, cfg, radiance, ray_o, ray_d,
-                                    first_hit_t, pixel_id, sample_idx)
-    return radiance, torch.clamp(alpha, 0.0, 1.0)
+        if want_volparts:
+            tr_seg, vol_add = apply_volumetric(
+                scene, cfg, radiance, ray_o, ray_d, first_hit_t, pixel_id,
+                sample_idx, return_parts=True)
+            radiance = tr_seg * radiance + vol_add
+            aux["adv-volume-integration"] = vol_add
+            aux["adv-volume-transmittance"] = mean_rgb(
+                tr_seg * torch.ones((n, 3), device=dev))[..., None]
+        else:
+            radiance = apply_volumetric(scene, cfg, radiance, ray_o, ray_d,
+                                        first_hit_t, pixel_id, sample_idx)
+    elif want_volparts:
+        aux["adv-volume-integration"] = zeros3()
+        aux["adv-volume-transmittance"] = torch.ones(
+            (n, 1), dtype=torch.float32, device=dev)
+    return radiance, torch.clamp(alpha, 0.0, 1.0), aux
+
+
+def _first_hit_layers(scene: SceneData, cfg: IntegratorConfig, sp,
+                      d: Tensor) -> Dict[str, Tensor]:
+    """The AOV layers read at the primary hit (generateCommonLayers,
+    integrator_tiled.cc:410)."""
+    out: Dict[str, Tensor] = {}
+    if not cfg.aov_layers:
+        return out
+    v = sp.valid[..., None]
+    zero = lambda x: torch.zeros_like(x[..., :1])
+    mp = None
+
+    def params():
+        nonlocal mp
+        if mp is None:
+            mp = B.resolve_mp(scene, sp)
+        return mp
+
+    def unit(x):        # a direction mapped to [0, 1]
+        return x * 0.5 + 0.5
+
+    for name in cfg.aov_layers:
+        val = None
+        if name in ("normal-smooth", "debug-normal-smooth"):
+            val = unit(sp.n)
+        elif name in ("normal-geom", "debug-normal-geom"):
+            val = unit(sp.ng)
+        elif name in ("z-depth-abs", "z-depth-norm", "mist"):
+            val = sp.t[..., None]          # z-depth-norm is normalized later
+        elif name in ("uv", "debug-uv"):
+            val = torch.cat([sp.uv, zero(sp.uv)], -1)
+        elif name in ("albedo", "adv-diffuse-color"):
+            val = params().diffuse_color
+        elif name == "mat-index-abs":
+            val = sp.mat_id[..., None].to(torch.float32)
+        elif name == "obj-index-abs":
+            val = sp.obj_id[..., None].to(torch.float32)
+        elif name == "emit":
+            val = common.emitted_radiance(scene, sp, -d)
+        elif name in ("debug-nu", "debug-dsdu"):
+            # the shading-space tangents dSdU / dSdV are the bump-mapped
+            # frame's nu / nv
+            val = unit(sp.nu)
+        elif name in ("debug-nv", "debug-dsdv"):
+            val = unit(sp.nv)
+        elif name == "debug-dpdu":
+            val = unit(vec.normalize(sp.dp_du))
+        elif name == "debug-dpdv":
+            val = unit(vec.normalize(sp.dp_dv))
+        elif name == "debug-dpdx" and sp.dp_dx is not None:
+            val = unit(vec.normalize(sp.dp_dx))
+        elif name == "debug-dpdy" and sp.dp_dy is not None:
+            val = unit(vec.normalize(sp.dp_dy))
+        elif name == "debug-dpdxy" and sp.dp_dx is not None:
+            val = unit(vec.normalize(sp.dp_dx + sp.dp_dy))
+        elif name == "debug-barycentric-uvw":
+            u_, v_ = sp.bary[..., 0], sp.bary[..., 1]
+            val = torch.stack([1.0 - u_ - v_, u_, v_], -1)
+        elif name == "debug-wireframe":
+            u_, v_ = sp.bary[..., 0], sp.bary[..., 1]
+            edge = torch.minimum(torch.minimum(u_, v_), 1.0 - u_ - v_)
+            wire = torch.clamp(1.0 - edge / 0.02, 0.0, 1.0)[..., None]
+            val = wire * torch.ones(3, device=wire.device)
+        elif name == "mat-index-norm":
+            m = max(scene.materials.mat_type.shape[0], 1)
+            val = sp.mat_id[..., None].to(torch.float32) / m
+        elif name == "obj-index-norm":
+            m = torch.clamp_min(scene.geom.face_obj.max(), 1).to(
+                torch.float32)
+            val = sp.obj_id[..., None].to(torch.float32) / m
+        elif name in ("mat-index-auto", "mat-index-auto-abs",
+                      "obj-index-auto", "obj-index-auto-abs"):
+            val = _auto_index_color(sp.mat_id if name.startswith("mat")
+                                    else sp.obj_id)
+        elif name in ("mat-index-mask", "obj-index-mask"):
+            idx, want = ((sp.mat_id, cfg.mask_mat_index)
+                         if name.startswith("mat")
+                         else (sp.obj_id, cfg.mask_obj_index))
+            m = idx == want
+            if cfg.mask_invert:
+                m = ~m
+            out[name] = torch.where(v & m[..., None], 1.0,
+                                    torch.zeros_like(sp.p))
+            continue
+        elif name == "adv-glossy-color":
+            val = params().glossy_color
+        elif name == "adv-trans-color":
+            val = params().filter_color
+        elif name == "adv-subsurface-color":
+            val = params().translucency[..., None] * params().diffuse_color
+        elif name == "debug-sampling-factor":
+            # the JAX compile sets every material's sampling factor to 1
+            # (JAX scene.py:417); the port's table has no such column
+            val = torch.ones_like(sp.t)[..., None]
+        elif name == "debug-dp-lengths":
+            val = torch.stack([vec.length(sp.dp_du), vec.length(sp.dp_dv),
+                               torch.zeros_like(sp.t)], -1)
+        elif name == "debug-dudx-dvdx" and sp.duv_dx is not None:
+            val = torch.cat([sp.duv_dx, zero(sp.duv_dx)], -1)
+        elif name == "debug-dudy-dvdy" and sp.duv_dy is not None:
+            val = torch.cat([sp.duv_dy, zero(sp.duv_dy)], -1)
+        elif name == "debug-dudxy-dvdxy" and sp.duv_dx is not None:
+            duv = sp.duv_dx + sp.duv_dy
+            val = torch.cat([duv, zero(duv)], -1)
+        if val is not None:
+            out[name] = torch.where(v, val, 0.0)
+    return out
+
+
+def _auto_index_color(idx: Tensor) -> Tensor:
+    """A hash colour per index (the *-index-auto layers). The JAX package
+    multiplies in uint32: held here in int64 through the sampler's
+    `_mul32`, which keeps the low 32 bits exact."""
+    h = sampler._mul32(idx.to(torch.int64) & sampler.M32, 0x9E3779B9)
+    return torch.stack([((h >> s) & 0x3FF).to(torch.float32) / 1023.0
+                        for s in (0, 10, 20)], -1)
+
+
+def _integrate_debug(scene: SceneData, ray_o: Tensor, ray_d: Tensor,
+                     ray_valid: Tensor):
+    """The debug integrator (integrator_debug.cc): the shading normal as a
+    colour at the camera hits, alpha 1 where a ray hits."""
+    hit = I.camera_hit(scene, ray_o, ray_d, scene.ray_min_dist, 1e30)
+    hit.valid = hit.valid & ray_valid
+    sp = S.make_surface(scene, hit, ray_o, ray_d)
+    rgb = torch.where(sp.valid[..., None], sp.n * 0.5 + 0.5, 0.0)
+    return rgb, sp.valid.to(torch.float32), {}

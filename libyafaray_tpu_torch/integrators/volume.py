@@ -369,24 +369,30 @@ def sky_in_scatter(scene: SceneData, cfg, o: Tensor, d: Tensor,
 
 def apply_volumetric(scene: SceneData, cfg, radiance: Tensor, o: Tensor,
                      d: Tensor, t_hit: Tensor, pixel_id: Tensor,
-                     sample_idx) -> Tensor:
+                     sample_idx, return_parts: bool = False):
     """The camera segment's share (applyVolumetricEffects,
     integrator_tiled.cc): transmittance times the surface radiance, plus
     the radiance the segment adds (cfg.vol_kind: the sky's, the regions'
     emission, or their single scattering), each marched in cfg.vol_steps
-    steps."""
+    steps. return_parts=True returns (transmittance, added radiance)
+    instead, for the adv-volume-* AOV layers."""
     if cfg.vol_kind == "sky":
-        return (sky_transmittance(cfg, o, d, t_hit) * radiance
-                + sky_in_scatter(scene, cfg, o, d, t_hit, pixel_id,
-                                 sample_idx, cfg.vol_steps))
-    if scene.volumes is None or scene.volumes.num_volumes == 0:
+        tr = sky_transmittance(cfg, o, d, t_hit)
+        vol = sky_in_scatter(scene, cfg, o, d, t_hit, pixel_id, sample_idx,
+                             cfg.vol_steps)
+    elif scene.volumes is None or scene.volumes.num_volumes == 0:
+        if return_parts:
+            return torch.ones_like(radiance), torch.zeros_like(radiance)
         return radiance
-    tr = transmittance(scene, o, d, t_hit, cfg.vol_steps)
-    if cfg.vol_kind == "emission":
-        vol = emission(scene, o, d, t_hit, cfg.vol_steps)
     else:
-        vol = in_scatter(scene, o, d, t_hit, pixel_id, sample_idx,
-                         cfg.vol_steps, cfg.transparent_shadows,
-                         substeps=cfg.vol_substeps if cfg.vol_adaptive
-                         else 1)
+        tr = transmittance(scene, o, d, t_hit, cfg.vol_steps)
+        if cfg.vol_kind == "emission":
+            vol = emission(scene, o, d, t_hit, cfg.vol_steps)
+        else:
+            vol = in_scatter(scene, o, d, t_hit, pixel_id, sample_idx,
+                             cfg.vol_steps, cfg.transparent_shadows,
+                             substeps=cfg.vol_substeps if cfg.vol_adaptive
+                             else 1)
+    if return_parts:
+        return tr, vol
     return tr * radiance + vol

@@ -295,8 +295,9 @@ def _rough_glass_f(mp: MP, wo_l: Tensor, wi_l: Tensor):
     return f_scalar[..., None] * col, pdf
 
 
-def _eval_single(mp: MP, wo_l: Tensor, wi_l: Tensor):
-    """Non-delta f and solid-angle pdf for one parameter row per lane."""
+def _eval_single(mp: MP, wo_l: Tensor, wi_l: Tensor, split: bool = False):
+    """Non-delta f and solid-angle pdf for one parameter row per lane;
+    split=True adds the per-family components (see eval_bsdf)."""
     cos_wo = torch.abs(wo_l[..., 2])
     w_dr, w_dt, w_mf, w_di, w_tl = lobe_weights(mp, cos_wo)
     same_hemi = (wo_l[..., 2] * wi_l[..., 2]) > 0.0
@@ -329,10 +330,21 @@ def _eval_single(mp: MP, wo_l: Tensor, wi_l: Tensor):
     else:
         f_mf = torch.zeros_like(mp.diffuse_color)
         pdf_mf = torch.zeros_like(cos_wi)
-    f = f_di + f_tl + w_mf[..., None] * f_mf
+    f_mf = w_mf[..., None] * f_mf
+    f = f_di + f_tl + f_mf
     w_sum = w_dr + w_dt + w_mf + w_di + w_tl
     pdf = (w_di * pdf_di + w_tl * pdf_tl + w_mf * pdf_mf) / torch.clamp_min(
         w_sum, 1e-6)
+    if split:
+        # the per-BSDF-family components of the adv-* AOV layers
+        # (doLightEstimation's ColorLayerAccum splits)
+        is_rg = ((mp.mat_type == MAT_ROUGH_GLASS)[..., None] if has_rg
+                 else torch.zeros_like(f[..., :1], dtype=torch.bool))
+        fam = {"diffuse": f_di,
+               "glossy": torch.where(is_rg, 0.0, f_mf),
+               "trans": torch.where(is_rg, f_mf, 0.0),
+               "subsurface": f_tl}
+        return f, pdf, fam
     return f, pdf
 
 
@@ -352,23 +364,32 @@ def _blend_ids(scene: SceneData, sp):
             mats.blend_b[idx])
 
 
-def eval_bsdf(scene: SceneData, sp, wo: Tensor, wi: Tensor):
+def eval_bsdf(scene: SceneData, sp, wo: Tensor, wi: Tensor,
+              split: bool = False):
     """f(wo, wi) of the non-delta lobes and the solid-angle pdf
     (Material::eval / pdf); a blend lerps its sub-materials' by the blend
-    factor."""
+    factor. split=True also returns the per-family components (diffuse,
+    glossy, trans, subsurface) of the adv-* AOV layers."""
     mp = resolve_mp(scene, sp)
     wo_l = _to_local(sp, wo)
     wi_l = _to_local(sp, wi)
-    f, pdf = _eval_single(mp, wo_l, wi_l)
+    out = _eval_single(mp, wo_l, wi_l, split)
+    f, pdf = out[:2]
     if scene.materials.has_blend:
         bl = blend_factor(scene, sp)
         is_blend, mat_a, mat_b = _blend_ids(scene, sp)
-        f_a, pdf_a = _eval_single(resolve_mp(scene, sp, mat_a), wo_l, wi_l)
-        f_b, pdf_b = _eval_single(resolve_mp(scene, sp, mat_b), wo_l, wi_l)
-        f = torch.where(is_blend[..., None],
-                        f_a * (1.0 - bl[..., None]) + f_b * bl[..., None], f)
-        pdf = torch.where(is_blend, pdf_a * (1.0 - bl) + pdf_b * bl, pdf)
-    return f, pdf
+        out_a = _eval_single(resolve_mp(scene, sp, mat_a), wo_l, wi_l, split)
+        out_b = _eval_single(resolve_mp(scene, sp, mat_b), wo_l, wi_l, split)
+        lerp = lambda a, b, x: torch.where(
+            is_blend[..., None], a * (1.0 - bl[..., None]) + b * bl[..., None],
+            x)
+        if split:
+            out[2].update({k: lerp(out_a[2][k], out_b[2][k], x)
+                           for k, x in out[2].items()})
+        f = lerp(out_a[0], out_b[0], f)
+        pdf = torch.where(is_blend, out_a[1] * (1.0 - bl) + out_b[1] * bl,
+                          pdf)
+    return (f, pdf, out[2]) if split else (f, pdf)
 
 
 @dataclass

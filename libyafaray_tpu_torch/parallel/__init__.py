@@ -29,7 +29,7 @@ def _pixel_shard_radiance(scene: SceneData, cfg: IntegratorConfig,
     too, as in `render`)."""
     lens_u, lens_v = lens_samples(scene.camera, pixel_id, sample_idx)
     o, d, valid = shoot_rays(scene.camera, px, py, lens_u, lens_v)
-    rgb, alpha = integrate(scene, cfg, o, d, valid, pixel_id, sample_idx)
+    rgb, alpha, _ = integrate(scene, cfg, o, d, valid, pixel_id, sample_idx)
     return rgb, alpha, valid
 
 

@@ -8,7 +8,8 @@ unless every image asks for "optimized" (f16) or "compressed" (uint8 with
 a scale per texture). A procedural texture (blend, clouds, marble, wood,
 voronoi, musgrave, distorted noise, rgb cube) keeps its parameters in its
 params_f row, as the JAX package lays them out, and adds its noise bases
-and octaves to the pool's `used_noise` and `max_octaves`.
+and octaves to the pool's `used_noise` and `max_octaves`. Image files of
+every format `io.load_image` reads are loaded through it.
 `build_env_tables` builds a texture background's importance tables (the
 alias method), the JAX package's exactly.
 """
@@ -20,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..io import load_image
 from ..scene_types import Background, TexturePool
 from . import (MAX_MIPS, RAMP_MAX, TEX_BLEND, TEX_CLOUDS,
                TEX_DISTORTED_NOISE, TEX_IMAGE, TEX_MARBLE, TEX_MUSGRAVE,
@@ -61,21 +63,12 @@ def _mip_chain(img: np.ndarray):
     return mips
 
 
-def _load(path: str) -> np.ndarray:
-    if path.lower().endswith(".hdr"):
-        from ..io import load_hdr
-        return load_hdr(path)
-    raise NotImplementedError(f"loading the image {path!r} is not ported to "
-                              "libyafaray_tpu_torch yet (pass the pixels "
-                              "with create_texture(image=...))")
-
-
 def _rgba(pm, img) -> np.ndarray:
     """The texture's pixels as linear f32 rgba (colour space, gamma and
     rot90 applied)."""
     if img is None:
         path = pm.get_string("filename", pm.get_string("image_name", ""))
-        img = _load(path) if path else np.ones((1, 1, 4), np.float32)
+        img = load_image(path) if path else np.ones((1, 1, 4), np.float32)
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = img[..., None]

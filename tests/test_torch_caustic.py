@@ -227,7 +227,7 @@ def _port_caustic_grads(ts):
     px, py, pid = _pixels(RES)
     o, d, valid = shoot_rays(sc.camera, T(px), T(py))
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
-    rgb, _ = integrate(sc, cfg, o, d, valid, T(pid.astype(np.int64)), 0)
+    rgb, _, _ = integrate(sc, cfg, o, d, valid, T(pid.astype(np.int64)), 0)
     grads = torch.autograd.grad(rgb.mean(), [ior, texels])
     return rgb.detach().numpy(), [g.numpy() for g in grads]
 

@@ -161,7 +161,7 @@ def _port_loss(scenes, jax_grads, case):
             cols = {"exponent": theta, "exp_u": theta, "exp_v": theta}
         sc = dataclasses.replace(ts, **{table: dataclasses.replace(
             getattr(ts, table), **cols)})
-        rgb, _ = integrate(sc, cfg, T(o), T(d), T(valid),
+        rgb, _, _ = integrate(sc, cfg, T(o), T(d), T(valid),
                            T(pid.astype(np.int64)), 0)
         return rgb.mean(), rgb
 

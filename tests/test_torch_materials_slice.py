@@ -345,7 +345,7 @@ def test_new_columns_grads_match_jax(_jax_pieces):
               for t, c, _ in GRAD_COLUMNS]
     sc = _with(ts, leaves, dataclasses.replace)
     o, d, valid = shoot_rays(sc.camera, T(px), T(py))
-    rgb, _ = integrate(sc, make_integrator(pm), o, d, valid,
+    rgb, _, _ = integrate(sc, make_integrator(pm), o, d, valid,
                        T(pid.astype(np.int64)), 0)
     got = torch.autograd.grad(rgb.mean(), leaves)
     for (t, c, row), g, w in zip(GRAD_COLUMNS, got, want):

@@ -214,7 +214,7 @@ def test_integrate_per_ray_matches(request, kind, scene):
         s, jcfg, o, d, jnp.ones(o.shape[0], bool), p, si)[:2])
     for sample in (0, 1):
         jrgb, jalpha = jint(js, o.numpy(), d.numpy(), pid, jnp.uint32(sample))
-        rgb, alpha = integrate(ts, make_integrator(cfg), o, d, valid,
+        rgb, alpha, _ = integrate(ts, make_integrator(cfg), o, d, valid,
                                T(pid.astype(np.int64)), sample)
         _assert_mostly_close(rgb.numpy(), np.asarray(jrgb))
         np.testing.assert_array_equal(alpha.numpy(), np.asarray(jalpha))

@@ -214,10 +214,6 @@ def _photon(b):
     P.make_integrator({"type": "photonmapping"})
 
 
-def _ao(b):
-    P.make_integrator({"type": "directlighting", "do_AO": True})
-
-
 def _sppm(b):
     P.make_integrator({"type": "SPPM"})
 
@@ -241,7 +237,6 @@ _UNPORTED = [
     (_photon, "integrator type 'photonmapping'"),
     (_sppm, "integrator type 'SPPM'"),
     (_bidir, "integrator type 'bidirectional'"),
-    (_ao, r"ambient occlusion \(do_AO\)"),
 ]
 
 
@@ -253,6 +248,19 @@ def test_features_outside_the_port_raise(case, reason):
     another unported one on the way."""
     with pytest.raises(NotImplementedError, match=reason):
         case(port_cornell())
+
+
+@pytest.mark.parametrize("pm", [
+    {"type": "directlighting", "do_AO": True, "AO_samples": 4},
+    {"type": "debug"}, {"type": "DebugIntegrator"}],
+    ids=["ao", "debug", "DebugIntegrator"])
+def test_ported_integrator_options_construct(pm):
+    """Ambient occlusion and the debug integrator, which raised before the
+    render loop's slice, now parse into the config."""
+    cfg = P.make_integrator(pm)
+    assert cfg.kind == pm["type"]
+    assert cfg.use_ao == pm.get("do_AO", False)
+    assert cfg.ao_samples == pm.get("AO_samples", 8)
 
 
 def test_unknown_types_raise_key_error():

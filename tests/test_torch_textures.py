@@ -505,7 +505,7 @@ def texel_grads():
     def loss(pool):
         sc = dataclasses.replace(ts, textures=dataclasses.replace(
             ts.textures, texel_pool=pool))
-        rgb, _ = integrate(sc, cfg, *rays, 0)
+        rgb, _, _ = integrate(sc, cfg, *rays, 0)
         return rgb.mean()
 
     leaf = ts.textures.texel_pool.clone().requires_grad_(True)
