@@ -168,7 +168,7 @@ Phases, each reporting on its own lines:
      sky goldens tests/golden/sky_{sunsky,darksky}_128.hdr at 4 spp
      (tests/test_refparity.py's bounds);
  23. analytic spheres and environment maps: the glossy golden scene (a
-     sphere on a textured floor) at 1920x1080, 16 spp, 3 bounces on the
+     sphere on a textured floor) at 1920x1080, 8 spp, 3 bounces on the
      brute-force path (mt_closest and the sphere arm) and on blocks (the
      tile kernel and `sphere_pass`), the two images within the slice bound;
      the same scene lit by a 1024x512 environment map (a smooth sky and a
@@ -181,7 +181,7 @@ Phases, each reporting on its own lines:
      (materials_cornell_builder: Oren-Nayar, coated glossy, a blend and a
      mask by a texture node, rough glass, dispersive glass with Beer
      absorption, sss glass, a transparent veil, a null quad; area, spot,
-     IES, sphere and directional lights) at 1920x1080, 8 spp, 4 bounces,
+     IES, sphere and directional lights) at 1920x1080, 4 spp, 4 bounces,
      transparent shadows at depth 4, on brute force (130 mt_closest
      launches a pass: the camera query, 4 bounces and 125 closest-shadow
      queries of the walk, 5 lights x 5 steps x 5 depths), ms a pass,
@@ -192,26 +192,25 @@ Phases, each reporting on its own lines:
      128x128 (brute force bit for bit; blocks the slice bound); eight
      closest-shadow queries of a pass held against mt_closest_ref (bit for
      bit, each timed beside its bound) and against tile_walk_ref; forward
-     + backward at 1920x1080, 2 spp, in chunks of 270 rows wrt the
-     coated-glossy colour, the Oren-Nayar sigma, the light colours and the
-     glass absorption, and the same gradients kernel path against plain
+     + backward at 1920x1080, 1 spp, in chunks of 270 rows wrt the coated-glossy colour, the Oren-Nayar sigma, the light
+     colours and the glass absorption, and the same gradients kernel path against plain
      path at 128x128 (rtol 1e-5);
  25. the portal room (portal_room_builder: a bgPortalLight over the window
-     of a closed room) at 1920x1080, 8 spp, 4 bounces: ms a pass,
-     launches (10 a pass), the floor under the window lit; kernel path
-     against plain path at 128x128 bit for bit.
+     of a closed room) at 1920x1080, 4 spp, 4 bounces:
+     ms a pass, launches (10 a pass), the floor under the window lit;
+     kernel path against plain path at 128x128 bit for bit.
  26. procedural textures and orco coordinates: the procedural Cornell box
      (procedural_cornell_builder: blend, clouds, marble, wood, voronoi,
      musgrave, distorted noise and rgb cube over the newperlin, stdperlin
      and cellnoise bases, a colour ramp, bump through clouds, a cube that
      streams orco coordinates and a slab mapped on its own vertices) at
-     1920x1080, 8 spp, 4 bounces through `render` on brute force (10
+     1920x1080, 4 spp, 4 bounces through `render` on brute force (10
      mt_closest launches a pass) and on blocks (10 tile-kernel launches),
      the two images within the slice bound; ms a pass, camera rays/s, one
      pass profiled (kernel launches, device busy share, the node
      program's device time), peak device memory; kernel path against
      plain path at 128x128 on both (brute force bit for bit);
- 27. the rest of the volume path at 512x512, 4 spp, 3 bounces through
+ 27. the rest of the volume path at 512x512, 2 spp, 3 bounces through
      `render` (volume_regions_builder): the exponential, noise, grid and
      sky regions under single scatter (28 mt_closest launches a pass, the
      last 16 the in-medium shadow queries), the exponential and noise
@@ -249,6 +248,22 @@ Phases, each reporting on its own lines:
      pass held bit for bit and timed), one debug-integrator pass (one
      launch), and 2 + 2 spp saved to a film file and resumed, equal bit
      for bit to 4 spp.
+ 29. the last three integrators: photon mapping as its defaults set it
+     (100,000 photons of 5 bounces, radius 0.05, the final gather with 16
+     samples of up to 3 bounces) on the Cornell box at 1920x1080, 4 spp,
+     on brute force and on blocks (the two images within the slice
+     bound), the maps built once and timed; the caustic scene (config 4)
+     at 512x512 with its caustic map; a generate-save render and a load
+     render of the same maps at 512x512, equal bit for bit; SPPM at
+     1080p, 8 passes of 50,000 photons, without and with PM_IRE; the
+     bidirectional integrator at 1080p, 4 bounces, 4 spp, with the area
+     light and with a point light (the splats land). For each: ms a
+     pass, launches a pass by kind (camera, bounce, photon, gather,
+     connection, splat), peak device memory, the walls red and green.
+     At 128x128 each integrator's kernel path against its plain path,
+     the images bit for bit and every query of the kernel run equal to
+     mt_closest_ref's; on blocks the photon walks of 100,000 photons
+     held against tile_walk_ref.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -323,6 +338,21 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _once_ms(fn):
+    """(fn(), its device ms): one call between CUDA events, no warm-up.
+    The plain versions are timed on the call that their check needs
+    anyway (each is a chain of eager ops, its first call no slower than
+    the next by more than the spread between calls)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _bound_ms(flops: float, nbytes: float):
@@ -826,7 +856,7 @@ def phase3b_tiles(terrain):
     # the kernel's time in this regime (TPU kernel c's): closest hits
     _, *prep = big_q
     big_ms = (_cuda_ms(lambda: TL.tile_walk(*prep, big.tab), 10),
-              _cuda_ms(lambda: TL.tile_walk_ref(*prep, big.tab), 1))
+              _once_ms(lambda: TL.tile_walk_ref(*prep, big.tab))[1])
     pairs, *big_bound = _walk_bound((*prep, big.tab), big_hit, closest)
     print(f"phase 3b: time per query, big terrain ({N_BIG} random rays, "
           f"closest): tile_walk {big_ms[0]:.4f} ms, tile_walk_ref "
@@ -861,7 +891,7 @@ def phase3b_tiles(terrain):
         _, *prep = q
         times[label] = (
             _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, **kw), 10),
-            _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, **kw), 1))
+            _once_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, **kw))[1])
         pairs, *bounds[label] = _walk_bound((*prep, acc.tab), hits, kw)
         print(f"phase 3b: time per query, {label} wavefront ({q[0]} rays): "
               f"tile_walk {times[label][0]:.4f} ms, tile_walk_ref "
@@ -987,8 +1017,8 @@ def phase3c_arms(forest, static_cam_ms):
                                 max_err, "3c")
         _, *prep = cam
         ms = _cuda_ms(lambda: TL.tile_walk(*prep, acc.tab, **tabs), 10)
-        plain_ms = _cuda_ms(lambda: TL.tile_walk_ref(*prep, acc.tab, **tabs),
-                            1)
+        plain_ms = _once_ms(lambda: TL.tile_walk_ref(*prep, acc.tab,
+                                                    **tabs))[1]
         _, *bound = _walk_bound((*prep, acc.tab), cam_hit, tabs)
         same = ""
         if not instanced:      # the static arm on the same table and rays
@@ -1500,10 +1530,9 @@ def _hold_queries(phase, calls, labels):
     from libyafaray_tpu_torch.accel import mt_intersect as MT
     err, rows_out, bound_by = 0.0, [], {}
     for label, (a, k, got) in zip(labels, calls):
-        err = _compare(label, got, MT.mt_closest_ref(*a, **k), err,
-                       phase=phase, exact=True)
+        want, plain = _once_ms(lambda: MT.mt_closest_ref(*a, **k))
+        err = _compare(label, got, want, err, phase=phase, exact=True)
         ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 10)
-        plain = _cuda_ms(lambda: MT.mt_closest_ref(*a, **k), 1)
         live, rows, bound, by = mt_bound(a, k)
         rows_out.append((ms, plain, bound))
         bound_by[by] = bound_by.get(by, 0.0) + bound
@@ -1527,7 +1556,7 @@ def _hold_walks(phase, calls, labels):
     from libyafaray_tpu_torch.accel import tiles as TL
     err, rows_out, bound_by = 0.0, [], {}
     for label, (a, k, got) in zip(labels, calls):
-        want = TL.tile_walk_ref(*a, **k)
+        want, plain = _once_ms(lambda: TL.tile_walk_ref(*a, **k))
         if k.get("any_hit"):
             torch.cuda.synchronize()
             mism = int(((got[1] >= 0) != (want[1] >= 0)).sum())
@@ -1537,7 +1566,6 @@ def _hold_walks(phase, calls, labels):
         else:
             err = _compare(label, got, want, err, phase=phase)
         ms = _cuda_ms(lambda: TL.tile_walk(*a, **k), 10)
-        plain = _cuda_ms(lambda: TL.tile_walk_ref(*a, **k), 1)
         pairs, bound, by = _walk_bound(a, got, k)
         rows_out.append((ms, plain, bound))
         bound_by[by] = bound_by.get(by, 0.0) + bound
@@ -2000,7 +2028,8 @@ def _cover_case(label, acc, cover_q, front_q):
                              "differ")
     steps = torch.zeros(prep[0].shape[0], dtype=torch.int64, device=DEVICE)
     got = TL.tile_walk(*prep, tab, **kw)
-    want = TL.tile_walk_ref(*prep, tab, steps=steps, **kw)
+    want, plain_ms = _once_ms(
+        lambda: TL.tile_walk_ref(*prep, tab, steps=steps, **kw))
     front = TL.tile_walk(*fprep, ftab, **fkw)
     torch.cuda.synchronize()
     for name, other in (("tile_walk_ref", want), ("front to back", front)):
@@ -2015,7 +2044,7 @@ def _cover_case(label, acc, cover_q, front_q):
     out = dict(
         ms=_cuda_ms(lambda: TL.tile_walk(*prep, tab, **kw), 5),
         front_ms=_cuda_ms(lambda: TL.tile_walk(*fprep, ftab, **fkw), 5),
-        plain_ms=_cuda_ms(lambda: TL.tile_walk_ref(*prep, tab, **kw), 1),
+        plain_ms=plain_ms,
         cand_ms=_cuda_ms(lambda: TL.tile_candidates(*rays_args,
                                                     any_hit=True), 3),
         front_cand_ms=_cuda_ms(lambda: TL.tile_candidates(*rays_args), 3))
@@ -2425,7 +2454,7 @@ CAMERA_GOLDEN_TOL = {"orthographic": (0.04, 0.18),
 SKY_GOLDEN_SPP = 4
 SKY_GOLDEN_TOL = {"sunsky": (0.02, 0.10), "darksky": (0.01, 0.03)}
 GLOSSY_GOLDEN_SPP = 64
-GLOSSY_SPP, GLOSSY_BOUNCES = 16, 3          # phase 23 at 1920x1080
+GLOSSY_SPP, GLOSSY_BOUNCES = 8, 3   # phase 23 at 1920x1080 (cut from 16)
 ENV_W, ENV_H = 1024, 512                     # phase 23's environment map
 # depth of field on the back boxes (about 2 units along the view axis)
 DOF = {"aperture": 0.05, "dof_distance": 2.0}
@@ -2713,14 +2742,14 @@ def phase23_spheres():
 
 # ------------------------------------------------------- phases 24 and 25
 
-# the materials Cornell box and the portal room: 8 of the 16-spp image's
+# the materials Cornell box and the portal room: 4 of the 16-spp image's
 # passes (a pass is measured the same way; the script's time made room
-# for phases 26-27)
-MATS_SPP = 8
-# the materials box's forward + backward: 2 spp of the 16-spp image keep
+# for phases 26-29)
+MATS_SPP = 4
+# the materials box's forward + backward: 1 spp of the 16-spp image keeps
 # the script in its time (a 16-spp image took 283.3 s in chunks of 270
 # rows on the H100: the walk's eager ops make each chunk launch-bound)
-MATS_GRAD_SPP = 2
+MATS_GRAD_SPP = 1
 MATS_LIGHTS = 5          # lamp, spot, IES, sphere and directional
 SHADOW_DEPTH = 4         # transpShad's default shadowDepth
 # the gradient columns of tests/test_torch_materials_slice.py that the
@@ -2984,7 +3013,7 @@ def phase25_portal():
 
 # ------------------------------------------------------- phases 26 and 27
 
-PROC_SPP = 8             # the procedural Cornell box (cut from 16 for time)
+PROC_SPP = 4             # the procedural Cornell box (cut from 16, then 8)
 
 
 def _texture_path_ms(scene, cfg):
@@ -3033,7 +3062,7 @@ def _proc_scene(accel, width=None, height=None):
 def phase26_procedural():
     """The procedural Cornell box (every procedural texture type, three
     noise bases, a colour ramp, bump through clouds, orco coordinates
-    streamed and not) at 1920x1080, 8 spp, 4 bounces on brute force and
+    streamed and not) at 1920x1080, 4 spp, 4 bounces on brute force and
     on blocks; kernel against plain paths at 128x128. Returns the
     mt_closest and tiles_traverse launches of the two renders."""
     import numpy as np
@@ -3116,7 +3145,7 @@ VOLUME_RUNS = (
      {"volume_integrator": "EmissionIntegrator"}),
     ("Cornell box, SkyIntegrator", None, SKY_PM))
 VOLUME_EMIT = 0.5        # the emission run's region emits (l_e)
-REGIONS_SPP = 4          # phase 27's passes a run (cut from 8 for time)
+REGIONS_SPP = 2          # phase 27's passes a run (cut from 8, then 4)
 # the runs whose in-medium shadow queries of one pass are held against
 # mt_closest_ref (the noise region's pass costs most, its queries are the
 # same kind)
@@ -3135,7 +3164,7 @@ def _volume_run_scene(kind, res, emit=0.0):
 
 
 def phase27_volumes():
-    """Every volume region type and volume-integrator arm at 512x512, 4 spp,
+    """Every volume region type and volume-integrator arm at 512x512, 2 spp,
     3 bounces through `render`: ms a pass, mt_closest launches a pass, the
     volume visible against the same scene without it, kernel path against
     plain path at 128x128; the attenuation grid's build; the in-medium
@@ -3784,6 +3813,326 @@ def phase28_aov():
     return launches, tile_launches, per_launch, per_walk
 
 
+# ------------------------------------------------------------- phase 29
+
+# the photon-mapping integrator as libYafaRay's clients set it: the JAX
+# package's defaults (100,000 photons of 5 bounces, a gather radius of
+# 0.05, the final gather with 16 samples of up to 3 bounces under an
+# fg_min_pathlen of 0.05), 4 bounces of specular continuation
+PM_PARAMS = {"type": "photonmapping"}
+PM_SPP = 4
+CAUSTIC_PM_RES = 512        # the caustic scene's caustic map (config 4)
+SPPM_PASSES, SPPM_PHOTONS, SPPM_RADIUS = 8, 50_000, 0.05
+BIDIR_PARAMS = {"type": "bidirectional", "bounces": 4}
+BIDIR_SPP = 4
+# the parts of an integrator whose queries phase 29 counts apart (the
+# functions that issue them); the rest are "bounce" queries (the walks'
+# closest hits and the NEE shadow rays)
+QUERY_KINDS = (("photon", "libyafaray_tpu_torch.photon", "shoot_photons"),
+               ("gather", "libyafaray_tpu_torch.integrators.mc",
+                "_final_gather"),
+               ("connection", "libyafaray_tpu_torch.integrators.bidir",
+                "_connections"),
+               ("splat", "libyafaray_tpu_torch.integrators.bidir", "_splats"),
+               ("camera", "libyafaray_tpu_torch.ops.intersect",
+                "camera_hit"))
+
+
+@contextlib.contextmanager
+def _queries_by_kind(keep=False):
+    """Inside, every mt_closest and tile_walk call is counted by the part of
+    the integrator that issued it (QUERY_KINDS, else "bounce"); with
+    `keep` each mt_closest call is also kept whole (arguments, keywords,
+    outputs, cloned) with its kind. Yields (counts, kept)."""
+    import importlib
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    counts, kept, tag = {}, [], [None]
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+    patched = []
+
+    def tagged(kind, fn):
+        def run(*a, **k):
+            outer, tag[0] = tag[0], tag[0] or kind
+            try:
+                return fn(*a, **k)
+            finally:
+                tag[0] = outer
+        return run
+
+    def counted(fn, is_mt):
+        def run(*a, **k):
+            kind = tag[0] or "bounce"
+            counts[kind] = counts.get(kind, 0) + 1
+            out = fn(*a, **k)
+            if keep and is_mt:
+                kept.append((kind, tuple(copy(x) for x in a),
+                             {key: copy(x) for key, x in k.items()},
+                             tuple(x.clone() for x in out)))
+            return out
+        return run
+
+    for kind, mod, name in QUERY_KINDS:
+        m = importlib.import_module(mod)
+        patched.append((m, name, getattr(m, name)))
+        setattr(m, name, tagged(kind, getattr(m, name)))
+    for m, name, is_mt in ((MT, "mt_closest", True),
+                           (TL, "tile_walk", False)):
+        patched.append((m, name, getattr(m, name)))
+        setattr(m, name, counted(getattr(m, name), is_mt))
+    try:
+        yield counts, kept
+    finally:
+        for m, name, real in reversed(patched):
+            setattr(m, name, real)
+
+
+def _walls(phase, label, img):
+    """The image finite, its left wall red and its right wall green."""
+    import numpy as np
+    w = img.shape[1]
+    left = img[:, : w // 16, :3].mean((0, 1))
+    right = img[:, -w // 16:, :3].mean((0, 1))
+    ok = (np.isfinite(img).all() and left[0] > left[1]
+          and right[1] > right[0] and img[..., :3].mean() > 0)
+    print(f"phase {phase}: {label}: image mean "
+          f"{float(img[..., :3].mean()):.6f}, left wall rgb "
+          f"{np.round(left, 4).tolist()}, right wall rgb "
+          f"{np.round(right, 4).tolist()}, finite {np.isfinite(img).all()}")
+    if not ok:
+        raise AssertionError(f"phase {phase}: {label}: implausible image")
+
+
+def _per_pass(counts, passes):
+    return ", ".join(f"{k} {v / passes:g}" for k, v in sorted(counts.items()))
+
+
+def _timed_run(label, fn, passes):
+    """fn() timed (host clock, synchronised) with the kernel counts set to
+    0 just before and read just after, its queries counted by kind and the
+    peak device memory taken. Prints and returns (fn's result, mt_closest
+    launches, tile kernel launches, counts by kind)."""
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    MT.launches = TL.launches = 0
+    with _queries_by_kind() as (counts, _):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    mt, tl = MT.launches, TL.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"phase 29: {label}: {seconds * 1e3 / passes:.2f} ms a pass "
+          f"({passes} passes); launches a pass by kind: "
+          f"{_per_pass(counts, passes)} (mt_closest {mt}, tile kernel "
+          f"{tl} in all); peak device memory {peak:.3f} GiB above the "
+          f"{base / 2 ** 30:.3f} GiB held before")
+    if sum(counts.values()) != mt + tl or not mt + tl:
+        raise AssertionError(f"phase 29: {label}: {mt + tl} launches, "
+                             f"{sum(counts.values())} counted by kind")
+    return out, mt, tl, counts
+
+
+def _pm_render(label, scene, spp, profile=False):
+    """Photon mapping through `render`: the maps built once (timed, their
+    launches counted), then `spp` passes after a warm-up pass (and with
+    `profile` one more pass profiled). Returns (image, mt_closest
+    launches, tile kernel launches, photons stored in each map)."""
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    cfg = make_integrator(PM_PARAMS)
+    R = _render_module()
+    ph, mt_b, tl_b, _ = _timed_run(
+        f"{label}: photon maps ({cfg.n_photons} photons, {cfg.pm_bounces} "
+        f"bounces, radiance cache {cfg.final_gather})",
+        lambda: R._photon_maps(scene, cfg, "generate", None, DEVICE), 1)
+    stored = [int(m.num_stored) for m in (ph.diffuse, ph.caustic)]
+    print(f"phase 29: {label}: {stored[0]} diffuse and {stored[1]} caustic "
+          "photons stored")
+    with_maps = dataclasses.replace(scene, photons=ph)
+    render(with_maps, cfg, spp=1, start_sample=spp)       # warm-up pass
+    film, mt, tl, _ = _timed_run(
+        f"{label} {scene.camera.resx}x{scene.camera.resy}",
+        lambda: render(with_maps, cfg, spp=spp), spp)
+    img = F.resolve(film).cpu().numpy()
+    if profile:
+        n_k, busy, ms = _profile_pass(with_maps, cfg)
+        print(f"phase 29: {label}: one pass profiled: {n_k} kernel launches, "
+              f"device busy {busy:.2f} of {ms:.2f} ms "
+              f"({100 * busy / max(ms, 1e-9):.1f}%)")
+    return img, mt + mt_b, tl + tl_b, stored
+
+
+def _hold_kinds(label, kept):
+    """Each kept mt_closest call held bit for bit against mt_closest_ref,
+    one line per kind; the first call of each kind timed beside its plain
+    version and its bound. Returns (max error, per-launch means)."""
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    err, rows, by_kind, bound_by = 0.0, [], {}, {}
+    for kind, a, k, got in kept:
+        want, plain = _once_ms(lambda: MT.mt_closest_ref(*a, **k))
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"phase 29: {label}: {kind}: prim ids "
+                                 "differ from mt_closest_ref")
+        for x, y in zip(got, want):
+            if not torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)):
+                raise AssertionError(f"phase 29: {label}: {kind}: outputs "
+                                     "differ from mt_closest_ref")
+        n = by_kind.setdefault(kind, [0, 0])
+        n[0] += 1
+        n[1] += int((a[4] > a[3]).sum())
+        if n[0] == 1:
+            ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 10)
+            live, nrows, bound, by = mt_bound(a, k)
+            rows.append((ms, plain, bound))
+            bound_by[by] = bound_by.get(by, 0.0) + bound
+            print(f"phase 29: {label}: first {kind} query: {a[1].shape[0]} "
+                  f"rays, {live} live, {nrows} rows kept: mt_closest "
+                  f"{ms:.4f} ms, mt_closest_ref {plain:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by})")
+    print(f"phase 29: {label}: every query equal to mt_closest_ref bit for "
+          "bit: " + ", ".join(f"{k} {v[0]} queries ({v[1]} live rays)"
+                              for k, v in sorted(by_kind.items())))
+    m = len(rows)
+    ms, plain, bound = (sum(x) / m for x in zip(*rows))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=max(bound_by, key=bound_by.get))
+
+
+def _integrator_paths(label, scene, run):
+    """run(scene) -> image, kernel path against plain path on brute force:
+    the images equal bit for bit, and every query of the kernel path equal
+    to mt_closest_ref's (`_hold_kinds`)."""
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    with _queries_by_kind(keep=True) as (_, kept):
+        img_k = run(scene)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = run(scene)
+    _bit_for_bit("29", label, img_k, img_p)
+    return _hold_kinds(label, kept)
+
+
+def phase29_integrators():
+    """The last three integrators at 1920x1080 on the card: photon mapping
+    (brute force and blocks, the caustic scene's caustic map, a map file
+    saved and loaded), SPPM (with and without PM_IRE) and bidirectional
+    (area and point light); at 128x128 each kernel path against its plain
+    path. Returns (mt_closest launches by run, tile kernel launches, the
+    per-launch numbers of the held queries by integrator, those of the
+    photon walks on blocks)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.integrators.sppm import render_sppm
+    from libyafaray_tpu_torch.scenes import caustic_grad_builder
+    launches, per_launch = {}, {}
+
+    # ---- photon mapping
+    imgs = {}
+    for accel in ("brute", "blocks"):
+        img, mt, tl, _ = _pm_render(f"photon mapping ({accel})",
+                                    _cornell(accel, WIDTH, HEIGHT), PM_SPP,
+                                    profile=accel == "brute")
+        _walls("29", f"photon mapping ({accel})", img)
+        imgs[accel] = img
+        launches[f"photon mapping {accel}"] = (mt, tl)
+        if (tl if accel == "blocks" else mt) == 0 or (
+                mt if accel == "blocks" else tl):
+            raise AssertionError(f"phase 29: photon mapping on {accel}: "
+                                 f"{mt} mt_closest, {tl} tile launches")
+    _paths_agree("29", imgs["blocks"], imgs["brute"])
+    cscene = caustic_grad_builder(CAUSTIC_PM_RES, CAUSTIC_PM_RES).compile(
+        "cam")
+    img, mt, _, stored = _pm_render("photon mapping, caustic scene", cscene,
+                                    1)
+    launches["photon mapping caustic"] = (mt, 0)
+    if not np.isfinite(img).all() or stored[1] == 0:
+        raise AssertionError("phase 29: the caustic scene stored no caustic "
+                             "photon")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "maps.npz")
+        small = _cornell("brute", 512, 512)
+        cfg = make_integrator(PM_PARAMS)
+        saved = F.resolve(render(small, cfg, spp=1,
+                                 photon_maps_processing="generate-save",
+                                 photon_map_path=path)).cpu().numpy()
+        loaded = F.resolve(render(small, cfg, spp=1,
+                                  photon_maps_processing="load",
+                                  photon_map_path=path)).cpu().numpy()
+        print(f"phase 29: photon maps saved "
+              f"({os.path.getsize(path) / 2 ** 20:.1f} MiB) and loaded")
+        _bit_for_bit("29", "a generate-save render against a load render",
+                     loaded, saved)
+
+    # ---- SPPM
+    cfg = make_integrator({"type": "SPPM", "bounces": BOUNCES})
+    cornell = _cornell("brute", WIDTH, HEIGHT)
+    for ire in (False, True):
+        label = f"SPPM{' with PM_IRE' if ire else ''}"
+        img, mt, _, _ = _timed_run(
+            f"{label} {WIDTH}x{HEIGHT}, {SPPM_PHOTONS} photons a pass",
+            lambda: render_sppm(cornell, cfg, passes=SPPM_PASSES,
+                                photons_per_pass=SPPM_PHOTONS,
+                                initial_radius=SPPM_RADIUS, pm_ire=ire,
+                                device=DEVICE).cpu().numpy(), SPPM_PASSES)
+        _walls("29", label, img)
+        launches[label] = (mt, 0)
+
+    # ---- bidirectional
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    cfg = make_integrator(BIDIR_PARAMS)
+    for light in ("area", "point"):
+        b = cornell_builder(light_kind=light)
+        b.cameras["cam"]["resx"], b.cameras["cam"]["resy"] = WIDTH, HEIGHT
+        scene = b.compile("cam")
+        render(scene, cfg, spp=1, start_sample=BIDIR_SPP)     # warm-up
+        film, mt, _, _ = _timed_run(
+            f"bidirectional, {light} light, {WIDTH}x{HEIGHT}",
+            lambda: render(scene, cfg, spp=BIDIR_SPP), BIDIR_SPP)
+        img = F.resolve(film).cpu().numpy()
+        splat = float(film.splat.sum())
+        print(f"phase 29: bidirectional, {light} light: splat sum {splat:.6g}"
+              f" over {float(film.splat_paths):.0f} light subpaths")
+        _walls("29", f"bidirectional, {light} light", img)
+        if not splat > 0:
+            raise AssertionError("phase 29: no light-tracing splat landed")
+        launches[f"bidirectional {light}"] = (mt, 0)
+
+    # ---- kernel path against plain path at 128x128 on brute force
+    small = _cornell("brute", PATHS_RES, PATHS_RES)
+    pm_cfg = make_integrator(PM_PARAMS)
+    per_launch["photon mapping"] = _integrator_paths(
+        "photon mapping", small, lambda s: F.resolve(
+            render(s, pm_cfg, spp=1)).cpu().numpy())
+    sppm_cfg = make_integrator({"type": "SPPM", "bounces": BOUNCES})
+    per_launch["SPPM"] = _integrator_paths(
+        "SPPM with PM_IRE", small, lambda s: render_sppm(
+            s, sppm_cfg, passes=2, photons_per_pass=SPPM_PHOTONS,
+            initial_radius=SPPM_RADIUS, pm_ire=True,
+            device=DEVICE).cpu().numpy())
+    bd_cfg = make_integrator(BIDIR_PARAMS)
+    per_launch["bidirectional"] = _integrator_paths(
+        "bidirectional", small, lambda s: F.resolve(
+            render(s, bd_cfg, spp=1)).cpu().numpy())
+    # on blocks: the photon walks against tile_walk_ref
+    from libyafaray_tpu_torch import photon as PH
+    blocks = _cornell("blocks", PATHS_RES, PATHS_RES)
+    with _kept_calls(TL, "tile_walk", set(range(pm_cfg.pm_bounces))) as kept:
+        PH.shoot_photons(blocks, pm_cfg.n_photons, pm_cfg.pm_bounces)
+    per_walk = _hold_walks("29", kept, [f"blocks, photon depth {i}"
+                                        for i in range(len(kept))])
+    return launches, per_launch, per_walk
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -3889,6 +4238,7 @@ def main() -> int:
     proc_launches = _timed("26", phase26_procedural)
     vol_launches, mt_regions = _timed("27", phase27_volumes)
     aov_launches, aov_tiles, aov_per, aov_walk = _timed("28", phase28_aov)
+    int_launches, int_per, int_walk = _timed("29", phase29_integrators)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -3911,7 +4261,8 @@ def main() -> int:
                             mt_volume["max_abs_err"],
                             mt_walk["max_abs_err"],
                             mt_regions["max_abs_err"],
-                            *(v["max_abs_err"] for v in aov_per.values())),
+                            *(v["max_abs_err"] for v in aov_per.values()),
+                            *(v["max_abs_err"] for v in int_per.values())),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -3928,7 +4279,7 @@ def main() -> int:
              "phase 23": sphere_mt["environment-map scene"],
              "materials cornell forward 1920x1080 (transparent shadows), "
              "phase 24": mats_launches["forward"],
-             "materials cornell forward + backward 1920x1080 2 spp, "
+             "materials cornell forward + backward 1920x1080 1 spp, "
              "phase 24":
                  mats_launches["grads"],
              "portal room forward 1920x1080, phase 25": portal_launches,
@@ -3946,7 +4297,11 @@ def main() -> int:
              "cornell debug integrator 1920x1080 one pass, phase 28":
                  aov_launches["debug"],
              "cornell 2 + 2 spp saved and resumed 1920x1080, phase 28":
-                 aov_launches["resume"]},
+                 aov_launches["resume"],
+             **{f"{label} 1920x1080 (the maps' photon queries included "
+                "where it builds them), phase 29": n[0]
+                for label, n in int_launches.items()
+                if label != "photon mapping blocks"}},
          "per_launch_by_path": {
              "materials cornell, closest-shadow queries of the "
              "transparent walk, phase 24": mt_walk,
@@ -3956,7 +4311,10 @@ def main() -> int:
              "volume regions, in-medium shadow queries of one pass "
              "(exp, grid, sky), phase 27": mt_regions,
              **{f"cornell 1080p, {AOV_PER_LAUNCH[k]}, phase 28": v
-                for k, v in aov_per.items()}},
+                for k, v in aov_per.items()},
+             **{f"cornell 128x128 {k}, every query of a render (the first "
+                "of each kind timed), phase 29": v
+                for k, v in int_per.items()}},
          "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
                      "mean per launch",
          "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],
@@ -3972,7 +4330,8 @@ def main() -> int:
                                  "and :158-161",
          "launches": forest_launches,
          "max_abs_err": max(tl_err, arm_err, tl_walk_err,
-                            aov_walk["max_abs_err"]),
+                            aov_walk["max_abs_err"],
+                            int_walk["max_abs_err"]),
          "ms": arm_times[main_arm]["ms"],
          "plain_ms": arm_times[main_arm]["plain_ms"],
          "bound_ms": arm_times[main_arm]["bound_ms"],
@@ -3998,10 +4357,15 @@ def main() -> int:
              "procedural cornell forward 1920x1080 on blocks, phase 26":
                  proc_launches["blocks"],
              "cornell adaptive AOV render 1920x1080 on blocks, phase 28":
-                 aov_tiles},
+                 aov_tiles,
+             "cornell photon mapping 1920x1080 on blocks (the maps' "
+             "photon queries included), phase 29":
+                 int_launches["photon mapping blocks"][1]},
          "per_launch_by_path": {
              "cornell 1080p on blocks, the first compacted sample's "
-             "queries, phase 28": aov_walk}},
+             "queries, phase 28": aov_walk,
+             "cornell 128x128 on blocks, the photon walks of 100,000 "
+             "photons, phase 29": int_walk}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -12,13 +12,15 @@ JAX package, transparent shadows, chromatic dispersion and the Beer and
 sss glass interiors, every procedural texture type over its noise bases,
 orco coordinates, every volume region type and the emission,
 single-scatter (with its attenuation grid and adaptive marching) and sky
-volume integrators, ambient occlusion and the debug integrator. `render`
-runs the multi-pass loop of libYafaRay's clients: adaptive AA over
-compacted wavefronts of the flagged pixels, the reconstruction filters,
-every AOV layer of the JAX package but `adv-radiance`, film save, resume
-and merge in its `.film.npz` format; `io` writes and reads its image
-files. Still unported, and raising NotImplementedError: render views,
-the photon-mapping, SPPM and bidirectional integrators and the `bvh`
+volume integrators, ambient occlusion, the debug integrator, and the
+photon-mapping (with its final gather and map files), SPPM (with PM_IRE;
+`integrators.sppm.render_sppm`) and bidirectional (with light-tracing
+splats) integrators. `render` runs the multi-pass loop of libYafaRay's
+clients: adaptive AA over compacted wavefronts of the flagged pixels, the
+reconstruction filters, every AOV layer of the JAX package, film save,
+resume and merge in its `.film.npz` format, and the photon maps'
+processing modes; `io` writes and reads its image files. Still
+unported, and raising NotImplementedError: render views and the `bvh`
 accelerator. Torch autograd runs through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an

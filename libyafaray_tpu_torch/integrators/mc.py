@@ -23,12 +23,18 @@ renders the shading normal. `integrate` returns the AOV layers that
 accumulated ones (env, shadow, indirect and its first-lobe splits, the
 per-family direct splits, reflect and refract, the index-mask composites,
 the volume parts). Every accumulator is gated on `cfg.aov_layers`, so a
-render of `combined` alone runs what it ran without them. The photon,
-SPPM and bidirectional integrators still raise NotImplementedError (and
-`adv-radiance`, written under photon mapping only, stays empty).
+render of `combined` alone runs what it ran without them. Photon mapping
+is direct lighting with the photon maps' estimates at the hits (the
+diffuse map's, or the final gather over the radiance cache, and the
+caustic map's), on the lanes still alive; its final-gather estimate at
+the first hit is the adv-radiance layer. The bidirectional integrator is
+`integrators/bidir.py`; SPPM runs through `integrators/sppm.render_sppm`
+(`integrate` traces type "SPPM" as the path tracer, as the JAX package
+does).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
@@ -52,9 +58,8 @@ from . import common
 
 Tensor = torch.Tensor
 
-_KINDS = ("directlighting", "pathtracing", "DebugIntegrator", "debug")
-# integrator types of the JAX package that are not ported yet
-_KINDS_JAX = ("photonmapping", "SPPM", "bidirectional")
+_KINDS = ("directlighting", "pathtracing", "DebugIntegrator", "debug",
+          "photonmapping", "SPPM", "bidirectional")
 
 
 @dataclass(frozen=True)
@@ -94,6 +99,22 @@ class IntegratorConfig:
     mask_mat_index: int = 0
     mask_obj_index: int = 0
     mask_invert: bool = False
+    # photon mapping (integrator_photon_mapping.cc's params): photons shot,
+    # the gather radius ("diffuseRadius") and the photons' bounces
+    n_photons: int = 100_000
+    pm_radius: float = 0.05
+    pm_bounces: int = 5
+    # final gathering ("finalGather", on by default as in the reference):
+    # gather rays per hit, their bounces, and the distance under which a
+    # gather hit takes a direct-light estimate and bounces on instead of
+    # reading the radiance cache ("fg_min_pathlen")
+    final_gather: bool = True
+    fg_samples: int = 16
+    fg_bounces: int = 3
+    fg_min_pathlen: float = 0.0
+    # the path tracer's caustic mode ("none", "path", "photon", "both"):
+    # parsed, and read nowhere, as in the JAX package (ROADMAP section 3)
+    caustic_type: str = "path"
 
 
 _VOL_KINDS = {"EmissionIntegrator": "emission",
@@ -101,17 +122,10 @@ _VOL_KINDS = {"EmissionIntegrator": "emission",
               "SkyIntegrator": "sky", "none": "none"}
 
 
-def _unsupported(feature: str):
-    return NotImplementedError(
-        f"{feature} is not ported to libyafaray_tpu_torch yet")
-
-
 def make_integrator(pm: dict) -> IntegratorConfig:
     """Factory mirroring the reference's integrator type strings."""
     pm = P.ParamMap(pm)
     kind = pm.get_string("type", "pathtracing")
-    if kind in _KINDS_JAX:
-        raise _unsupported(f"integrator type {kind!r}")
     if kind not in _KINDS:
         raise KeyError(f"integrator: unknown type {kind!r}")
     return IntegratorConfig(
@@ -139,7 +153,20 @@ def make_integrator(pm: dict) -> IntegratorConfig:
         ao_color=tuple(pm.get_color("AO_color", (1, 1, 1))[:3].tolist()),
         mask_mat_index=pm.get_int("layer_mask_mat_index", 0),
         mask_obj_index=pm.get_int("layer_mask_obj_index", 0),
-        mask_invert=pm.get_bool("layer_mask_invert", False))
+        mask_invert=pm.get_bool("layer_mask_invert", False),
+        n_photons=pm.get_int("photons", 100_000),
+        # diffuseRadius falls back to causticRadius, then to 0.05
+        pm_radius=pm.get_float("diffuseRadius",
+                               pm.get_float("causticRadius", 0.05)),
+        pm_bounces=(pm.get_int("bounces", 5) if kind == "photonmapping"
+                    else 5),
+        caustic_type=pm.get_string("caustic_type", "path"),
+        final_gather=pm.get_bool("finalGather", True),
+        fg_samples=pm.get_int("fg_samples", 16),
+        fg_bounces=pm.get_int("fg_bounces", 3),
+        # fg_min_pathlen falls back to diffuseRadius (not to causticRadius)
+        fg_min_pathlen=pm.get_float("fg_min_pathlen",
+                                    pm.get_float("diffuseRadius", 0.05)))
 
 
 def _sample_ambient_occlusion(scene: SceneData, cfg: IntegratorConfig, sp,
@@ -160,6 +187,110 @@ def _sample_ambient_occlusion(scene: SceneData, cfg: IntegratorConfig, sp,
                                  cfg.transparent_shadows, needed=sp.valid)
         col = col + ao_col * tr / cfg.ao_samples
     return torch.where(sp.valid[..., None], col, 0.0)
+
+
+def _lanes(sp, idx: Tensor):
+    """The surface points of lanes `idx` (every tensor field indexed)."""
+    return dataclasses.replace(sp, **{
+        f.name: getattr(sp, f.name)[idx] for f in dataclasses.fields(sp)
+        if isinstance(getattr(sp, f.name), Tensor)})
+
+
+def _photon_estimates(scene: SceneData, cfg: IntegratorConfig, sp,
+                      alive: Tensor, pixel_id: Tensor, sample_idx, depth):
+    """The photon-map estimates at the hits of the lanes still alive (the
+    others are zero): (diffuse or final-gather, caustic), each f32[N,3].
+    The JAX package estimates every lane and masks the dead ones after;
+    each lane's value is its own, so the compacted batch gives the same
+    values at a fraction of the gathers (under photon mapping a path goes
+    on past a diffuse hit only through delta bounces)."""
+    from .. import photon as PH
+    ph = scene.photons
+    ind = torch.zeros_like(sp.p)
+    cau = torch.zeros_like(sp.p)
+    idx = torch.nonzero(alive).squeeze(1)
+    if idx.numel() == 0:
+        return ind, cau
+    spa = _lanes(sp, idx)
+    if cfg.final_gather and ph.radiance is not None:
+        ind_a = _final_gather(scene, cfg, spa, pixel_id[idx], sample_idx,
+                              depth)
+    else:
+        ind_a = PH.estimate_radiance(ph.diffuse, scene, spa, None,
+                                     ph.n_emitted)
+    cau_a = PH.estimate_radiance(ph.caustic, scene, spa, None, ph.n_emitted)
+    return ind.index_put((idx,), ind_a), cau.index_put((idx,), cau_a)
+
+
+def _final_gather(scene: SceneData, cfg: IntegratorConfig, sp,
+                  pixel_id: Tensor, sample_idx, depth) -> Tensor:
+    """Final gathering over the radiance cache (PhotonIntegrator::
+    finalGathering, integrator_photon_mapping.cc:643-765, with fg_bounces
+    and fg_min_pathlen): `fg_samples` cosine-distributed gather rays per
+    hit. A gather hit farther than fg_min_pathlen (or at the last bounce)
+    reads the cached outgoing radiance, and its lane is done; a nearer hit
+    does not trust the blurry cache: it takes a one-light direct estimate
+    there and bounces diffusely on, up to fg_bounces. With fg_min_pathlen
+    0 every lane ends at its first hit. The estimator is
+    albedo * mean(L) (the cosine and the pdf cancel). Each bounce after
+    the first runs on the near lanes only, compacted."""
+    from .. import photon as PH
+    n = sp.p.shape[0]
+    dev = sp.p.device
+    cache = scene.photons.radiance
+    nl_real = scene.lights.num_lights
+    nl = max(nl_real, 1)
+    bias = scene.shadow_bias
+    acc = torch.zeros_like(sp.p)
+    n_bounce = max(int(cfg.fg_bounces), 1) if cfg.fg_min_pathlen > 0 else 1
+    for k in range(cfg.fg_samples):
+        u1, u2 = sampler.rand2(pixel_id, sample_idx, depth, 9500 + 2 * k)
+        wi = vec.from_local(vec.cosine_sample_hemisphere(u1, u2), sp.nu,
+                            sp.nv, sp.n)
+        o = sp.p + wi * bias
+        thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        lanes = torch.arange(n, device=dev)
+        t_far = torch.where(sp.valid, 1e30, -1.0)
+        prim = sp.prim
+        for b in range(n_bounce):
+            hit = I.closest_hit(scene, o, wi, scene.ray_min_dist, t_far,
+                                exclude_prim=prim)
+            hit.valid = hit.valid & (t_far > 0.0)
+            gsp = S.make_surface(scene, hit, o, wi)
+            last = b == n_bounce - 1
+            close = hit.valid & (hit.t < cfg.fg_min_pathlen)
+            if last:
+                close = torch.zeros_like(close)
+            # far (or last-bounce) hits read the cache
+            far = torch.nonzero(hit.valid & ~close).squeeze(1)
+            if far.numel():
+                rad = PH.lookup_radiance(cache, gsp.p[far], gsp.n[far])
+                acc = acc.index_add(0, lanes[far], thr[far] * rad)
+            if cfg.fg_min_pathlen <= 0 or last:
+                break
+            near = torch.nonzero(close).squeeze(1)
+            if near.numel() == 0:
+                break
+            # near hits: a one-light direct estimate, then a diffuse bounce
+            lanes, gsp, wi, thr = lanes[near], _lanes(gsp, near), wi[near], \
+                thr[near]
+            pid = pixel_id[lanes]
+            r = sampler.rand4(pid, sample_idx, depth, 9700 + 8 * k + 2 * b)
+            if nl_real > 0:
+                li = torch.clamp((r[..., 0] * nl).to(torch.int32), 0, nl - 1)
+                c = common.estimate_one_light(scene, gsp, -wi, li, r[..., 1],
+                                              r[..., 2],
+                                              cfg.transparent_shadows)
+                acc = acc.index_add(0, lanes, thr * c * nl)
+            u5, u6 = sampler.rand2(pid, sample_idx, depth,
+                                   9800 + 8 * k + 2 * b)
+            thr = thr * B.resolve_mp(scene, gsp).diffuse_color
+            wi = vec.from_local(vec.cosine_sample_hemisphere(u5, u6), gsp.nu,
+                                gsp.nv, gsp.n)
+            o = gsp.p + wi * bias
+            prim = gsp.prim
+            t_far = torch.full((lanes.numel(),), 1e30, device=dev)
+    return B.resolve_mp(scene, sp).diffuse_color * acc / cfg.fg_samples
 
 
 # the AOV layers of each accumulator (JAX integrators/mc.py:277-309)
@@ -199,11 +330,19 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     Returns (rgb f32[N,3], alpha f32[N], {AOV layer: f32[N,C]})."""
     if cfg.kind in ("debug", "DebugIntegrator"):
         return _integrate_debug(scene, ray_o, ray_d, ray_valid)
+    if cfg.kind == "bidirectional":
+        from .bidir import integrate_bidir
+        return integrate_bidir(scene, cfg, ray_o, ray_d, ray_valid, pixel_id,
+                               sample_idx)
     n = ray_o.shape[0]
     dev = ray_o.device
     mats = scene.materials
     num_lights = scene.lights.num_lights
-    direct_only = cfg.kind == "directlighting"
+    # photon mapping is direct lighting (specular continuation only) plus
+    # the photon-map estimates at the hits; "SPPM" runs the path tracer
+    # here, as in the JAX package (only render_sppm runs SPPM)
+    photon_mode = cfg.kind == "photonmapping" and scene.photons is not None
+    direct_only = cfg.kind in ("directlighting", "photonmapping")
     zeros3 = lambda: torch.zeros((n, 3), dtype=torch.float32, device=dev)
     radiance = zeros3()
     throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -376,6 +515,17 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
                         fam_acc[k_] = fam_acc[k_] + torch.where(
                             alive[..., None], throughput * res[-1][k_] * wt,
                             0.0)
+
+        if photon_mode:
+            # the diffuse (or final-gather) and caustic estimates at the
+            # hits; the final gather's radiance estimate at the primary hit
+            # is the adv-radiance layer
+            ind, cau = _photon_estimates(scene, cfg, sp, alive, pixel_id,
+                                         sample_idx, depth)
+            radiance = radiance + torch.where(
+                alive[..., None], throughput * (ind + cau), 0.0)
+            if "adv-radiance" in layers and depth == 0:
+                aux["adv-radiance"] = torch.where(alive[..., None], ind, 0.0)
 
         if cfg.use_ao and depth == 0:
             # ambient occlusion at the first hit, under every integrator

@@ -14,7 +14,9 @@ and the compacted wavefront never holds more lanes). The film carries the recons
 render can be saved, resumed from its film file and autosaved. Each pass
 runs eagerly on the card (or on the device the caller names). Before the
 passes, the single-scatter integrator's "optimize" mode gets its
-attenuation grid, built once per render.
+attenuation grid and the photon-mapping integrator its photon maps (built,
+saved or loaded), once per render. The bidirectional integrator's
+light-tracing splats go to the film's splat accumulator.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from . import sampler
 from .cameras import lens_samples, shoot_rays
 from .integrators.mc import IntegratorConfig, integrate
 from .integrators.volume import interp
-from .scene_types import SceneData
+from .scene_types import PhotonData, SceneData
 
 Tensor = torch.Tensor
 
@@ -51,33 +53,46 @@ class AAParams:
     variance_pixels: int = 0
 
 
-def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
-                sample_idx: int, pixel_id: Tensor, live: Tensor) -> F.Film:
-    """Render one sample for each pixel id in `pixel_id` (int64 [M]) and
-    accumulate it into the film; `live` masks lanes. Sampling is keyed
-    purely by (pixel_id, sample_idx + the film's base sampling offset)."""
-    w = film.width
-    # the per-node sample stream (the reference's adv_base_sampling_offset),
-    # uint32 as in the JAX package, held in int64 as the sampler holds it
-    s_idx = (int(sample_idx) + film.base_sampling_offset) & sampler.M32
-    xx = pixel_id % w
-    yy = pixel_id // w
-    # pixel jitter: Owen-scrambled (0,2)-sequence per pixel
+def camera_rays(cam, pixel_id: Tensor, s_idx: int, width: int):
+    """The camera rays of sample s_idx of each pixel id: the pixel jitter
+    (an Owen-scrambled (0,2)-sequence per pixel) and the lens samples.
+    Returns (px, py, origin, direction, valid)."""
     scramble = sampler.pcg4d(torch.stack(
         [pixel_id, torch.full_like(pixel_id, 0x9E3779B9),
          torch.full_like(pixel_id, 7), torch.full_like(pixel_id, 11)],
         dim=-1))[..., 0]
     ju, jv = sampler.ld02(s_idx, scramble)
-    px = xx.to(torch.float32) + ju
-    py = yy.to(torch.float32) + jv
-    lens_u, lens_v = lens_samples(scene.camera, pixel_id, s_idx)
-    o, d, valid = shoot_rays(scene.camera, px, py, lens_u, lens_v)
+    px = (pixel_id % width).to(torch.float32) + ju
+    py = (pixel_id // width).to(torch.float32) + jv
+    lens_u, lens_v = lens_samples(cam, pixel_id, s_idx)
+    return (px, py) + shoot_rays(cam, px, py, lens_u, lens_v)
+
+
+def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
+                sample_idx: int, pixel_id: Tensor, live: Tensor) -> F.Film:
+    """Render one sample for each pixel id in `pixel_id` (int64 [M]) and
+    accumulate it into the film; `live` masks lanes. Sampling is keyed
+    purely by (pixel_id, sample_idx + the film's base sampling offset)."""
+    # the per-node sample stream (the reference's adv_base_sampling_offset),
+    # uint32 as in the JAX package, held in int64 as the sampler holds it
+    s_idx = (int(sample_idx) + film.base_sampling_offset) & sampler.M32
+    px, py, o, d, valid = camera_rays(scene.camera, pixel_id, s_idx,
+                                      film.width)
     valid = valid & live
     rgb, alpha, aux = integrate(scene, cfg, o, d, valid, pixel_id, s_idx)
+    weight = valid.to(torch.float32)
+    if "splat_px" in aux:
+        # the bidirectional integrator's light-tracing splats go to their
+        # own accumulator, normalized at resolve by the light subpaths
+        # traced: the lanes of this wavefront that traced one (the sum of
+        # the lane weights), not height x width, which a compacted pass
+        # would under-weight
+        film = F.add_splats(film, aux.pop("splat_px"), aux.pop("splat_py"),
+                            aux.pop("splat_rgb"), n_paths=weight.sum())
     layer_vals = {"combined": torch.cat([rgb, alpha[..., None]], dim=-1)}
     # the film keeps the layers it carries
     layer_vals.update({k: v for k, v in aux.items() if k in film.layers})
-    return F.add_samples(film, px, py, layer_vals, valid.to(torch.float32))
+    return F.add_samples(film, px, py, layer_vals, weight)
 
 
 def render_pass_fn(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
@@ -188,6 +203,24 @@ def compute_resample_mask(film: F.Film, aa: AAParams) -> Tensor:
     return mask.to(torch.float32)
 
 
+def _photon_maps(scene: SceneData, cfg: IntegratorConfig, mode: str,
+                 path: Optional[str], device) -> PhotonData:
+    """The photon maps of a render (SurfaceIntegrator::preprocess,
+    integrator_photon_mapping.cc:242; its processing modes, :790-846)."""
+    from . import photon as PH
+    if (mode in ("load", "reuse-previous") and path is not None
+            and os.path.exists(path)):
+        return PH.load_maps(path, device)
+    dmap, cmap, rcache = PH.make_maps(scene, cfg.n_photons, cfg.pm_bounces,
+                                      cfg.pm_radius,
+                                      final_gather=cfg.final_gather)
+    photons = PhotonData(diffuse=dmap, caustic=cmap, radiance=rcache,
+                         n_emitted=cfg.n_photons)
+    if mode == "generate-save" and path is not None:
+        PH.save_maps(photons, path)
+    return photons
+
+
 def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
            height: Optional[int] = None, spp: int = 16,
            aa: Optional[AAParams] = None,
@@ -198,6 +231,8 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
            film_path: Optional[str] = None,
            film_load_save_mode: str = "none",
            film_autosave_interval_passes: int = 0,
+           photon_maps_processing: str = "generate",
+           photon_map_path: Optional[str] = None,
            render_control=None, *, device="cuda") -> F.Film:
     """The multi-pass render loop (TiledIntegrator::render) on `device`
     (the CUDA card unless the caller names another device, such as "cpu");
@@ -208,7 +243,11 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
     (the film addresses camera pixels 1:1). `film_load_save_mode` "load" or
     "load-save" resumes from the film at `film_path` (and its sampling
     offset) when the file exists; "save" or "load-save" saves the film
-    there at the end, and every `film_autosave_interval_passes` samples."""
+    there at the end, and every `film_autosave_interval_passes` samples.
+    Under photon mapping the maps are built once before the first pass
+    (`photon_maps_processing` "generate"; "generate-save" also writes them
+    to `photon_map_path`), or read from `photon_map_path` ("load" and
+    "reuse-previous", when the file exists; else generated)."""
     width = scene.camera.resx if width is None else width
     height = scene.camera.resy if height is None else height
     scene = scene.to(device)
@@ -220,6 +259,9 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
         from .integrators.volume import build_attenuation_grid
         scene = dataclasses.replace(scene,
                                     vol_atten=build_attenuation_grid(scene))
+    if cfg.kind == "photonmapping" and scene.photons is None:
+        scene = dataclasses.replace(scene, photons=_photon_maps(
+            scene, cfg, photon_maps_processing, photon_map_path, device))
     # film resume (film_load_save_mode load / load-save, imagefilm.cc:827-938
     # and the resumed render's offset, integrator_tiled.cc:155)
     if film is None and film_path is not None and film_load_save_mode in (

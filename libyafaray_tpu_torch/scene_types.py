@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -457,6 +457,19 @@ class VolAtten(_Table):
 
 
 @dataclass
+class PhotonData(_Table):
+    """The preprocessed photon maps (PhotonIntegrator::preprocess's
+    output): the diffuse map (indirect deposits that are not caustic) and
+    the caustic map, `photon.PhotonMap`s, and the final gather's radiance
+    cache (the "FG Radiance Photon Map": a PhotonMap whose dir is the
+    surface normal and whose power is the outgoing radiance), or None."""
+    diffuse: Any
+    caustic: Any
+    radiance: Any = None
+    n_emitted: int = 0
+
+
+@dataclass
 class SceneData(_Table):
     """Everything the integrator needs."""
     geom: Geometry
@@ -478,3 +491,6 @@ class SceneData(_Table):
     # the attenuation grid of the single-scatter integrator's "optimize"
     # mode, built by `render` before its passes
     vol_atten: Optional[VolAtten] = None
+    # the photon maps of the photon-mapping integrator, built (or loaded)
+    # by `render` before its passes
+    photons: Optional[PhotonData] = None

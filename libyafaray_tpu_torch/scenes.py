@@ -23,13 +23,14 @@ from .scene import SceneBuilder
 
 
 def cornell_builder(white_emit: float = 12.0, extras=(),
-                    builder=None) -> SceneBuilder:
+                    builder=None, light_kind: str = "area") -> SceneBuilder:
     """Cornell box in [0,1]^3 (camera looks +y, z up): floor, ceiling and
     back wall white, left wall red, right wall green, two rotated boxes and
-    a ceiling area light. 34 triangles, plus the light's 2-triangle quad.
-    `extras` are further (name, params) materials, created after the
-    three of the walls; `builder` is the SceneBuilder to fill (the port's
-    by default)."""
+    a ceiling area light (34 triangles, plus the light's 2-triangle quad),
+    or with light_kind "point" a point light of a twelfth of the power
+    under the ceiling. `extras` are further (name, params) materials,
+    created after the three of the walls; `builder` is the SceneBuilder to
+    fill (the port's by default)."""
     b = SceneBuilder() if builder is None else builder
     b.create_material("white", {"type": "shinydiffusemat",
                                 "color": (0.73, 0.73, 0.73)})
@@ -63,12 +64,17 @@ def cornell_builder(white_emit: float = 12.0, extras=(),
     b.set_current_material("white")
     _box(b, (0.15, 0.6, 0.0), (0.30, 0.30, 0.60), rot=0.35)
 
-    b.create_light("lamp", {
-        "type": "arealight",
-        # emitting normal is cross(e1, e2): this ordering points it down
-        "corner": (0.35, 0.35, 0.999), "point1": (0.35, 0.65, 0.999),
-        "point2": (0.65, 0.35, 0.999),
-        "color": (1.0, 0.9, 0.8), "power": white_emit, "samples": 1})
+    if light_kind == "area":
+        b.create_light("lamp", {
+            "type": "arealight",
+            # emitting normal is cross(e1, e2): this ordering points it down
+            "corner": (0.35, 0.35, 0.999), "point1": (0.35, 0.65, 0.999),
+            "point2": (0.65, 0.35, 0.999),
+            "color": (1.0, 0.9, 0.8), "power": white_emit, "samples": 1})
+    else:
+        b.create_light("lamp", {"type": "pointlight", "from": (0.5, 0.5, 0.9),
+                                "color": (1.0, 0.9, 0.8),
+                                "power": white_emit / 12.0})
     b.create_camera("cam", {"type": "perspective",
                             "from": (0.5, -1.35, 0.5), "to": (0.5, 0.5, 0.5),
                             "up": (0.5, -1.35, 1.5),

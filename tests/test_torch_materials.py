@@ -11,7 +11,8 @@ the port's `materials_cornell_builder`) and carried across with
 `scene_from_numpy`; the shading points are made from seeded numpy lanes
 (positions in the box, random frames, outgoing and incoming directions on
 both sides). The JAX functions run eagerly (each op its own computation, so
-XLA contracts nothing into fused multiply-adds).
+XLA contracts nothing into fused multiply-adds), once over the lanes of
+every material (`jax_per_material`).
 
 Tolerances, each observed worst case in brackets: f, pdf, the sample's
 direction, weight and pdf within atol 1e-5 [5.7e-7 on the glossy lobes'
@@ -165,12 +166,39 @@ def test_ggx_matches_jax(rng):
 
 # ------------------------------------------------------- per material
 
+@pytest.fixture(scope="module")
+def jax_per_material(scenes):
+    """For each material, the JAX package's eval_bsdf, sample_bsdf (with
+    the sample test's wavelengths) and transparency on the lanes that the
+    tests draw (`_lanes` from the `rng` fixture's seed). Eager JAX costs
+    per op, not per lane, so each function runs once, over the lanes of
+    every material together; each lane's result is its own, so every
+    material's slice is what its own call gives."""
+    js = scenes[0]
+    per = []
+    for name, _ in MATERIALS:
+        rng = np.random.default_rng(42)           # conftest's `rng`
+        jsp, _, wo, wi, u = _lanes(rng, scenes, name)
+        per.append((jsp, wo, wi, u, rng.random(N).astype(np.float32)))
+    cat = lambda *xs: jnp.concatenate([jnp.asarray(x) for x in xs])
+    jsp = jax.tree_util.tree_map(cat, *(p[0] for p in per))
+    wo, wi = cat(*(p[1] for p in per)), cat(*(p[2] for p in per))
+    u1, u2, u3 = (cat(*(p[3][k] for p in per)) for k in range(3))
+    wl = cat(*(p[4] for p in per))
+    outs = (JB.eval_bsdf(js, jsp, wo, wi),
+            JB.sample_bsdf(js, jsp, wo, u1, u2, u3, wl=wl),
+            JB.transparency(js, jsp, wo))
+    return {name: jax.tree_util.tree_map(lambda x: x[i * N:(i + 1) * N],
+                                         outs)
+            for i, (name, _) in enumerate(MATERIALS)}
+
+
 @pytest.mark.parametrize("name,rtol", MATERIALS)
-def test_eval_bsdf_matches_jax(rng, scenes, name, rtol):
+def test_eval_bsdf_matches_jax(rng, scenes, jax_per_material, name, rtol):
     js, ts, _ = scenes
     jsp, sp, wo, wi, _ = _lanes(rng, scenes, name)
     f, pdf = B.eval_bsdf(ts, sp, T(wo), T(wi))
-    jf, jpdf = JB.eval_bsdf(js, jsp, jnp.asarray(wo), jnp.asarray(wi))
+    jf, jpdf = jax_per_material[name][0]
     _close(f, jf, "f", rtol)
     _close(pdf, jpdf, "pdf", rtol)
     if name not in ("mirror", "nothing", "prism", "jade"):
@@ -178,14 +206,12 @@ def test_eval_bsdf_matches_jax(rng, scenes, name, rtol):
 
 
 @pytest.mark.parametrize("name,rtol", MATERIALS)
-def test_sample_bsdf_matches_jax(rng, scenes, name, rtol):
+def test_sample_bsdf_matches_jax(rng, scenes, jax_per_material, name, rtol):
     js, ts, _ = scenes
     jsp, sp, wo, _, (u1, u2, u3) = _lanes(rng, scenes, name)
     wl = rng.random(N).astype(np.float32)
     ms = B.sample_bsdf(ts, sp, T(wo), T(u1), T(u2), T(u3), wl=T(wl))
-    jms = JB.sample_bsdf(js, jsp, jnp.asarray(wo), jnp.asarray(u1),
-                         jnp.asarray(u2), jnp.asarray(u3),
-                         wl=jnp.asarray(wl))
+    jms = jax_per_material[name][1]
     for flag in ("is_delta", "is_transmit", "valid", "lobe", "dispersed"):
         np.testing.assert_array_equal(getattr(ms, flag).numpy(),
                                       np.asarray(getattr(jms, flag)),
@@ -223,12 +249,11 @@ def _rough_sample_matches(ts, sp, wo, ms, jms):
 
 
 @pytest.mark.parametrize("name", [m for m, _ in MATERIALS])
-def test_transparency_matches_jax(rng, scenes, name):
+def test_transparency_matches_jax(rng, scenes, jax_per_material, name):
     js, ts, _ = scenes
     jsp, sp, wo, _, _ = _lanes(rng, scenes, name)
     tr = B.transparency(ts, sp, T(wo))
-    _close(tr, JB.transparency(js, jsp, jnp.asarray(wo)), "transparency",
-           atol=1e-6)
+    _close(tr, jax_per_material[name][2], "transparency", atol=1e-6)
     want = {"nothing": 1.0, "veil": 0.5}.get(name)
     if want is not None:
         # null passes everything; the veil half, white-filtered

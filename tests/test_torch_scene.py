@@ -210,18 +210,6 @@ def _true_instances_on_the_brute_path(b):
                                 torch.tensor([[0.0, 1.0, 0.0]]), 1e-4, 1e30)
 
 
-def _photon(b):
-    P.make_integrator({"type": "photonmapping"})
-
-
-def _sppm(b):
-    P.make_integrator({"type": "SPPM"})
-
-
-def _bidir(b):
-    P.make_integrator({"type": "bidirectional"})
-
-
 def _sphere_instance(b):
     # spheres and curves are not instanced yet (the JAX package bakes them)
     b.create_object("ball", {"type": "sphere", "radius": 0.1})
@@ -234,9 +222,6 @@ _UNPORTED = [
     (_big_mesh, "brute-force intersection above 16384 faces"),
     (_sphere_instance, "instancing of spheres and curves"),
     (_true_instances_on_the_brute_path, "does not expand true instances"),
-    (_photon, "integrator type 'photonmapping'"),
-    (_sppm, "integrator type 'SPPM'"),
-    (_bidir, "integrator type 'bidirectional'"),
 ]
 
 
@@ -252,11 +237,15 @@ def test_features_outside_the_port_raise(case, reason):
 
 @pytest.mark.parametrize("pm", [
     {"type": "directlighting", "do_AO": True, "AO_samples": 4},
-    {"type": "debug"}, {"type": "DebugIntegrator"}],
-    ids=["ao", "debug", "DebugIntegrator"])
+    {"type": "debug"}, {"type": "DebugIntegrator"},
+    {"type": "photonmapping"}, {"type": "SPPM"}, {"type": "bidirectional"}],
+    ids=["ao", "debug", "DebugIntegrator", "photonmapping", "SPPM",
+         "bidirectional"])
 def test_ported_integrator_options_construct(pm):
     """Ambient occlusion and the debug integrator, which raised before the
-    render loop's slice, now parse into the config."""
+    render loop's slice, and the photon-mapping, SPPM and bidirectional
+    integrators, which raised before the integrators' slice, now parse
+    into the config."""
     cfg = P.make_integrator(pm)
     assert cfg.kind == pm["type"]
     assert cfg.use_ao == pm.get("do_AO", False)
