@@ -181,7 +181,7 @@ Phases, each reporting on its own lines:
      (materials_cornell_builder: Oren-Nayar, coated glossy, a blend and a
      mask by a texture node, rough glass, dispersive glass with Beer
      absorption, sss glass, a transparent veil, a null quad; area, spot,
-     IES, sphere and directional lights) at 1920x1080, 4 spp, 4 bounces,
+     IES, sphere and directional lights) at 1920x1080, 2 spp, 4 bounces,
      transparent shadows at depth 4, on brute force (130 mt_closest
      launches a pass: the camera query, 4 bounces and 125 closest-shadow
      queries of the walk, 5 lights x 5 steps x 5 depths), ms a pass,
@@ -196,7 +196,7 @@ Phases, each reporting on its own lines:
      colours and the glass absorption, and the same gradients kernel path against plain
      path at 128x128 (rtol 1e-5);
  25. the portal room (portal_room_builder: a bgPortalLight over the window
-     of a closed room) at 1920x1080, 4 spp, 4 bounces:
+     of a closed room) at 1920x1080, 2 spp, 4 bounces:
      ms a pass, launches (10 a pass), the floor under the window lit;
      kernel path against plain path at 128x128 bit for bit.
  26. procedural textures and orco coordinates: the procedural Cornell box
@@ -204,13 +204,13 @@ Phases, each reporting on its own lines:
      musgrave, distorted noise and rgb cube over the newperlin, stdperlin
      and cellnoise bases, a colour ramp, bump through clouds, a cube that
      streams orco coordinates and a slab mapped on its own vertices) at
-     1920x1080, 4 spp, 4 bounces through `render` on brute force (10
+     1920x1080, 2 spp, 4 bounces through `render` on brute force (10
      mt_closest launches a pass) and on blocks (10 tile-kernel launches),
      the two images within the slice bound; ms a pass, camera rays/s, one
      pass profiled (kernel launches, device busy share, the node
      program's device time), peak device memory; kernel path against
      plain path at 128x128 on both (brute force bit for bit);
- 27. the rest of the volume path at 512x512, 2 spp, 3 bounces through
+ 27. the rest of the volume path at 512x512, 1 spp, 3 bounces through
      `render` (volume_regions_builder): the exponential, noise, grid and
      sky regions under single scatter (28 mt_closest launches a pass, the
      last 16 the in-medium shadow queries), the exponential and noise
@@ -250,13 +250,13 @@ Phases, each reporting on its own lines:
      for bit to 4 spp.
  29. the last three integrators: photon mapping as its defaults set it
      (100,000 photons of 5 bounces, radius 0.05, the final gather with 16
-     samples of up to 3 bounces) on the Cornell box at 1920x1080, 4 spp,
+     samples of up to 3 bounces) on the Cornell box at 1920x1080, 2 spp,
      on brute force and on blocks (the two images within the slice
      bound), the maps built once and timed; the caustic scene (config 4)
      at 512x512 with its caustic map; a generate-save render and a load
      render of the same maps at 512x512, equal bit for bit; SPPM at
      1080p, 8 passes of 50,000 photons, without and with PM_IRE; the
-     bidirectional integrator at 1080p, 4 bounces, 4 spp, with the area
+     bidirectional integrator at 1080p, 4 bounces, 2 spp, with the area
      light and with a point light (the splats land). For each: ms a
      pass, launches a pass by kind (camera, bounce, photon, gather,
      connection, splat), peak device memory, the walls red and green.
@@ -264,6 +264,24 @@ Phases, each reporting on its own lines:
      the images bit for bit and every query of the kernel run equal to
      mt_closest_ref's; on blocks the photon walks of 100,000 photons
      held against tile_walk_ref.
+ 30. the public entry points: the port's C API library
+     (libyafaray_tpu_torch/native/, embedding this Python) and its two C
+     clients built with g++ / gcc (capi_build.py) and run as their own
+     processes with no device staged, so on the card: each prints its OK
+     line, and test00's printed mean and wall sums equal those of its
+     staging replayed in this process through render_for_capi (within
+     1e-6); export_xml, load_xml and render_for_capi of the Cornell box at
+     1920x1080 (16 spp, 4 bounces) and of the terrain at 720x720 (6 spp, 2
+     bounces), each equal bit for bit to `render` of the original builder
+     (the terrain's is phase 6's image), with the XML's export and parse
+     seconds; render views at 1920x1080 and 4 spp through render_for_capi
+     (two views of the Cornell box, one with a subset of the lights, and a
+     spectral view of a dispersive glass block at a fixed wavelength),
+     named outputs written per view, each view equal bit for bit to
+     render(compile_view(view)); render_for_capi at 128x128, 2 spp, kernel
+     path against plain path on brute force and on blocks, the images bit
+     for bit, every mt_closest query equal to mt_closest_ref bit for bit
+     and every tile_walk query to tile_walk_ref.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -2742,10 +2760,10 @@ def phase23_spheres():
 
 # ------------------------------------------------------- phases 24 and 25
 
-# the materials Cornell box and the portal room: 4 of the 16-spp image's
+# the materials Cornell box and the portal room: 2 of the 16-spp image's
 # passes (a pass is measured the same way; the script's time made room
-# for phases 26-29)
-MATS_SPP = 4
+# for phases 26-30)
+MATS_SPP = 2
 # the materials box's forward + backward: 1 spp of the 16-spp image keeps
 # the script in its time (a 16-spp image took 283.3 s in chunks of 270
 # rows on the H100: the walk's eager ops make each chunk launch-bound)
@@ -3013,7 +3031,7 @@ def phase25_portal():
 
 # ------------------------------------------------------- phases 26 and 27
 
-PROC_SPP = 4             # the procedural Cornell box (cut from 16, then 8)
+PROC_SPP = 2             # the procedural Cornell box (cut from 16, 8, 4)
 
 
 def _texture_path_ms(scene, cfg):
@@ -3145,7 +3163,7 @@ VOLUME_RUNS = (
      {"volume_integrator": "EmissionIntegrator"}),
     ("Cornell box, SkyIntegrator", None, SKY_PM))
 VOLUME_EMIT = 0.5        # the emission run's region emits (l_e)
-REGIONS_SPP = 2          # phase 27's passes a run (cut from 8, then 4)
+REGIONS_SPP = 1          # phase 27's passes a run (cut from 8, 4, 2)
 # the runs whose in-medium shadow queries of one pass are held against
 # mt_closest_ref (the noise region's pass costs most, its queries are the
 # same kind)
@@ -3274,14 +3292,20 @@ def _render_module():
     return importlib.import_module("libyafaray_tpu_torch.render")
 
 
-def _cornell(accel, width, height):
+def _cornell_builder(width, height, accel=None):
     from libyafaray_tpu_torch.scenes import cornell_builder
     b = cornell_builder()
     b.cameras["cam"]["resx"] = width
     b.cameras["cam"]["resy"] = height
-    if accel == "blocks":
-        b.set_render_params({"scene_accelerator": "blocks"})
-    scene = b.compile("cam")
+    if accel is not None:
+        b.set_render_params({"scene_accelerator": accel})
+    return b
+
+
+def _cornell(accel, width, height):
+    scene = _cornell_builder(width, height,
+                             "blocks" if accel == "blocks" else None
+                             ).compile("cam")
     if scene.accel_kind != accel:
         raise AssertionError(f"the Cornell box compiled to "
                              f"{scene.accel_kind}, not {accel}")
@@ -3820,11 +3844,11 @@ def phase28_aov():
 # 0.05, the final gather with 16 samples of up to 3 bounces under an
 # fg_min_pathlen of 0.05), 4 bounces of specular continuation
 PM_PARAMS = {"type": "photonmapping"}
-PM_SPP = 4
+PM_SPP = 2               # phase 29's photon-mapping passes (cut from 4)
 CAUSTIC_PM_RES = 512        # the caustic scene's caustic map (config 4)
 SPPM_PASSES, SPPM_PHOTONS, SPPM_RADIUS = 8, 50_000, 0.05
 BIDIR_PARAMS = {"type": "bidirectional", "bounces": 4}
-BIDIR_SPP = 4
+BIDIR_SPP = 2            # phase 29's BDPT passes (cut from 4)
 # the parts of an integrator whose queries phase 29 counts apart (the
 # functions that issue them); the rest are "bounce" queries (the walks'
 # closest hits and the NEE shadow rays)
@@ -3968,7 +3992,7 @@ def _pm_render(label, scene, spp, profile=False):
     return img, mt + mt_b, tl + tl_b, stored
 
 
-def _hold_kinds(label, kept):
+def _hold_kinds(label, kept, phase="29"):
     """Each kept mt_closest call held bit for bit against mt_closest_ref,
     one line per kind; the first call of each kind timed beside its plain
     version and its bound. Returns (max error, per-launch means)."""
@@ -3978,11 +4002,11 @@ def _hold_kinds(label, kept):
     for kind, a, k, got in kept:
         want, plain = _once_ms(lambda: MT.mt_closest_ref(*a, **k))
         if not torch.equal(got[1], want[1]):
-            raise AssertionError(f"phase 29: {label}: {kind}: prim ids "
+            raise AssertionError(f"phase {phase}: {label}: {kind}: prim ids "
                                  "differ from mt_closest_ref")
         for x, y in zip(got, want):
             if not torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)):
-                raise AssertionError(f"phase 29: {label}: {kind}: outputs "
+                raise AssertionError(f"phase {phase}: {label}: {kind}: outputs "
                                      "differ from mt_closest_ref")
         n = by_kind.setdefault(kind, [0, 0])
         n[0] += 1
@@ -3992,11 +4016,11 @@ def _hold_kinds(label, kept):
             live, nrows, bound, by = mt_bound(a, k)
             rows.append((ms, plain, bound))
             bound_by[by] = bound_by.get(by, 0.0) + bound
-            print(f"phase 29: {label}: first {kind} query: {a[1].shape[0]} "
+            print(f"phase {phase}: {label}: first {kind} query: {a[1].shape[0]} "
                   f"rays, {live} live, {nrows} rows kept: mt_closest "
                   f"{ms:.4f} ms, mt_closest_ref {plain:.4f} ms, bound "
                   f"{bound:.4f} ms ({by})")
-    print(f"phase 29: {label}: every query equal to mt_closest_ref bit for "
+    print(f"phase {phase}: {label}: every query equal to mt_closest_ref bit for "
           "bit: " + ", ".join(f"{k} {v[0]} queries ({v[1]} live rays)"
                               for k, v in sorted(by_kind.items())))
     m = len(rows)
@@ -4133,6 +4157,254 @@ def phase29_integrators():
     return launches, per_launch, per_walk
 
 
+# ---------------------------------------------------------------- phase 30
+
+VIEW_SPP = 4             # phase 30's render views at 1080p
+SPECTRAL_WL = 0.3        # the spectral view's fixed wavelength
+CAPI_PATHS_SPP = 2       # phase 30's 128x128 kernel path against plain path
+
+
+def _capi_counted(label, fn):
+    """fn() with the kernel counts set to 0 just before and read just
+    after, timed on the host clock (synchronised). Returns (fn's result,
+    mt_closest launches, tile kernel launches)."""
+    import torch
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    torch.cuda.synchronize()
+    MT.launches = TL.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mt, tl = MT.launches, TL.launches
+    print(f"phase 30: {label}: {seconds:.2f} s, mt_closest {mt}, tile kernel "
+          f"{tl} launches")
+    return out, mt, tl
+
+
+def _capi_clients():
+    """(a) The port's C library and both C clients built on this host and
+    run as their own processes with no device argument (so on the card);
+    test00's staging replayed in this process through render_for_capi,
+    its printed numbers equal within 1e-6. Returns the replay's
+    mt_closest launches."""
+    import tempfile
+    from libyafaray_tpu_torch import capi_build
+    from libyafaray_tpu_torch.capi_runtime import render_for_capi
+    from libyafaray_tpu_torch.scenes import capi_test00
+    t0 = time.perf_counter()
+    out_dir = capi_build.build()
+    cflags, ldflags = capi_build.embed_flags()
+    print(f"phase 30: built {capi_build.LIBRARY} and "
+          f"{', '.join(capi_build.CLIENTS)} in {time.perf_counter() - t0:.2f}"
+          f" s ({' '.join(cflags + ldflags)}) into {out_dir}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = {name: capi_build.start_client(name, None, tmp)
+                 for name in capi_build.CLIENTS}
+        outs = {name: p.communicate(timeout=capi_build.CLIENT_TIMEOUT)
+                for name, p in procs.items()}
+        seconds = time.perf_counter() - t0
+        for name, (out, err) in outs.items():
+            ok = f"{name[:6]} C client OK"
+            print(f"phase 30: {name} (no device staged: the card): exit "
+                  f"{procs[name].returncode}, " + " | ".join(
+                      out.strip().splitlines()))
+            if procs[name].returncode != 0 or ok not in out:
+                raise AssertionError(f"phase 30: {name} failed:\n{out}\n"
+                                     f"{err[-4000:]}")
+        pngs = sorted(os.listdir(tmp))
+        print(f"phase 30: both clients in {seconds:.2f} s (run together), "
+              f"wrote {pngs}")
+        if pngs != ["capi_test00.png", "capi_test05_out.png"]:
+            raise AssertionError(f"phase 30: the clients wrote {pngs}")
+    b, rp = capi_test00()
+    (_, img, w, h), mt, _ = _capi_counted(
+        "test00's staging replayed in-process", lambda: render_for_capi(
+            b, rp, [], []))
+    got = capi_build.parse_numbers(outs["test00_client"][0])
+    want = capi_build.client_numbers(img)
+    print(f"phase 30: test00_client printed {got}; in-process {want}")
+    if (w, h) != (32, 32) or any(abs(got[k] - want[k]) > 1e-6 for k in got):
+        raise AssertionError("phase 30: the C client's numbers differ from "
+                             "the in-process render's")
+    return mt
+
+
+def _capi_xml(terrain_img):
+    """(b) export_xml, load_xml and render_for_capi at full size: the
+    Cornell box at 1920x1080 (16 spp, 4 bounces; kernel a) and the
+    terrain at 720x720 (6 spp, 2 bounces; kernel b's static arm), each
+    equal bit for bit to `render` of the original builder (the terrain's
+    is phase 6's image). Returns (mt_closest launches, tile launches)."""
+    import tempfile
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.capi_runtime import render_for_capi
+    from libyafaray_tpu_torch.io.export import export_xml
+    from libyafaray_tpu_torch.io.import_xml import load_xml
+    from libyafaray_tpu_torch.scenes import bigmesh_builder
+    cornell = _cornell_builder(WIDTH, HEIGHT)
+    runs = (("cornell", cornell, {"integrator_bounces": BOUNCES,
+                                  "AA_minsamples": SPP}),
+            ("terrain", bigmesh_builder(TERRAIN_GRID, textured=False),
+             {"integrator_bounces": TERRAIN_BOUNCES,
+              "AA_minsamples": TERRAIN_SPP}))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, b, rp in runs:
+            path = os.path.join(tmp, f"{label}.xml")
+            t0 = time.perf_counter()
+            export_xml(b, path)
+            t1 = time.perf_counter()
+            loaded = load_xml(path)
+            t2 = time.perf_counter()
+            n_faces = sum(len(o.faces) for o in b.objects.values())
+            print(f"phase 30: {label}: export_xml {t1 - t0:.2f} s, load_xml "
+                  f"{t2 - t1:.2f} s ({n_faces} faces, "
+                  f"{os.path.getsize(path) / 2**20:.1f} MiB)")
+            (_, img, _, _), mt, tl = _capi_counted(
+                f"{label} loaded from XML through render_for_capi",
+                lambda: render_for_capi(loaded, dict(
+                    rp, integrator_type="pathtracing"), [], []))
+            launches[label] = (mt, tl)
+            if label == "terrain":
+                want = terrain_img
+            else:
+                cfg = make_integrator({"type": "pathtracing",
+                                       "bounces": BOUNCES})
+                want = F.resolve(render(b.compile("cam"), cfg,
+                                        spp=SPP)).cpu().numpy()
+            _bit_for_bit("30", f"{label} through XML against the original "
+                         "builder's render", img, want)
+    if launches["cornell"][1] or launches["terrain"][0] or not (
+            launches["cornell"][0] and launches["terrain"][1]):
+        raise AssertionError(f"phase 30: XML launches {launches}")
+    return launches["cornell"][0], launches["terrain"][1]
+
+
+def _capi_views():
+    """(c) Render views at 1920x1080 through render_for_capi: two views of
+    the Cornell box (one with a subset of the lights) and a spectral view
+    of the box with a dispersive glass block, named outputs written to a
+    temporary directory; each view's image equal to `render` of
+    compile_view(view). Returns mt_closest launches by run."""
+    import tempfile
+    import numpy as np
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.capi_runtime import render_for_capi
+    from libyafaray_tpu_torch.scenes import _box, cornell_builder
+    b = _cornell_builder(WIDTH, HEIGHT)
+    b.create_light("lamp2", {"type": "pointlight", "from": (0.5, 0.3, 0.6),
+                             "color": (0.4, 0.6, 1.0), "power": 1.0})
+    b.create_camera("side", dict(b.cameras["cam"], **{
+        "from": (0.15, -1.2, 0.6), "fov": 45.0}))
+    b.create_render_view("front", {"camera_name": "cam"})
+    b.create_render_view("side", {"camera_name": "side",
+                                  "light_names": "lamp"})
+    prism = cornell_builder(extras=[("prism", {
+        "type": "glass", "IOR": 1.5, "dispersion_power": 0.5})])
+    prism.cameras["cam"]["resx"] = WIDTH
+    prism.cameras["cam"]["resy"] = HEIGHT
+    prism.create_object("prism")
+    prism.set_current_material("prism")
+    _box(prism, (0.3, 0.12, 0.05), (0.3, 0.2, 0.3))
+    prism.create_render_view("spectral", {"camera_name": "cam",
+                                          "wavelength": SPECTRAL_WL})
+    rp = {"integrator_type": "pathtracing", "integrator_bounces": BOUNCES,
+          "AA_minsamples": VIEW_SPP}
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, builder in (("two views", b), ("spectral view", prism)):
+            outputs = [("png", {"image_path": os.path.join(tmp, "out.png")}),
+                       ("hdr", {"image_path": os.path.join(tmp, "out.hdr"),
+                                "layer": "combined"})]
+            (views, _, _, _), mt, _ = _capi_counted(
+                f"{label} {WIDTH}x{HEIGHT} {VIEW_SPP} spp through "
+                "render_for_capi",
+                lambda: render_for_capi(builder, rp, outputs, []))
+            launches[label] = mt
+            for v, layers in views.items():
+                want = F.resolve(render(builder.compile_view(v), cfg,
+                                        spp=VIEW_SPP)).cpu().numpy()
+                _bit_for_bit("30", f"view {v!r} against "
+                             "render(compile_view)", layers["combined"],
+                             want)
+        files = sorted(os.listdir(tmp))
+        print(f"phase 30: named outputs written: {files}")
+        if files != ["out.hdr", "out.png", "out_side.hdr", "out_side.png"]:
+            raise AssertionError(f"phase 30: outputs {files}")
+    fixed = views["spectral"]["combined"]
+    free = F.resolve(render(prism.compile("cam"), cfg,
+                            spp=VIEW_SPP)).cpu().numpy()
+    diff = float(np.abs(fixed - free).max())
+    print(f"phase 30: spectral view (wavelength {SPECTRAL_WL}) against the "
+          f"per-path wavelengths: max |diff| {diff:.4g}, means "
+          f"{float(fixed[..., :3].mean()):.6f} / "
+          f"{float(free[..., :3].mean()):.6f}")
+    if not diff > 1e-3:
+        raise AssertionError("phase 30: the fixed wavelength changed nothing")
+    return launches
+
+
+def _capi_paths():
+    """(d) render_for_capi at 128x128 through the kernel path against the
+    plain path, on brute force (every mt_closest query held bit for bit
+    against mt_closest_ref) and on blocks (every tile_walk query held
+    against tile_walk_ref); the images bit for bit. Returns (per-launch
+    numbers of kernel a, those of kernel b)."""
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.capi_runtime import render_for_capi
+    rp = {"integrator_type": "pathtracing", "integrator_bounces": BOUNCES,
+          "AA_minsamples": CAPI_PATHS_SPP}
+    run = lambda b: render_for_capi(b, rp, [], [])[1]
+    b = _cornell_builder(PATHS_RES, PATHS_RES, "brute")
+    with _queries_by_kind(keep=True) as (_, kept):
+        img_k = run(b)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        img_p = run(b)
+    _bit_for_bit("30", "render_for_capi on brute force", img_k, img_p)
+    per_a = _hold_kinds(f"render_for_capi {PATHS_RES}x{PATHS_RES} brute "
+                        "force", kept, "30")
+    b = _cornell_builder(PATHS_RES, PATHS_RES, "blocks")
+    keep = set(range(CAPI_PATHS_SPP * (BOUNCES + 1) * 2))
+    TL.launches = 0
+    with _kept_calls(TL, "tile_walk", keep) as walks:
+        img_k = run(b)
+    launched = TL.launches
+    with _plain(TL, "tile_walk", TL.tile_walk_ref):
+        img_p = run(b)
+    _bit_for_bit("30", "render_for_capi on blocks", img_k, img_p)
+    if not len(walks) == launched == len(keep):
+        raise AssertionError(f"phase 30: {launched} tile kernel launches "
+                             f"and {len(walks)} walks held on blocks, want "
+                             f"{len(keep)} of each")
+    per_b = _hold_walks("30", walks, [
+        f"blocks {PATHS_RES}x{PATHS_RES} query {i}" for i in range(len(walks))])
+    return per_a, per_b
+
+
+def phase30_entry_points(terrain_img):
+    """The public entry points on the card at full width: the C library
+    and its clients, XML round trips, render views, and render_for_capi's
+    kernel path against its plain path. Returns (mt_closest launches by
+    path, tile kernel launches by path, per-launch numbers of a and b)."""
+    mt, tl = {}, {}
+    mt["C API test00 staging replayed in-process 32x32 4 spp"] = \
+        _capi_clients()
+    mt[f"cornell through XML {WIDTH}x{HEIGHT} {SPP} spp"], \
+        tl[f"terrain through XML {TERRAIN_RES}x{TERRAIN_RES} {TERRAIN_SPP} "
+           "spp"] = _capi_xml(terrain_img)
+    for label, n in _capi_views().items():
+        mt[f"render views: {label} {WIDTH}x{HEIGHT} {VIEW_SPP} spp"] = n
+    per_a, per_b = _capi_paths()
+    return mt, tl, per_a, per_b
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -4239,6 +4511,10 @@ def main() -> int:
     vol_launches, mt_regions = _timed("27", phase27_volumes)
     aov_launches, aov_tiles, aov_per, aov_walk = _timed("28", phase28_aov)
     int_launches, int_per, int_walk = _timed("29", phase29_integrators)
+    pm_size = lambda label: (f"{CAUSTIC_PM_RES}x{CAUSTIC_PM_RES}"
+                             if "caustic" in label else "1920x1080")
+    capi_mt, capi_tl, capi_per_a, capi_per_b = _timed(
+        "30", phase30_entry_points, terrain_img)
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -4262,7 +4538,8 @@ def main() -> int:
                             mt_walk["max_abs_err"],
                             mt_regions["max_abs_err"],
                             *(v["max_abs_err"] for v in aov_per.values()),
-                            *(v["max_abs_err"] for v in int_per.values())),
+                            *(v["max_abs_err"] for v in int_per.values()),
+                            capi_per_a["max_abs_err"]),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -4298,10 +4575,11 @@ def main() -> int:
                  aov_launches["debug"],
              "cornell 2 + 2 spp saved and resumed 1920x1080, phase 28":
                  aov_launches["resume"],
-             **{f"{label} 1920x1080 (the maps' photon queries included "
-                "where it builds them), phase 29": n[0]
+             **{f"{label} {pm_size(label)} (the maps' photon queries "
+                "included where it builds them), phase 29": n[0]
                 for label, n in int_launches.items()
-                if label != "photon mapping blocks"}},
+                if label != "photon mapping blocks"},
+             **{f"{label}, phase 30": n for label, n in capi_mt.items()}},
          "per_launch_by_path": {
              "materials cornell, closest-shadow queries of the "
              "transparent walk, phase 24": mt_walk,
@@ -4314,7 +4592,9 @@ def main() -> int:
                 for k, v in aov_per.items()},
              **{f"cornell 128x128 {k}, every query of a render (the first "
                 "of each kind timed), phase 29": v
-                for k, v in int_per.items()}},
+                for k, v in int_per.items()},
+             "cornell 128x128 through render_for_capi, every query of a "
+             "render (the first of each kind timed), phase 30": capi_per_a},
          "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
                      "mean per launch",
          "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],
@@ -4331,7 +4611,8 @@ def main() -> int:
          "launches": forest_launches,
          "max_abs_err": max(tl_err, arm_err, tl_walk_err,
                             aov_walk["max_abs_err"],
-                            int_walk["max_abs_err"]),
+                            int_walk["max_abs_err"],
+                            capi_per_b["max_abs_err"]),
          "ms": arm_times[main_arm]["ms"],
          "plain_ms": arm_times[main_arm]["plain_ms"],
          "bound_ms": arm_times[main_arm]["bound_ms"],
@@ -4360,12 +4641,15 @@ def main() -> int:
                  aov_tiles,
              "cornell photon mapping 1920x1080 on blocks (the maps' "
              "photon queries included), phase 29":
-                 int_launches["photon mapping blocks"][1]},
+                 int_launches["photon mapping blocks"][1],
+             **{f"{label}, phase 30": n for label, n in capi_tl.items()}},
          "per_launch_by_path": {
              "cornell 1080p on blocks, the first compacted sample's "
              "queries, phase 28": aov_walk,
              "cornell 128x128 on blocks, the photon walks of 100,000 "
-             "photons, phase 29": int_walk}},
+             "photons, phase 29": int_walk,
+             "cornell 128x128 on blocks through render_for_capi, every "
+             "query of a render, phase 30": capi_per_b}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

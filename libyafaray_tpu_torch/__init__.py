@@ -19,9 +19,17 @@ splats) integrators. `render` runs the multi-pass loop of libYafaRay's
 clients: adaptive AA over compacted wavefronts of the flagged pixels, the
 reconstruction filters, every AOV layer of the JAX package, film save,
 resume and merge in its `.film.npz` format, and the photon maps'
-processing modes; `io` writes and reads its image files. Still
-unported, and raising NotImplementedError: render views and the `bvh`
-accelerator. Torch autograd runs through it: material
+processing modes; `io` writes and reads its image files. Scenes compile
+without a background, and per render view (`compile_view`: its camera,
+its lights, its fixed wavelength). libYafaRay's clients reach it as they
+reach the JAX package: `io.export` writes a staged scene as XML, C or
+Python, `io.import_xml.load_xml` reads the XML back, and
+`capi_runtime.render_for_capi` is the render behind the port's C API
+library (`native/`, built with `capi_build`), on the card unless the
+render param "device" names another. Still unported, and raising
+NotImplementedError: the `bvh` accelerator, instances of spheres and
+curves and the brute-force path above 16,384 faces. Torch autograd runs
+through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an
 inverse-rendering SGD step on one device. `SceneBuilder.compile`, `render`

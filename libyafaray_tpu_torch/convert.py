@@ -9,7 +9,8 @@ accelerator's, the texture pool with its procedural types and the
 shader-node program, the mesh lights' area CDF, every volume region type
 with its grid pool and the attenuation grid when one is set, every camera
 kind and every background kind with the environment
-map's importance tables included, every material type with its Oren-Nayar,
+map's importance tables included, a render view's fixed wavelength, every
+material type with its Oren-Nayar,
 GGX, blend, mask, dispersion and glass-interior columns, and every light
 type with the IES profiles), on the CPU. It reads attributes only and
 imports nothing of JAX. Scenes that use features the port does not carry
@@ -73,7 +74,6 @@ def scene_from_numpy(tree) -> SceneData:
         _require(g.num_faces == 0 or g.tri_table is not None,
                  "brute-force intersection without a packed table")
     cam = tree.camera
-    _require(tree.fixed_wavelength is None, "render views")
 
     geom = Geometry(
         vertices=_t(g.vertices), normals=_t(g.normals), uvs=_t(g.uvs),
@@ -132,7 +132,9 @@ def scene_from_numpy(tree) -> SceneData:
             np.asarray(tree.volumes.grids),
             int(tree.volumes.num_volumes))),
         vol_atten=(None if tree.vol_atten is None else VolAtten(
-            *(_t(x) for x in tree.vol_atten))))
+            *(_t(x) for x in tree.vol_atten))),
+        fixed_wavelength=(None if tree.fixed_wavelength is None
+                          else _t(tree.fixed_wavelength)))
 
 
 def _background(bg) -> Background:

@@ -363,6 +363,11 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
     path_wl = chromatic = None
     if mats.has_dispersion:
         path_wl = sampler.rand1(pixel_id, sample_idx, 0, 555)
+        if scene.fixed_wavelength is not None:
+            # a spectral render view (RenderView::getWaveLength): every
+            # path takes the view's wavelength
+            path_wl = torch.where(scene.fixed_wavelength > 0.0,
+                                  scene.fixed_wavelength, path_wl)
         chromatic = torch.zeros((n,), dtype=torch.bool, device=dev)
     # the glass interiors (the reference's 'beer' and 'sss' volume
     # handlers, integrator_path_tracer.cc): the material whose interior

@@ -17,10 +17,11 @@ every camera type (with depth of field) and the constant, gradient,
 sunsky, darksky and texture backgrounds (with `ibl`, lighting the scene,
 and `add_sun`), over the brute-force or the block accelerator. `compile()`
 builds the same tables as the JAX compile, on the CUDA card unless the
-caller names another device. What the port does not carry yet raises
-`NotImplementedError` naming the feature: render views, instances of
-spheres and curves, the `bvh` accelerator and the brute-force path above
-16,384 faces.
+caller names another device; `compile_view` compiles one render view
+(its camera, its subset of the lights, its fixed wavelength). What the
+port does not carry yet raises `NotImplementedError` naming the feature:
+instances of spheres and curves, the `bvh` accelerator and the
+brute-force path above 16,384 faces.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from .scene_types import (
     MAT_BLEND, MAT_COATED_GLOSSY, MAT_GLASS, MAT_GLOSSY, MAT_LIGHT, MAT_MASK,
     MAT_MIRROR, MAT_NULL, MAT_ROUGH_GLASS, MAT_SHINY_DIFFUSE, NODE_COLUMNS,
     VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background,
-    Geometry, LightTable, MaterialTable, SceneData,
+    Camera, Geometry, LightTable, MaterialTable, SceneData,
 )
 
 # material and light types (the JAX package's); unknown names raise
@@ -132,6 +133,7 @@ class SceneBuilder:
         self.render_params = P.ParamMap()
         self.current_object: Optional[_MeshObject] = None
         self.current_material: int = 0
+        self.render_views: Dict[str, P.ParamMap] = {}
 
     # --- entity creation ---
 
@@ -180,7 +182,10 @@ class SceneBuilder:
         self.volumes[name] = pm
 
     def create_render_view(self, name: str, pm: dict) -> None:
-        raise _unsupported("render views")
+        """A render view (include/render/render_view.h:45-58): a camera
+        (`camera_name`), a subset of the lights (`light_names`, separated
+        by ';') and a fixed wavelength (`wavelength`, 0: none)."""
+        self.render_views[name] = P.ParamMap(pm)
 
     def set_render_params(self, pm: dict) -> None:
         self.render_params.update(pm)
@@ -309,6 +314,29 @@ class SceneBuilder:
         self.instances.append((base_name, list(m.reshape(-1, 4, 4))))
 
     # ------------------------------------------------------------------
+    def compile_view(self, view_name: str, *, device="cuda") -> SceneData:
+        """Compile the scene for one render view: its camera and, when the
+        view lists `light_names`, only those lights enabled (the JAX
+        compile_view)."""
+        pm = self.render_views[view_name]
+        cam = pm.get_string("camera_name", "")
+        lights = pm.get_string("light_names", "")
+        scene = self.compile(cam or None, device=device)
+        if lights:
+            wanted = {s.strip() for s in lights.split(";") if s.strip()}
+            mask = np.asarray([n in wanted for n in self.light_order], bool)
+            flags = scene.lights.flags.cpu().numpy()
+            flags = np.where(mask, flags | FLAG_ENABLED,
+                             flags & ~FLAG_ENABLED)
+            scene = dataclasses.replace(scene, lights=dataclasses.replace(
+                scene.lights, flags=torch.from_numpy(flags).to(
+                    scene.lights.flags.device)))
+        wl = pm.get_float("wavelength", 0.0)
+        if wl:
+            scene = dataclasses.replace(scene, fixed_wavelength=torch.tensor(
+                wl, dtype=torch.float32, device=scene.shadow_bias.device))
+        return scene
+
     def compile(self, camera_name: Optional[str] = None, *,
                 device="cuda") -> SceneData:
         """Freeze the staged scene into SceneData on `device` (the CUDA card
@@ -323,8 +351,6 @@ class SceneBuilder:
                                       tex_id=self._bg_tex_id())
                       if self.background_params is not None
                       else Background(kind="none"))
-        if background.kind == "none":
-            raise _unsupported("a scene without a background")
         if background.kind == "texture" and background.tex_id < 0:
             # the JAX compile accepts it and fails when the background is
             # first looked up
@@ -339,9 +365,11 @@ class SceneBuilder:
                 self.texture_order[background.tex_id])
         if camera_name is None and self.cameras:
             camera_name = next(iter(self.cameras))
-        if not camera_name:
-            raise ValueError("compile needs a camera")
-        camera = make_camera(self.cameras[camera_name])
+        # without a camera the JAX compile takes a default Camera, whose
+        # missing focal length then fails the pixel footprint below
+        # (float(None): a TypeError in both packages)
+        camera = (make_camera(self.cameras[camera_name]) if camera_name
+                  else Camera(kind="perspective"))
         # accelerator choice (scene_accelerator, as the JAX compile): blocks
         # from BLOCKS_MIN_FACES faces on or by name, else brute force
         default = "blocks" if geom.num_faces >= BLOCKS_MIN_FACES else "brute"

@@ -494,3 +494,6 @@ class SceneData(_Table):
     # the photon maps of the photon-mapping integrator, built (or loaded)
     # by `render` before its passes
     photons: Optional[PhotonData] = None
+    # a render view's fixed wavelength (RenderView::getWaveLength), f32[];
+    # every dispersive path takes it instead of its own sample
+    fixed_wavelength: Optional[Tensor] = None

@@ -14,7 +14,9 @@ and a room lit through a background portal (`portal_room_builder`); the
 Cornell box with every procedural texture type (`procedural_cornell_builder`)
 and config 5's room with each other volume region type
 (`volume_regions_builder`). These four take the builder to fill, so that
-the JAX package's SceneBuilder can stage the same scene."""
+the JAX package's SceneBuilder can stage the same scene. `capi_test00`
+stages the scene of the C client `native/tests/test00_client.c` as the C
+API library hands it to the builder."""
 from __future__ import annotations
 
 import numpy as np
@@ -943,3 +945,44 @@ def volume_regions_builder(kind: str, res: int = 512, builder=None,
     b.create_volume_region("fog", pm)
     b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = res
     return b
+
+
+def capi_test00(device=None):
+    """The scene and render params of the C client test00_client.c, staged
+    as the C API library replays them into a SceneBuilder (typed params as
+    the client sets them, each object's geometry in one add_mesh_arrays
+    call with its per-face materials). Returns (builder, render_params);
+    `device` is staged as the "device" render param when given."""
+    b = SceneBuilder()
+    for name, col in (("white", (0.73, 0.73, 0.73, 1.0)),
+                      ("red", (0.65, 0.05, 0.05, 1.0)),
+                      ("green", (0.12, 0.45, 0.15, 1.0))):
+        b.create_material(name, {"type": "shinydiffusemat", "color": col})
+    b.create_light("lamp", {
+        "type": "arealight", "corner": (0.35, 0.35, 0.999),
+        "point1": (0.35, 0.65, 0.999), "point2": (0.65, 0.35, 0.999),
+        "color": (1.0, 0.9, 0.8, 1.0), "power": 12.0})
+    b.create_camera("cam", {
+        "type": "perspective", "from": (0.5, -1.35, 0.5),
+        "to": (0.5, 0.5, 0.5), "up": (0.5, -1.35, 1.5), "resx": 32,
+        "resy": 32, "fov": 39.0})
+    b.create_background({"type": "constant", "color": (0.0, 0.0, 0.0, 1.0)})
+    quads = ((0, ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0))),   # floor
+             (0, ((0, 0, 1), (0, 1, 1), (1, 1, 1), (1, 0, 1))),   # ceiling
+             (0, ((0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1))),   # back
+             (1, ((0, 0, 0), (0, 1, 0), (0, 1, 1), (0, 0, 1))),   # left
+             (2, ((1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))))   # right
+    verts = np.asarray([p for _, q in quads for p in q], np.float32)
+    faces = np.asarray([(4 * i + a, 4 * i + b_, 4 * i + c)
+                        for i in range(len(quads))
+                        for a, b_, c in ((0, 1, 2), (0, 2, 3))], np.int32)
+    b.create_object("walls", {})
+    b.add_mesh_arrays(verts, faces, None, np.full(faces.shape, -1, np.int32),
+                      None, np.repeat([m for m, _ in quads], 2).astype(
+                          np.int32), None)
+    params = {"integrator_type": "pathtracing", "integrator_bounces": 3,
+              "AA_minsamples": 4}
+    if device is not None:
+        params["device"] = device
+    b.set_render_params(params)
+    return b, params

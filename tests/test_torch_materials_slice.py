@@ -212,7 +212,7 @@ def test_portal_room_matches_jax(room, _jax_pieces):
     assert img.reshape(24, 24, 3)[18:, 8:16].mean() > 0.05
 
 
-def _glass_slab(builder_mod, absorption=None, handler=None):
+def _glass_slab(builder_mod, absorption=None, handler=None, dispersion=0.0):
     """tests/test_render.py's glass slab in the Cornell box (a glass box
     with interior Beer absorption, and with the sss handler), made with
     the named package's cornell_builder, but standing clear of the short
@@ -226,6 +226,8 @@ def _glass_slab(builder_mod, absorption=None, handler=None):
     if handler is not None:
         gp["volume_handler"] = handler
         gp["scatter_col"] = (0.9, 0.9, 0.9)
+    if dispersion:
+        gp["dispersion_power"] = dispersion
     b = builder_mod.cornell_builder(extras=[("glass", gp)])
     b.create_object("glassbox")
     b.set_current_material("glass")
@@ -234,21 +236,42 @@ def _glass_slab(builder_mod, absorption=None, handler=None):
     return b
 
 
-@pytest.mark.parametrize("absorption,handler", [
-    ((0.2, 0.9, 0.2), None), ((0.5, 0.5, 0.5), "sss")], ids=["beer", "sss"])
-def test_glass_interior_matches_jax(absorption, handler, _jax_pieces):
+def _compile(b, wavelength, **kw):
+    """The slab compiled whole, or through a render view with a fixed
+    wavelength (the spectral view: every dispersive path takes it)."""
+    if not wavelength:
+        return b.compile("cam", **kw)
+    b.create_render_view("spectral", {"camera_name": "cam",
+                                      "wavelength": wavelength})
+    return b.compile_view("spectral", **kw)
+
+
+@pytest.mark.parametrize("absorption,handler,wavelength", [
+    ((0.2, 0.9, 0.2), None, 0.0), ((0.5, 0.5, 0.5), "sss", 0.0),
+    ((0.2, 0.9, 0.2), None, 0.3)], ids=["beer", "sss", "dispersive_view"])
+def test_glass_interior_matches_jax(absorption, handler, wavelength,
+                                    _jax_pieces):
     import scenes as jscenes
-    js = _glass_slab(jscenes, absorption, handler).compile("cam")
-    ts = _glass_slab(PS, absorption, handler).compile("cam", device="cpu")
-    _equal_tables(ts.materials, scene_from_numpy(
-        jax.tree_util.tree_map(np.asarray, js)).materials)
+    disp = 0.5 if wavelength else 0.0
+    js = _compile(_glass_slab(jscenes, absorption, handler, disp),
+                  wavelength)
+    ts = _compile(_glass_slab(PS, absorption, handler, disp), wavelength,
+                  device="cpu")
+    want = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    _equal_tables(ts.materials, want.materials)
+    if wavelength:
+        assert ts.materials.has_dispersion
+        assert torch.equal(ts.fixed_wavelength, want.fixed_wavelength)
     assert ts.materials.has_beer and ts.materials.has_sss == (handler ==
                                                               "sss")
     pm = {"type": "pathtracing", "bounces": 4}
     img = _port_image(ts, pm, 16, 16)
     _images_agree(img, _jax_image(js, ts, pm, 16, 16))
-    # the interior changes the image: against the clear glass slab
-    clear = _glass_slab(PS).compile("cam", device="cpu")
+    # the interior changes the image: against the clear glass slab (and
+    # the view's wavelength against the slab's per-path wavelengths)
+    clear = (_glass_slab(PS, absorption, handler, disp).compile(
+        "cam", device="cpu") if wavelength
+        else _glass_slab(PS).compile("cam", device="cpu"))
     assert np.abs(_port_image(clear, pm, 16, 16) - img).max() > 1e-3
 
 

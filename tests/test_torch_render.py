@@ -79,6 +79,15 @@ def lobes():
 
 
 @pytest.fixture(scope="module")
+def no_background():
+    """The Cornell box without a background (kind "none": escaped rays
+    black, no background light)."""
+    b = cornell_builder()
+    b.background_params = None
+    return _pair(b)
+
+
+@pytest.fixture(scope="module")
 def jax_image(cornell):
     """The JAX package's render, made once for the module."""
     js, _ = cornell
@@ -201,7 +210,8 @@ def test_sample_light_matches(rng, cornell):
 
 @pytest.mark.parametrize("kind,scene", [("pathtracing", "cornell"),
                                         ("pathtracing", "lobes"),
-                                        ("directlighting", "lobes")])
+                                        ("directlighting", "lobes"),
+                                        ("pathtracing", "no_background")])
 def test_integrate_per_ray_matches(request, kind, scene):
     js, ts = request.getfixturevalue(scene)
     pid = np.arange(RES * RES, dtype=np.uint32)
