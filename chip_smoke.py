@@ -8,7 +8,7 @@ Phases, each reporting on its own lines:
      limit; the shared-memory probe (kernel d): the largest dynamic shared
      memory a launch takes must equal the card's opt-in limit per block, and
      its output must be exactly 2.0;
-  2. build: compiles the three CUDA sources of the package (one nvcc each,
+  2. build: compiles the four CUDA sources of the package (one nvcc each,
      all started together) before phase 1 reports, timed;
   3. mt_closest against its plain version mt_closest_ref on the card, bit
      for bit (prim ids equal on every ray, max |diff| of t, u and v 0): the
@@ -282,6 +282,33 @@ Phases, each reporting on its own lines:
      path against plain path on brute force and on blocks, the images bit
      for bit, every mt_closest query equal to mt_closest_ref bit for bit
      and every tile_walk query to tile_walk_ref.
+
+ 31. the accelerators complete (each path's kernel counts set to 0 just
+     before its render and read just after): the LBVH
+     (scene_accelerator "bvh", built on the card; each tree's depth beside
+     its refit passes) on the Cornell box at 1920x1080, 16 spp, 4 bounces
+     (lbvh_traverse alone, 10 launches a pass) within the slice bound of
+     the brute-force render, one pass's queries held bit for bit against
+     lbvh_traverse_ref and timed beside their bounds (the box, face and
+     sphere tests each walk needed); the textured terrain on the LBVH at
+     720x720, 6 spp (the build timed; 9 launches a pass) within the slice
+     bound of phase 16's blocks render, its queries held and timed the
+     same way; at 128x128 every LBVH query of the Cornell box (camera,
+     bounce, shadow any hit), the materials box (the transparent walk's
+     closest shadow hits), a moving baked instance (the linear arm), a box
+     on two keyframes (the b-spline arm), the instanced spheres and curves
+     (sphere leaves, some hits on them) and the terrain, bit for bit, and
+     each image kernel path against plain path bit for bit; a hand-made
+     tree 60 levels deep whose walk overflows the 48-slot stack as the JAX
+     package's does. Brute force on the 203,522-face terrain (kernel a, no
+     row cap) at 720x720, 6 spp, within the slice bound of phase 16's
+     image, each query of a pass timed beside its bound, and at 128x128
+     every query bit for bit against mt_closest_ref. Instanced spheres and
+     curves (baked) at 512x512 on brute force and on blocks, kernel path
+     against plain path bit for bit. SUPER=4 and CAND_K=256 on the
+     textured terrain's camera
+     and first bounce queries: t bit for bit and hit or miss equal to the
+     default prepass's walk, candidates a tile and ms beside the default's.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -4405,6 +4432,457 @@ def phase30_entry_points(terrain_img):
     return mt, tl, per_a, per_b
 
 
+# ---------------------------------------------------------------- phase 31
+
+ACCEL_SMALL = 128        # phase 31: every query held against its plain version
+ACCEL_INST_RES = 512     # instanced spheres and curves
+PREPASS = (("SUPER", 4), ("CAND_K", 256))   # the opt-in prepass branches
+FLOPS_PER_BOX = 25       # one slab test: 6 sub, 6 mul, 6 min / max, 4
+                         # across the axes and 3 compares
+FLOPS_PER_SPHERE = 25    # one ray-sphere test
+
+
+def _lbvh_kind(k):
+    """camera / bounce closest hits, shadow any hits, or the transparent
+    walk's closest shadow hits, by the query's flags."""
+    if k.get("any_hit"):
+        return "shadow any hit"
+    return "shadow closest (transparent walk)" if k.get("shadow") \
+        else "closest"
+
+
+def _lbvh_bound(a, k, stats):
+    """(bound ms, what bounds it) of one lbvh_traverse call: the box, face
+    and sphere tests this walk needed (`stats` from lbvh_traverse_ref) at
+    their flops, or every input read once and the four outputs written
+    once."""
+    import torch
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    bvh, geom, o = a[0], a[1], a[2]
+    motion = LB._motion(geom, k.get("time"))
+    flops = (stats["boxes"] * FLOPS_PER_BOX + stats["spheres"]
+             * FLOPS_PER_SPHERE + stats["faces"]
+             * FLOPS_PER_PAIR_MOTION[motion])
+    tabs = [bvh.node_min, bvh.node_max, bvh.node_left, bvh.node_right,
+            bvh.node_is_leaf, bvh.prim_order, geom.vertices, geom.faces,
+            geom.face_vis]
+    if motion:
+        tabs += [geom.vertices_t1] + ([geom.vertices_t2] if motion == 2
+                                      else [])
+    if geom.num_spheres:
+        tabs += [geom.sph_center, geom.sph_radius, geom.sph_vis]
+    rays = [x for x in a[2:] if isinstance(x, torch.Tensor)]
+    rays += [x for x in k.values() if isinstance(x, torch.Tensor)]
+    return _bound_ms(flops, _nbytes(*tabs, *rays) + 16 * o.shape[0])
+
+
+def _exact(label, got, want):
+    """Raise unless the kernel's outputs equal the plain version's bit for
+    bit (NaN where NaN); returns the max |diff| (0)."""
+    import torch
+    torch.cuda.synchronize()
+    for name, x, y in zip(("t", "prim", "u", "v"), got, want):
+        if not torch.equal(torch.nan_to_num(x, nan=-7.0),
+                           torch.nan_to_num(y, nan=-7.0)):
+            bad = int((x != y).sum())
+            raise AssertionError(f"phase 31: {label}: {name} differs from "
+                                 f"the plain version on {bad} rays")
+    return 0.0
+
+
+def _hold_lbvh(label, calls, reps=10):
+    """Each captured lbvh_traverse call (arguments, keywords, outputs) held
+    bit for bit against lbvh_traverse_ref, then timed alone beside the
+    plain version and its bound; printed per kind. Returns the max error
+    and the per-launch means (ms, plain_ms, bound_ms, bound_by)."""
+    import collections
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    by_kind = collections.defaultdict(list)
+    bound_by = {}
+    for i, (a, k, got) in enumerate(calls):
+        stats = {}
+        want, plain = _once_ms(lambda: LB.lbvh_traverse_ref(*a, **k,
+                                                            stats=stats))
+        _exact(f"{label} query {i}", got, want)
+        ms = _cuda_ms(lambda: LB.lbvh_traverse(*a, **k), reps)
+        bound, by = _lbvh_bound(a, k, stats)
+        bound_by[by] = bound_by.get(by, 0.0) + bound
+        live = int((a[5] > a[4]).sum())
+        by_kind[_lbvh_kind(k)].append((ms, plain, bound, live,
+                                       int((got[1] >= 0).sum()), stats, by))
+    rows = []
+    for kind, xs in by_kind.items():
+        n = len(xs)
+        ms, plain, bound = (sum(x[j] for x in xs) / n for j in range(3))
+        boxes = sum(x[5]["boxes"] for x in xs) / max(1, sum(x[3] for x in xs))
+        bys = sorted({x[6] for x in xs})
+        print(f"phase 31: {label}: {n} {kind} queries, every one bit for bit "
+              f"(max |diff| 0): {sum(x[3] for x in xs)} live rays, "
+              f"{sum(x[4] for x in xs)} hits, {boxes:.1f} box tests a live "
+              f"ray; per query lbvh_traverse {ms:.4f} ms, lbvh_traverse_ref "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({', '.join(bys)}), at "
+              f"{100 * bound / ms:.1f}% of it")
+        rows += xs
+    n = len(rows)
+    ms, plain, bound = (sum(x[j] for x in rows) / n for j in range(3))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=max(bound_by, key=bound_by.get), queries=n)
+
+
+def _counted(label, scene, cfg, spp, warm=True):
+    """`render(scene, cfg, spp)` with no device argument, the kernel counts
+    set to 0 just before and read just after: (image, ms a pass,
+    {kernel: launches})."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import render
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    if warm:
+        render(scene, cfg, spp=1)
+    torch.cuda.synchronize()
+    LB.launches = MT.launches = TL.launches = 0
+    t0 = time.perf_counter()
+    film = render(scene, cfg, spp=spp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(lbvh_traverse=LB.launches, mt_closest=MT.launches,
+                  tiles_traverse=TL.launches)
+    img = F.resolve(film).cpu().numpy()
+    if not np.isfinite(img).all():
+        raise AssertionError(f"phase 31: {label}: the image is not finite")
+    ms = seconds * 1e3 / spp
+    print(f"phase 31: {label}: {img.shape[1]}x{img.shape[0]} {spp} spp, "
+          f"{scene.geom.num_faces} triangles, {scene.geom.num_spheres} "
+          f"spheres, on {scene.accel_kind}: {ms:.2f} ms a pass, "
+          f"{img.shape[0] * img.shape[1] * spp / seconds:.4g} camera rays/s, "
+          f"launches {counts}")
+    return img, ms, counts
+
+
+def _only(label, counts, kernel, want=None):
+    """The render launched `kernel` (exactly `want` times, when given) and
+    no other intersection kernel."""
+    others = {k: n for k, n in counts.items() if k != kernel and n}
+    if counts[kernel] == 0 or others or (want is not None
+                                         and counts[kernel] != want):
+        raise AssertionError(f"phase 31: {label}: launches {counts}, want "
+                             f"{want or 'some'} of {kernel} alone")
+    return counts[kernel]
+
+
+def _lbvh_tree(label, scene):
+    """Print the scene's LBVH depth beside its refit passes; a deeper tree
+    is the refit fault of both packages (ROADMAP section 3)."""
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    p = scene.bvh.prim_order.shape[0]
+    depth, passes = LB.tree_depth(scene.bvh), LB.refit_passes(p)
+    print(f"phase 31: {label}: LBVH over {p} primitives, "
+          f"{scene.bvh.num_nodes} nodes, depth {depth}, refit passes "
+          f"{passes}")
+    if depth > passes:
+        raise AssertionError(f"phase 31: {label}: the tree is deeper than "
+                             "its refit")
+
+
+def _all_calls(module, name):
+    """`_kept_calls` of every call."""
+    return _kept_calls(module, name, range(1 << 40))
+
+
+def _lbvh_paths(label, scene, cfg, spp):
+    """The scene at 128x128 through the kernel path, every lbvh_traverse
+    query captured, and through the plain path: the images bit for bit and
+    every query held; in a scene with spheres some hits end on a sphere
+    leaf. Returns (launches, per-launch numbers)."""
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import render
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    LB.launches = 0
+    with _all_calls(LB, "lbvh_traverse") as kept:
+        img_k = F.resolve(render(scene, cfg, spp=spp)).cpu().numpy()
+    launches = LB.launches
+    if launches != len(kept) or not launches:
+        raise AssertionError(f"phase 31: {label}: {launches} launches, "
+                             f"{len(kept)} queries captured")
+    if scene.geom.num_spheres:
+        on = sum(int((got[1] >= scene.geom.num_faces).sum())
+                 for _, _, got in kept)
+        print(f"phase 31: {label}: {on} hits on sphere leaves")
+        if not on:
+            raise AssertionError(f"phase 31: {label}: no query hit a sphere "
+                                 "leaf")
+    with _plain(LB, "lbvh_traverse", LB.lbvh_traverse_ref):
+        img_p = F.resolve(render(scene, cfg, spp=spp)).cpu().numpy()
+    _bit_for_bit("31", label, img_k, img_p)
+    return launches, _hold_lbvh(label, kept)
+
+
+def _small(scene, camera):
+    from libyafaray_tpu_torch.cameras import make_camera
+    from libyafaray_tpu_torch.params import ParamMap
+    return dataclasses.replace(scene, camera=make_camera(ParamMap(dict(
+        camera, resx=ACCEL_SMALL, resy=ACCEL_SMALL))))
+
+
+def _ladder_overflow():
+    """The hand-made LBVH 60 levels deep (`scenes.ladder_bvh`) on the card:
+    rays at faces 0-47 hit them, rays at 48-60 miss (the walk's 48 slots
+    overflow as in the JAX package), kernel and plain version bit for
+    bit."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    from libyafaray_tpu_torch.scene_types import BVH
+    from libyafaray_tpu_torch.scenes import ladder_builder, ladder_bvh
+    scene = ladder_builder().compile("cam")
+    v = scene.geom.vertices[scene.geom.faces.long()].cpu().numpy()
+    tables = ladder_bvh(v.min(1), v.max(1))
+    bvh = BVH(**{k: torch.from_numpy(x).to(DEVICE)
+                 for k, x in tables.items()}, num_nodes=121)
+    k = np.arange(61)
+    o = np.stack([np.full(61, -1.0), (k % 8) / 10, (k // 8) / 10],
+                 -1).astype(np.float32)
+    dev = lambda x: torch.from_numpy(x).to(DEVICE)
+    args = (bvh, scene.geom, dev(o), dev(np.tile(np.float32([[1, 0, 0]]),
+                                                 (61, 1))),
+            torch.zeros(61, device=DEVICE),
+            torch.full((61,), 1e30, device=DEVICE),
+            torch.full((61,), -1, dtype=torch.int32, device=DEVICE))
+    got = LB.lbvh_traverse(*args)
+    _exact("the ladder 60 levels deep", got, LB.lbvh_traverse_ref(*args))
+    hit = (got[1] >= 0).cpu().numpy()
+    if not (hit == (k < 48)).all():
+        raise AssertionError("phase 31: the ladder's overflow walk is not "
+                             "the JAX package's")
+    print("phase 31: the hand-made LBVH 60 levels deep: the kernel drops the "
+          "pushes past slot 47 and re-reads it, as the plain version and the "
+          "JAX walk do: faces 0-47 hit, 48-60 missed, bit for bit")
+
+
+def _terrain(accel):
+    from libyafaray_tpu_torch.scenes import bigmesh_builder
+    b = bigmesh_builder(TERRAIN_GRID)
+    b.set_render_params({"scene_accelerator": accel})
+    t0 = time.perf_counter()
+    scene = b.compile("cam")
+    import torch
+    torch.cuda.synchronize()
+    print(f"phase 31: the textured terrain compiled on {accel} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if scene.accel_kind != accel:
+        raise AssertionError(f"the terrain compiled to {scene.accel_kind}")
+    return scene
+
+
+def _prepass_branches(textured, cfg):
+    """SUPER and CAND_K on the textured terrain's camera and first bounce
+    queries (blocks): candidates a tile, prepass and query ms against the
+    default, hit records equal (t bit for bit; a prim id may differ only
+    on an exact tie of t, where the walk meets the blocks in another
+    order). Returns {branch: {query: numbers}}."""
+    import torch
+    from libyafaray_tpu_torch import render
+    from libyafaray_tpu_torch.accel import tiles as TL
+    with _kept_calls(TL, "tiles_traverse", {0, 3}) as kept:
+        render(textured, cfg, spp=1)
+    out = {}
+    for (a, k, _), query in zip(kept, ("camera", "first bounce")):
+        prep = (a[1], a[2]) + tuple(a[3:8])
+        rows = {}
+        base = None
+        for name, value in (("default", None),) + PREPASS:
+            saved = (TL.SUPER, TL.CAND_K)
+            if name != "default":
+                setattr(TL, name, value)
+            try:
+                res = TL.tiles_traverse(*a, **k)
+                count = TL.prepare(*prep, time=k.get("time"))[3]
+                prep_ms = _cuda_ms(lambda: TL.prepare(
+                    *prep, time=k.get("time")), 3)
+                ms = _cuda_ms(lambda: TL.tiles_traverse(*a, **k), 3)
+            finally:
+                TL.SUPER, TL.CAND_K = saved
+            torch.cuda.synchronize()
+            cand = float(count.float().mean())
+            ties = 0
+            if base is None:
+                base = res
+            else:
+                if not (torch.equal(res[0], base[0])
+                        and torch.equal(res[1] >= 0, base[1] >= 0)):
+                    raise AssertionError(f"phase 31: {name}={value}: the "
+                                         f"{query} query's hits differ")
+                ties = int((res[1] != base[1]).sum())
+            rows[name] = dict(candidates_per_tile=cand, prepass_ms=prep_ms,
+                              query_ms=ms, prim_ties=ties)
+            print(f"phase 31: textured terrain {query} query "
+                  f"({a[3].shape[0]} rays), {name}"
+                  f"{'' if value is None else '=' + str(value)}: {cand:.1f} "
+                  f"candidates a tile, prepass {prep_ms:.3f} ms, query "
+                  f"{ms:.3f} ms (prepass, walk, sort), t bit for bit, "
+                  f"{ties} prim ids differing on tied t")
+        out[query] = rows
+    return out
+
+
+def phase31_accelerators(textured, textured_img):
+    """The accelerators complete, at full width: the LBVH, brute force on
+    the 203,522-face terrain, instanced spheres and curves, and the SUPER /
+    CAND_K prepass branches. Returns (lbvh_traverse launches by path, its
+    per-launch numbers by path, mt_closest launches by path, kernel a's
+    per-launch numbers on the terrain, tiles_traverse launches by path,
+    the prepass branches' numbers)."""
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.scenes import (MATERIALS_INTEGRATOR,
+                                             TERRAIN_CAMERA,
+                                             accel_instances_builder,
+                                             materials_cornell_builder,
+                                             motion_cornell_builder)
+    launches, per = {}, {}
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    cfg_t = make_integrator({"type": "pathtracing",
+                             "bounces": TERRAIN_BOUNCES})
+
+    # the Cornell box on the LBVH at 1080p against brute force
+    cornell = _cornell_builder(WIDTH, HEIGHT, "bvh").compile("cam")
+    _lbvh_tree("cornell", cornell)
+    brute, _, counts = _counted("cornell (brute force)", _cornell(
+        "brute", WIDTH, HEIGHT), cfg, SPP)
+    img, _, counts = _counted("cornell", cornell, cfg, SPP)
+    label = f"cornell {WIDTH}x{HEIGHT} {SPP} spp"
+    launches[label] = _only(label, counts, "lbvh_traverse",
+                            SPP * (BOUNCES + 1) * 2)
+    _paths_agree("31", img, brute)
+    with _kept_calls(LB, "lbvh_traverse", range(1 << 40)) as kept:
+        _render_module().render(cornell, cfg, spp=1)
+    per[f"cornell {WIDTH}x{HEIGHT}, one pass's queries"] = _hold_lbvh(
+        f"cornell {WIDTH}x{HEIGHT}, one pass", kept)
+    del kept
+
+    # the textured terrain on the LBVH at 720x720 against blocks
+    terrain = _terrain("bvh")
+    _lbvh_tree("textured terrain", terrain)
+    bvh, build_ms = _once_ms(lambda: LB.build_lbvh(terrain.geom))
+    print(f"phase 31: the terrain's LBVH built on the card in "
+          f"{build_ms:.2f} ms")
+    img, _, counts = _counted("textured terrain", terrain, cfg_t,
+                              TERRAIN_SPP)
+    label = (f"textured terrain {TERRAIN_RES}x{TERRAIN_RES} {TERRAIN_SPP} "
+             "spp")
+    launches[label] = _only(label, counts, "lbvh_traverse",
+                            TERRAIN_SPP * (TERRAIN_BOUNCES + 1) * 3)
+    _paths_agree("31", img, textured_img)
+    with _all_calls(LB, "lbvh_traverse") as kept:
+        _render_module().render(terrain, cfg_t, spp=1)
+    per[f"textured terrain {TERRAIN_RES}x{TERRAIN_RES}, one pass's "
+        "queries"] = _hold_lbvh(f"textured terrain {TERRAIN_RES}x"
+                                f"{TERRAIN_RES}, one pass", kept)
+    del kept, bvh
+
+    # every LBVH query at 128x128 bit for bit, each arm
+    small = _cornell_builder(ACCEL_SMALL, ACCEL_SMALL, "bvh").compile("cam")
+    mats = materials_cornell_builder(ACCEL_SMALL, ACCEL_SMALL)
+    mats.set_render_params({"scene_accelerator": "bvh"})
+    runs = (("cornell", small, cfg, 2),
+            ("materials cornell (transparent shadows)", mats.compile("cam"),
+             make_integrator(MATERIALS_INTEGRATOR), 1),
+            ("cornell with a moving instance (linear)",
+             motion_cornell_builder(1, ACCEL_SMALL).compile("cam"), cfg, 2),
+            ("cornell with a box on two keyframes (b-spline)",
+             motion_cornell_builder(2, ACCEL_SMALL).compile("cam"), cfg, 2),
+            ("instanced spheres and curves (sphere leaves)",
+             accel_instances_builder(ACCEL_SMALL, "bvh").compile("cam"), cfg,
+             2),
+            ("textured terrain", _small(terrain, TERRAIN_CAMERA), cfg_t, 1))
+    for label, scene, c, spp in runs:
+        label = f"{label} {ACCEL_SMALL}x{ACCEL_SMALL} {spp} spp"
+        if scene.accel_kind != "bvh":
+            raise AssertionError(f"phase 31: {label}: not on the LBVH")
+        launches[label], per[label] = _lbvh_paths(label, scene, c, spp)
+    _ladder_overflow()
+    del terrain
+
+    # brute force on the 203,522-face terrain (kernel a, no row cap)
+    terrain = _terrain("brute")
+    rows = terrain.geom.tri_table.shape[0]
+    if rows != MT.table_rows(terrain.geom.num_faces):
+        raise AssertionError("phase 31: the terrain's table is not packed")
+    img, _, counts = _counted("textured terrain", terrain, cfg_t,
+                              TERRAIN_SPP)
+    label = (f"textured terrain {TERRAIN_RES}x{TERRAIN_RES} {TERRAIN_SPP} "
+             f"spp on brute force ({rows} rows)")
+    mt_launches = {label: _only(label, counts, "mt_closest",
+                                TERRAIN_SPP * (TERRAIN_BOUNCES + 1) * 3)}
+    _paths_agree("31", img, textured_img)
+    with _all_calls(MT, "mt_closest") as kept:
+        _render_module().render(terrain, cfg_t, spp=1)
+    mt_rows = []
+    for i, (a, k, _) in enumerate(kept):
+        ms = _cuda_ms(lambda: MT.mt_closest(*a, **k), 2)
+        live, kept_rows, bound, by = mt_bound(a, k)
+        mt_rows.append((ms, bound, by))
+        print(f"phase 31: brute-force terrain {TERRAIN_RES}x{TERRAIN_RES} "
+              f"query {i} "
+              f"({'shadow' if k.get('shadow') else 'closest'}): {live} live "
+              f"rays x {kept_rows} rows: mt_closest {ms:.3f} ms, bound "
+              f"{bound:.3f} ms ({by}), at {100 * bound / ms:.1f}% of it")
+    del kept
+    n = len(mt_rows)
+    mt_big = dict(ms=sum(x[0] for x in mt_rows) / n,
+                  bound_ms=sum(x[1] for x in mt_rows) / n,
+                  bound_by=mt_rows[0][2])
+    small_t = _small(terrain, TERRAIN_CAMERA)
+    MT.launches = 0
+    with _all_calls(MT, "mt_closest") as kept:
+        _render_module().render(small_t, cfg_t, spp=1)
+    if MT.launches != len(kept):
+        raise AssertionError("phase 31: a kernel-a query escaped the check")
+    mt_small = _hold_queries("31", kept, [
+        f"brute-force terrain {ACCEL_SMALL}x{ACCEL_SMALL} query {i}"
+        for i in range(len(kept))])
+    mt_big["plain_ms_128"] = mt_small["plain_ms"]
+    del kept, terrain, small_t
+
+    # instanced spheres and curves on both accelerators, 512x512
+    cfg3 = make_integrator({"type": "pathtracing", "bounces": 3})
+    tl_launches = {}
+    for accel, module, name, ref in (
+            ("brute", MT, "mt_closest", MT.mt_closest_ref),
+            ("blocks", TL, "tile_walk", TL.tile_walk_ref)):
+        scene = accel_instances_builder(ACCEL_INST_RES, accel).compile("cam")
+        g = scene.geom
+        if scene.accel_kind != accel or g.num_spheres != 4:
+            raise AssertionError("phase 31: the instanced spheres and curves "
+                                 "did not compile as baked copies")
+        label = (f"instanced spheres and curves {ACCEL_INST_RES}x"
+                 f"{ACCEL_INST_RES} 2 spp on {accel}")
+        img_k, _, counts = _counted(label, scene, cfg3, 2)
+        kernel = "mt_closest" if accel == "brute" else "tiles_traverse"
+        n = _only(label, counts, kernel)
+        (mt_launches if accel == "brute" else tl_launches)[label] = n
+        with _plain(module, name, ref):
+            img_p = F.resolve(_render_module().render(
+                scene, cfg3, spp=2)).cpu().numpy()
+        _bit_for_bit("31", label, img_k, img_p)
+        sph = g.sph_center.cpu().numpy()
+        print(f"phase 31: {label}: {g.num_faces} triangles (the strand's "
+              f"ribbon and its two baked copies), sphere centres "
+              f"{sph.round(4).tolist()}, radii "
+              f"{g.sph_radius.cpu().numpy().round(5).tolist()}, visibility "
+              f"{g.sph_vis.tolist()}")
+
+    prepass = _prepass_branches(textured, cfg_t)
+    return launches, per, mt_launches, dict(mt_big, **{
+        "max_abs_err_128": mt_small["max_abs_err"]}), tl_launches, prepass
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -4448,7 +4926,7 @@ def main() -> int:
                                              forest_builder)
 
     # phase 2's build runs first: phase 1's probe launches a kernel
-    names = ("mt_intersect", "tiles_traverse", "probe_smem")
+    names = ("mt_intersect", "tiles_traverse", "lbvh_traverse", "probe_smem")
     build_s = csrc_build.build(*names)
 
     # ---- phase 1: environment and the shared-memory probe
@@ -4460,7 +4938,7 @@ def main() -> int:
     print(smi)
     probe = _probe()
 
-    # ---- phase 2: the three sources, one nvcc each, all started together
+    # ---- phase 2: the four sources, one nvcc each, all started together
     print(f"phase 2: built {', '.join(n + '.cu' for n in names)} in "
           f"{build_s:.2f} s ({' '.join(csrc_build.NVCC_FLAGS)})")
     t0 = time.perf_counter()
@@ -4515,6 +4993,11 @@ def main() -> int:
                              if "caustic" in label else "1920x1080")
     capi_mt, capi_tl, capi_per_a, capi_per_b = _timed(
         "30", phase30_entry_points, terrain_img)
+    (lbvh_launches, lbvh_per, accel_mt, mt_terrain, accel_tl,
+     prepass) = _timed("31", phase31_accelerators, textured, textured_img)
+    lbvh_main = f"cornell {WIDTH}x{HEIGHT} {SPP} spp"
+    lbvh_timed = (f"textured terrain {TERRAIN_RES}x{TERRAIN_RES}, one pass's "
+                  "queries")
 
     main_arm = "instanced+motion1"
     arms = [dict(arm="static", launches=terrain_launches,
@@ -4539,7 +5022,8 @@ def main() -> int:
                             mt_regions["max_abs_err"],
                             *(v["max_abs_err"] for v in aov_per.values()),
                             *(v["max_abs_err"] for v in int_per.values()),
-                            capi_per_a["max_abs_err"]),
+                            capi_per_a["max_abs_err"],
+                            mt_terrain["max_abs_err_128"]),
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -4579,7 +5063,8 @@ def main() -> int:
                 "included where it builds them), phase 29": n[0]
                 for label, n in int_launches.items()
                 if label != "photon mapping blocks"},
-             **{f"{label}, phase 30": n for label, n in capi_mt.items()}},
+             **{f"{label}, phase 30": n for label, n in capi_mt.items()},
+             **{f"{label}, phase 31": n for label, n in accel_mt.items()}},
          "per_launch_by_path": {
              "materials cornell, closest-shadow queries of the "
              "transparent walk, phase 24": mt_walk,
@@ -4594,7 +5079,11 @@ def main() -> int:
                 "of each kind timed), phase 29": v
                 for k, v in int_per.items()},
              "cornell 128x128 through render_for_capi, every query of a "
-             "render (the first of each kind timed), phase 30": capi_per_a},
+             "render (the first of each kind timed), phase 30": capi_per_a,
+             "textured terrain 720x720 on brute force (203,648 rows), one "
+             "pass's queries timed (plain_ms_128: mt_closest_ref at "
+             "128x128, where every query is held bit for bit), phase 31":
+                 mt_terrain},
          "timed_on": "the launches of one 518,400-ray chunk of phase 11, "
                      "mean per launch",
          "ms": mt_chunk["ms"], "plain_ms": mt_chunk["plain_ms"],
@@ -4642,14 +5131,34 @@ def main() -> int:
              "cornell photon mapping 1920x1080 on blocks (the maps' "
              "photon queries included), phase 29":
                  int_launches["photon mapping blocks"][1],
-             **{f"{label}, phase 30": n for label, n in capi_tl.items()}},
+             **{f"{label}, phase 30": n for label, n in capi_tl.items()},
+             **{f"{label}, phase 31": n for label, n in accel_tl.items()}},
          "per_launch_by_path": {
              "cornell 1080p on blocks, the first compacted sample's "
              "queries, phase 28": aov_walk,
              "cornell 128x128 on blocks, the photon walks of 100,000 "
              "photons, phase 29": int_walk,
              "cornell 128x128 on blocks through render_for_capi, every "
-             "query of a render, phase 30": capi_per_b}},
+             "query of a render, phase 30": capi_per_b},
+         "prepass_branches_on_the_textured_terrain, phase 31": prepass},
+        {"name": "lbvh_traverse", "route": "cuda",
+         "source": "libyafaray_tpu_torch/csrc/lbvh_traverse.cu",
+         "replaces": "none: the JAX package walks the LBVH outside Pallas "
+                     "(libyafaray_tpu/accel/lbvh.py:259-335)",
+         "launches": lbvh_launches[lbvh_main],
+         "max_abs_err": max(v["max_abs_err"] for v in lbvh_per.values()),
+         "timed_on": f"the {lbvh_timed} (phase 31), mean per launch; the "
+                     "main path's (the Cornell box's) under "
+                     "per_launch_by_path",
+         "ms": lbvh_per[lbvh_timed]["ms"],
+         "plain_ms": lbvh_per[lbvh_timed]["plain_ms"],
+         "bound_ms": lbvh_per[lbvh_timed]["bound_ms"],
+         "bound_by": lbvh_per[lbvh_timed]["bound_by"],
+         "library_ms": None,
+         "launches_by_path": {f"{label}, phase 31": n
+                              for label, n in lbvh_launches.items()},
+         "per_launch_by_path": {f"{label}, phase 31": v
+                                for label, v in lbvh_per.items()}},
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -26,10 +26,11 @@ reach the JAX package: `io.export` writes a staged scene as XML, C or
 Python, `io.import_xml.load_xml` reads the XML back, and
 `capi_runtime.render_for_capi` is the render behind the port's C API
 library (`native/`, built with `capi_build`), on the card unless the
-render param "device" names another. Still unported, and raising
-NotImplementedError: the `bvh` accelerator, instances of spheres and
-curves and the brute-force path above 16,384 faces. Torch autograd runs
-through it: material
+render param "device" names another. Every accelerator of the JAX
+package compiles: brute force at any face count, the block accelerator
+(true instances of meshes) and the LBVH (`scene_accelerator: "bvh"`,
+built on the card); instances of spheres and curves are baked. Torch
+autograd runs through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an
 inverse-rendering SGD step on one device. `SceneBuilder.compile`, `render`
@@ -38,7 +39,8 @@ device. On the card every
 intersection query runs a hand-written kernel: `csrc/mt_intersect.cu` on
 the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
 (static, motion-blur and instancing arms) on the block accelerator
-(`accel/tiles.py`); `csrc/probe_smem.cu` (`accel/probe_smem.py`) probes
+(`accel/tiles.py`), `csrc/lbvh_traverse.cu` on the LBVH
+(`accel/lbvh.py`); `csrc/probe_smem.cu` (`accel/probe_smem.py`) probes
 the card's shared memory per block.
 """
 from .integrators.mc import IntegratorConfig, make_integrator

@@ -5,6 +5,10 @@ Counterpart of `libyafaray_tpu/accel/pallas_intersect.py`. The table layout
 is the JAX package's: f32[C, 16] with columns 0-8 the vertices v0|v1|v2,
 9 the camera-visibility bit, 10 the shadow-visibility bit (as 0/1 floats),
 11 the prim id (padding rows: id -2, visibility 0). C is `table_rows(F)`.
+The JAX kernel takes tables of up to 16,384 rows (its VMEM budget; the JAX
+package scans larger ones in chunks); this kernel streams the table through
+shared memory and takes any row count: every brute-force query of a mesh
+scene comes here.
 
 `mt_closest` takes tensors on one device. On the CPU it runs the plain
 version `mt_closest_ref`; on a CUDA device it launches the kernel (built
@@ -23,7 +27,6 @@ from .. import csrc_build
 Tensor = torch.Tensor
 
 TRI_CHUNK = 128     # table rows are padded to multiples of this above 128
-MAX_TRIS = 16384    # the largest table the brute-force path hands to the kernel
 EPS_DET = 1e-10
 # ray-triangle pairs per step of the plain version (bounds its memory)
 _REF_PAIRS = 1 << 22

@@ -10,6 +10,14 @@ Möller-Trumbore over the block's (16, B) slab, SUB triangles at a time, and
 stops once the next candidate's entry bound is beyond every ray's best hit
 (closest hit) or beyond every unhit ray's t_max (any hit).
 
+Two opt-in prepass branches of the JAX package read the same environment
+variables at import: `SUPER` (`YAF_SUPER`, default 1) runs the exact
+per-ray slab test on superblocks of SUPER blocks and refines it by each
+tile's interval slab test per block; `CAND_K` (`YAF_CAND_K`, default 0 =
+off) runs the interval test over every block and the exact test only on
+each tile's CAND_K nearest. Both give the JAX package's lists, block for
+block and key for key, and the walk over them is the same kernel.
+
 An any-hit query can walk in cover order instead (`cover_order`, the JAX
 package's opt-in `YAF_COVER_ORDER=1`): the prepass sorts each tile's blocks
 by descending ray coverage (how many of the tile's rays enter the block)
@@ -57,6 +65,11 @@ EPS_DET = 1e-10
 UNROLL = 6
 # temporaries of the candidate prepass, per chunk of tiles (bytes)
 _CAND_BYTES = 64e6
+# blocks per superblock of the exact prepass (1: per block, the default)
+SUPER = int(os.environ.get("YAF_SUPER", "1"))
+# blocks per tile given the exact test after the interval test (0: every
+# block, the default)
+CAND_K = int(os.environ.get("YAF_CAND_K", "0"))
 # tiles per step of the plain walk: [tiles, RAY_TILE, SUB] temporaries
 _REF_TILES = 128
 
@@ -94,10 +107,87 @@ def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
     return ent
 
 
+def _tile_interval(bmin: Tensor, bmax: Tensor, ot: Tensor, it: Tensor,
+                   t0: Tensor, t1: Tensor):
+    """The interval slab test of each tile (its rays' origin and inverse
+    direction boxes, [T, R, 3]) against every block: (overlap bool[T, C],
+    key f32[T, C], a lower bound of the tile's entry distance)."""
+    tmin_lo, tmax_hi = t0.amin(dim=1), t1.amax(dim=1)
+    olo, ohi = ot.amin(dim=1), ot.amax(dim=1)
+    ilo, ihi = it.amin(dim=1)[:, None], it.amax(dim=1)[:, None]
+
+    def ival_mul(p_lo, p_hi):
+        # the interval product [p_lo, p_hi] x [ilo, ihi]
+        a, b = p_lo * ilo, p_lo * ihi
+        c, d = p_hi * ilo, p_hi * ihi
+        return (torch.minimum(torch.minimum(a, b), torch.minimum(c, d)),
+                torch.maximum(torch.maximum(a, b), torch.maximum(c, d)))
+
+    a_lo, a_hi = ival_mul(bmin[None] - ohi[:, None], bmin[None] - olo[:, None])
+    b_lo, b_hi = ival_mul(bmax[None] - ohi[:, None], bmax[None] - olo[:, None])
+    near = torch.minimum(a_lo, b_lo).amax(dim=-1)      # [T, C]
+    far = torch.maximum(a_hi, b_hi).amin(dim=-1)
+    overlap = ((near <= far) & (far >= tmin_lo[:, None])
+               & (near <= tmax_hi[:, None]))
+    return overlap, torch.maximum(near, tmin_lo[:, None])
+
+
+def _sorted_lists(key: Tensor, overlap: Tensor):
+    """Each tile's blocks sorted by key (stable: ties keep block order),
+    padded to a multiple of 128 with block 0 / inf: (cand, ent, count)."""
+    t, c = key.shape
+    key = torch.where(overlap, key, torch.inf)
+    ent, cand = torch.sort(key, dim=1, stable=True)
+    count = overlap.sum(dim=1, dtype=torch.int32)
+    c_pad = -(-c // 128) * 128
+    cand = cand.to(torch.int32)
+    if c_pad != c:
+        ent = torch.cat([ent, torch.full((t, c_pad - c), torch.inf,
+                                         dtype=torch.float32,
+                                         device=key.device)], 1)
+        cand = torch.cat([cand, torch.zeros((t, c_pad - c), dtype=torch.int32,
+                                            device=key.device)], 1)
+    return cand.contiguous(), ent.contiguous(), count
+
+
+def _tile_candidates_topk(bmin: Tensor, bmax: Tensor, ot: Tensor,
+                          it: Tensor, t0: Tensor, t1: Tensor):
+    """CAND_K's two stages: the interval test over every block, then the
+    exact per-ray test on each tile's CAND_K nearest blocks by the interval
+    key (a stable sort: the JAX package's order), whose exact keys replace
+    the interval keys (an exact miss drops the block)."""
+    t = ot.shape[0]
+    k = CAND_K
+    overlap, key = _tile_interval(bmin, bmax, ot, it, t0, t1)
+    key = torch.where(overlap, key, torch.inf)
+    sel = torch.sort(key, dim=1, stable=True).indices[:, :k]   # [T, K]
+    bm_k, bx_k = bmin[sel], bmax[sel]                          # [T, K, 3]
+    g = max(1, min(t, int(_CAND_BYTES / (RAY_TILE * k * 12))))
+    exact = torch.empty((t, k), dtype=torch.float32, device=key.device)
+    for s0 in range(0, t, g):
+        s = slice(s0, min(t, s0 + g))
+        tn = tf = None
+        for a in range(3):
+            o_a = ot[s, :, None, a]
+            i_a = it[s, :, None, a]
+            ta = (bm_k[s, None, :, a] - o_a) * i_a          # [G, R, K]
+            tb = (bx_k[s, None, :, a] - o_a) * i_a
+            lo, hi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+            tn = lo if tn is None else torch.maximum(tn, lo)
+            tf = hi if tf is None else torch.minimum(tf, hi)
+        t0s = t0[s, :, None]
+        ok = (tn <= tf) & (tf >= t0s) & (tn <= t1[s, :, None])
+        exact[s] = torch.where(ok, torch.maximum(tn, t0s),
+                               torch.inf).amin(dim=1)
+    key = key.scatter(1, sel, exact)
+    return _sorted_lists(key, torch.isfinite(key))
+
+
 def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                     t_min: Tensor, t_max: Tensor, any_hit: bool = False):
     """Per-tile candidate block lists (the JAX package's branch of one block
-    per candidate; front-to-back order, or with `any_hit` cover order).
+    per candidate; front-to-back order, or with `any_hit` cover order; the
+    SUPER and CAND_K branches when those are set).
 
     Rays must be sorted and padded to a RAY_TILE multiple. Returns
     (cand i32[T, Cpad], ent f32[T, Cpad], count i32[T]): each tile's first
@@ -109,7 +199,14 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     Tiles are processed in chunks whose [G, R, C] temporaries stay near
     64 MB, as in the JAX package. A chunk whose rays all have an empty
     t-range gets no candidates; one host sync per call reads which chunks
-    are live."""
+    are live.
+
+    With SUPER > 1 the exact test runs on superblocks (the blocks' AABBs
+    united SUPER at a time) and a block survives where its superblock is
+    entered and its own interval test passes, keyed by the larger of the
+    two bounds; cover order is off there, as in the JAX package. With
+    0 < CAND_K < C (and SUPER 1) the lists come from
+    `_tile_candidates_topk`."""
     c = bmin.shape[0]
     n = o.shape[0]
     t = n // RAY_TILE
@@ -120,14 +217,26 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     it = inv.reshape(t, RAY_TILE, 3)
     t0 = t_min.reshape(t, RAY_TILE)
     t1 = t_max.reshape(t, RAY_TILE)
-    g = max(1, min(t, int(_CAND_BYTES / (RAY_TILE * c * 12))))
+    if SUPER == 1 and 0 < CAND_K < c:
+        return _tile_candidates_topk(bmin, bmax, ot, it, t0, t1)
+    any_hit = any_hit and SUPER == 1
+    if SUPER > 1:
+        iv_overlap, iv_key = _tile_interval(bmin, bmax, ot, it, t0, t1)
+        n_sb = -(-c // SUPER)
+        pad = n_sb * SUPER - c
+        fill = lambda x, v: torch.cat([x, torch.full(
+            (pad, 3), v, dtype=torch.float32, device=dev)]) if pad else x
+        bmin = fill(bmin, torch.inf).reshape(n_sb, SUPER, 3).amin(dim=1)
+        bmax = fill(bmax, -torch.inf).reshape(n_sb, SUPER, 3).amax(dim=1)
+    g = max(1, min(t, int(_CAND_BYTES / (RAY_TILE * bmin.shape[0] * 12))))
     chunks = -(-t // g)
     tile_live = (t1 >= t0).any(dim=1)
     pad = chunks * g - t
     if pad:
         tile_live = torch.cat([tile_live, tile_live.new_zeros(pad)])
     live = tile_live.reshape(chunks, g).any(dim=1).tolist()
-    key = torch.full((t, c), torch.inf, dtype=torch.float32, device=dev)
+    key = torch.full((t, bmin.shape[0]), torch.inf, dtype=torch.float32,
+                     device=dev)
     cover = torch.zeros_like(key) if any_hit else None
     for k in range(chunks):
         if live[k]:
@@ -138,23 +247,19 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                 key[s], cover[s] = out
             else:
                 key[s] = out
-    overlap = torch.isfinite(key)
+    if SUPER > 1:
+        # each block: its superblock's exact entry refines its interval key
+        sb = key[:, torch.arange(c, device=dev) // SUPER]
+        overlap = iv_overlap & torch.isfinite(sb)
+        key = torch.maximum(iv_key, sb)
+    else:
+        overlap = torch.isfinite(key)
     if any_hit:
         # an any-hit walk needs no front-to-back order: candidate membership
         # already holds each ray's t-range, and it ends when no live ray is
         # left unhit, so the blocks that most rays enter go first
         key = -cover
-    key = torch.where(overlap, key, torch.inf)
-    ent, cand = torch.sort(key, dim=1, stable=True)
-    count = overlap.sum(dim=1, dtype=torch.int32)
-    c_pad = -(-c // 128) * 128
-    cand = cand.to(torch.int32)
-    if c_pad != c:
-        ent = torch.cat([ent, torch.full((t, c_pad - c), torch.inf,
-                                         dtype=torch.float32, device=dev)], 1)
-        cand = torch.cat([cand, torch.zeros((t, c_pad - c), dtype=torch.int32,
-                                            device=dev)], 1)
-    return cand.contiguous(), ent.contiguous(), count
+    return _sorted_lists(key, overlap)
 
 
 def _mt_update(tr: Tensor, cols, carry, vis_col: int,
@@ -354,12 +459,14 @@ def arm(motion: int, instanced: bool, cover: bool = False) -> str:
     return "+".join((parts or ["static"]) + (["cover"] if cover else []))
 
 
-def cover_order_on(any_hit: bool) -> bool:
-    """Whether an any-hit query walks in cover order: as in the JAX
-    package, when the environment sets YAF_COVER_ORDER=1 (read at each
-    call; the port has neither SUPER nor CAND_K, JAX's other two
-    conditions)."""
-    return bool(any_hit) and os.environ.get("YAF_COVER_ORDER", "0") == "1"
+def cover_order_on(any_hit: bool, num_blocks: int = 0) -> bool:
+    """Whether an any-hit query over `num_blocks` blocks walks in cover
+    order: as in the JAX package, when the environment sets
+    YAF_COVER_ORDER=1 (read at each call), SUPER is 1 and CAND_K is off
+    for that many blocks."""
+    return (bool(any_hit) and SUPER == 1
+            and not 0 < CAND_K < num_blocks
+            and os.environ.get("YAF_COVER_ORDER", "0") == "1")
 
 
 def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
@@ -484,7 +591,7 @@ def _traverse(walk, tab, bmin, bmax, o, d, t_min, t_max, exclude, shadow,
     if tab_t1 is None or time is None:     # no motion: the keyframes idle
         tab_t1 = tab_t2 = time = None
     n = o.shape[0]
-    cover = cover_order_on(any_hit)
+    cover = cover_order_on(any_hit, bmin.shape[0])
     rays, cand, ent, count = prepare(bmin, bmax, o, d, t_min, t_max, exclude,
                                      time, cover)
     bt, bid, bu, bv = walk(rays, cand, ent, count, tab, shadow=shadow,

@@ -3,25 +3,26 @@
 `scene_from_numpy(tree)` takes a `libyafaray_tpu` SceneData whose array
 leaves have been converted to numpy (for example with
 `jax.tree_util.tree_map(np.asarray, scene)`) and returns the port's
-SceneData with the same tables (the motion keyframes, the orco
-coordinates, the true-instancing tables, the analytic spheres, the block
-accelerator's, the texture pool with its procedural types and the
+SceneData with the same tables (the motion keyframes, the orco coordinates,
+the true-instancing tables, the analytic spheres, the block accelerator's
+and the LBVH's, the texture pool with its procedural types and the
 shader-node program, the mesh lights' area CDF, every volume region type
 with its grid pool and the attenuation grid when one is set, every camera
-kind and every background kind with the environment
-map's importance tables included, a render view's fixed wavelength, every
-material type with its Oren-Nayar,
-GGX, blend, mask, dispersion and glass-interior columns, and every light
-type with the IES profiles), on the CPU. It reads attributes only and
-imports nothing of JAX. Scenes that use features the port does not carry
-yet raise NotImplementedError.
+kind and every background kind with the environment map's importance
+tables included, a render view's fixed wavelength, every material type
+with its Oren-Nayar, GGX, blend, mask, dispersion and glass-interior
+columns, and every light type with the IES profiles), on the CPU. It reads attributes
+only and imports nothing of JAX. A brute-force mesh scene without the packed
+triangle table (the JAX compile packs it up to 16,384 faces) gets one, as the
+port's compile packs it for any face count.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .scene_types import (NODE_COLUMNS, Background, BlockAccel, Camera,
+from .accel.mt_intersect import pack_tris
+from .scene_types import (BVH, NODE_COLUMNS, Background, BlockAccel, Camera,
                           Geometry, LightTable, MaterialTable, NodeProgram,
                           SceneData, TexturePool, VolAtten)
 from .textures.build import texture_statics
@@ -60,19 +61,8 @@ def _opt(tree, names) -> dict:
             for k in names}
 
 
-def _require(ok: bool, feature: str) -> None:
-    if not ok:
-        raise NotImplementedError(
-            f"{feature} is not ported to libyafaray_tpu_torch yet")
-
-
 def scene_from_numpy(tree) -> SceneData:
     g, m, lt = tree.geom, tree.materials, tree.lights
-    _require(tree.accel_kind in ("brute", "blocks"),
-             f"the {tree.accel_kind!r} accelerator")
-    if tree.accel_kind == "brute":
-        _require(g.num_faces == 0 or g.tri_table is not None,
-                 "brute-force intersection without a packed table")
     cam = tree.camera
 
     geom = Geometry(
@@ -88,6 +78,15 @@ def scene_from_numpy(tree) -> SceneData:
                    "vertices_t2", "orcos", "inst_mat", "inst_inv", "inst_nrm",
                    "inst_face_base", "inst_face_off", "inst_obj",
                    "inst_vis")))
+    if (tree.accel_kind == "brute" and geom.num_faces > 0
+            and geom.tri_table is None and geom.inst_mat is None):
+        fc = geom.faces.long()
+        for key, v in (("tri_table", geom.vertices),
+                       ("tri_table_t1", geom.vertices_t1),
+                       ("tri_table_t2", geom.vertices_t2)):
+            if v is not None:
+                setattr(geom, key, pack_tris(v[fc[:, 0]], v[fc[:, 1]],
+                                             v[fc[:, 2]], geom.face_vis))
     mats = MaterialTable(
         **{f: _t(getattr(m, f)) for f in _MAT_COLUMNS + NODE_COLUMNS},
         present_types=tuple(m.present_types),
@@ -117,12 +116,18 @@ def scene_from_numpy(tree) -> SceneData:
                             num_blocks=int(bl.num_blocks),
                             **_opt(bl, ("tab_t1", "tab_t2", "blk_base",
                                         "blk_minv", "id_delta", "inv_rows")))
+    bvh = None
+    if tree.accel_kind == "bvh":
+        bv = tree.bvh
+        bvh = BVH(**{f: _t(getattr(bv, f)) for f in (
+            "node_min", "node_max", "node_left", "node_right",
+            "node_is_leaf", "prim_order")}, num_nodes=int(bv.num_nodes))
     return SceneData(
         geom=geom, materials=mats, lights=lights,
         background=_background(tree.background), camera=camera,
         shadow_bias=_t(tree.shadow_bias),
         ray_min_dist=_t(tree.ray_min_dist), accel_kind=tree.accel_kind,
-        blocks=blocks,
+        blocks=blocks, bvh=bvh,
         has_cam_invisible=bool(tree.has_cam_invisible),
         textures=_textures(tree.textures), nodes=_nodes(tree.nodes, mats),
         pixel_spread=(None if tree.pixel_spread is None

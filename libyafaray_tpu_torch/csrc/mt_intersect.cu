@@ -3,7 +3,10 @@
 //
 // Replaces: libyafaray_tpu/accel/pallas_intersect.py::_mt_kernel (the Pallas
 // TPU kernel behind mt_closest), which carries every closest-hit and shadow
-// query of scenes with 1..16384 faces.
+// query of scenes with 1..16384 faces. Here it carries every brute-force
+// query, whatever the face count: table offsets are 64-bit (row * 16 as
+// int64_t) and rows and rays are counted in int, so a 203,522-row table and
+// 2M rays are well inside its range.
 //
 // What it computes, per ray: the lowest t in (t_min, t_max) over all table
 // rows whose visibility column (9 = camera/bounce, 10 = shadow) is > 0.5 and
@@ -16,11 +19,11 @@
 // What bounds it on an H100. About 45 flops per ray-triangle pair (72 and
 // 90 with the linear and quadratic blends) against 36 bytes of ray state in
 // and 16 bytes of hit record out per ray: at the tables this path sees (36
-// triangles for the Cornell box, up to 16384) that is far above the card's
-// ratio of flops to bytes. The limit is the instructions issued per pair:
-// the file is built with --fmad=false, so every product and sum rounds on
-// its own as PyTorch's elementwise ops do, and that is what keeps the
-// kernel equal to its plain version (mt_closest_ref) bit for bit. Tensor
+// triangles for the Cornell box, 203,522 for the terrain) that is far above
+// the card's ratio of flops to bytes. The limit is the instructions issued
+// per pair: the file is built with --fmad=false, so every product and sum
+// rounds on its own as PyTorch's elementwise ops do, and that is what keeps
+// the kernel equal to its plain version (mt_closest_ref) bit for bit. Tensor
 // cores do not apply: TF32 and bf16 products do not round as fp32 IEEE
 // products do. The design cuts the pairs tested and the instructions per
 // pair, and keeps every rounding step:

@@ -1,15 +1,18 @@
-"""Ray-scene intersection over the brute-force and block accelerators.
+"""Ray-scene intersection over the brute-force, block and LBVH
+accelerators.
 
 Counterpart of `libyafaray_tpu/ops/intersect.py`. On the brute-force path
-every triangle query goes through `accel.mt_intersect.mt_closest`; on the
-block accelerator (`accel_kind == "blocks"`, scenes of 2048+ faces by
-default) through `accel.blocks`, whose traversal is `accel.tiles`. Each is a
-CUDA kernel for tensors on the card and its plain PyTorch version for
-tensors on the CPU. The scene's analytic spheres follow the triangles on
-both paths (`accel.spheres`). Intersections carry no gradient, so the queries run
-under `torch.no_grad()` on detached inputs. Motion-blurred scenes
-(`geom.has_motion`) take each ray's shutter `time`; the queries pass it on
-only for such scenes, as the JAX package does.
+every triangle query goes through `accel.mt_intersect.mt_closest`, whatever
+the face count; on the block accelerator (`accel_kind == "blocks"`, scenes
+of 2048+ faces by default) through `accel.blocks`, whose traversal is
+`accel.tiles`; on the LBVH (`accel_kind == "bvh"`, by name) through
+`accel.lbvh.lbvh_traverse`, which tests the spheres among its leaves. Each
+is a CUDA kernel for tensors on the card and its plain PyTorch version for
+tensors on the CPU. On the other two paths the scene's analytic spheres
+follow the triangles (`accel.spheres`). Intersections carry no gradient,
+so the queries run under `torch.no_grad()` on detached inputs.
+Motion-blurred scenes (`geom.has_motion`) take each ray's shutter `time`;
+the queries pass it on only for such scenes, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..accel import blocks as BL
+from ..accel import lbvh as LB
 from ..accel import mt_intersect as MT
 from ..accel.spheres import sphere_pass
 from ..math import vec
@@ -105,16 +109,33 @@ def _query(o: Tensor, t_min, t_max):
     return as_t(t_min), as_t(t_max)
 
 
-def _blocks(scene: SceneData) -> bool:
-    """True for the block accelerator; raises for accelerators the port
-    does not carry (the LBVH, "bvh")."""
+def _accel(scene: SceneData) -> str:
+    """The accelerator a query takes: "blocks" or "bvh" where the scene
+    carries its tables, else brute force (as the JAX package picks)."""
     if scene.accel_kind == "blocks" and scene.blocks is not None:
-        return True
-    if scene.accel_kind != "brute":
-        raise NotImplementedError(
-            f"the {scene.accel_kind!r} accelerator is not ported to "
-            "libyafaray_tpu_torch yet")
-    return False
+        return "blocks"
+    if scene.accel_kind == "bvh" and scene.bvh is not None:
+        return "bvh"
+    return "brute"
+
+
+def _lbvh_closest(scene: SceneData, o: Tensor, d: Tensor, t_min: Tensor,
+                  t_max: Tensor, exclude_prim: Optional[Tensor] = None,
+                  shadow: bool = False, time: Optional[Tensor] = None,
+                  any_hit: bool = False) -> Hit:
+    """A query through the LBVH walk (the JAX `lbvh.traverse_closest` /
+    `traverse_any`)."""
+    n = o.shape[0]
+    excl = (exclude_prim.to(torch.int32).contiguous()
+            if exclude_prim is not None
+            else torch.full((n,), -1, dtype=torch.int32, device=o.device))
+    bt, bp, bu, bv = LB.lbvh_traverse(
+        scene.bvh, scene.geom, o.contiguous(), d.contiguous(),
+        t_min.contiguous(), t_max.contiguous(), excl,
+        time=None if time is None else time.to(torch.float32).contiguous(),
+        shadow=shadow, any_hit=any_hit)
+    return Hit(valid=bp >= 0, t=bt, prim=torch.clamp_min(bp, 0),
+               uv=torch.stack([bu, bv], dim=-1))
 
 
 def _time(scene: SceneData, time: Optional[Tensor]) -> Optional[Tensor]:
@@ -131,8 +152,11 @@ def closest_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
     t_min, t_max = _query(o, t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
-    if _blocks(scene):
+    accel = _accel(scene)
+    if accel == "blocks":
         return BL.blocks_closest(scene, *args, time=_time(scene, time))
+    if accel == "bvh":
+        return _lbvh_closest(scene, *args, time=_time(scene, time))
     return _brute_closest(scene.geom, *args, time=_time(scene, time))
 
 
@@ -171,8 +195,12 @@ def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
     t_min, t_max = _query(o, t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
-    if _blocks(scene):
+    accel = _accel(scene)
+    if accel == "blocks":
         return BL.blocks_any(scene, *args, time=_time(scene, time))
+    if accel == "bvh":
+        return _lbvh_closest(scene, *args, shadow=True,
+                             time=_time(scene, time), any_hit=True).valid
     return _brute_any(scene.geom, *args, time=_time(scene, time))
 
 
@@ -186,6 +214,9 @@ def shadow_hit_surface(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
     t_min, t_max = _query(o, t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
-    if _blocks(scene):
+    accel = _accel(scene)
+    if accel == "blocks":
         return BL.blocks_closest(scene, *args, shadow=True)
+    if accel == "bvh":
+        return _lbvh_closest(scene, *args, shadow=True)
     return _brute_closest(scene.geom, *args, shadow=True)

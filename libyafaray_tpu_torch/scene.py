@@ -15,13 +15,12 @@ triangles, sphere, mesh, background portal and the background light),
 every volume region type (uniform, exponential, noise, grid and sky),
 every camera type (with depth of field) and the constant, gradient,
 sunsky, darksky and texture backgrounds (with `ibl`, lighting the scene,
-and `add_sun`), over the brute-force or the block accelerator. `compile()`
-builds the same tables as the JAX compile, on the CUDA card unless the
-caller names another device; `compile_view` compiles one render view
-(its camera, its subset of the lights, its fixed wavelength). What the
-port does not carry yet raises `NotImplementedError` naming the feature:
-instances of spheres and curves, the `bvh` accelerator and the
-brute-force path above 16,384 faces.
+and `add_sun`), over the brute-force accelerator (any face count), the
+block accelerator or the LBVH (`scene_accelerator: "bvh"`). Instances of
+spheres and curves are baked, as in the JAX compile. `compile()` builds the
+same tables as the JAX compile, on the CUDA card unless the caller names
+another device; `compile_view` compiles one render view (its camera, its
+subset of the lights, its fixed wavelength).
 """
 from __future__ import annotations
 
@@ -35,7 +34,8 @@ import torch
 
 from . import params as P
 from .accel.blocks import build_blocks
-from .accel.mt_intersect import MAX_TRIS, pack_tris
+from .accel.lbvh import build_lbvh
+from .accel.mt_intersect import pack_tris
 from .backgrounds import make_background, sun_from_background
 from .cameras import make_camera
 from .lights import (FLAG_CAST_SHADOWS, FLAG_DOUBLE_SIDED, FLAG_ENABLED,
@@ -69,6 +69,9 @@ _VOL_TYPES = ("UniformVolume", "ExpDensityVolume", "NoiseVolume",
 _ACCEL_BLOCKS = ("blocks", "yafaray-kdtree-original",
                  "yafaray-kdtree-multi-thread")
 BLOCKS_MIN_FACES = 2048  # the JAX compile defaults to blocks from here on
+# block and LBVH scenes carry the brute-force table up to this many faces, as
+# the JAX compile packs it; brute-force scenes carry it at any face count
+PACKED_FACES = 16384
 
 _VIS_BY_NAME = {
     "normal": VIS_NORMAL,
@@ -76,11 +79,6 @@ _VIS_BY_NAME = {
     "shadow_only": VIS_SHADOW_ONLY,
     "no_shadows": VIS_NO_SHADOWS,
 }
-
-
-def _unsupported(feature: str):
-    return NotImplementedError(
-        f"{feature} is not ported to libyafaray_tpu_torch yet")
 
 
 @dataclass
@@ -307,9 +305,6 @@ class SceneBuilder:
         shutter time step (a moving instance)."""
         if base_name not in self.objects:
             raise KeyError(f"unknown object {base_name!r}")
-        base = self.objects[base_name]
-        if base.is_sphere or base.is_curve:
-            raise _unsupported("instancing of spheres and curves")
         m = np.asarray(matrix, np.float32)
         self.instances.append((base_name, list(m.reshape(-1, 4, 4))))
 
@@ -346,7 +341,17 @@ class SceneBuilder:
         textures, nodes, materials = self._build_textures_and_nodes(materials)
         g, obj_face_ranges = self._build_geometry()
         lights, g = self._build_lights(g, obj_face_ranges)
-        geom = _geometry_tables(g).to(device)
+        geom = _geometry_tables(g)
+        # accelerator choice (scene_accelerator, as the JAX compile off the
+        # TPU): blocks from BLOCKS_MIN_FACES faces on or by name, the LBVH
+        # by name, else brute force; each built on the scene's device
+        default = "blocks" if geom.num_faces >= BLOCKS_MIN_FACES else "brute"
+        accel = self.render_params.get_string("scene_accelerator", default)
+        brute = accel != "bvh" and accel not in _ACCEL_BLOCKS
+        if (0 < geom.num_faces and geom.inst_mat is None
+                and (brute or geom.num_faces <= PACKED_FACES)):
+            _pack_tables(geom)
+        geom = geom.to(device)
         background = (make_background(self.background_params,
                                       tex_id=self._bg_tex_id())
                       if self.background_params is not None
@@ -370,19 +375,12 @@ class SceneBuilder:
         # (float(None): a TypeError in both packages)
         camera = (make_camera(self.cameras[camera_name]) if camera_name
                   else Camera(kind="perspective"))
-        # accelerator choice (scene_accelerator, as the JAX compile): blocks
-        # from BLOCKS_MIN_FACES faces on or by name, else brute force
-        default = "blocks" if geom.num_faces >= BLOCKS_MIN_FACES else "brute"
-        accel = self.render_params.get_string("scene_accelerator", default)
-        blocks = None
-        if geom.num_faces > 0:
+        blocks = bvh = None
+        if geom.num_faces > 0 and not brute:
             if accel == "bvh":
-                raise _unsupported("the 'bvh' accelerator")
-            if accel in _ACCEL_BLOCKS:
+                bvh = build_lbvh(geom)
+            else:
                 blocks = build_blocks(geom)
-            elif geom.tri_table is None and geom.inst_mat is None:
-                raise _unsupported(f"brute-force intersection above "
-                                   f"{MAX_TRIS} faces")
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
         # one pixel's angular footprint, for the primary hits' texture
         # filtering (as the JAX compile)
@@ -390,7 +388,9 @@ class SceneBuilder:
         return SceneData(
             geom=geom, materials=materials, lights=lights,
             background=background, camera=camera,
-            accel_kind="brute" if blocks is None else "blocks", blocks=blocks,
+            accel_kind=("blocks" if blocks is not None
+                        else "bvh" if bvh is not None else "brute"),
+            blocks=blocks, bvh=bvh,
             shadow_bias=f32(self.render_params.get_float("shadow_bias", 5e-4)),
             ray_min_dist=f32(self.render_params.get_float("ray_min_dist",
                                                           5e-5)),
@@ -572,12 +572,22 @@ class SceneBuilder:
         def emit_mesh(obj: _MeshObject, matrix):
             nonlocal v_off, uv_off, f_count
             if obj.is_sphere:
-                sph["center"].append(obj.sphere_center.astype(np.float32))
-                sph["radius"].append(obj.sphere_radius)
+                c = obj.sphere_center.astype(np.float32)
+                r = obj.sphere_radius
+                if matrix is not None:
+                    # a baked instance: the centre through the first
+                    # matrix (a moving instance keeps only that one, as in
+                    # the JAX compile), the radius scaled by cbrt|det|
+                    m0 = matrix[0]
+                    c = (m0[:3, :3] @ c) + m0[:3, 3]
+                    r = r * float(np.cbrt(abs(np.linalg.det(m0[:3, :3]))
+                                          + 1e-30))
+                sph["center"].append(c)
+                sph["radius"].append(r)
                 sph["mat"].append(obj.faces[-1][6] if obj.faces
                                   else obj.sphere_mat)
                 sph["obj"].append(obj.obj_id)
-                sph["vis"].append(0 if obj.is_base
+                sph["vis"].append(0 if matrix is None and obj.is_base
                                   else _vis_bits(obj.visibility))
                 return
             if obj.is_curve and obj.vertices:
@@ -651,21 +661,25 @@ class SceneBuilder:
         for name in self.object_order:
             emit_mesh(self.objects[name], None)
 
-        # true instances (virtual faces, O(base) memory) in scenes the block
-        # accelerator carries; baked copies for moving instances, small
-        # scenes (mode "auto") and when "baked" is asked for
+        # true instances (virtual faces, O(base) memory) of meshes in scenes
+        # the block accelerator carries; baked copies for moving instances,
+        # spheres and curves, small scenes (mode "auto"), the other
+        # accelerators and when "baked" is asked for
         mode = self.render_params.get_string("instancing", "auto")
         accel = self.render_params.get_string("scene_accelerator", "")
         inst_faces = sum(len(self.objects[b_].faces)
-                         for b_, _ in self.instances)
+                         for b_, _ in self.instances
+                         if not (self.objects[b_].is_sphere
+                                 or self.objects[b_].is_curve))
         small = f_count + inst_faces < BLOCKS_MIN_FACES
         blocks_ok = accel in ("",) + _ACCEL_BLOCKS
         true_inst, moving = [], False
         for base, mats in self.instances:
             motion = len(mats) > 1
-            if (mode == "baked" or motion or not blocks_ok
-                    or (mode == "auto" and small)):
-                emit_mesh(self.objects[base], mats)
+            obj = self.objects[base]
+            if (mode == "baked" or motion or obj.is_sphere or obj.is_curve
+                    or not blocks_ok or (mode == "auto" and small)):
+                emit_mesh(obj, mats)
                 moving = moving or motion
             else:
                 true_inst.append((base, mats[0]))
@@ -947,21 +961,23 @@ def _geometry_tables(g: dict) -> Geometry:
     geom = Geometry(num_faces=f, num_base_faces=f0,
                     num_spheres=int(len(g["sph_radius"])),
                     has_motion=g["vertices_t1"] is not None, **tensors)
-    if 0 < f <= MAX_TRIS and inst is None:
-        # the brute-force path's tables, packed once here instead of per
-        # intersect call (as the JAX compile, also for block scenes)
-        fc = geom.faces.long()
-
-        def table(v):
-            return pack_tris(v[fc[:, 0]], v[fc[:, 1]], v[fc[:, 2]],
-                             geom.face_vis)
-
-        geom.tri_table = table(geom.vertices)
-        if geom.has_motion:
-            geom.tri_table_t1 = table(geom.vertices_t1)
-            if geom.vertices_t2 is not None:
-                geom.tri_table_t2 = table(geom.vertices_t2)
     return geom
+
+
+def _pack_tables(geom: Geometry) -> None:
+    """The brute-force path's tables, packed once at compile instead of per
+    intersect call (the JAX compile packs up to 16,384 faces and scans
+    above, while the port's kernel takes a table of any size)."""
+    fc = geom.faces.long()
+
+    def table(v):
+        return pack_tris(v[fc[:, 0]], v[fc[:, 1]], v[fc[:, 2]], geom.face_vis)
+
+    geom.tri_table = table(geom.vertices)
+    if geom.has_motion:
+        geom.tri_table_t1 = table(geom.vertices_t1)
+        if geom.vertices_t2 is not None:
+            geom.tri_table_t2 = table(geom.vertices_t2)
 
 
 def _extrude_curve(obj: _MeshObject) -> _MeshObject:

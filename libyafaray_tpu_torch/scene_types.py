@@ -350,6 +350,23 @@ class BlockAccel(_Table):
 
 
 @dataclass
+class BVH(_Table):
+    """The Karras linear BVH (`accel/lbvh.py`): P - 1 internal nodes
+    [0, P-2] then P leaves [P-1, 2P-2] over the P primitives (the faces,
+    then the spheres). An internal node's children index the same arrays; a
+    leaf's node_left (and node_right) is its slot in morton order, and
+    prim_order[slot] its primitive id. A one-primitive tree is a single
+    leaf."""
+    node_min: Tensor       # f32[NN, 3]
+    node_max: Tensor       # f32[NN, 3]
+    node_left: Tensor      # i32[NN] (internal: child; leaf: morton slot)
+    node_right: Tensor     # i32[NN]
+    node_is_leaf: Tensor   # bool[NN]
+    prim_order: Tensor     # i32[P] primitive ids in morton order
+    num_nodes: int = 0
+
+
+@dataclass
 class TexturePool(_Table):
     """Every image texture flattened into one texel pool with its mip chain,
     and the per-texture parameter tables. Mip level l of texture t starts at
@@ -479,8 +496,9 @@ class SceneData(_Table):
     camera: Camera
     shadow_bias: Tensor      # f32[]
     ray_min_dist: Tensor     # f32[]
-    accel_kind: str = "brute"       # "brute" | "blocks"
+    accel_kind: str = "brute"       # "brute" | "blocks" | "bvh"
     blocks: Optional[BlockAccel] = None
+    bvh: Optional[BVH] = None
     # any primitive flagged invisible-to-camera (face_vis bit value 4)
     has_cam_invisible: bool = False
     textures: Optional[TexturePool] = None

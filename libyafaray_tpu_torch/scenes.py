@@ -16,7 +16,12 @@ and config 5's room with each other volume region type
 (`volume_regions_builder`). These four take the builder to fill, so that
 the JAX package's SceneBuilder can stage the same scene. `capi_test00`
 stages the scene of the C client `native/tests/test00_client.c` as the C
-API library hands it to the builder."""
+API library hands it to the builder. For the accelerators' edge cases: the
+Cornell box with instanced spheres and curves (`accel_instances_builder`),
+with a moving baked instance or a box on two motion keyframes
+(`motion_cornell_builder`), and a ladder of faces with a hand-made LBVH
+deeper than the walk's stack (`ladder_builder`, which also takes the builder
+to fill, and `ladder_bvh`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -986,3 +991,100 @@ def capi_test00(device=None):
         params["device"] = device
     b.set_render_params(params)
     return b, params
+
+
+def accel_instances_builder(res: int = 512,
+                            accel: str = "brute") -> SceneBuilder:
+    """The Cornell box with instances of a sphere and of a curve, which every
+    accelerator bakes: a base sphere (is_base_object: its own copy unseen)
+    and three instances of it, one scaled by 1.5, and a helix strand of 24
+    control points with two instances, moved and scaled. Square at `res`,
+    on `accel`."""
+    b = cornell_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = res
+    b.set_render_params({"scene_accelerator": accel})
+    b.create_object("ball", {"type": "sphere", "center": (0.0, 0.0, 0.0),
+                             "radius": 0.08, "is_base_object": True})
+    b.create_object("hair", {"type": "curve", "strand_start": 0.03,
+                             "strand_end": 0.01})
+    b.set_current_material("red")
+    for j in range(24):
+        t = j / 23.0
+        b.add_vertex(0.1 * np.cos(9 * t), 0.1 * np.sin(9 * t), 0.4 * t)
+    for (x, y, z), scale in (((0.25, 0.3, 0.1), 1.0), ((0.75, 0.25, 0.5), 1.5),
+                             ((0.5, 0.7, 0.75), 1.0)):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] *= scale
+        m[:3, 3] = (x, y, z)
+        b.add_instance("ball", m)
+    for x, y, z in ((0.3, 0.25, 0.0), (0.8, 0.6, 0.3)):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] *= 0.8
+        m[:3, 3] = (x, y, z)
+        b.add_instance("hair", m)
+    return b
+
+
+def motion_cornell_builder(keyframes: int, res: int = 128) -> SceneBuilder:
+    """The Cornell box in motion, square at `res` on the LBVH: with one
+    keyframe the short box gets a moving instance (two matrices: baked, a
+    linear motion scene); with two a small box moves on the quadratic
+    b-spline through two motion keyframes."""
+    b = cornell_builder()
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = res
+    b.set_render_params({"scene_accelerator": "bvh"})
+    if keyframes == 1:
+        m0 = np.eye(4, dtype=np.float32)
+        m0[:3, 3] = (-0.2, -0.1, 0.3)
+        m1 = m0.copy()
+        m1[:3, 3] += (0.15, 0.0, 0.1)
+        b.add_instance("box1", [m0, m1])
+        return b
+    b.create_object("mover")
+    b.set_current_material("green")
+    _box(b, (0.4, 0.2, 0.5), (0.15, 0.15, 0.15), rot=0.5)
+    v = np.asarray(b.current_object.vertices, np.float32)
+    b.add_mesh_time_step(v + np.float32([0.1, 0.0, 0.1]))
+    b.add_mesh_time_step(v + np.float32([0.2, 0.05, -0.05]))
+    return b
+
+
+def ladder_builder(builder=None) -> SceneBuilder:
+    """61 small faces at x = k + 1.25, face k around (y, z) = (k % 8,
+    k // 8) / 10, so that a ray along +x through that point meets face k
+    alone; on brute force (`ladder_bvh` gives the LBVH)."""
+    b = SceneBuilder() if builder is None else builder
+    b.create_material("m", {"type": "shinydiffusemat"})
+    b.create_object("ladder")
+    b.set_current_material("m")
+    for k in range(61):
+        x, y, z = k + 1.25, (k % 8) / 10, (k // 8) / 10
+        b.add_triangle(*[b.add_vertex(*p) for p in (
+            (x, y - 0.02, z - 0.02), (x, y + 0.04, z - 0.02),
+            (x, y - 0.02, z + 0.04))])
+    b.create_camera("cam", {"type": "perspective", "from": (-5, 0, 0),
+                            "to": (0, 0, 0), "resx": 8, "resy": 8})
+    return b
+
+
+def ladder_bvh(face_min: np.ndarray, face_max: np.ndarray) -> dict:
+    """The ladder's hand-made LBVH tables (numpy, by BVH field), 60 levels
+    deep, from its faces' boxes f32[61, 3]: internal node k has leaf k on
+    its left and internal node k + 1 on its right (the last one leaves 59
+    and 60), and every internal box is the ladder's box grown by 0.25. For
+    rays along +x the internal child is always the nearer one, so each
+    level leaves its leaf on the walk's stack, which overflows its 48
+    slots."""
+    p, n_int = 61, 60
+    left = np.concatenate([n_int + np.arange(n_int), np.arange(p)])
+    right = np.concatenate([np.arange(1, n_int), [n_int + 60], np.arange(p)])
+    nmin = np.concatenate([np.tile(face_min.min(0) - 0.25, (n_int, 1)),
+                           face_min])
+    nmax = np.concatenate([np.tile(face_max.max(0) + 0.25, (n_int, 1)),
+                           face_max])
+    return dict(node_min=nmin.astype(np.float32),
+                node_max=nmax.astype(np.float32),
+                node_left=left.astype(np.int32),
+                node_right=right.astype(np.int32),
+                node_is_leaf=np.arange(n_int + p) >= n_int,
+                prim_order=np.arange(p, dtype=np.int32))

@@ -1,5 +1,6 @@
 """The port's SceneBuilder against the JAX compile: the same tables, and
-NotImplementedError for what the port does not carry yet."""
+NotImplementedError for what neither package carries (true instances on
+the brute-force path)."""
 import inspect
 
 import jax
@@ -185,11 +186,12 @@ def test_compile_runs_on_the_card_unless_told_otherwise(monkeypatch):
 
 def _bvh(b):
     b.set_render_params({"scene_accelerator": "bvh"})
-    b.compile("cam", device="cpu")
+    scene = b.compile("cam", device="cpu")
+    assert scene.accel_kind == "bvh" and scene.bvh.num_nodes == 2 * 36 - 1
 
 
 def _big_mesh(b):
-    # a mesh above the brute-force kernel's 16384 faces, forced onto it
+    # a mesh above the JAX kernel's 16384 faces, forced onto brute force
     b.set_render_params({"scene_accelerator": "brute"})
     b.create_object("grid")
     n = 92
@@ -201,7 +203,9 @@ def _big_mesh(b):
                    i[1:, 1:].ravel(), i[:-1, 1:].ravel())
     faces = np.concatenate([np.stack([a, b2, c], -1), np.stack([a, c, d], -1)])
     b.add_mesh_arrays(verts, faces)     # 16562 faces
-    b.compile("cam", device="cpu")
+    scene = b.compile("cam", device="cpu")
+    assert scene.accel_kind == "brute" and scene.geom.num_faces == 16598
+    assert tuple(scene.geom.tri_table.shape) == (16640, 16)
 
 
 def _true_instances_on_the_brute_path(b):
@@ -216,16 +220,20 @@ def _true_instances_on_the_brute_path(b):
 
 
 def _sphere_instance(b):
-    # spheres and curves are not instanced yet (the JAX package bakes them)
+    # an instance of a sphere is baked, as in the JAX compile
     b.create_object("ball", {"type": "sphere", "radius": 0.1})
     b.add_instance("ball", np.eye(4))
+    scene = b.compile("cam", device="cpu")
+    assert scene.geom.num_spheres == 2
 
 
-# each case and the feature its NotImplementedError must name
+# each case and the feature its NotImplementedError must name; None for the
+# features that raised until the accelerator slice ported them (the LBVH,
+# brute force above 16,384 faces, instances of spheres), which now compile
 _UNPORTED = [
-    (_bvh, "'bvh' accelerator"),
-    (_big_mesh, "brute-force intersection above 16384 faces"),
-    (_sphere_instance, "instancing of spheres and curves"),
+    (_bvh, None),
+    (_big_mesh, None),
+    (_sphere_instance, None),
     (_true_instances_on_the_brute_path, "does not expand true instances"),
 ]
 
@@ -234,8 +242,12 @@ _UNPORTED = [
     pytest.param(case, reason, id=case.__name__[1:])
     for case, reason in _UNPORTED])
 def test_features_outside_the_port_raise(case, reason):
-    """Each case raises NotImplementedError naming its own feature, not
-    another unported one on the way."""
+    """Each case still outside the port raises NotImplementedError naming
+    its own feature, not another one on the way; each ported case compiles
+    to its accelerator."""
+    if reason is None:
+        case(port_cornell())
+        return
     with pytest.raises(NotImplementedError, match=reason):
         case(port_cornell())
 
@@ -268,11 +280,17 @@ def test_unknown_types_raise_key_error():
 
 
 def test_converting_an_unported_jax_scene_raises():
-    # the JAX package's LBVH accelerator (every material type converts
-    # since the port carries them all)
+    # the JAX package's LBVH, which raised until the accelerator slice,
+    # converts: the port's own compile gives the same tree
     b = cornell_builder()
     b.set_render_params({"scene_accelerator": "bvh"})
     js = b.compile("cam")
     assert js.accel_kind == "bvh"
-    with pytest.raises(NotImplementedError, match="'bvh' accelerator"):
-        scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    got = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    pb = port_cornell()
+    pb.set_render_params({"scene_accelerator": "bvh"})
+    want = pb.compile("cam", device="cpu")
+    assert got.accel_kind == want.accel_kind == "bvh"
+    _assert_same(got.bvh, want.bvh, ("node_min", "node_max", "node_left",
+                                     "node_right", "node_is_leaf",
+                                     "prim_order"), "bvh")
