@@ -5,9 +5,10 @@
 
 Phases, each reporting on its own lines:
   1. environment: torch and CUDA versions, nvcc, the card's name and power
-     limit; the shared-memory probe (kernel d): the largest dynamic shared
-     memory a launch takes must equal the card's opt-in limit per block, and
-     its output must be exactly 2.0;
+     limit, the port's sysinfo line (utils.sysinfo); the shared-memory
+     probe (kernel d): the largest dynamic shared memory a launch takes
+     must equal the card's opt-in limit per block, and its output must be
+     exactly 2.0;
   2. build: compiles the four CUDA sources of the package (one nvcc each,
      all started together) before phase 1 reports, timed;
   3. mt_closest against its plain version mt_closest_ref on the card, bit
@@ -309,6 +310,31 @@ Phases, each reporting on its own lines:
      textured terrain's camera
      and first bounce queries: t bit for bit and hit or miss equal to the
      default prepass's walk, candidates a tile and ms beside the default's.
+ 32. multi-device rendering and observability (parallel/, on
+     torch.distributed; the card host has one GPU): (a) on a one-rank NCCL
+     mesh in this process, render_sharded of the Cornell box at 1920x1080,
+     16 spp, 4 bounces (160 mt_closest launches), ms a pass beside phase
+     4's render and the all_gather's ms a pass (CUDA events), the film bit
+     for bit equal to the same passes through _pixel_shard_radiance and
+     add_samples with no mesh, and at 256x256, 2 spp, kernel path against
+     plain path bit for bit; (b) make_train_step on that mesh, phase 14's
+     five steps, losses and parameters bit for bit equal to phase 14's;
+     (c) two gloo ranks in two processes on cuda:0 (NCCL refuses two ranks
+     on one GPU; importing the port there leaves CUDA uninitialized):
+     render_wavefront_sharded of the Cornell box at 256x256 and of the
+     textured terrain at 128x128 (blocks: kernel b, every tile_walk call
+     held against tile_walk_ref), each rank's result bit for bit equal to
+     the one-rank mesh's, and three train steps within rtol 1e-5 of the
+     one-rank steps and equal across ranks; (d) the render farm:
+     init_distributed and render_node_film (256x256, 2 spp,
+     directlighting) in the same two processes, merged with
+     load_all_in_folder, within 1e-5 of the in-process merge of the same
+     two nodes, the nodes' images more than 1e-4 apart; (e)
+     render(..., stats=RenderStats()) of the Cornell box at 1080p, 4 spp
+     (its summary: 4 passes, 8,294,400 camera rays), then one pass traced
+     (utils.profiling.trace) and device_op_summary: its count of
+     mt_closest_kernel equal to MT.launches for that pass (10), its ms
+     beside the CUDA-event time of the same launches.
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -1100,7 +1126,8 @@ def phase3c_arms(forest, static_cam_ms):
 # ---------------------------------------------------------- phases 4 and 5
 
 def phase4_cornell():
-    """The Cornell path: returns the mt_closest launches of its render."""
+    """The Cornell path: returns (the mt_closest launches of its render, its
+    ms a pass)."""
     import numpy as np
     import torch
     from libyafaray_tpu_torch import film as F
@@ -1176,7 +1203,7 @@ def phase4_cornell():
           f"walls left {left.round(4).tolist()} right "
           f"{right.round(4).tolist()}, max {float(img.max())}, mean "
           f"{float(img.mean()):.6f}")
-    return launches
+    return launches, ms_pass
 
 
 def _paths_agree(phase, img_k, img_p):
@@ -1873,7 +1900,8 @@ def phase13_glossy():
 
 def phase14_train():
     """make_train_step: five SGD steps on the Cornell diffuse colours at
-    256x256, 1 bounce, target 0.25, sample 0; the loss must decrease."""
+    256x256, 1 bounce, target 0.25, sample 0; the loss must decrease.
+    Returns (the losses, the parameters after each step) for phase 32."""
     import numpy as np
     import torch
     from libyafaray_tpu_torch import make_integrator, make_train_step
@@ -1886,18 +1914,20 @@ def phase14_train():
                                             "bounces": 1}), SMALL, SMALL)
     params = {"diffuse_color": scene.materials.diffuse_color}
     target = torch.full((SMALL, SMALL, 3), 0.25, device=DEVICE)
-    losses, times = [], []
+    losses, times, steps = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         params, loss = step(scene, params, target, 0)
         losses.append(float(loss))        # synchronises
         times.append(time.perf_counter() - t0)
+        steps.append(params["diffuse_color"].cpu())
     print(f"phase 14: make_train_step {SMALL}x{SMALL}, 1 bounce: losses "
           f"{[round(x, 8) for x in losses]}; ms per step "
           f"{[round(t * 1e3, 2) for t in times]}; diffuse_color now "
           f"{params['diffuse_color'].cpu().numpy().round(5).tolist()}")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"phase 14: the loss did not decrease: {losses}")
+    return losses, steps
 
 
 def phase15_cornell_golden():
@@ -4883,6 +4913,392 @@ def phase31_accelerators(textured, textured_img):
         "max_abs_err_128": mt_small["max_abs_err"]}), tl_launches, prepass
 
 
+# ---------------------------------------------------------------- phase 32
+
+SHARD_SMALL = 256        # phase 32: kernel against plain path, two ranks
+SHARD_TERRAIN = 128      # the two ranks' textured terrain
+SHARD_TRAIN_STEPS = 3    # the two ranks' train steps
+SHARD_TRAIN_RTOL = 1e-5  # two block means against one image mean
+FARM_RES, FARM_SPP = 256, 2   # each farm node's film
+STATS_SPP = 4            # the stats render at 1080p
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _shard_terrain():
+    from libyafaray_tpu_torch.scenes import bigmesh_builder
+    b = bigmesh_builder(TERRAIN_GRID)
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = SHARD_TERRAIN
+    b.set_render_params({"scene_accelerator": "blocks"})
+    return b.compile("cam")
+
+
+def _sharded_outputs(mesh, out, label, kept=None):
+    """The wavefronts and the train steps that phase 32 compares across
+    meshes, on `mesh`, into the dict `out`: the Cornell box at 256x256
+    (sample 0, 4 bounces), the textured terrain at 128x128 (sample 0, 2
+    bounces; its tile_walk calls recorded into `kept` when given) and
+    SHARD_TRAIN_STEPS train steps at 256x256 (phase 14's setup). Prints
+    the launches of each."""
+    import torch
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.accel import tiles as TL
+    from libyafaray_tpu_torch.parallel import (make_train_step,
+                                               render_wavefront_sharded)
+    cornell = _cornell("brute", SHARD_SMALL, SHARD_SMALL)
+    terrain = _shard_terrain()
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    cfg_t = make_integrator({"type": "pathtracing",
+                             "bounces": TERRAIN_BOUNCES})
+    MT.launches = TL.launches = 0
+    rgb, alpha = render_wavefront_sharded(cornell, cfg, SHARD_SMALL,
+                                          SHARD_SMALL, 0, mesh)
+    torch.cuda.synchronize()
+    out["cornell_rgb"], out["cornell_alpha"] = rgb.cpu(), alpha.cpu()
+    out["cornell_launches"] = MT.launches
+    MT.launches = TL.launches = 0
+    walks = (_kept_calls(TL, "tile_walk", range(1 << 40)) if kept is not None
+             else contextlib.nullcontext([]))
+    with walks as calls:
+        rgb, alpha = render_wavefront_sharded(terrain, cfg_t, SHARD_TERRAIN,
+                                              SHARD_TERRAIN, 0, mesh)
+        torch.cuda.synchronize()
+    if kept is not None:
+        kept.extend(calls)
+    out["terrain_rgb"], out["terrain_alpha"] = rgb.cpu(), alpha.cpu()
+    out["terrain_launches"] = TL.launches
+    step = make_train_step(make_integrator({"type": "pathtracing",
+                                            "bounces": 1}),
+                           SMALL, SMALL, mesh)
+    small = _cornell("brute", SMALL, SMALL)
+    params = {"diffuse_color": small.materials.diffuse_color}
+    target = torch.full((SMALL, SMALL, 3), 0.25, device=mesh.device)
+    losses, steps = [], []
+    for _ in range(SHARD_TRAIN_STEPS):
+        params, loss = step(small, params, target, 0)
+        losses.append(float(loss))
+        steps.append(params["diffuse_color"].cpu())
+    out["losses"], out["steps"] = losses, steps
+    print(f"phase 32: {label}: cornell {SHARD_SMALL}x{SHARD_SMALL} wavefront "
+          f"{out['cornell_launches']} mt_closest launches; textured terrain "
+          f"{SHARD_TERRAIN}x{SHARD_TERRAIN} wavefront "
+          f"{out['terrain_launches']} tile_walk launches; train losses "
+          f"{losses}", flush=True)
+
+
+def _rank_worker(rank: int, port: int, out_dir: str) -> None:
+    """One of phase 32's two gloo ranks, a process of its own on cuda:0:
+    the sharded wavefronts (the terrain's tile_walk calls held against
+    tile_walk_ref), the train steps, and a render-farm node; writes its
+    results to out_dir/rank<r>.pt."""
+    import torch
+    import libyafaray_tpu_torch  # noqa: F401
+    from libyafaray_tpu_torch.parallel import distributed as D
+    fresh = not torch.cuda.is_initialized()
+    rank_, world = D.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                      device="cuda:0", backend="gloo")
+    from libyafaray_tpu_torch import csrc_build, make_integrator
+    from libyafaray_tpu_torch.parallel import make_mesh
+    build_s = csrc_build.build("mt_intersect", "tiles_traverse")
+    mesh = make_mesh(device="cuda:0")
+    print(f"phase 32: rank {rank_} of {world} on {mesh.device} "
+          f"({torch.cuda.get_device_name(mesh.device)}), backend "
+          f"{torch.distributed.get_backend()}; CUDA uninitialized after the "
+          f"imports: {fresh}; kernels loaded in {build_s:.2f} s", flush=True)
+    out, kept = {"fresh": fresh}, []
+    _sharded_outputs(mesh, out, f"rank {rank_}", kept)
+    held = _hold_walks("32", [(a, k, got) for a, k, got in kept],
+                       [f"rank {rank_} terrain walk {i}"
+                        for i in range(len(kept))])
+    out["walk_err"] = held["max_abs_err"]
+    D.render_node_film(_cornell("brute", FARM_RES, FARM_RES),
+                       make_integrator({"type": "directlighting"}),
+                       FARM_RES, FARM_RES, spp=FARM_SPP, node=rank_,
+                       out_dir=os.path.join(out_dir, "farm"),
+                       device="cuda:0")
+    torch.save(out, os.path.join(out_dir, f"rank{rank_}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _equal(label, got, want):
+    import torch
+    if not torch.equal(got.cpu(), want.cpu()):
+        diff = (got.cpu() - want.cpu()).abs().max()
+        raise AssertionError(f"phase 32: {label}: not bit for bit (max "
+                             f"|diff| {float(diff)})")
+
+
+def _sharded_main(mesh, cornell_ms):
+    """(a): render_sharded of the Cornell box at 1080p on the one-rank NCCL
+    mesh; returns (mt_closest launches, ms a pass, collective ms a pass)."""
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.parallel import (Mesh, _pixel_shard_radiance,
+                                               render_sharded)
+    from libyafaray_tpu_torch.render import pixel_jitter
+    scene = _cornell("brute", WIDTH, HEIGHT)
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    render_sharded(scene, cfg, WIDTH, HEIGHT, 1, mesh)      # warm-up pass
+    torch.cuda.synchronize()
+    events, real = [], Mesh.all_gather
+
+    def timed(self, x):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        y = real(self, x)
+        ev[1].record()
+        events.append(ev)
+        return y
+
+    Mesh.all_gather = timed
+    try:
+        MT.launches = 0
+        t0 = time.perf_counter()
+        film = render_sharded(scene, cfg, WIDTH, HEIGHT, SPP, mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = MT.launches
+    finally:
+        Mesh.all_gather = real
+    coll_ms = sum(a.elapsed_time(z) for a, z in events) / SPP
+    ms = seconds * 1e3 / SPP
+    want = SPP * (BOUNCES + 1) * 2
+    if launches != want:
+        raise AssertionError(f"phase 32: render_sharded launched mt_closest "
+                             f"{launches} times, want {want}")
+    # the same passes with no mesh: the body over every pixel, added at the
+    # pixel centres
+    ref = F.make_film(WIDTH, HEIGHT)
+    pid = torch.arange(WIDTH * HEIGHT, device=DEVICE)
+    cx = (pid % WIDTH).float() + 0.5
+    cy = (pid // WIDTH).float() + 0.5
+    ones = torch.ones(WIDTH * HEIGHT, device=DEVICE)
+    for s in range(SPP):
+        px, py = pixel_jitter(pid, s, WIDTH)
+        rgb, alpha, _ = _pixel_shard_radiance(scene, cfg, px, py, pid, s)
+        ref = F.add_samples(ref, cx, cy, {"combined": torch.cat(
+            [rgb, alpha[:, None]], 1)}, ones)
+    _equal("render_sharded at 1080p against the unsharded passes",
+           film.layers["combined"], ref.layers["combined"])
+    _equal("its weights", film.weights, ref.weights)
+    img = F.resolve(film)[..., :3].cpu().numpy()
+    print(f"phase 32: (a) render_sharded on the one-rank NCCL mesh, cornell "
+          f"{WIDTH}x{HEIGHT} {SPP} spp {BOUNCES} bounces: {ms:.2f} ms a pass "
+          f"(phase 4's render {cornell_ms:.2f}), the all_gather "
+          f"{coll_ms:.4f} ms a pass (CUDA events), {launches} mt_closest "
+          f"launches; the film bit for bit equal to the same passes through "
+          f"_pixel_shard_radiance and add_samples with no mesh; image mean "
+          f"{float(img.mean()):.6f}", flush=True)
+    # kernel path against plain path at 256x256, 2 spp
+    small = _cornell("brute", SMALL, SMALL)
+    film_k = render_sharded(small, cfg, SMALL, SMALL, 2, mesh)
+    with _plain(MT, "mt_closest", MT.mt_closest_ref):
+        film_p = render_sharded(small, cfg, SMALL, SMALL, 2, mesh)
+    _equal("render_sharded kernel path against plain path at 256x256",
+           film_k.layers["combined"], film_p.layers["combined"])
+    print(f"phase 32: (a) render_sharded {SMALL}x{SMALL} 2 spp: kernel path "
+          "equal to plain path bit for bit", flush=True)
+    return launches, ms, coll_ms
+
+
+def phase32_multi_device(cornell_ms, train_steps):
+    """Multi-device rendering and observability. Returns (mt_closest
+    launches by path, tiles_traverse launches by path, the walks' max
+    error, the profiled pass's numbers)."""
+    import numpy as np
+    import tempfile
+    import torch
+    from libyafaray_tpu_torch import film as F
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import mt_intersect as MT
+    from libyafaray_tpu_torch.parallel import make_mesh, make_train_step
+    from libyafaray_tpu_torch.parallel import distributed as D
+    from libyafaray_tpu_torch.utils import profiling as PF
+    rank, world = D.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                     device="cuda:0", backend="nccl")
+    mesh = make_mesh()
+    print(f"phase 32: one-rank mesh: rank {rank} of {world}, backend "
+          f"{torch.distributed.get_backend()}, device {mesh.device}",
+          flush=True)
+    mt, tl = {}, {}
+    try:
+        a_launches, a_ms, coll_ms = _sharded_main(mesh, cornell_ms)
+        mt[f"cornell render_sharded {WIDTH}x{HEIGHT} {SPP} spp on a "
+           "one-rank NCCL mesh"] = a_launches
+        # (b) the train step on the one-rank mesh against phase 14's
+        losses, steps = train_steps
+        step = make_train_step(make_integrator({"type": "pathtracing",
+                                                "bounces": 1}),
+                               SMALL, SMALL, mesh)
+        scene = _cornell("brute", SMALL, SMALL)
+        params = {"diffuse_color": scene.materials.diffuse_color}
+        target = torch.full((SMALL, SMALL, 3), 0.25, device=DEVICE)
+        for i in range(TRAIN_STEPS):
+            params, loss = step(scene, params, target, 0)
+            if float(loss) != losses[i]:
+                raise AssertionError(f"phase 32: (b) step {i}: loss "
+                                     f"{float(loss)} against phase 14's "
+                                     f"{losses[i]}")
+            _equal(f"(b) step {i}'s parameters against phase 14's",
+                   params["diffuse_color"], steps[i])
+        print(f"phase 32: (b) make_train_step on the one-rank mesh, "
+              f"{SMALL}x{SMALL}, {TRAIN_STEPS} steps: losses and parameters "
+              "bit for bit equal to phase 14's (mesh=None)", flush=True)
+        # (c) and (d): two gloo ranks in two processes on the card
+        with tempfile.TemporaryDirectory() as tmp:
+            port = _free_port()
+            root = os.path.dirname(os.path.abspath(__file__))
+            code = (f"import sys; sys.path.insert(0, {root!r}); "
+                    "import chip_smoke; chip_smoke._rank_worker("
+                    f"int(sys.argv[1]), {port}, {tmp!r})")
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for r in range(2)]
+            one = {}
+            _sharded_outputs(mesh, one, "one rank (NCCL)")
+            logs = []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=600)[0])
+                finally:
+                    if p.poll() is None:
+                        p.kill()
+            ranks_s = time.perf_counter() - t0
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                print(log, end="", flush=True)
+                if p.returncode != 0:
+                    raise AssertionError(f"phase 32: rank {r} failed "
+                                         f"(exit {p.returncode})")
+            outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                    for r in range(2)]
+            for r, o in enumerate(outs):
+                if not o["fresh"]:
+                    raise AssertionError(f"phase 32: rank {r}: importing the "
+                                         "port initialized CUDA")
+                for k in ("cornell_rgb", "cornell_alpha", "terrain_rgb",
+                          "terrain_alpha"):
+                    _equal(f"(c) rank {r}'s {k} against one rank", o[k],
+                           one[k])
+                np.testing.assert_allclose(o["losses"], one["losses"],
+                                           rtol=SHARD_TRAIN_RTOL)
+                for i in range(SHARD_TRAIN_STEPS):
+                    np.testing.assert_allclose(
+                        o["steps"][i].numpy(), one["steps"][i].numpy(),
+                        rtol=SHARD_TRAIN_RTOL)
+                    _equal(f"(c) rank {r} step {i} against rank 0",
+                           o["steps"][i], outs[0]["steps"][i])
+                if o["terrain_launches"] == 0 or o["cornell_launches"] == 0:
+                    raise AssertionError(f"phase 32: rank {r} launched no "
+                                         "kernel")
+                tl[f"textured terrain wavefront {SHARD_TERRAIN}x"
+                   f"{SHARD_TERRAIN}, rank {r} of two gloo ranks"] = \
+                    o["terrain_launches"]
+                mt[f"cornell wavefront {SHARD_SMALL}x{SHARD_SMALL}, rank {r} "
+                   "of two gloo ranks"] = o["cornell_launches"]
+            rel = max(float(np.max(np.abs(np.asarray(o["losses"])
+                                          - one["losses"])
+                                   / np.asarray(one["losses"])))
+                      for o in outs)
+            print(f"phase 32: (c) two gloo ranks on cuda:0 ({ranks_s:.1f} s "
+                  "with process start): each rank's cornell and textured "
+                  "terrain wavefronts bit for bit equal to one rank's, the "
+                  f"terrain's tile_walk calls held against tile_walk_ref; "
+                  f"{SHARD_TRAIN_STEPS} train steps within rtol "
+                  f"{SHARD_TRAIN_RTOL} of one rank's (loss max rel diff "
+                  f"{rel:.3g}), equal across ranks", flush=True)
+            walk_err = max(o["walk_err"] for o in outs)
+            # (d) the render farm: the two nodes' folder merge
+            merged, offset = F.load_all_in_folder(os.path.join(tmp, "farm"))
+        cfg = make_integrator({"type": "directlighting"})
+        farm = _cornell("brute", FARM_RES, FARM_RES)
+        nodes = [D.render_node_film(farm, cfg, FARM_RES, FARM_RES,
+                                    spp=FARM_SPP, node=n) for n in (0, 1)]
+        img_m = F.resolve(merged).cpu().numpy()
+        img_r = F.resolve(F.merge(nodes)).cpu().numpy()
+        a, b = (F.resolve(n).cpu().numpy() for n in nodes)
+        err, apart = float(np.abs(img_m - img_r).max()), float(
+            np.abs(a - b).max())
+        print(f"phase 32: (d) render farm: two processes' render_node_film "
+              f"{FARM_RES}x{FARM_RES} {FARM_SPP} spp merged by "
+              f"load_all_in_folder (offset {offset}) against the in-process "
+              f"merge: max |diff| {err:.3g} (bound 1e-5); the nodes' images "
+              f"differ by {apart:.4g}", flush=True)
+        if not err <= 1e-5 or not apart > 1e-4:
+            raise AssertionError("phase 32: (d) the render farm's merge is "
+                                 "wrong or its nodes are correlated")
+    finally:
+        torch.distributed.destroy_process_group()
+    # (e) observability: RenderStats through render, the profiler's summary
+    scene = _cornell("brute", WIDTH, HEIGHT)
+    cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
+    stats = PF.RenderStats()
+    MT.launches = 0
+    render(scene, cfg, spp=STATS_SPP, stats=stats)
+    stats_launches = MT.launches
+    mt[f"cornell render with stats {WIDTH}x{HEIGHT} {STATS_SPP} spp"] = \
+        stats_launches
+    summary = stats.summary()
+    print("phase 32: (e) render(..., stats=RenderStats()):\n" + summary,
+          flush=True)
+    rays = WIDTH * HEIGHT * STATS_SPP
+    if (f"passes: {STATS_SPP}" not in summary.splitlines()
+            or f"camera rays: {rays}" not in summary.splitlines()):
+        raise AssertionError("phase 32: (e) the stats summary is wrong")
+    real, events = MT.mt_closest, []
+
+    def timed(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*a, **k)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        MT.mt_closest = timed
+        try:
+            MT.launches = 0
+            with PF.trace(log_dir):
+                render(scene, cfg, spp=1, start_sample=STATS_SPP)
+            traced = MT.launches
+        finally:
+            MT.mt_closest = real
+        top = PF.device_op_summary(log_dir, top=1 << 20)
+    event_ms = sum(a.elapsed_time(z) for a, z in events)
+    mine = [(n, ms, c) for n, ms, c in top if "mt_closest_kernel" in n]
+    count = sum(c for _, _, c in mine)
+    prof_ms = sum(ms for _, ms, _ in mine)
+    print(f"phase 32: (e) one traced pass: {len(top)} device op names, "
+          f"{sum(c for _, _, c in top)} device events, "
+          f"{sum(ms for _, ms, _ in top):.2f} ms of device time; the "
+          f"heaviest: " + "; ".join(f"{n[:60]} {ms:.3f} ms x{c}"
+                                    for n, ms, c in top[:4]), flush=True)
+    print(f"phase 32: (e) mt_closest_kernel in the profiler's summary: "
+          f"{count} launches, {prof_ms:.4f} ms; MT.launches {traced}; the "
+          f"same launches between CUDA events {event_ms:.4f} ms", flush=True)
+    if count != traced or traced != (BOUNCES + 1) * 2:
+        raise AssertionError(f"phase 32: (e) the profiler counts {count} "
+                             f"mt_closest_kernel launches, MT.launches "
+                             f"{traced}, want {(BOUNCES + 1) * 2}")
+    return mt, tl, walk_err, dict(ms_per_pass=a_ms, collective_ms=coll_ms,
+                                  stats_rays=rays, profiled_ms=prof_ms,
+                                  event_ms=event_ms)
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -4936,6 +5352,8 @@ def main() -> int:
     print(f"phase 1: torch {torch.__version__}, torch CUDA "
           f"{torch.version.cuda}, nvcc: {nvcc}")
     print(smi)
+    from libyafaray_tpu_torch.utils.sysinfo import sysinfo_string
+    print(f"phase 1: {sysinfo_string()}")
     probe = _probe()
 
     # ---- phase 2: the four sources, one nvcc each, all started together
@@ -4959,7 +5377,7 @@ def main() -> int:
     tl_err, tl_times, tl_bound, big = _timed("3b", phase3b_tiles, terrain)
     arm_err, arm_times = _timed("3c", phase3c_arms, forest,
                                 tl_times["camera"][0])
-    mt_launches = _timed("4", phase4_cornell)
+    mt_launches, cornell_ms = _timed("4", phase4_cornell)
     _timed("5", phase5_cornell_paths)
     terrain_img, terrain_launches = _timed("6", phase6_terrain, terrain)
     from libyafaray_tpu_torch.scenes import TERRAIN_CAMERA
@@ -4971,7 +5389,7 @@ def main() -> int:
     fwd_bwd_launches, mt_chunk = _timed("11", phase11_fwd_bwd)
     grad_tile_launches = _timed("12", phase12_grad_paths, terrain)
     glossy_launches = _timed("13", phase13_glossy)
-    _timed("14", phase14_train)
+    train_steps = _timed("14", phase14_train)
     _timed("15", phase15_cornell_golden)
     textured_img, textured_launches = _timed(
         "16", phase16_textured, textured, terrain, terrain_img)
@@ -4995,6 +5413,8 @@ def main() -> int:
         "30", phase30_entry_points, terrain_img)
     (lbvh_launches, lbvh_per, accel_mt, mt_terrain, accel_tl,
      prepass) = _timed("31", phase31_accelerators, textured, textured_img)
+    shard_mt, shard_tl, shard_walk_err, shard = _timed(
+        "32", phase32_multi_device, cornell_ms, train_steps)
     lbvh_main = f"cornell {WIDTH}x{HEIGHT} {SPP} spp"
     lbvh_timed = (f"textured terrain {TERRAIN_RES}x{TERRAIN_RES}, one pass's "
                   "queries")
@@ -5024,6 +5444,7 @@ def main() -> int:
                             *(v["max_abs_err"] for v in int_per.values()),
                             capi_per_a["max_abs_err"],
                             mt_terrain["max_abs_err_128"]),
+         "sharded_path": shard,
          "launches_by_path": {
              "cornell forward, phase 4": mt_launches,
              "cornell forward + backward, phase 11": fwd_bwd_launches,
@@ -5064,7 +5485,8 @@ def main() -> int:
                 for label, n in int_launches.items()
                 if label != "photon mapping blocks"},
              **{f"{label}, phase 30": n for label, n in capi_mt.items()},
-             **{f"{label}, phase 31": n for label, n in accel_mt.items()}},
+             **{f"{label}, phase 31": n for label, n in accel_mt.items()},
+             **{f"{label}, phase 32": n for label, n in shard_mt.items()}},
          "per_launch_by_path": {
              "materials cornell, closest-shadow queries of the "
              "transparent walk, phase 24": mt_walk,
@@ -5101,7 +5523,7 @@ def main() -> int:
          "max_abs_err": max(tl_err, arm_err, tl_walk_err,
                             aov_walk["max_abs_err"],
                             int_walk["max_abs_err"],
-                            capi_per_b["max_abs_err"]),
+                            capi_per_b["max_abs_err"], shard_walk_err),
          "ms": arm_times[main_arm]["ms"],
          "plain_ms": arm_times[main_arm]["plain_ms"],
          "bound_ms": arm_times[main_arm]["bound_ms"],
@@ -5132,7 +5554,8 @@ def main() -> int:
              "photon queries included), phase 29":
                  int_launches["photon mapping blocks"][1],
              **{f"{label}, phase 30": n for label, n in capi_tl.items()},
-             **{f"{label}, phase 31": n for label, n in accel_tl.items()}},
+             **{f"{label}, phase 31": n for label, n in accel_tl.items()},
+             **{f"{label}, phase 32": n for label, n in shard_tl.items()}},
          "per_launch_by_path": {
              "cornell 1080p on blocks, the first compacted sample's "
              "queries, phase 28": aov_walk,

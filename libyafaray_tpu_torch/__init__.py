@@ -33,9 +33,19 @@ built on the card); instances of spheres and curves are baked. Torch
 autograd runs through it: material
 and light parameters get gradients, which stop at the intersection
 queries as in the JAX package, and `make_train_step` takes an
-inverse-rendering SGD step on one device. `SceneBuilder.compile`, `render`
-and `make_train_step` run on the CUDA card unless the caller names another
-device. On the card every
+inverse-rendering SGD step. Several processes render together on
+`torch.distributed` (`parallel`): `make_mesh` over the process group,
+`render_wavefront_sharded` / `render_sharded` split the pixels over it,
+`make_train_step(..., mesh=)` averages the loss and the gradients across
+it, `film.psum_merge` merges films, and `parallel.distributed` starts a
+render farm (`init_distributed`, `render_node_film`). `render(...,
+stats=)` fills a `utils.profiling.RenderStats`; `utils.profiling.trace`
+and `device_op_summary` attribute device time to kernels; `utils.logger`
+and `utils.sysinfo` are the reference's logger, timers, progress bar and
+build info; `io.postprocess.draw_badge` stamps the render-stats banner.
+`SceneBuilder.compile`, `render`, `make_train_step` and the meshes run on
+the CUDA card unless the caller names another device; importing the
+package initializes neither CUDA nor a process group. On the card every
 intersection query runs a hand-written kernel: `csrc/mt_intersect.cu` on
 the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
 (static, motion-blur and instancing arms) on the block accelerator
@@ -43,11 +53,17 @@ the brute-force path (`accel/mt_intersect.py`), `csrc/tiles_traverse.cu`
 (`accel/lbvh.py`); `csrc/probe_smem.cu` (`accel/probe_smem.py`) probes
 the card's shared memory per block.
 """
+from . import color, film, io, params, sampler
 from .integrators.mc import IntegratorConfig, make_integrator
-from .parallel import make_train_step
-from .render import render, render_pass_fn
+from .parallel import make_mesh, make_train_step, render_sharded
+from .render import AAParams, render, render_pass_fn
 from .scene import SceneBuilder
 from .scene_types import SceneData
 
-__all__ = ["SceneBuilder", "SceneData", "IntegratorConfig", "make_integrator",
-           "make_train_step", "render", "render_pass_fn"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "SceneBuilder", "SceneData", "IntegratorConfig", "make_integrator",
+    "render", "render_pass_fn", "AAParams", "color", "film", "io", "params",
+    "sampler", "make_mesh", "make_train_step", "render_sharded",
+]

@@ -1,13 +1,13 @@
-"""The sRGB curves and the wavelength-to-RGB fit of chromatic dispersion.
+"""Colour spaces and spectra, batched over [..., 3] / [..., 4] tensors.
 
-Counterpart of the functions of `libyafaray_tpu/color.py` that the port
-calls: the sRGB encode and decode of the image writers and readers (the
-reference's ColorSpace conversions, include/color/color.h) and the
-wavelength-to-RGB fit (spectrum::wl2Rgb, src/color/spectrum.cc, as a
-smooth analytic fit of its CIE table): the first dispersive refraction of
-a path tints its throughput by 3 * wl_to_rgb(wavelength). The rest of the
-JAX module (luminance, XYZ, the output-space dispatch) comes with the
-first slice that calls it.
+Counterpart of `libyafaray_tpu/color.py` (the reference's Rgb / Rgba and
+their colour-space conversions, include/color/color.h:35-133,345, and the
+wavelength-to-RGB fit of dispersion, include/color/spectrum.h:31-44,
+src/color/spectrum.cc): luminance, energy, the sRGB curves, linear RGB to
+and from XYZ, the output and input colour-space dispatch, the colour
+difference, premultiplied alpha and `wl_to_rgb`, the smooth analytic fit of
+spectrum::wl2Rgb's CIE table (the first dispersive refraction of a path
+tints its throughput by 3 * wl_to_rgb(wavelength)).
 
 The sRGB curves raise to a float32 power in float64 and round once. XLA's
 float32 pow is not torch's: computed in float32, torch's differs from it by
@@ -21,6 +21,32 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+# colour-space ids (the reference's ColorSpace enum)
+RAW_MANUAL_GAMMA = 0
+LINEAR_RGB = 1
+SRGB = 2
+XYZ_D65 = 3
+
+COLOR_SPACE_NAMES = {
+    "RawManualGamma": RAW_MANUAL_GAMMA,
+    "LinearRGB": LINEAR_RGB,
+    "sRGB": SRGB,
+    "XYZ": XYZ_D65,
+}
+
+
+def luminance(rgb: Tensor) -> Tensor:
+    """Rec. 709 luma (CIE Y), the perceptual weight of the JAX package."""
+    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
+
+
+def energy(rgb: Tensor) -> Tensor:
+    return torch.mean(rgb, dim=-1)
+
+
+def max_component(rgb: Tensor) -> Tensor:
+    return torch.amax(rgb, dim=-1)
 
 
 def _pow(c: Tensor, e: float) -> Tensor:
@@ -39,6 +65,67 @@ def srgb_to_linear(c: Tensor) -> Tensor:
     c = torch.clamp_min(c, 0.0)
     return torch.where(c <= 0.04045, c / 12.92,
                        _pow((c + 0.055) / 1.055, 2.4))
+
+
+_RGB_TO_XYZ = np.array(
+    [[0.4124564, 0.3575761, 0.1804375],
+     [0.2126729, 0.7151522, 0.0721750],
+     [0.0193339, 0.1191920, 0.9503041]], np.float32)
+_XYZ_TO_RGB = np.array(
+    [[3.2404542, -1.5371385, -0.4985314],
+     [-0.9692660, 1.8760108, 0.0415560],
+     [0.0556434, -0.2040259, 1.0572252]], np.float32)
+
+
+def _apply(m: np.ndarray, c: Tensor) -> Tensor:
+    return torch.einsum("ij,...j->...i",
+                        torch.from_numpy(m).to(device=c.device, dtype=c.dtype),
+                        c)
+
+
+def linear_to_xyz(rgb: Tensor) -> Tensor:
+    return _apply(_RGB_TO_XYZ, rgb)
+
+
+def xyz_to_linear(xyz: Tensor) -> Tensor:
+    return _apply(_XYZ_TO_RGB, xyz)
+
+
+def to_output_space(rgb: Tensor, color_space: int,
+                    gamma: float = 1.0) -> Tensor:
+    """Linear render output to a named colour space (the reference's image
+    output path)."""
+    if color_space == SRGB:
+        return linear_to_srgb(rgb)
+    if color_space == XYZ_D65:
+        return linear_to_xyz(rgb)
+    if color_space == RAW_MANUAL_GAMMA and gamma != 1.0:
+        return torch.pow(torch.clamp_min(rgb, 0.0), 1.0 / gamma)
+    return rgb
+
+
+def from_input_space(rgb: Tensor, color_space: int,
+                     gamma: float = 1.0) -> Tensor:
+    """A texture or image input to the linear working space (the
+    reference's texture load)."""
+    if color_space == SRGB:
+        return srgb_to_linear(rgb)
+    if color_space == XYZ_D65:
+        return xyz_to_linear(rgb)
+    if color_space == RAW_MANUAL_GAMMA and gamma != 1.0:
+        return torch.pow(torch.clamp_min(rgb, 0.0), gamma)
+    return rgb
+
+
+def color_difference(a: Tensor, b: Tensor) -> Tensor:
+    """The green-weighted colour difference of the JAX package (the
+    reference's Rgb::colorDifference, used at src/render/imagefilm.cc:337)."""
+    w = torch.tensor([0.25, 0.5, 0.25], dtype=a.dtype, device=a.device)
+    return torch.sum(torch.abs(a - b)[..., :3] * w, dim=-1)
+
+
+def premultiply_alpha(rgba: Tensor) -> Tensor:
+    return torch.cat([rgba[..., :3] * rgba[..., 3:4], rgba[..., 3:4]], dim=-1)
 
 
 # (weight, centre nm, width below, width above) of each Gaussian lobe

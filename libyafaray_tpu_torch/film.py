@@ -8,8 +8,8 @@ header, dtypes and shapes, so a film saved by either package loads in the
 other). Splatting is a scatter-add per filter tap in the JAX order; within
 one tap each pixel receives one sample (and lanes outside the image add an
 exact 0 at a clamped pixel), so on the card the scatter is deterministic.
-The cross-device merge (`psum_merge`) comes with the port's
-`torch.distributed` slice.
+Films of several processes merge in memory by `psum_merge`, an all_reduce
+over a `parallel.Mesh`.
 """
 from __future__ import annotations
 
@@ -296,6 +296,18 @@ def merge(films) -> Film:
                          if out.splat_paths is not None
                          and f.splat_paths is not None else out.splat_paths))
     return out
+
+
+def psum_merge(film: Film, mesh) -> Film:
+    """The film merge across a `parallel.Mesh`: an all_reduce (sum) over the
+    mesh's group of the weights, every layer and the splat accumulators
+    (the JAX package's psum over the mesh axis, SURVEY.md section 2.15).
+    Every rank returns the merged film."""
+    opt = lambda x: mesh.all_reduce_sum(x) if x is not None else None
+    return replace(
+        film, weights=mesh.all_reduce_sum(film.weights),
+        layers={k: mesh.all_reduce_sum(v) for k, v in film.layers.items()},
+        splat=opt(film.splat), splat_paths=opt(film.splat_paths))
 
 
 # --- film checkpoint / resume (the reference's .film files,

@@ -53,17 +53,22 @@ class AAParams:
     variance_pixels: int = 0
 
 
-def camera_rays(cam, pixel_id: Tensor, s_idx: int, width: int):
-    """The camera rays of sample s_idx of each pixel id: the pixel jitter
-    (an Owen-scrambled (0,2)-sequence per pixel) and the lens samples.
-    Returns (px, py, origin, direction, valid)."""
+def pixel_jitter(pixel_id: Tensor, s_idx: int, width: int):
+    """The film position (px, py) of sample s_idx of each pixel id: the
+    pixel's corner plus an Owen-scrambled (0,2)-sequence per pixel."""
     scramble = sampler.pcg4d(torch.stack(
         [pixel_id, torch.full_like(pixel_id, 0x9E3779B9),
          torch.full_like(pixel_id, 7), torch.full_like(pixel_id, 11)],
         dim=-1))[..., 0]
     ju, jv = sampler.ld02(s_idx, scramble)
-    px = (pixel_id % width).to(torch.float32) + ju
-    py = (pixel_id // width).to(torch.float32) + jv
+    return ((pixel_id % width).to(torch.float32) + ju,
+            (pixel_id // width).to(torch.float32) + jv)
+
+
+def camera_rays(cam, pixel_id: Tensor, s_idx: int, width: int):
+    """The camera rays of sample s_idx of each pixel id: the pixel jitter
+    and the lens samples. Returns (px, py, origin, direction, valid)."""
+    px, py = pixel_jitter(pixel_id, s_idx, width)
     lens_u, lens_v = lens_samples(cam, pixel_id, s_idx)
     return (px, py) + shoot_rays(cam, px, py, lens_u, lens_v)
 
@@ -233,7 +238,7 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
            film_autosave_interval_passes: int = 0,
            photon_maps_processing: str = "generate",
            photon_map_path: Optional[str] = None,
-           render_control=None, *, device="cuda") -> F.Film:
+           render_control=None, stats=None, *, device="cuda") -> F.Film:
     """The multi-pass render loop (TiledIntegrator::render) on `device`
     (the CUDA card unless the caller names another device, such as "cpu");
     returns the film.
@@ -247,7 +252,10 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
     Under photon mapping the maps are built once before the first pass
     (`photon_maps_processing` "generate"; "generate-save" also writes them
     to `photon_map_path`), or read from `photon_map_path` ("load" and
-    "reuse-previous", when the file exists; else generated)."""
+    "reuse-previous", when the file exists; else generated). `stats` (a
+    `utils.profiling.RenderStats`) gets each pass's seconds and camera rays,
+    the film's device synchronised before each pass ends, and the whole
+    loop's "rendert" time."""
     width = scene.camera.resx if width is None else width
     height = scene.camera.resy if height is None else height
     scene = scene.to(device)
@@ -293,14 +301,29 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
         if render_control is not None:
             render_control.set_progress(s / max(total, 1))
 
+    def begin_pass():
+        if stats is not None:
+            stats.begin_pass()
+
+    def end_pass(rays):
+        if stats is not None:
+            # the pass's work, not its launches: wait for the device
+            if film.device.type == "cuda":
+                torch.cuda.synchronize(film.device)
+            stats.end_pass(rays)
+
     if render_control is not None:
         render_control.set_started()
     total = aa.aa_samples + (aa.aa_passes - 1) * aa.aa_inc_samples
+    if stats is not None:
+        stats.start("rendert")
     # pass 1: aa_samples samples of every pixel
     for _ in range(aa.aa_samples):
         if canceled():
             break
+        begin_pass()
         film = render_pass_fn(scene, cfg, film, s)
+        end_pass(width * height)
         s += 1
         autosave(s)
         progress()
@@ -315,7 +338,9 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
             break           # converged: the reference stops flagging too
         live = torch.ones_like(ids, dtype=torch.bool)
         for _ in range(aa.aa_inc_samples):
+            begin_pass()
             film = _render_ids(scene, cfg, film, s, ids, live)
+            end_pass(ids.numel())
             s += 1
             autosave(s)
         progress()
@@ -324,4 +349,6 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
         F.save_film(film, film_path, sampling_offset=s)
     if render_control is not None and not canceled():
         render_control.set_finished()
+    if stats is not None:
+        stats.stop("rendert")
     return film

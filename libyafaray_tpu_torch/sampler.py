@@ -13,6 +13,7 @@ below 2^48 and the low 32 bits of the result are exact.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -137,3 +138,41 @@ def ld02(sample_idx, scramble_key: Tensor):
     key = _pcg4d(k, k ^ 0x9E3779B9, torch.zeros_like(k), torch.ones_like(k))[0]
     u1 = larcher_pillichshammer(n, key)
     return u0, u1
+
+
+def van_der_corput(n, scramble=0) -> Tensor:
+    """Base-2 radical inverse with an XOR scramble (the reference's
+    sample.h `riVdC`)."""
+    n = _u32(n)
+    return _u32_to_unit_float(_reverse_bits32(n) ^ _u32(scramble, n))
+
+
+# the first 30 primes: the bases of `halton`
+_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59,
+           61, 67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113)
+
+
+def halton(n, base_index: int) -> Tensor:
+    """Radical inverse of n in the `base_index`-th prime base (the
+    reference's include/sampler/halton.h), over a fixed 13 digits (exact
+    for n < base^13). Every step rounds in float32, as the JAX package
+    does: the digit weights are float32 powers of 1 / base."""
+    base = np.float32(_PRIMES[base_index])
+    inv_base = np.float32(1.0) / base
+    n = _u32(n).to(torch.float32)
+    result = torch.zeros_like(n)
+    f = inv_base
+    for _ in range(13):
+        digit = torch.floor(n * float(inv_base))
+        result = result + float(f) * (n - digit * float(base))
+        n = digit
+        f = f * inv_base
+    return torch.clamp_max(result, _ONE_MINUS_ULP)
+
+
+def host_sample_offset(host_id, samples_per_host: int = 100_000) -> Tensor:
+    """The disjoint sample-counter base of a render-farm node, uint32 held
+    in int64: the reference's `adv_base_sampling_offset = node_id * 100000`
+    (src/scene/scene.cc:608-609, 639-640), so that nodes draw decorrelated
+    streams."""
+    return _mul32(_u32(host_id), int(samples_per_host) & M32)
