@@ -8,7 +8,8 @@ Phases, each reporting on its own lines:
      limit, the port's sysinfo line (utils.sysinfo); the shared-memory
      probe (kernel d): the largest dynamic shared memory a launch takes
      must equal the card's opt-in limit per block, and its output must be
-     exactly 2.0;
+     exactly 2.0; its launch timed beside a one-element PyTorch fill, the
+     launch floor its one launch cannot go under;
   2. build: compiles the four CUDA sources of the package (one nvcc each,
      all started together) before phase 1 reports, timed;
   3. mt_closest against its plain version mt_closest_ref on the card, bit
@@ -291,7 +292,9 @@ Phases, each reporting on its own lines:
      (lbvh_traverse alone, 10 launches a pass) within the slice bound of
      the brute-force render, one pass's queries held bit for bit against
      lbvh_traverse_ref and timed beside their bounds (the box, face and
-     sphere tests each walk needed); the textured terrain on the LBVH at
+     sphere tests each walk needed): the kernel alone (its C entry point
+     launched in a loop, lbvh.prepare) and the wrapper between CUDA
+     events; the textured terrain on the LBVH at
      720x720, 6 spp (the build timed; 9 launches a pass) within the slice
      bound of phase 16's blocks render, its queries held and timed the
      same way; at 128x128 every LBVH query of the Cornell box (camera,
@@ -301,7 +304,11 @@ Phases, each reporting on its own lines:
      (sphere leaves, some hits on them) and the terrain, bit for bit, and
      each image kernel path against plain path bit for bit; a hand-made
      tree 60 levels deep whose walk overflows the 48-slot stack as the JAX
-     package's does. Brute force on the 203,522-face terrain (kernel a, no
+     package's does; the walk's edge cases (`lbvh_edge_cases`: dead and
+     NaN rays among live ones and whole dead warps, an exact tie of two
+     leaves, one-primitive trees of a face and of a sphere, origins on box
+     faces and direction components of +-0, a tree copied through numpy),
+     closest, shadow closest and any hit, bit for bit. Brute force on the 203,522-face terrain (kernel a, no
      row cap) at 720x720, 6 spp, within the slice bound of phase 16's
      image, each query of a pass timed beside its bound, and at 128x128
      every query bit for bit against mt_closest_ref. Instanced spheres and
@@ -4523,8 +4530,11 @@ def _exact(label, got, want):
 def _hold_lbvh(label, calls, reps=10):
     """Each captured lbvh_traverse call (arguments, keywords, outputs) held
     bit for bit against lbvh_traverse_ref, then timed alone beside the
-    plain version and its bound; printed per kind. Returns the max error
-    and the per-launch means (ms, plain_ms, bound_ms, bound_by)."""
+    plain version and its bound: the kernel alone (its C entry point
+    launched in a loop, `lbvh.prepare`) and the wrapper between CUDA
+    events (its host work included); printed per kind. Returns the max
+    error and the per-launch means (ms: the kernel alone, events_ms,
+    plain_ms, bound_ms, bound_by)."""
     import collections
     from libyafaray_tpu_torch.accel import lbvh as LB
     by_kind = collections.defaultdict(list)
@@ -4534,29 +4544,35 @@ def _hold_lbvh(label, calls, reps=10):
         want, plain = _once_ms(lambda: LB.lbvh_traverse_ref(*a, **k,
                                                             stats=stats))
         _exact(f"{label} query {i}", got, want)
-        ms = _cuda_ms(lambda: LB.lbvh_traverse(*a, **k), reps)
+        ms = _cuda_ms(LB.prepare(*a, **k), reps)
+        events = _cuda_ms(lambda: LB.lbvh_traverse(*a, **k), reps)
         bound, by = _lbvh_bound(a, k, stats)
         bound_by[by] = bound_by.get(by, 0.0) + bound
         live = int((a[5] > a[4]).sum())
         by_kind[_lbvh_kind(k)].append((ms, plain, bound, live,
-                                       int((got[1] >= 0).sum()), stats, by))
+                                       int((got[1] >= 0).sum()), stats, by,
+                                       events))
     rows = []
     for kind, xs in by_kind.items():
         n = len(xs)
         ms, plain, bound = (sum(x[j] for x in xs) / n for j in range(3))
+        events = sum(x[7] for x in xs) / n
         boxes = sum(x[5]["boxes"] for x in xs) / max(1, sum(x[3] for x in xs))
         bys = sorted({x[6] for x in xs})
         print(f"phase 31: {label}: {n} {kind} queries, every one bit for bit "
               f"(max |diff| 0): {sum(x[3] for x in xs)} live rays, "
               f"{sum(x[4] for x in xs)} hits, {boxes:.1f} box tests a live "
-              f"ray; per query lbvh_traverse {ms:.4f} ms, lbvh_traverse_ref "
-              f"{plain:.4f} ms, bound {bound:.4f} ms ({', '.join(bys)}), at "
-              f"{100 * bound / ms:.1f}% of it")
+              f"ray; per query lbvh_traverse {ms:.4f} ms the kernel alone, "
+              f"{events:.4f} ms between events around the wrapper, "
+              f"lbvh_traverse_ref {plain:.4f} ms, bound {bound:.4f} ms "
+              f"({', '.join(bys)}), at {100 * bound / ms:.1f}% of it")
         rows += xs
     n = len(rows)
     ms, plain, bound = (sum(x[j] for x in rows) / n for j in range(3))
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=max(bound_by, key=bound_by.get), queries=n)
+    return dict(max_abs_err=0.0, ms=ms,
+                events_ms=sum(x[7] for x in rows) / n, plain_ms=plain,
+                bound_ms=bound, bound_by=max(bound_by, key=bound_by.get),
+                queries=n)
 
 
 def _counted(label, scene, cfg, spp, warm=True):
@@ -4690,6 +4706,163 @@ def _ladder_overflow():
     print("phase 31: the hand-made LBVH 60 levels deep: the kernel drops the "
           "pushes past slot 47 and re-reads it, as the plain version and the "
           "JAX walk do: faces 0-47 hit, 48-60 missed, bit for bit")
+
+
+def _one_prim(sphere, device):
+    """A scene of one triangle (its LBVH a single leaf, compiled with
+    "bvh") or of one sphere (compiled on brute force, having no face; its
+    one-leaf LBVH built here): (bvh, geom)."""
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    from libyafaray_tpu_torch.scene import SceneBuilder
+    b = SceneBuilder()
+    b.set_render_params({"scene_accelerator": "bvh"})
+    b.create_material("m", {"type": "shinydiffusemat"})
+    if sphere:
+        b.create_object("ball", {"type": "sphere", "center": (0.2, 0.3, 0.0),
+                                 "radius": 0.5})
+    else:
+        b.create_object("one")
+        b.set_current_material("m")
+        b.add_triangle(*[b.add_vertex(*p) for p in
+                         ((-0.5, -0.5, 0.0), (1.0, -0.2, 0.1),
+                          (0.0, 1.0, -0.1))])
+    b.create_camera("cam", {"type": "perspective", "from": (0, 0, 5),
+                            "to": (0, 0, 0), "resx": 8, "resy": 8})
+    scene = b.compile("cam", device=device)
+    bvh = scene.bvh if scene.bvh is not None else LB.build_lbvh(scene.geom)
+    if bvh.num_nodes != 1:
+        raise AssertionError("the one-primitive tree is not one leaf")
+    return bvh, scene.geom
+
+
+TWIN = ((0.2, 0.2, 0.8), (0.8, 0.25, 0.82), (0.4, 0.8, 0.85))
+
+
+def _twins(device):
+    """The Cornell box with one triangle twice, each copy a leaf of its
+    own, above the blocks: a ray at it meets two leaves at the same t.
+    (bvh, geom)."""
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    b = cornell_builder()
+    b.set_render_params({"scene_accelerator": "bvh"})
+    b.create_object("twins")
+    b.set_current_material("white")
+    for _ in range(2):
+        b.add_triangle(*[b.add_vertex(*p) for p in TWIN])
+    scene = b.compile("cam", device=device)
+    return scene.bvh, scene.geom
+
+
+def lbvh_edge_cases(device, n=4096, seed=31):
+    """The walk's edge cases as lbvh_traverse calls [(label, args,
+    kwargs)], each to be held bit for bit against lbvh_traverse_ref, on
+    `device`: dead and NaN rays mixed with live ones inside a warp, and
+    whole dead warps; an exact tie of two leaves; one-primitive trees (a
+    face, a sphere); origins on box faces and direction components of +0
+    and -0; a tree copied through numpy as `convert.scene_from_numpy`
+    makes one (packed anew). Every case runs closest, shadow closest and
+    any hit."""
+    import numpy as np
+    import torch
+    from libyafaray_tpu_torch.scene_types import BVH
+    from libyafaray_tpu_torch.scenes import cornell_builder
+    rng = np.random.default_rng(seed)
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    b = cornell_builder()
+    b.set_render_params({"scene_accelerator": "bvh"})
+    box = b.compile("cam", device=device)
+
+    def rays(o, d, t_min=None, t_max=None, excl=None):
+        m = o.shape[0]
+        d = d / np.linalg.norm(d, axis=1, keepdims=True)
+        return (dev(o.astype(np.float32)), dev(d.astype(np.float32)),
+                dev(np.full(m, 1e-4, np.float32) if t_min is None
+                    else t_min),
+                dev(np.full(m, 1e30, np.float32) if t_max is None
+                    else t_max),
+                dev(np.full(m, -1, np.int32) if excl is None else excl))
+
+    cases = []
+    # dead and NaN rays: warp 0 live, warps 1-2 mixed lane by lane, warps
+    # 3-4 dead, warp 5 NaN; the pattern repeats every 8 warps
+    o = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.full(n, 1e30, np.float32)
+    warp, lane = (np.arange(n) // 32) % 8, np.arange(n) % 32
+    mixed = np.isin(warp, (1, 2))
+    t_max[mixed & (lane % 7 == 1)] = -1.0
+    t_max[mixed & (lane % 7 == 2)] = 1e-4                 # t_max == t_min
+    t_min[mixed & (lane % 7 == 3)] = np.nan
+    t_max[mixed & (lane % 7 == 4)] = np.nan
+    t_min[np.isin(warp, (3, 4))] = 5.0                    # t_max < t_min
+    t_max[np.isin(warp, (3, 4))] = 2.0
+    r = rays(o, d, t_min, t_max)
+    r[0][torch.from_numpy((mixed & (lane % 7 == 5)) | (warp == 5)), 1] = \
+        float("nan")
+    r[1][torch.from_numpy(mixed & (lane % 7 == 6)), 2] = float("nan")
+    cases.append(("dead and NaN rays among live ones", (box.bvh, box.geom)
+                  + r))
+    # an exact tie: the first of the two leaves popped wins
+    tb, tg = _twins(device)
+    m = 1024
+    w = rng.dirichlet((1, 1, 1), m).astype(np.float32)
+    target = w @ np.float32(TWIN)
+    o = target + np.float32([0.0, 0.0, 0.1]) + rng.uniform(
+        -0.05, 0.05, (m, 3)).astype(np.float32)
+    cases.append(("a face twice (an exact tie of two leaves)", (tb, tg)
+                  + rays(o, target - o)))
+    # one-primitive trees
+    for sphere in (False, True):
+        ob, og = _one_prim(sphere, device)
+        o = np.concatenate([rng.uniform(-0.6, 0.6, (m, 2)),
+                            np.full((m, 1), 3.0)], 1)
+        d = np.concatenate([rng.uniform(-0.1, 0.1, (m, 2)),
+                            np.full((m, 1), -1.0)], 1)
+        cases.append((f"a one-primitive tree ({'a sphere' if sphere else 'a face'})",
+                      (ob, og) + rays(o, d)))
+    # origins on box faces, direction components of +0 and -0
+    nmin = box.bvh.node_min.cpu().numpy()
+    nmax = box.bvh.node_max.cpu().numpy()
+    k = rng.integers(0, nmin.shape[0], n)
+    o = np.where(rng.random((n, 3)) < 0.5, nmin[k], nmax[k])
+    d = rng.standard_normal((n, 3))
+    zero = rng.random((n, 3)) < 0.3
+    d[zero] = np.where(rng.random(int(zero.sum())) < 0.5, 0.0, -0.0)
+    d[(d == 0).all(1), 0] = 1.0
+    cases.append(("origins on box faces, direction components of +-0",
+                  (box.bvh, box.geom) + rays(o, d)))
+    # a tree made outside build_lbvh, from numpy tables
+    copy = BVH(**{f: dev(getattr(box.bvh, f).cpu().numpy()) for f in (
+        "node_min", "node_max", "node_left", "node_right", "node_is_leaf",
+        "prim_order")}, num_nodes=box.bvh.num_nodes)
+    o = rng.uniform(0.05, 0.95, (n, 3))
+    cases.append(("the tree copied through numpy (convert's tables)",
+                  (copy, box.geom) + rays(o, rng.standard_normal((n, 3)))))
+    out = []
+    for label, a in cases:
+        for kw in ({}, {"shadow": True}, {"shadow": True, "any_hit": True}):
+            out.append((label, a, kw))
+    return out
+
+
+def _lbvh_edges():
+    """Each of `lbvh_edge_cases` held bit for bit; the tie is won by the
+    leaf the walk pops first in both versions. Returns the cases held."""
+    from libyafaray_tpu_torch.accel import lbvh as LB
+    cases = lbvh_edge_cases(DEVICE)
+    for label, a, k in cases:
+        got = LB.lbvh_traverse(*a, **k)
+        want = LB.lbvh_traverse_ref(*a, **k)
+        _exact(f"{label} {_lbvh_kind(k)}", got, want)
+        hits = int((got[1] >= 0).sum())
+        print(f"phase 31: {label}, {_lbvh_kind(k)}: {a[2].shape[0]} rays, "
+              f"{hits} hits, bit for bit")
+        if label.startswith("a face twice") and not k:
+            prims = set(got[1][got[1] >= 0].tolist())
+            print(f"phase 31: the tie is taken by prim ids {sorted(prims)} "
+                  "(the leaf popped first)")
+    return len(cases)
 
 
 def _terrain(accel):
@@ -4837,6 +5010,8 @@ def phase31_accelerators(textured, textured_img):
             raise AssertionError(f"phase 31: {label}: not on the LBVH")
         launches[label], per[label] = _lbvh_paths(label, scene, c, spp)
     _ladder_overflow()
+    edges = _lbvh_edges()
+    print(f"phase 31: {edges} edge-case queries bit for bit")
     del terrain
 
     # brute force on the 203,522-face terrain (kernel a, no row cap)
@@ -5315,10 +5490,15 @@ def _probe():
                              "its output is not exactly 2.0")
     ms = _cuda_ms(lambda: PR.launch(nbytes, DEVICE), 20)
     plain_ms = _cuda_ms(lambda: PR.probe_smem_ref(DEVICE), 20)
+    # the launch floor: one PyTorch fill of one element, timed alike
+    one = torch.empty(1, device=DEVICE)
+    floor_ms = _cuda_ms(lambda: one.fill_(1.0), 20)
+    print(f"phase 1: probe_smem {ms:.4f} ms a launch; a one-element fill "
+          f"{floor_ms:.4f} ms (the launch floor)")
     # the output written once; 2 x 1024 stores and 1024 additions
     bound = _bound_ms(8 * 128, 8 * 128 * 4)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1])
+                bound_by=bound[1], launch_floor_ms=floor_ms)
 
 
 def _timed(phase, fn, *args):
@@ -5570,10 +5750,12 @@ def main() -> int:
                      "(libyafaray_tpu/accel/lbvh.py:259-335)",
          "launches": lbvh_launches[lbvh_main],
          "max_abs_err": max(v["max_abs_err"] for v in lbvh_per.values()),
-         "timed_on": f"the {lbvh_timed} (phase 31), mean per launch; the "
-                     "main path's (the Cornell box's) under "
-                     "per_launch_by_path",
+         "timed_on": f"the {lbvh_timed} (phase 31), mean per launch, the "
+                     "kernel alone (its C entry point launched in a loop); "
+                     "events_ms: the wrapper between CUDA events; the main "
+                     "path's (the Cornell box's) under per_launch_by_path",
          "ms": lbvh_per[lbvh_timed]["ms"],
+         "events_ms": lbvh_per[lbvh_timed]["events_ms"],
          "plain_ms": lbvh_per[lbvh_timed]["plain_ms"],
          "bound_ms": lbvh_per[lbvh_timed]["bound_ms"],
          "bound_by": lbvh_per[lbvh_timed]["bound_by"],

@@ -23,12 +23,17 @@ walks as it does there.
 `lbvh_traverse` on CPU tensors runs the plain version `lbvh_traverse_ref`;
 on a CUDA device it launches the kernel (built at first use by
 `csrc_build`) or raises. It never falls back from the kernel to the plain
-version.
+version. The kernel reads the tree and the geometry in its own layout,
+`pack_lbvh`'s child-pair node records and leaf-ordered primitive records,
+made once per tree and geometry and kept on the tree (`packed`), whether
+the tree came from `build_lbvh` or was made outside it; `prepare` binds one
+query's launch, so that timing loops run the kernel without the wrapper.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -363,17 +368,230 @@ def lbvh_traverse_ref(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
     return best_t, best_p.to(torch.int32), best_u, best_v
 
 
+
+
+# ---------------------------------------------------------------------------
+# The kernel's records
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PackedLBVH:
+    """One tree over one geometry in the kernel's layout (`pack_lbvh`).
+    Every table is int32, a float held as its bits, so that each record is
+    read with 16-byte loads:
+
+    nodes i32[max(N_int, 1), 16]: internal node k's row holds both of its
+        children, (lmin xyz, lcode), (lmax xyz, rcode), (rmin xyz, 0),
+        (rmax xyz, 0). A child's code is its own row for an internal node
+        and ~slot for a leaf, slot being the leaf's node_left clamped to
+        [0, P - 1] as the walk clamps it;
+    root i32[8]: the root's box and code, (min xyz, code), (max xyz,
+        finite), finite 1 when every node box is finite; the root is
+        nobody's child, and in a one-primitive tree a leaf;
+    leaves i32[P, 12]: leaf slot s holds primitive prim_order[s]: a face
+        as (v0 xyz, prim), (v1 - v0, face_vis), (v2 - v0, 0), a sphere as
+        (centre xyz, prim), (radius, 0, 0, sph_vis), (0, 0, 0, 0);
+    keyframes i32[P, 12 K] or None: a moving geometry's K = 2 or 3 vertex
+        keyframes in leaf order, each as (v0, prim), (v1, face_vis), (v2,
+        0), unsubtracted (the kernel blends before it subtracts and reads
+        prim and face_vis from the first); spheres as in `leaves`.
+
+    The boxes are copies of node_min / node_max and the edges the same one
+    IEEE subtraction the plain walk makes, so the kernel's walk on these
+    records is the plain walk bit for bit."""
+    nodes: Tensor
+    root: Tensor
+    leaves: Tensor
+    keyframes: Optional[Tensor] = None
+
+
+def _bits(*cols: Tensor) -> Tensor:
+    """Float columns [..., k] and int columns, side by side as int32."""
+    return torch.cat([c.view(torch.int32) if c.dtype == torch.float32
+                      else c.to(torch.int32) for c in cols], dim=-1)
+
+
+def _leaf_rows(geom: Geometry, prim: Tensor, vertices: Tensor,
+               edges: bool) -> Tensor:
+    """i32[P, 12]: the leaf records of primitives `prim` (int64) with the
+    face corners from `vertices`: v0 and the two edges, or the three
+    corners."""
+    f = geom.num_faces
+    dev = prim.device
+    zero = torch.zeros((prim.shape[0], 1), dtype=torch.int32, device=dev)
+    rows = torch.zeros((prim.shape[0], 12), dtype=torch.int32, device=dev)
+    is_tri = (prim >= 0) & (prim < f)
+    if f > 0:
+        fidx = geom.faces[torch.where(is_tri, prim, 0)].long()
+        a, b, c = (vertices[fidx[:, k]] for k in range(3))
+        if edges:
+            b, c = b - a, c - a
+        vis = geom.face_vis[torch.where(is_tri, prim, 0)][:, None]
+        rows = torch.where(is_tri[:, None], _bits(a, prim[:, None], b, vis,
+                                                  c, zero), rows)
+    s = geom.num_spheres
+    is_sph = (prim >= f) & (prim < f + s)
+    if s > 0:
+        k = torch.where(is_sph, prim - f, 0)
+        r = geom.sph_radius[k][:, None]
+        rows = torch.where(is_sph[:, None], _bits(
+            geom.sph_center[k], prim[:, None], r, zero, zero,
+            geom.sph_vis[k][:, None], zero.expand(-1, 4)), rows)
+    return rows
+
+
+def pack_lbvh(bvh: BVH, geom: Geometry) -> PackedLBVH:
+    """The kernel's records of `bvh` over `geom`, on the tree's device
+    (see PackedLBVH). A tree made outside `build_lbvh` packs the same way:
+    internal nodes take rows in the order of their ids."""
+    p = bvh.prim_order.shape[0]
+    dev = bvh.node_min.device
+    leaf = bvh.node_is_leaf
+    row = torch.cumsum((~leaf).long(), 0) - 1
+    code = torch.where(leaf, -1 - torch.clamp(bvh.node_left.long(), 0, p - 1),
+                       row)[:, None]
+    inner = (~leaf).nonzero()[:, 0]
+    lc, rc = bvh.node_left[inner].long(), bvh.node_right[inner].long()
+    zero = torch.zeros((inner.shape[0], 1), dtype=torch.int32, device=dev)
+    nmin, nmax = bvh.node_min, bvh.node_max
+    nodes = _bits(nmin[lc], code[lc], nmax[lc], code[rc], nmin[rc], zero,
+                  nmax[rc], zero)
+    if nodes.shape[0] == 0:          # a one-primitive tree: the root alone
+        nodes = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    finite = (torch.isfinite(nmin).all() & torch.isfinite(nmax).all())
+    root = _bits(nmin[0], code[0], nmax[0], finite.to(torch.int32)[None])
+    prim = bvh.prim_order.long()
+    leaves = _leaf_rows(geom, prim, geom.vertices, edges=True)
+    keyframes = None
+    if geom.vertices_t1 is not None:
+        keys = [geom.vertices, geom.vertices_t1] + (
+            [geom.vertices_t2] if geom.vertices_t2 is not None else [])
+        keyframes = torch.cat([_leaf_rows(geom, prim, v, edges=False)
+                               for v in keys], dim=1)
+    return PackedLBVH(nodes=nodes.contiguous(), root=root.contiguous(),
+                      leaves=leaves.contiguous(), keyframes=keyframes)
+
+
+def _sources(bvh: BVH, geom: Geometry) -> tuple:
+    """The tensors a PackedLBVH is made from."""
+    return (bvh.node_min, bvh.node_max, bvh.node_left, bvh.node_right,
+            bvh.node_is_leaf, bvh.prim_order, geom.vertices,
+            geom.vertices_t1, geom.vertices_t2, geom.faces, geom.face_vis,
+            geom.sph_center, geom.sph_radius, geom.sph_vis)
+
+
+def _check_tables(bvh: BVH, geom: Geometry, dev) -> None:
+    nn, p = bvh.node_left.shape[0], bvh.prim_order.shape[0]
+    nv, f, s = geom.vertices.shape[0], geom.num_faces, geom.num_spheres
+    check = lambda *a: csrc_build.check_arg("lbvh_traverse", *a, dev)
+    check("node_min", bvh.node_min, torch.float32, (nn, 3))
+    check("node_max", bvh.node_max, torch.float32, (nn, 3))
+    check("node_left", bvh.node_left, torch.int32, (nn,))
+    check("node_right", bvh.node_right, torch.int32, (nn,))
+    check("node_is_leaf", bvh.node_is_leaf, torch.bool, (nn,))
+    check("prim_order", bvh.prim_order, torch.int32, (p,))
+    check("vertices", geom.vertices, torch.float32, (nv, 3))
+    check("faces", geom.faces, torch.int32, (f, 3))
+    check("face_vis", geom.face_vis, torch.int32, (f,))
+    if s:
+        check("sph_center", geom.sph_center, torch.float32, (s, 3))
+        check("sph_radius", geom.sph_radius, torch.float32, (s,))
+        check("sph_vis", geom.sph_vis, torch.int32, (s,))
+    for name in ("vertices_t1", "vertices_t2"):
+        if getattr(geom, name) is not None:
+            check(name, getattr(geom, name), torch.float32, (nv, 3))
+
+
+def packed(bvh: BVH, geom: Geometry) -> PackedLBVH:
+    """`pack_lbvh(bvh, geom)`, made once and kept on the tree beside the
+    tensors it was made from: while the tree's and the geometry's tensors
+    are the same ones, unchanged in place, every query reuses it; another
+    geometry, the tree moved to another device or a table written in place
+    packs anew. The tables are checked when they are packed."""
+    src = _sources(bvh, geom)
+    versions = tuple(-1 if x is None else x._version for x in src)
+    kept = bvh.__dict__.get("_packed")
+    if (kept is not None and kept[1] == versions
+            and all(a is b for a, b in zip(kept[0], src))):
+        return kept[2]
+    _check_tables(bvh, geom, bvh.node_min.device)
+    rec = pack_lbvh(bvh, geom)
+    bvh.__dict__["_packed"] = (src, versions, rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper
+# ---------------------------------------------------------------------------
+
 def _launcher():
     """The kernel's C entry point, built and loaded at first use."""
     global _fn
     if _fn is None:
-        fn = csrc_build.library("lbvh_traverse").lbvh_traverse_launch
+        fn = csrc_build.library("lbvh_traverse").lbvh_packed_launch
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 6 + [ci] + [vp] * 5 + [ci] + [vp] * 3
-                       + [ci] * 4 + [vp] * 6 + [ci] + [vp] * 5)
+        fn.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 6 + [ci] + [vp] * 5
         fn.restype = ci
         _fn = fn
     return _fn
+
+
+def _check_query(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
+                 t_min: Tensor, t_max: Tensor, exclude: Tensor,
+                 time: Optional[Tensor], motion: int) -> None:
+    if (bvh.prim_order.shape[0] != geom.num_faces + geom.num_spheres
+            or geom.faces.shape[0] != geom.num_faces):
+        raise ValueError("lbvh_traverse: the BVH was not built over this "
+                         "geometry")
+    n, dev = o.shape[0], o.device
+    check = lambda *a: csrc_build.check_arg("lbvh_traverse", *a, dev)
+    check("o", o, torch.float32, (n, 3))
+    check("d", d, torch.float32, (n, 3))
+    check("t_min", t_min, torch.float32, (n,))
+    check("t_max", t_max, torch.float32, (n,))
+    check("exclude", exclude, torch.int32, (n,))
+    if motion:
+        check("time", time, torch.float32, (n,))
+
+
+def prepare(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
+            t_max: Tensor, exclude: Tensor, time: Optional[Tensor] = None,
+            shadow: bool = False, any_hit: bool = False):
+    """The kernel's launch for one query on CUDA tensors, checked and bound
+    to its outputs: returns `launch`, and `launch()` runs the kernel on the
+    current stream and returns (t, prim, u, v). `lbvh_traverse` calls it
+    once; timing loops call it alone, without the wrapper's host work."""
+    motion = _motion(geom, time)
+    _check_query(bvh, geom, o, d, t_min, t_max, exclude, time, motion)
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"lbvh_traverse: no kernel for device {dev}")
+    rec = packed(bvh, geom)
+    if rec.nodes.device != dev:
+        raise ValueError(f"lbvh_traverse: the tree is on {rec.nodes.device},"
+                         f" the rays on {dev}")
+    n = o.shape[0]
+    out = (torch.empty((n,), dtype=torch.float32, device=dev),
+           torch.empty((n,), dtype=torch.int32, device=dev),
+           torch.empty((n,), dtype=torch.float32, device=dev),
+           torch.empty((n,), dtype=torch.float32, device=dev))
+    leaves = rec.keyframes if motion else rec.leaves
+    args = (rec.nodes.data_ptr(), rec.root.data_ptr(), leaves.data_ptr(),
+            geom.num_faces, geom.num_spheres, 2 if shadow else 1,
+            int(bool(any_hit)), motion, o.data_ptr(), d.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), exclude.data_ptr(),
+            time.data_ptr() if motion else None, n,
+            *(x.data_ptr() for x in out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn = _launcher()
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"lbvh_traverse kernel launch failed (CUDA "
+                               f"error {err})")
+        return out
+    return launch
 
 
 def lbvh_traverse(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
@@ -382,76 +600,25 @@ def lbvh_traverse(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
                   any_hit: bool = False):
     """Walk the LBVH with a wavefront of rays (the kernel's wrapper).
 
-    bvh from `build_lbvh(geom)`; o, d f32[N, 3]; t_min, t_max f32[N];
-    exclude i32[N]; optional time f32[N] (the shutter times of a
-    motion-blurred scene: linear with vertices_t1, the quadratic b-spline
-    with vertices_t2 too). `shadow` tests the shadow-visibility bit instead
-    of the camera's; `any_hit` stops each ray at its first hit. All
-    contiguous, on one device. Returns (t f32[N] (t_max on a miss), prim
-    i32[N] (-1 on a miss), u f32[N], v f32[N]); for an any-hit query only
-    hit or miss is asked for, and both versions report the same first
-    hit."""
+    bvh from `build_lbvh(geom)` or any tree of its layout; o, d f32[N, 3];
+    t_min, t_max f32[N]; exclude i32[N]; optional time f32[N] (the shutter
+    times of a motion-blurred scene: linear with vertices_t1, the
+    quadratic b-spline with vertices_t2 too). `shadow` tests the
+    shadow-visibility bit instead of the camera's; `any_hit` stops each
+    ray at its first hit. All contiguous, on one device. Returns (t f32[N]
+    (t_max on a miss), prim i32[N] (-1 on a miss), u f32[N], v f32[N]); for
+    an any-hit query only hit or miss is asked for, and both versions
+    report the same first hit. On the card the tree and geometry are
+    packed once (`packed`) and kept for later queries."""
     global launches
     dev = o.device
-    n = o.shape[0]
+    if dev.type != "cpu":
+        out = prepare(bvh, geom, o, d, t_min, t_max, exclude, time, shadow,
+                      any_hit)()
+        launches += 1
+        return out
     motion = _motion(geom, time)
-    nn, p = bvh.node_left.shape[0], bvh.prim_order.shape[0]
-    nv, f, s = (geom.vertices.shape[0], geom.faces.shape[0],
-                geom.num_spheres)
-    check = lambda *a: csrc_build.check_arg("lbvh_traverse", *a, dev)
-    check("node_min", bvh.node_min, torch.float32, (nn, 3))
-    check("node_max", bvh.node_max, torch.float32, (nn, 3))
-    check("node_left", bvh.node_left, torch.int32, (nn,))
-    check("node_right", bvh.node_right, torch.int32, (nn,))
-    check("node_is_leaf", bvh.node_is_leaf, torch.bool, (nn,))
-    check("prim_order", bvh.prim_order, torch.int32, (p,))
-    if p != geom.num_faces + s or f != geom.num_faces:
-        raise ValueError("lbvh_traverse: the BVH was not built over this "
-                         "geometry")
-    check("vertices", geom.vertices, torch.float32, (nv, 3))
-    check("faces", geom.faces, torch.int32, (f, 3))
-    check("face_vis", geom.face_vis, torch.int32, (f,))
-    if s:
-        check("sph_center", geom.sph_center, torch.float32, (s, 3))
-        check("sph_radius", geom.sph_radius, torch.float32, (s,))
-        check("sph_vis", geom.sph_vis, torch.int32, (s,))
-    check("o", o, torch.float32, (n, 3))
-    check("d", d, torch.float32, (n, 3))
-    check("t_min", t_min, torch.float32, (n,))
-    check("t_max", t_max, torch.float32, (n,))
-    check("exclude", exclude, torch.int32, (n,))
-    if motion:
-        check("time", time, torch.float32, (n,))
-        check("vertices_t1", geom.vertices_t1, torch.float32, (nv, 3))
-        if motion == 2:
-            check("vertices_t2", geom.vertices_t2, torch.float32, (nv, 3))
-    if dev.type == "cpu":
-        return lbvh_traverse_ref(bvh, geom, o, d, t_min, t_max, exclude,
-                                 time if motion else None, shadow, any_hit)
-    if dev.type != "cuda":
-        raise ValueError(f"lbvh_traverse: no kernel for device {dev}")
-    launch = _launcher()
-    out_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_p = torch.empty((n,), dtype=torch.int32, device=dev)
-    out_u = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_v = torch.empty((n,), dtype=torch.float32, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(
-        ptr(bvh.node_min), ptr(bvh.node_max), ptr(bvh.node_left),
-        ptr(bvh.node_right), ptr(bvh.node_is_leaf), ptr(bvh.prim_order), p,
-        ptr(geom.vertices), ptr(geom.vertices_t1) if motion else None,
-        ptr(geom.vertices_t2) if motion == 2 else None, ptr(geom.faces),
-        ptr(geom.face_vis), f,
-        ptr(geom.sph_center) if s else None,
-        ptr(geom.sph_radius) if s else None,
-        ptr(geom.sph_vis) if s else None, s,
-        2 if shadow else 1, int(bool(any_hit)), motion,
-        ptr(o), ptr(d), ptr(t_min), ptr(t_max), ptr(exclude),
-        ptr(time) if motion else None, n,
-        ptr(out_t), ptr(out_p), ptr(out_u), ptr(out_v), stream)
-    if err != 0:
-        raise RuntimeError(f"lbvh_traverse kernel launch failed (CUDA error "
-                           f"{err})")
-    launches += 1
-    return out_t, out_p, out_u, out_v
+    _check_query(bvh, geom, o, d, t_min, t_max, exclude, time, motion)
+    _check_tables(bvh, geom, dev)
+    return lbvh_traverse_ref(bvh, geom, o, d, t_min, t_max, exclude,
+                             time if motion else None, shadow, any_hit)

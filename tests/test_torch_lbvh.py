@@ -42,6 +42,7 @@ from libyafaray_tpu import SceneBuilder as JSceneBuilder
 from libyafaray_tpu import film as JF
 from libyafaray_tpu import make_integrator as jmake_integrator
 from libyafaray_tpu.accel import blocks as JB
+from libyafaray_tpu.accel import lbvh as LB_J
 from libyafaray_tpu.accel import tiles as JT
 from libyafaray_tpu.ops import intersect as JI
 from libyafaray_tpu.render import render as jrender
@@ -140,6 +141,146 @@ def test_refit_covers_the_tree(pairs, scene):
     assert torch.equal(bvh.node_max[:n_int],
                        torch.maximum(bvh.node_max[lc], bvh.node_max[rc]))
     assert torch.equal(bvh.node_min[0], bvh.node_min[n_int:].amin(0))
+
+
+def _decode(rec, bvh):
+    """The packed records read back into node ids: for each internal node
+    (in id order) its (left, right) child ids, and each record's boxes."""
+    p = bvh.prim_order.shape[0]
+    inner = (~bvh.node_is_leaf).nonzero()[:, 0]
+    leaf_node = torch.full((p,), -1, dtype=torch.int64)
+    leaves = bvh.node_is_leaf.nonzero()[:, 0]
+    leaf_node[torch.clamp(bvh.node_left[leaves].long(), 0, p - 1)] = leaves
+    as_id = lambda c: torch.where(c >= 0, inner[torch.clamp_min(c, 0)],
+                                  leaf_node[(-1 - c).clamp_min(0)])
+    rows = rec.nodes[:inner.shape[0]]
+    return as_id(rows[:, 3].long()), as_id(rows[:, 7].long()), rows
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_packed_records_reproduce_the_tables(pairs, scene):
+    """`pack_lbvh`'s child-pair records hold each internal node's children
+    and their boxes as the node tables have them (the same float bits),
+    the root's box and code apart, and each leaf slot's primitive in
+    `prim_order`; the JAX scene's tree carried across packs the same."""
+    js, ts = pairs[scene]
+    bvh = ts.bvh
+    rec = LB.pack_lbvh(bvh, ts.geom)
+    n_int = bvh.prim_order.shape[0] - 1
+    assert rec.nodes.shape == (n_int, 16) and rec.nodes.dtype == torch.int32
+    left, right, rows = _decode(rec, bvh)
+    assert torch.equal(left, bvh.node_left[:n_int].long())
+    assert torch.equal(right, bvh.node_right[:n_int].long())
+    bits = lambda x: x.view(torch.int32)
+    for child, lo, hi in ((left, 0, 4), (right, 8, 12)):
+        assert torch.equal(rows[:, lo:lo + 3], bits(bvh.node_min[child]))
+        assert torch.equal(rows[:, hi:hi + 3], bits(bvh.node_max[child]))
+    assert torch.equal(rec.root[:3], bits(bvh.node_min[0]))
+    assert torch.equal(rec.root[4:7], bits(bvh.node_max[0]))
+    assert rec.root[3] == 0 and rec.root[7] == 1     # internal; boxes finite
+    assert torch.equal(rec.leaves[:, 3], bvh.prim_order)
+    conv = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    again = LB.pack_lbvh(conv.bvh, conv.geom)
+    for f in ("nodes", "root", "leaves", "keyframes"):
+        a, b = getattr(rec, f), getattr(again, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+
+
+def test_leaf_records_follow_prim_order(pairs):
+    """The leaf-ordered records equal `faces` -> `vertices` gathered in
+    `prim_order`: v0, and e1 = v1 - v0, e2 = v2 - v0 bit for bit the
+    subtraction the plain walk makes (`moller_trumbore`); the face's or the
+    sphere's visibility; a sphere's centre and radius; a moving
+    geometry's keyframes unsubtracted."""
+    bits = lambda x: x.view(torch.int32)
+    for name in ("spheres", "cloud"):
+        g, bvh = pairs[name][1].geom, pairs[name][1].bvh
+        rec = LB.pack_lbvh(bvh, g)
+        prim = bvh.prim_order.long()
+        tri = prim < g.num_faces
+        fidx = g.faces[prim[tri]].long()
+        v0, v1, v2 = (g.vertices[fidx[:, k]] for k in range(3))
+        rows = rec.leaves[tri]
+        assert torch.equal(rows[:, 0:3], bits(v0))
+        assert torch.equal(rows[:, 4:7], bits(v1 - v0))
+        assert torch.equal(rows[:, 8:11], bits(v2 - v0))
+        assert torch.equal(rows[:, 7], g.face_vis[prim[tri]])
+        sph = prim[~tri] - g.num_faces
+        assert sph.shape[0] == g.num_spheres
+        if g.num_spheres:
+            rows = rec.leaves[~tri]
+            assert torch.equal(rows[:, 0:3], bits(g.sph_center[sph]))
+            assert torch.equal(rows[:, 4], bits(g.sph_radius[sph]))
+            assert torch.equal(rows[:, 7], g.sph_vis[sph])
+            assert rec.keyframes is None
+            continue
+        keys = (g.vertices, g.vertices_t1, g.vertices_t2)
+        assert rec.keyframes.shape == (prim.shape[0], 36)
+        for k, v in enumerate(keys):
+            frame = rec.keyframes[tri, 12 * k:12 * k + 12]
+            for c in range(3):
+                assert torch.equal(frame[:, 4 * c:4 * c + 3],
+                                   bits(v[fidx[:, c]]))
+            assert torch.equal(frame[:, 3], prim[tri].int())
+            assert torch.equal(frame[:, 7], g.face_vis[prim[tri]])
+
+
+def test_dead_and_nan_rays_miss_in_both_walks(pairs):
+    """The rule the kernel's early exit relies on: a ray with
+    !(t_max > t_min), or a NaN in o, d, t_min or t_max, gets
+    (t_max, -1, 0, 0) from the plain walk and from the JAX walk
+    (`_traverse_batch`), closest and any hit alike."""
+    js, ts = pairs["spheres"]
+    n = 64
+    rng = np.random.default_rng(4)
+    o = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.full(n, 1e30, np.float32)
+    kind = np.arange(n) % 8
+    t_max[kind == 0] = -1.0
+    t_max[kind == 1] = 1e-4                      # t_max == t_min
+    t_min[kind == 2], t_max[kind == 2] = 5.0, 2.0
+    t_min[kind == 3] = np.nan
+    t_max[kind == 4] = np.nan
+    o[kind == 5, 1] = np.nan
+    d[kind == 6, 0] = np.nan
+    excl = np.full(n, -1, np.int32)
+    dead = kind < 7
+    for shadow, any_hit in ((False, False), (True, True)):
+        bt, bp, bu, bv = LB.lbvh_traverse_ref(
+            ts.bvh, ts.geom, T(o), T(d), T(t_min), T(t_max), T(excl),
+            shadow=shadow, any_hit=any_hit)
+        jt, jp, juv = LB_J._traverse_batch(
+            js.bvh, js.geom, o, d, (t_min, t_max, excl), 2 if shadow else 1,
+            any_hit)
+        for t, p, u, v in ((bt.numpy(), bp.numpy(), bu.numpy(), bv.numpy()),
+                           (np.asarray(jt), np.asarray(jp),
+                            np.asarray(juv)[:, 0], np.asarray(juv)[:, 1])):
+            np.testing.assert_array_equal(t[dead], t_max[dead])
+            assert (p[dead] == -1).all()
+            assert (u[dead] == 0).all() and (v[dead] == 0).all()
+        assert (bp.numpy()[~dead] >= 0).any()        # the live rays hit
+
+
+def test_packed_once_per_tree_and_geometry(pairs):
+    """The wrapper's records are made once per tree and geometry: a second
+    query reuses them, while another geometry, or a table written in
+    place, packs anew."""
+    ts = pairs["cornell"][1]
+    bvh = dataclasses.replace(ts.bvh)            # a tree of its own
+    first = LB.packed(bvh, ts.geom)
+    assert LB.packed(bvh, ts.geom) is first
+    moved = dataclasses.replace(ts.geom, vertices=ts.geom.vertices.clone())
+    other = LB.packed(bvh, moved)
+    assert other is not first
+    assert torch.equal(other.leaves, first.leaves)
+    assert LB.packed(bvh, moved) is other
+    moved.vertices.add_(1.0)                      # written in place
+    again = LB.packed(bvh, moved)
+    assert again is not other
+    assert not torch.equal(again.leaves, other.leaves)
 
 
 def _chain(b, accel):
