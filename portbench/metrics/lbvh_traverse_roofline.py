@@ -1,0 +1,10 @@
+"""The lbvh_traverse kernel's share of its roofline, in %: the least time of the
+profiled window's lbvh_traverse queries by bytes (`roofline.query_bytes`) at
+3.35 TB/s, over the kernel's device time in the trace."""
+from portbench import roofline
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    return roofline.roofline_pct(ctx.trace, "lbvh_traverse")
