@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..scene_types import BlockAccel, Geometry, SceneData
+from ..utils import profiling as PF
 from . import tiles
 from .spheres import sphere_pass
 from .morton import morton3d
@@ -234,12 +235,13 @@ def query(acc: BlockAccel, geom: Geometry, o: Tensor, d: Tensor,
     t_max = t_max.expand(n)
     perm = None
     if n > SORT_MIN_RAYS:
-        perm = torch.sort(sort_key(acc, o, d, t_min, t_max),
-                          stable=True).indices
-        o, d, t_min, t_max, exclude = (x[perm] for x in
-                                       (o, d, t_min, t_max, exclude))
-        if time is not None:
-            time = time[perm]
+        with PF.span("accel.sort"):
+            perm = torch.sort(sort_key(acc, o, d, t_min, t_max),
+                              stable=True).indices
+            o, d, t_min, t_max, exclude = (x[perm] for x in
+                                           (o, d, t_min, t_max, exclude))
+            if time is not None:
+                time = time[perm]
     bt, bp, bu, bv = tiles.tiles_traverse(
         acc.tab, acc.bmin, acc.bmax, o, d, t_min, t_max, exclude,
         shadow=vis_bit == 2, any_hit=any_hit, blk_base=acc.blk_base,

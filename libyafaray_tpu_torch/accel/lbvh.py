@@ -41,6 +41,7 @@ import torch
 
 from .. import csrc_build
 from ..scene_types import BVH, Geometry
+from ..utils import profiling as PF
 from .morton import morton3d
 from .spheres import intersect_sphere
 
@@ -450,7 +451,8 @@ def pack_lbvh(bvh: BVH, geom: Geometry) -> PackedLBVH:
     row = torch.cumsum((~leaf).long(), 0) - 1
     code = torch.where(leaf, -1 - torch.clamp(bvh.node_left.long(), 0, p - 1),
                        row)[:, None]
-    inner = (~leaf).nonzero()[:, 0]
+    with PF.host_sync("lbvh.pack_inner"):
+        inner = (~leaf).nonzero()[:, 0]
     lc, rc = bvh.node_left[inner].long(), bvh.node_right[inner].long()
     zero = torch.zeros((inner.shape[0], 1), dtype=torch.int32, device=dev)
     nmin, nmax = bvh.node_min, bvh.node_max
@@ -514,8 +516,10 @@ def packed(bvh: BVH, geom: Geometry) -> PackedLBVH:
     if (kept is not None and kept[1] == versions
             and all(a is b for a, b in zip(kept[0], src))):
         return kept[2]
-    _check_tables(bvh, geom, bvh.node_min.device)
-    rec = pack_lbvh(bvh, geom)
+    with PF.span("accel.pack"):
+        _check_tables(bvh, geom, bvh.node_min.device)
+        rec = pack_lbvh(bvh, geom)
+    PF.count("table_builds.pack_lbvh")
     bvh.__dict__["_packed"] = (src, versions, rec)
     return rec
 
@@ -594,6 +598,7 @@ def prepare(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
     return launch
 
 
+@PF.span("accel.walk")
 def lbvh_traverse(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
                   t_min: Tensor, t_max: Tensor, exclude: Tensor,
                   time: Optional[Tensor] = None, shadow: bool = False,
@@ -616,6 +621,9 @@ def lbvh_traverse(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
         out = prepare(bvh, geom, o, d, t_min, t_max, exclude, time, shadow,
                       any_hit)()
         launches += 1
+        PF.count("kernel.lbvh_traverse.rays", o.shape[0])
+        if any_hit:
+            PF.count("kernel.lbvh_traverse.any_hit_rays", o.shape[0])
         return out
     motion = _motion(geom, time)
     _check_query(bvh, geom, o, d, t_min, t_max, exclude, time, motion)

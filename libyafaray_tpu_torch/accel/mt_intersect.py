@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from .. import csrc_build
+from ..utils import profiling as PF
 
 Tensor = torch.Tensor
 
@@ -151,6 +152,7 @@ def _launcher():
     return _fn
 
 
+@PF.span("accel.walk")
 def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
                t_max: Tensor, exclude: Tensor, time: Optional[Tensor] = None,
                tris_t1: Optional[Tensor] = None,
@@ -203,4 +205,8 @@ def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
     if err != 0:
         raise RuntimeError(f"mt_closest kernel launch failed (CUDA error {err})")
     launches += 1
+    # a shadow query's callers read hit or miss alone
+    PF.count("kernel.mt_closest.rays", n)
+    if shadow:
+        PF.count("kernel.mt_closest.any_hit_rays", n)
     return out_t, out_p, out_u, out_v

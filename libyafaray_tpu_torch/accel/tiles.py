@@ -52,6 +52,7 @@ from typing import Optional
 import torch
 
 from .. import csrc_build
+from ..utils import profiling as PF
 
 Tensor = torch.Tensor
 
@@ -183,6 +184,7 @@ def _tile_candidates_topk(bmin: Tensor, bmax: Tensor, ot: Tensor,
     return _sorted_lists(key, torch.isfinite(key))
 
 
+@PF.span("accel.prepass")
 def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                     t_min: Tensor, t_max: Tensor, any_hit: bool = False):
     """Per-tile candidate block lists (the JAX package's branch of one block
@@ -217,8 +219,11 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     it = inv.reshape(t, RAY_TILE, 3)
     t0 = t_min.reshape(t, RAY_TILE)
     t1 = t_max.reshape(t, RAY_TILE)
+    if PF.recording():
+        PF.count("prepass.tiles", t)
+        PF.count("prepass.live_tiles", (t1 >= t0).any(dim=1).sum())
     if SUPER == 1 and 0 < CAND_K < c:
-        return _tile_candidates_topk(bmin, bmax, ot, it, t0, t1)
+        return _counted(_tile_candidates_topk(bmin, bmax, ot, it, t0, t1))
     any_hit = any_hit and SUPER == 1
     if SUPER > 1:
         iv_overlap, iv_key = _tile_interval(bmin, bmax, ot, it, t0, t1)
@@ -234,7 +239,8 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     pad = chunks * g - t
     if pad:
         tile_live = torch.cat([tile_live, tile_live.new_zeros(pad)])
-    live = tile_live.reshape(chunks, g).any(dim=1).tolist()
+    live = PF.host_read("tiles.live_chunks",
+                        tile_live.reshape(chunks, g).any(dim=1))
     key = torch.full((t, bmin.shape[0]), torch.inf, dtype=torch.float32,
                      device=dev)
     cover = torch.zeros_like(key) if any_hit else None
@@ -259,7 +265,15 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
         # already holds each ray's t-range, and it ends when no live ray is
         # left unhit, so the blocks that most rays enter go first
         key = -cover
-    return _sorted_lists(key, overlap)
+    return _counted(_sorted_lists(key, overlap))
+
+
+def _counted(lists):
+    """`lists` (cand, ent, count), with tracing on their candidates
+    counted."""
+    if PF.recording():
+        PF.count("prepass.candidates", lists[2].sum())
+    return lists
 
 
 def _mt_update(tr: Tensor, cols, carry, vis_col: int,
@@ -469,6 +483,7 @@ def cover_order_on(any_hit: bool, num_blocks: int = 0) -> bool:
             and os.environ.get("YAF_COVER_ORDER", "0") == "1")
 
 
+@PF.span("accel.walk")
 def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
               tab: Tensor, *, shadow: bool = False, any_hit: bool = False,
               cover_order: bool = False,
@@ -551,6 +566,9 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
                            f"{err})")
     launches += 1
     arm_launches[arm(motion, instanced, cover_order)] += 1
+    PF.count("kernel.tile_walk.rays", npad)
+    if any_hit:
+        PF.count("kernel.tile_walk.any_hit_rays", npad)
     return tuple(out)
 
 

@@ -20,6 +20,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .utils import profiling as PF
+
 Tensor = torch.Tensor
 
 FILM_HEADER = "YAF_TPU_FILM_v1"
@@ -204,6 +206,7 @@ def _tap_offsets(kind: str, width: float):
     return [(dy, dx) for dy in range(-n, n + 1) for dx in range(-n, n + 1)]
 
 
+@PF.span("film.add")
 def add_samples(film: Film, px: Tensor, py: Tensor,
                 layer_values: Dict[str, Tensor], weight: Tensor) -> Film:
     """Splat a wavefront of samples at continuous pixel coords (px, py)

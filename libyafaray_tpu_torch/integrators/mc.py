@@ -54,6 +54,7 @@ from ..ops import surface as S
 from ..ops.fast_grad import take
 from ..scene_types import SceneData
 from ..textures.eval import mean_rgb
+from ..utils import profiling as PF
 from . import common
 
 Tensor = torch.Tensor
@@ -400,221 +401,242 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
 
     max_depth = cfg.bounces + 1
     for depth in range(max_depth):
-        # dead paths get an empty t-range
-        t_far = torch.where(alive, 1e30, -1.0)
-        if depth == 0:
-            hit = I.camera_hit(scene, o, d, scene.ray_min_dist, t_far,
-                               time=ray_time)
-        else:
-            hit = I.closest_hit(scene, o, d, scene.ray_min_dist, t_far,
-                                exclude_prim=prev_prim, time=ray_time)
-        hit.valid = hit.valid & alive
-        scat = None
-        if track_medium:
-            in_med = (medium_mat >= 0) & alive
-            mm = torch.clamp_min(medium_mat, 0).long()
-            t_seg = torch.where(hit.valid & in_med, hit.t, 0.0)
-            if mats.has_sss:
-                # an exponential free path of mean sss_dist
-                # (volumehandler_sss.cc): where it ends before the surface
-                # the lane scatters isotropically there instead, tinted by
-                # scatter_col
-                r = sampler.rand4(pixel_id, sample_idx, depth, 61)
-                u_sc, u_s1, u_s2 = r[..., 0], r[..., 1], r[..., 2]
-                sdist = take(mats.sss_dist, mm)
-                sc_dist = -sdist * torch.log(torch.clamp_min(u_sc, 1e-12))
-                scat = (in_med & (sdist > 0.0) & hit.valid
-                        & (sc_dist < hit.t))
-                t_seg = torch.where(scat, sc_dist, t_seg)
-                scat_p = o + d * t_seg[..., None]
-                cz = 1.0 - 2.0 * u_s1
-                szr = torch.sqrt(torch.clamp_min(1.0 - cz * cz, 0.0))
-                phi_s = 2.0 * math.pi * u_s2
-                scat_d = torch.stack([szr * torch.cos(phi_s),
-                                      szr * torch.sin(phi_s), cz], -1)
-                throughput = torch.where(
-                    scat[..., None],
-                    throughput * take(mats.sss_scatter_col, mm), throughput)
-            if mats.has_beer:
-                # Beer-law transmittance of the interior, e^(-sigma_a t)
-                beer_tr = torch.exp(-take(mats.absorption, mm)
-                                    * t_seg[..., None])
-                throughput = torch.where(in_med[..., None],
-                                         throughput * beer_tr, throughput)
-            if scat is not None:
-                hit.valid = hit.valid & ~scat
-        sp = S.make_surface(scene, hit, o, d)
-        if depth == 0:
-            # primary hits carry their footprint for texture filtering
-            sp = S.compute_differentials(scene, sp, d)
-        sp = bump_normal(scene, sp)
-        wo = -d
+        with PF.span("integrator.bounce", depth=depth):
+            # dead paths get an empty t-range
+            t_far = torch.where(alive, 1e30, -1.0)
+            if depth == 0:
+                hit = I.camera_hit(scene, o, d, scene.ray_min_dist, t_far,
+                                   time=ray_time)
+            else:
+                hit = I.closest_hit(scene, o, d, scene.ray_min_dist, t_far,
+                                    exclude_prim=prev_prim, time=ray_time)
+            hit.valid = hit.valid & alive
+            scat = None
+            if track_medium:
+                in_med = (medium_mat >= 0) & alive
+                mm = torch.clamp_min(medium_mat, 0).long()
+                t_seg = torch.where(hit.valid & in_med, hit.t, 0.0)
+                if mats.has_sss:
+                    # an exponential free path of mean sss_dist
+                    # (volumehandler_sss.cc): where it ends before the surface
+                    # the lane scatters isotropically there instead, tinted by
+                    # scatter_col
+                    r = sampler.rand4(pixel_id, sample_idx, depth, 61)
+                    u_sc, u_s1, u_s2 = r[..., 0], r[..., 1], r[..., 2]
+                    sdist = take(mats.sss_dist, mm)
+                    sc_dist = -sdist * torch.log(torch.clamp_min(u_sc, 1e-12))
+                    scat = (in_med & (sdist > 0.0) & hit.valid
+                            & (sc_dist < hit.t))
+                    t_seg = torch.where(scat, sc_dist, t_seg)
+                    scat_p = o + d * t_seg[..., None]
+                    cz = 1.0 - 2.0 * u_s1
+                    szr = torch.sqrt(torch.clamp_min(1.0 - cz * cz, 0.0))
+                    phi_s = 2.0 * math.pi * u_s2
+                    scat_d = torch.stack([szr * torch.cos(phi_s),
+                                          szr * torch.sin(phi_s), cz], -1)
+                    throughput = torch.where(
+                        scat[..., None],
+                        throughput * take(mats.sss_scatter_col, mm),
+                        throughput)
+                if mats.has_beer:
+                    # Beer-law transmittance of the interior, e^(-sigma_a t)
+                    beer_tr = torch.exp(-take(mats.absorption, mm)
+                                        * t_seg[..., None])
+                    throughput = torch.where(in_med[..., None],
+                                             throughput * beer_tr, throughput)
+                if scat is not None:
+                    hit.valid = hit.valid & ~scat
+            with PF.span("shade.surface"):
+                sp = S.make_surface(scene, hit, o, d)
+                if depth == 0:
+                    # primary hits carry their footprint for texture filtering
+                    sp = S.compute_differentials(scene, sp, d)
+                sp = bump_normal(scene, sp)
+            wo = -d
 
-        # escaped rays: background, MIS-weighted against the background
-        # light's samples when the background lights the scene (every light
-        # is sampled at each bounce, so the pick probability is 1)
-        escaped = alive & ~hit.valid
-        if scat is not None:
-            escaped = escaped & ~scat
-        bg_add = throughput * eval_background(scene, d)
-        if scene.lights.bg_light_idx >= 0:
-            bg_mis = torch.where(prev_delta, 1.0, vec.power_heuristic(
-                prev_pdf, L.background_pdf(scene, d)))
-            bg_add = bg_add * bg_mis[..., None]
-        bg_add = torch.where(escaped[..., None], bg_add, 0.0)
-        radiance = radiance + bg_add
-        if env_acc is not None:
-            env_acc = env_acc + bg_add
-        if depth == 0:
-            aux = _first_hit_layers(scene, cfg, sp, d)
-            first_hit_t = torch.where(hit.valid, hit.t, first_hit_t)
-            first_mat_id, first_obj_id = sp.mat_id, sp.obj_id
-            first_valid = sp.valid
-        alpha = torch.where(hit.valid & (depth == 0), 1.0, alpha)
-        # lanes that bounced at least once keep alpha 1 when they escape
-        if depth > 0:
-            alpha = torch.where(alive, torch.clamp_min(alpha, 1.0), alpha)
-        alive = alive & hit.valid
+            with PF.span("shade.emission"):
+                # escaped rays: background, MIS-weighted against the background
+                # light's samples when the background lights the scene (every
+                # light is sampled at each bounce, so the pick probability is
+                # 1)
+                escaped = alive & ~hit.valid
+                if scat is not None:
+                    escaped = escaped & ~scat
+                bg_add = throughput * eval_background(scene, d)
+                if scene.lights.bg_light_idx >= 0:
+                    bg_mis = torch.where(prev_delta, 1.0, vec.power_heuristic(
+                        prev_pdf, L.background_pdf(scene, d)))
+                    bg_add = bg_add * bg_mis[..., None]
+                bg_add = torch.where(escaped[..., None], bg_add, 0.0)
+                radiance = radiance + bg_add
+                if env_acc is not None:
+                    env_acc = env_acc + bg_add
+                if depth == 0:
+                    aux = _first_hit_layers(scene, cfg, sp, d)
+                    first_hit_t = torch.where(hit.valid, hit.t, first_hit_t)
+                    first_mat_id, first_obj_id = sp.mat_id, sp.obj_id
+                    first_valid = sp.valid
+                alpha = torch.where(hit.valid & (depth == 0), 1.0, alpha)
+                # lanes that bounced at least once keep alpha 1 when they
+                # escape
+                if depth > 0:
+                    alpha = torch.where(alive, torch.clamp_min(alpha, 1.0),
+                                        alpha)
+                alive = alive & hit.valid
 
-        # emission at the hit, MIS-weighted against NEE
-        mis_w = common.hit_light_mis_weight(scene, sp, prev_p, prev_pdf,
-                                            prev_delta)
-        emit = common.emitted_radiance(scene, sp, wo)
-        emit_add = torch.where(
-            alive[..., None], throughput * emit * mis_w[..., None], 0.0)
-        radiance = radiance + emit_add
-        if want_matsamp and depth > 0:
-            # the material-sampling share of the light estimate: emission
-            # reached by a sampled non-delta bounce, MIS-weighted
-            matsamp_acc = matsamp_acc + torch.where(
-                (~prev_delta)[..., None], emit_add, 0.0)
-        # area-light quads (face_obj == -1) are pure emitters
-        alive = alive & ~((sp.light_id >= 0) & (sp.obj_id < 0))
+                # emission at the hit, MIS-weighted against NEE
+                mis_w = common.hit_light_mis_weight(scene, sp, prev_p,
+                                                    prev_pdf, prev_delta)
+                emit = common.emitted_radiance(scene, sp, wo)
+                emit_add = torch.where(
+                    alive[..., None], throughput * emit * mis_w[..., None],
+                    0.0)
+                radiance = radiance + emit_add
+                if want_matsamp and depth > 0:
+                    # the material-sampling share of the light estimate:
+                    # emission reached by a sampled non-delta bounce,
+                    # MIS-weighted
+                    matsamp_acc = matsamp_acc + torch.where(
+                        (~prev_delta)[..., None], emit_add, 0.0)
+                # area-light quads (face_obj == -1) are pure emitters
+                alive = alive & ~((sp.light_id >= 0) & (sp.obj_id < 0))
 
-        # next-event estimation: every light, every bounce (the JAX
-        # package's default); direct lighting honours each light's sample
-        # count, the path tracer takes one sample per light
-        want_si = want_shadow and depth == 0
-        want_fs = want_family and depth == 0
-        for li_static in range(num_lights):
-            ns = 1
-            if direct_only and scene.lights.samples_static:
-                ns = scene.lights.samples_static[li_static]
-            li = torch.full((n,), li_static, dtype=torch.int32, device=dev)
-            for k in range(ns):
-                u1, u2 = sampler.rand2(pixel_id, sample_idx, depth,
-                                       10 + 2 * li_static + 100 * k)
-                res = common.estimate_one_light(
-                    scene, sp, wo, li, u1, u2, cfg.transparent_shadows,
-                    time=ray_time, with_shadow_info=want_si,
-                    with_family_split=want_fs)
-                c = res[0] if (want_si or want_fs) else res
-                wt = 1.0 / ns
+            with PF.span("shade.nee"):
+                # next-event estimation: every light, every bounce (the JAX
+                # package's default); direct lighting honours each light's
+                # sample count, the path tracer takes one sample per light
+                want_si = want_shadow and depth == 0
+                want_fs = want_family and depth == 0
+                for li_static in range(num_lights):
+                    ns = 1
+                    if direct_only and scene.lights.samples_static:
+                        ns = scene.lights.samples_static[li_static]
+                    li = torch.full((n,), li_static, dtype=torch.int32,
+                                    device=dev)
+                    for k in range(ns):
+                        u1, u2 = sampler.rand2(pixel_id, sample_idx, depth,
+                                               10 + 2 * li_static + 100 * k)
+                        res = common.estimate_one_light(
+                            scene, sp, wo, li, u1, u2, cfg.transparent_shadows,
+                            time=ray_time, with_shadow_info=want_si,
+                            with_family_split=want_fs)
+                        c = res[0] if (want_si or want_fs) else res
+                        wt = 1.0 / ns
+                        radiance = radiance + torch.where(
+                            alive[..., None], throughput * c * wt, 0.0)
+                        if want_si:
+                            shadow_acc = shadow_acc + torch.where(
+                                alive[..., None], (res[1] - c) * wt, 0.0)
+                        if want_fs:
+                            for k_ in fam_acc:
+                                fam_acc[k_] = fam_acc[k_] + torch.where(
+                                    alive[..., None],
+                                    throughput * res[-1][k_] * wt, 0.0)
+
+            if photon_mode:
+                # the diffuse (or final-gather) and caustic estimates at the
+                # hits; the final gather's radiance estimate at the primary hit
+                # is the adv-radiance layer
+                ind, cau = _photon_estimates(scene, cfg, sp, alive, pixel_id,
+                                             sample_idx, depth)
                 radiance = radiance + torch.where(
-                    alive[..., None], throughput * c * wt, 0.0)
-                if want_si:
-                    shadow_acc = shadow_acc + torch.where(
-                        alive[..., None], (res[1] - c) * wt, 0.0)
-                if want_fs:
-                    for k_ in fam_acc:
-                        fam_acc[k_] = fam_acc[k_] + torch.where(
-                            alive[..., None], throughput * res[-1][k_] * wt,
-                            0.0)
+                    alive[..., None], throughput * (ind + cau), 0.0)
+                if "adv-radiance" in layers and depth == 0:
+                    aux["adv-radiance"] = torch.where(alive[..., None], ind,
+                                                      0.0)
 
-        if photon_mode:
-            # the diffuse (or final-gather) and caustic estimates at the
-            # hits; the final gather's radiance estimate at the primary hit
-            # is the adv-radiance layer
-            ind, cau = _photon_estimates(scene, cfg, sp, alive, pixel_id,
-                                         sample_idx, depth)
-            radiance = radiance + torch.where(
-                alive[..., None], throughput * (ind + cau), 0.0)
-            if "adv-radiance" in layers and depth == 0:
-                aux["adv-radiance"] = torch.where(alive[..., None], ind, 0.0)
+            if cfg.use_ao and depth == 0:
+                # ambient occlusion at the first hit, under every integrator
+                # kind as in the JAX package (the reference's direct-light
+                # option)
+                ao = _sample_ambient_occlusion(scene, cfg, sp, pixel_id,
+                                               sample_idx)
+                mp = B.resolve_mp(scene, sp)
+                radiance = radiance + torch.where(
+                    alive[..., None],
+                    throughput * ao * mp.diffuse_color / math.pi, 0.0)
+                for name in ("ao", "ao-clay"):
+                    if name in layers:
+                        aux[name] = torch.where(alive[..., None], ao, 0.0)
 
-        if cfg.use_ao and depth == 0:
-            # ambient occlusion at the first hit, under every integrator
-            # kind as in the JAX package (the reference's direct-light
-            # option)
-            ao = _sample_ambient_occlusion(scene, cfg, sp, pixel_id,
-                                           sample_idx)
-            mp = B.resolve_mp(scene, sp)
-            radiance = radiance + torch.where(
-                alive[..., None],
-                throughput * ao * mp.diffuse_color / math.pi, 0.0)
-            for name in ("ao", "ao-clay"):
-                if name in layers:
-                    aux[name] = torch.where(alive[..., None], ao, 0.0)
+            if depth == 0:
+                # what arrives after the first hit is the first bounce's: the
+                # snapshot for indirect, reflect and refract
+                radiance_d0 = radiance
+                env_d0 = env_acc
 
-        if depth == 0:
-            # what arrives after the first hit is the first bounce's: the
-            # snapshot for indirect, reflect and refract
-            radiance_d0 = radiance
-            env_d0 = env_acc
+            if depth == max_depth - 1:
+                break
 
-        if depth == max_depth - 1:
-            break
-
-        # BSDF sampling / continuation
-        r = sampler.rand4(pixel_id, sample_idx, depth, 2)
-        u1, u2, u3, u_rr = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
-        ms = B.sample_bsdf(scene, sp, wo, u1, u2, u3, wl=path_wl)
-        if depth == 0 and layers:
-            transmitted = vec.dot(ms.wi, sp.ng) * vec.dot(wo, sp.ng) < 0.0
-            side = torch.where(transmitted, 2, 1)
-            path_kind = torch.where(alive & ms.valid & ms.is_delta, side, 0)
-            if want_ind:
-                first_lobe = torch.where(alive & ms.valid, ms.lobe, -1)
-            # ReflectAll / RefractAll: any non-diffuse first bounce (delta
-            # or microfacet), split by side
-            nondiff = alive & ms.valid & (ms.lobe != 3) & (ms.lobe != 4)
-            path_kind_all = torch.where(nondiff, side, 0)
-        cont = alive & ms.valid
-        if direct_only or cfg.no_recursive:
-            # only delta continuation (recursiveRaytrace analogue)
-            cont = cont & ms.is_delta
-        new_thr = throughput * ms.weight
-        if chromatic is not None:
-            first = ms.dispersed & ~chromatic
-            new_thr = torch.where(first[..., None],
-                                  new_thr * wl_to_rgb(path_wl) * 3.0, new_thr)
-            chromatic = chromatic | ms.dispersed
-        if cfg.clamp_indirect > 0.0 and depth > 0:
-            mx = torch.amax(new_thr, dim=-1, keepdim=True)
-            new_thr = torch.where(
-                mx > cfg.clamp_indirect,
-                new_thr * cfg.clamp_indirect / torch.clamp_min(mx, 1e-9),
-                new_thr)
-        # Russian roulette on the throughput maximum
-        if depth >= cfg.russian_roulette_min_bounces and not direct_only:
-            p_survive = torch.clamp(torch.amax(new_thr, dim=-1), 0.05, 1.0)
-            kill = u_rr > p_survive
-            new_thr = new_thr / p_survive[..., None]
-            cont = cont & ~kill
-        throughput = torch.where(cont[..., None], new_thr, throughput)
-        if track_medium:
-            # a transmission across the geometric normal enters or leaves
-            # the dielectric's interior
-            cos_in = vec.dot(ms.wi, sp.ng)
-            crossed = cont & (cos_in * vec.dot(wo, sp.ng) < 0.0)
-            going_in = cos_in < 0.0
-            medium_mat = torch.where(
-                crossed & going_in, sp.mat_id,
-                torch.where(crossed & ~going_in, -1, medium_mat))
-        alive = cont
-        prev_p = sp.p
-        prev_prim = sp.prim
-        prev_pdf = ms.pdf
-        prev_delta = ms.is_delta
-        o = sp.p + ms.wi * scene.shadow_bias
-        d = ms.wi
-        if scat is not None:
-            # scattered lanes go on inside the medium along their new ray
-            alive = alive | scat
-            o = torch.where(scat[..., None], scat_p, o)
-            d = torch.where(scat[..., None], scat_d, d)
-            prev_prim = torch.where(scat, -1, prev_prim)
-            prev_delta = prev_delta | scat
+            with PF.span("shade.bsdf"):
+                # BSDF sampling / continuation
+                r = sampler.rand4(pixel_id, sample_idx, depth, 2)
+                u1, u2, u3, u_rr = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
+                ms = B.sample_bsdf(scene, sp, wo, u1, u2, u3, wl=path_wl)
+                if depth == 0 and layers:
+                    transmitted = (vec.dot(ms.wi, sp.ng) * vec.dot(wo, sp.ng)
+                                   < 0.0)
+                    side = torch.where(transmitted, 2, 1)
+                    path_kind = torch.where(alive & ms.valid & ms.is_delta,
+                                            side, 0)
+                    if want_ind:
+                        first_lobe = torch.where(alive & ms.valid, ms.lobe, -1)
+                    # ReflectAll / RefractAll: any non-diffuse first bounce
+                    # (delta or microfacet), split by side
+                    nondiff = (alive & ms.valid & (ms.lobe != 3)
+                               & (ms.lobe != 4))
+                    path_kind_all = torch.where(nondiff, side, 0)
+                cont = alive & ms.valid
+                if direct_only or cfg.no_recursive:
+                    # only delta continuation (recursiveRaytrace analogue)
+                    cont = cont & ms.is_delta
+                new_thr = throughput * ms.weight
+                if chromatic is not None:
+                    first = ms.dispersed & ~chromatic
+                    new_thr = torch.where(first[..., None],
+                                          new_thr * wl_to_rgb(path_wl) * 3.0,
+                                          new_thr)
+                    chromatic = chromatic | ms.dispersed
+                if cfg.clamp_indirect > 0.0 and depth > 0:
+                    mx = torch.amax(new_thr, dim=-1, keepdim=True)
+                    new_thr = torch.where(
+                        mx > cfg.clamp_indirect,
+                        new_thr * cfg.clamp_indirect
+                        / torch.clamp_min(mx, 1e-9),
+                        new_thr)
+                # Russian roulette on the throughput maximum
+                if (depth >= cfg.russian_roulette_min_bounces
+                        and not direct_only):
+                    p_survive = torch.clamp(torch.amax(new_thr, dim=-1), 0.05,
+                                            1.0)
+                    kill = u_rr > p_survive
+                    new_thr = new_thr / p_survive[..., None]
+                    cont = cont & ~kill
+                throughput = torch.where(cont[..., None], new_thr, throughput)
+                if track_medium:
+                    # a transmission across the geometric normal enters or
+                    # leaves the dielectric's interior
+                    cos_in = vec.dot(ms.wi, sp.ng)
+                    crossed = cont & (cos_in * vec.dot(wo, sp.ng) < 0.0)
+                    going_in = cos_in < 0.0
+                    medium_mat = torch.where(
+                        crossed & going_in, sp.mat_id,
+                        torch.where(crossed & ~going_in, -1, medium_mat))
+                alive = cont
+                prev_p = sp.p
+                prev_prim = sp.prim
+                prev_pdf = ms.pdf
+                prev_delta = ms.is_delta
+                o = sp.p + ms.wi * scene.shadow_bias
+                d = ms.wi
+                if scat is not None:
+                    # scattered lanes go on inside the medium along their new
+                    # ray
+                    alive = alive | scat
+                    o = torch.where(scat[..., None], scat_p, o)
+                    d = torch.where(scat[..., None], scat_d, d)
+                    prev_prim = torch.where(scat, -1, prev_prim)
+                    prev_delta = prev_delta | scat
 
     if want_env:
         aux["env"] = env_acc

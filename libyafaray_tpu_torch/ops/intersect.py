@@ -27,6 +27,7 @@ from ..accel import mt_intersect as MT
 from ..accel.spheres import sphere_pass
 from ..math import vec
 from ..scene_types import Geometry, SceneData
+from ..utils import profiling as PF
 
 Tensor = torch.Tensor
 
@@ -102,11 +103,27 @@ def _brute_any(geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
 
 
 def _query(o: Tensor, t_min, t_max):
-    """Ray extents as f32[N] tensors on the rays' device."""
+    """Ray extents as f32[N] tensors on the rays' device (a Python number
+    is copied there: a copy that waits for the device)."""
     shape = o.shape[:-1]
-    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
-                                     device=o.device).expand(shape)
+
+    def as_t(x):
+        if isinstance(x, Tensor):
+            x = torch.as_tensor(x, dtype=torch.float32, device=o.device)
+        else:
+            with PF.host_sync("intersect.t_range"):
+                x = torch.as_tensor(x, dtype=torch.float32, device=o.device)
+        return x.expand(shape)
+
     return as_t(t_min), as_t(t_max)
+
+
+def _count_lanes(t_min: Tensor, t_max: Tensor) -> None:
+    """With tracing on, a query's lanes and its live lanes (a t-range that
+    is not empty)."""
+    if PF.recording():
+        PF.count("lanes.total", t_min.numel())
+        PF.count("lanes.live", (t_max >= t_min).sum())
 
 
 def _accel(scene: SceneData) -> str:
@@ -144,12 +161,14 @@ def _time(scene: SceneData, time: Optional[Tensor]) -> Optional[Tensor]:
         else None
 
 
+@PF.span("intersect.closest")
 @torch.no_grad()
 def closest_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
                 exclude_prim: Optional[Tensor] = None,
                 time: Optional[Tensor] = None) -> Hit:
     """Closest-hit query over the whole scene (Accelerator::intersect)."""
     t_min, t_max = _query(o, t_min, t_max)
+    _count_lanes(t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
     accel = _accel(scene)
@@ -187,12 +206,14 @@ def camera_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
                uv=torch.where(inv[..., None], hit2.uv, hit.uv))
 
 
+@PF.span("intersect.any")
 @torch.no_grad()
 def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
             exclude_prim: Optional[Tensor] = None,
             time: Optional[Tensor] = None) -> Tensor:
     """Binary shadow query (Accelerator::intersectS)."""
     t_min, t_max = _query(o, t_min, t_max)
+    _count_lanes(t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
     accel = _accel(scene)
@@ -204,6 +225,7 @@ def any_hit(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
     return _brute_any(scene.geom, *args, time=_time(scene, time))
 
 
+@PF.span("intersect.shadow_surface")
 @torch.no_grad()
 def shadow_hit_surface(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
                        exclude_prim: Optional[Tensor] = None) -> Hit:
@@ -212,6 +234,7 @@ def shadow_hit_surface(scene: SceneData, o: Tensor, d: Tensor, t_min, t_max,
     analogue). The JAX package traces it at the shutter-open geometry, and
     so does the port (ROADMAP section 3)."""
     t_min, t_max = _query(o, t_min, t_max)
+    _count_lanes(t_min, t_max)
     args = (o.detach(), d.detach(), t_min.detach(), t_max.detach(),
             exclude_prim)
     accel = _accel(scene)

@@ -23,6 +23,7 @@ import torch
 from ..math import vec
 from ..scene_types import (SceneData, inst_transform_normal,
                            inst_transform_point, resolve_prim)
+from ..utils import profiling as PF
 from .intersect import Hit
 
 Tensor = torch.Tensor
@@ -175,8 +176,10 @@ def compute_differentials(scene: SceneData, sp: SurfacePoint,
         return sp
     r = sp.t * scene.pixel_spread
     # an orthonormal frame perpendicular to the ray
-    z_axis = torch.tensor([0.0, 0.0, 1.0], device=d.device)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], device=d.device)
+    with PF.host_sync("surface.axes"):
+        z_axis = torch.tensor([0.0, 0.0, 1.0], device=d.device)
+    with PF.host_sync("surface.axes"):
+        x_axis = torch.tensor([1.0, 0.0, 0.0], device=d.device)
     e1 = vec.normalize(vec.cross(d, torch.where(
         torch.abs(d[..., 2:3]) < 0.9, z_axis, x_axis)))
     e2 = vec.cross(d, e1)

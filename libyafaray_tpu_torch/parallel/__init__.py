@@ -41,6 +41,7 @@ from ..cameras import lens_samples, shoot_rays
 from ..integrators.mc import IntegratorConfig, integrate
 from ..render import pixel_jitter
 from ..scene_types import SceneData
+from ..utils import profiling as PF
 from .distributed import local_rank
 
 Tensor = torch.Tensor
@@ -198,6 +199,7 @@ def make_train_step(cfg: IntegratorConfig, height: int, width: int,
     px = (pixel_id % width).to(torch.float32) + 0.5
     py = (pixel_id // width).to(torch.float32) + 0.5
 
+    @PF.span("train.step")
     def step(scene: SceneData, params: Dict[str, Tensor], target: Tensor,
              sample_idx: int) -> Tuple[Dict[str, Tensor], Tensor]:
         scene = scene.to(device)
@@ -206,22 +208,26 @@ def make_train_step(cfg: IntegratorConfig, height: int, width: int,
                   for k, v in params.items()}
         sc = dataclasses.replace(scene, materials=dataclasses.replace(
             scene.materials, **leaves))
-        rgb, _, _ = _pixel_shard_radiance(sc, cfg, px, py, pixel_id,
-                                          sample_idx)
-        tgt = target.to(device).reshape(-1, 3)[lo:hi]
-        loss = torch.mean((rgb - tgt) ** 2)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        loss = loss.detach()
-        if mesh is not None:
-            # pmean of the loss and of every gradient: one all_reduce
-            flat = mesh.all_reduce_sum(torch.cat(
-                [loss.reshape(1)] + [g.reshape(-1) for g in grads]))
-            flat = flat / mesh.size
-            loss = flat[0]
-            parts = torch.split(flat[1:], [g.numel() for g in grads])
-            grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
-        new = {k: (p - lr * g).detach()
-               for (k, p), g in zip(leaves.items(), grads)}
+        with PF.span("train.forward"):
+            rgb, _, _ = _pixel_shard_radiance(sc, cfg, px, py, pixel_id,
+                                              sample_idx)
+        with PF.span("train.loss"):
+            tgt = target.to(device).reshape(-1, 3)[lo:hi]
+            loss = torch.mean((rgb - tgt) ** 2)
+        with PF.span("train.backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        with PF.span("train.update"):
+            loss = loss.detach()
+            if mesh is not None:
+                # pmean of the loss and of every gradient: one all_reduce
+                flat = mesh.all_reduce_sum(torch.cat(
+                    [loss.reshape(1)] + [g.reshape(-1) for g in grads]))
+                flat = flat / mesh.size
+                loss = flat[0]
+                parts = torch.split(flat[1:], [g.numel() for g in grads])
+                grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
+            new = {k: (p - lr * g).detach()
+                   for (k, p), g in zip(leaves.items(), grads)}
         return new, loss
 
     return step

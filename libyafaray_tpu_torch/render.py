@@ -34,6 +34,7 @@ from .cameras import lens_samples, shoot_rays
 from .integrators.mc import IntegratorConfig, integrate
 from .integrators.volume import interp
 from .scene_types import PhotonData, SceneData
+from .utils import profiling as PF
 
 Tensor = torch.Tensor
 
@@ -81,8 +82,9 @@ def _render_ids(scene: SceneData, cfg: IntegratorConfig, film: F.Film,
     # the per-node sample stream (the reference's adv_base_sampling_offset),
     # uint32 as in the JAX package, held in int64 as the sampler holds it
     s_idx = (int(sample_idx) + film.base_sampling_offset) & sampler.M32
-    px, py, o, d, valid = camera_rays(scene.camera, pixel_id, s_idx,
-                                      film.width)
+    with PF.span("render.camera"):
+        px, py, o, d, valid = camera_rays(scene.camera, pixel_id, s_idx,
+                                          film.width)
     valid = valid & live
     rgb, alpha, aux = integrate(scene, cfg, o, d, valid, pixel_id, s_idx)
     weight = valid.to(torch.float32)
@@ -216,6 +218,7 @@ def _photon_maps(scene: SceneData, cfg: IntegratorConfig, mode: str,
     if (mode in ("load", "reuse-previous") and path is not None
             and os.path.exists(path)):
         return PH.load_maps(path, device)
+    PF.count("table_builds.photon_maps")
     dmap, cmap, rcache = PH.make_maps(scene, cfg.n_photons, cfg.pm_bounces,
                                       cfg.pm_radius,
                                       final_gather=cfg.final_gather)
@@ -226,6 +229,7 @@ def _photon_maps(scene: SceneData, cfg: IntegratorConfig, mode: str,
     return photons
 
 
+@PF.span("render.image")
 def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
            height: Optional[int] = None, spp: int = 16,
            aa: Optional[AAParams] = None,
@@ -265,6 +269,7 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
         # the per-light attenuation grid ("optimize",
         # integrator_single_scatter.cc:35-108)
         from .integrators.volume import build_attenuation_grid
+        PF.count("table_builds.vol_atten")
         scene = dataclasses.replace(scene,
                                     vol_atten=build_attenuation_grid(scene))
     if cfg.kind == "photonmapping" and scene.photons is None:
@@ -321,9 +326,10 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
     for _ in range(aa.aa_samples):
         if canceled():
             break
-        begin_pass()
-        film = render_pass_fn(scene, cfg, film, s)
-        end_pass(width * height)
+        with PF.span("render.pass", index=s):
+            begin_pass()
+            film = render_pass_fn(scene, cfg, film, s)
+            end_pass(width * height)
         s += 1
         autosave(s)
         progress()
@@ -338,9 +344,10 @@ def render(scene: SceneData, cfg: IntegratorConfig, width: Optional[int] = None,
             break           # converged: the reference stops flagging too
         live = torch.ones_like(ids, dtype=torch.bool)
         for _ in range(aa.aa_inc_samples):
-            begin_pass()
-            film = _render_ids(scene, cfg, film, s, ids, live)
-            end_pass(ids.numel())
+            with PF.span("render.pass", index=s):
+                begin_pass()
+                film = _render_ids(scene, cfg, film, s, ids, live)
+                end_pass(ids.numel())
             s += 1
             autosave(s)
         progress()

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import profiling as PF
+
 Tensor = torch.Tensor
 
 M32 = 0xFFFFFFFF
@@ -34,8 +36,12 @@ def _u32(x, like: Tensor | None = None) -> Tensor:
     """An int or tensor of uint32 values as int64 (masked)."""
     if isinstance(x, Tensor):
         return x.to(torch.int64) & M32
-    device = like.device if like is not None else None
-    return torch.tensor(int(x) & M32, dtype=torch.int64, device=device)
+    if like is None:
+        return torch.tensor(int(x) & M32, dtype=torch.int64)
+    # a copy to the keys' device, which waits for it
+    with PF.host_sync("sampler.key"):
+        return torch.tensor(int(x) & M32, dtype=torch.int64,
+                            device=like.device)
 
 
 def _pcg4d(x: Tensor, y: Tensor, z: Tensor, w: Tensor):

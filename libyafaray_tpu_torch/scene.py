@@ -51,6 +51,7 @@ from .scene_types import (
     VIS_INVISIBLE, VIS_NO_SHADOWS, VIS_NORMAL, VIS_SHADOW_ONLY, Background,
     Camera, Geometry, LightTable, MaterialTable, SceneData,
 )
+from .utils import profiling as PF
 
 # material and light types (the JAX package's); unknown names raise
 # KeyError as there
@@ -332,26 +333,36 @@ class SceneBuilder:
                 wl, dtype=torch.float32, device=scene.shadow_bias.device))
         return scene
 
+    @PF.span("scene.compile")
     def compile(self, camera_name: Optional[str] = None, *,
                 device="cuda") -> SceneData:
         """Freeze the staged scene into SceneData on `device` (the CUDA card
         unless the caller names another device, such as "cpu"); the block
         accelerator is built there."""
-        materials = self._build_materials()
-        textures, nodes, materials = self._build_textures_and_nodes(materials)
-        g, obj_face_ranges = self._build_geometry()
-        lights, g = self._build_lights(g, obj_face_ranges)
-        geom = _geometry_tables(g)
-        # accelerator choice (scene_accelerator, as the JAX compile off the
-        # TPU): blocks from BLOCKS_MIN_FACES faces on or by name, the LBVH
-        # by name, else brute force; each built on the scene's device
-        default = "blocks" if geom.num_faces >= BLOCKS_MIN_FACES else "brute"
-        accel = self.render_params.get_string("scene_accelerator", default)
-        brute = accel != "bvh" and accel not in _ACCEL_BLOCKS
-        if (0 < geom.num_faces and geom.inst_mat is None
-                and (brute or geom.num_faces <= PACKED_FACES)):
-            _pack_tables(geom)
-        geom = geom.to(device)
+        with PF.span("compile.materials"):
+            materials = self._build_materials()
+        with PF.span("compile.textures"):
+            textures, nodes, materials = self._build_textures_and_nodes(
+                materials)
+        with PF.span("compile.geometry"):
+            g, obj_face_ranges = self._build_geometry()
+        with PF.span("compile.lights"):
+            lights, g = self._build_lights(g, obj_face_ranges)
+        with PF.span("compile.geometry"):
+            geom = _geometry_tables(g)
+            # accelerator choice (scene_accelerator, as the JAX compile off
+            # the TPU): blocks from BLOCKS_MIN_FACES faces on or by name, the
+            # LBVH by name, else brute force; each built on the scene's
+            # device
+            default = ("blocks" if geom.num_faces >= BLOCKS_MIN_FACES
+                       else "brute")
+            accel = self.render_params.get_string("scene_accelerator",
+                                                  default)
+            brute = accel != "bvh" and accel not in _ACCEL_BLOCKS
+            if (0 < geom.num_faces and geom.inst_mat is None
+                    and (brute or geom.num_faces <= PACKED_FACES)):
+                _pack_tables(geom)
+            geom = geom.to(device)
         background = (make_background(self.background_params,
                                       tex_id=self._bg_tex_id())
                       if self.background_params is not None
@@ -377,10 +388,11 @@ class SceneBuilder:
                   else Camera(kind="perspective"))
         blocks = bvh = None
         if geom.num_faces > 0 and not brute:
-            if accel == "bvh":
-                bvh = build_lbvh(geom)
-            else:
-                blocks = build_blocks(geom)
+            with PF.span("compile.accel"):
+                if accel == "bvh":
+                    bvh = build_lbvh(geom)
+                else:
+                    blocks = build_blocks(geom)
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
         # one pixel's angular footprint, for the primary hits' texture
         # filtering (as the JAX compile)

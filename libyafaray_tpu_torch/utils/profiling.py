@@ -13,18 +13,58 @@ kd-tree build counters. This module gives:
     (CPU and, on the card, CUDA activities) that writes a chrome trace
     (`*.pt.trace.json`) under `log_dir`;
   - `device_op_summary(log_dir)`: the heaviest device events of those
-    traces by total time, the kernels under their CUDA function names.
+    traces by total time, the kernels under their CUDA function names;
+  - spans and counts inside the program, recorded only inside a
+    `tracing()` context (off by default): `span(name, **attrs)` around a
+    layer's work (a context manager or a decorator), `count(name, n)` of
+    host or device quantities, and `host_sync(site)` around each statement
+    of the render and train paths that makes the host wait for the device
+    (`host_read(site, x)`, the one way those paths read a device value on
+    the host, is one). While a `torch.profiler` trace runs, each span is
+    also a `record_function("yafaray::<name>")` range, so the trace holds
+    the program's layers on its own clock beside the device's events.
+
+Spans (name: where):
+
+  - `render.image`, `render.pass` (`index`: the sample), `render.camera`,
+    `film.add`: `render.render` and `render._render_ids`;
+  - `integrator.bounce` (`depth`) and inside it `shade.surface`,
+    `shade.emission`, `shade.nee`, `shade.bsdf`: `integrators.mc.integrate`;
+  - `intersect.closest`, `intersect.any`, `intersect.shadow_surface`: the
+    queries of `ops.intersect` (`camera_hit` nests `intersect.closest`);
+  - `accel.prepass` (`tiles.tile_candidates`), `accel.sort` (the block
+    accelerator's ray sort), `accel.walk` (each kernel's wrapper:
+    `mt_closest`, `tile_walk`, `lbvh_traverse`), `accel.pack` (`lbvh.packed`
+    when it packs);
+  - `train.step` with `train.forward`, `train.loss`, `train.backward`,
+    `train.update`: `parallel.make_train_step`;
+  - `scene.compile` with `compile.materials`, `compile.textures`,
+    `compile.geometry`, `compile.lights`, `compile.accel`:
+    `SceneBuilder.compile`;
+  - `sync.<site>`: the host's wait at a synchronising statement
+    (`host_sync`, `host_read`).
+
+Counts: `sync.<site>` (one a synchronising statement), `lanes.total` and `lanes.live`
+(lanes whose t-range is not empty, at each intersection query),
+`prepass.tiles`, `prepass.live_tiles` and `prepass.candidates` (the
+candidate blocks of all tiles), `table_builds.<table>` (tables that a
+render or a train step builds for itself: `pack_lbvh`, `vol_atten`,
+`photon_maps`), `kernel.<kernel>.rays` and `kernel.<kernel>.any_hit_rays`
+at each launch, and, from the kernels' own launch counters (read, not
+counted again), `kernel.<kernel>.launches`.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import glob
 import json
 import os
 import socket
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,7 +76,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 @dataclass
 class RenderStats:
-    """Accumulates render timings (Timer "rendert" and printRenderStats)."""
+    """Accumulates render timings (Timer "rendert" and printRenderStats),
+    on the monotonic `time.perf_counter` clock."""
     pass_times: List[float] = field(default_factory=list)
     pass_rays: List[int] = field(default_factory=list)
     events: Dict[str, float] = field(default_factory=dict)
@@ -44,13 +85,13 @@ class RenderStats:
 
     # --- named events (the reference's common/timer.h addEvent/start/stop)
     def start(self, name: str = "rendert") -> None:
-        self.events[name + ".__start"] = time.time()
+        self.events[name + ".__start"] = time.perf_counter()
 
     def stop(self, name: str = "rendert") -> float:
         t0 = self.events.pop(name + ".__start", None)
         if t0 is None:
             return 0.0
-        dt = time.time() - t0
+        dt = time.perf_counter() - t0
         self.events[name] = self.events.get(name, 0.0) + dt
         return dt
 
@@ -59,12 +100,12 @@ class RenderStats:
 
     # --- per-pass accounting
     def begin_pass(self) -> None:
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
 
     def end_pass(self, rays: int) -> None:
         if self._t0 is None:
             return
-        self.pass_times.append(time.time() - self._t0)
+        self.pass_times.append(time.perf_counter() - self._t0)
         self.pass_rays.append(int(rays))
         self._t0 = None
 
@@ -161,3 +202,225 @@ def device_op_summary(log_dir: str, top: int = 20,
             counts[name] += 1
     return [(n, t / 1000.0, counts[n])
             for n, t in collections.Counter(totals).most_common(top)]
+
+
+# ---------------------------------------------------------------------------
+# Spans and counts inside the program
+# ---------------------------------------------------------------------------
+
+# the open `tracing()` context's recording; None while tracing is off, so a
+# span or a count then costs this one check
+_rec: Optional["Recording"] = None
+
+
+@dataclass
+class SpanRecord:
+    """One span: its name, the index of its parent's record (-1 at the
+    top), its start and end on `time.perf_counter_ns`, the ordinals of the
+    image, pass and train step it ran in (-1 outside one) and its
+    attributes."""
+    name: str
+    parent: int
+    start_ns: int
+    end_ns: int
+    image: int
+    pass_: int
+    step: int
+    attrs: Optional[Dict[str, Any]]
+
+
+# the spans whose opening advances the image, pass or step ordinal
+_ORDINALS = {"render.image": "image", "render.pass": "pass_",
+             "train.step": "step"}
+
+
+class Recording:
+    """What one `tracing()` context recorded: `spans` (SpanRecord, in the
+    order they opened) and `counts` (name -> int; the device's counts are
+    added when the context exits)."""
+
+    def __init__(self):
+        self.spans: List[SpanRecord] = []
+        self.counts: Dict[str, int] = collections.Counter()
+        self._device_counts: Dict[str, torch.Tensor] = {}
+        self._open: List[Tuple[int, str, Any]] = []
+        self._at = {"image": -1, "pass_": -1, "step": -1}
+
+    def _enter(self, name: str, attrs) -> None:
+        which = _ORDINALS.get(name)
+        if which is not None:
+            self._at[which] += 1
+        parent = self._open[-1][0] if self._open else -1
+        rf = torch.profiler.record_function("yafaray::" + name)
+        self.spans.append(SpanRecord(name, parent, time.perf_counter_ns(), -1,
+                                     self._at["image"], self._at["pass_"],
+                                     self._at["step"], attrs))
+        rf.__enter__()
+        self._open.append((len(self.spans) - 1, name, rf))
+
+    def _exit(self, name: str) -> None:
+        # a span opened before tracing began closes unrecorded
+        if not self._open or self._open[-1][1] != name:
+            return
+        i, _, rf = self._open.pop()
+        rf.__exit__(None, None, None)
+        self.spans[i].end_ns = time.perf_counter_ns()
+
+    def _count_device(self, name: str, n: torch.Tensor) -> None:
+        n = n.detach().to(torch.int64)
+        prev = self._device_counts.get(name)
+        self._device_counts[name] = n if prev is None else prev + n
+
+    def _finish(self, launches_before: Dict[str, int]) -> None:
+        while self._open:
+            self._exit(self._open[-1][1])
+        # the device's counts, read once: one host read a device
+        by_dev: Dict[torch.device, List[str]] = collections.defaultdict(list)
+        for name, t in self._device_counts.items():
+            by_dev[t.device].append(name)
+        for names in by_dev.values():
+            vals = torch.stack([self._device_counts[k] for k in names])
+            for k, v in zip(names, vals.tolist()):
+                self.counts[k] += int(v)
+        self._device_counts = {}
+        for k, v in _launch_counts().items():
+            if v - launches_before.get(k, 0):
+                self.counts[k] += v - launches_before.get(k, 0)
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The kernels' own launch counters, under the registry's names."""
+    from ..accel import lbvh, mt_intersect, tiles
+    out = {"kernel.mt_closest.launches": mt_intersect.launches,
+           "kernel.tile_walk.launches": tiles.launches,
+           "kernel.lbvh_traverse.launches": lbvh.launches}
+    for arm_name, n in tiles.arm_launches.items():
+        out[f"kernel.tile_walk.launches.{arm_name}"] = n
+    return out
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the program's spans and counts inside the `with` body; yields
+    the Recording, complete once the body has exited (the device's counts
+    are read then, in one host read a device). Not re-entrant."""
+    global _rec
+    if _rec is not None:
+        raise RuntimeError("tracing() is already on")
+    rec = Recording()
+    before = _launch_counts()
+    _rec = rec
+    try:
+        yield rec
+    finally:
+        _rec = None
+        rec._finish(before)
+
+
+def recording() -> bool:
+    """Whether a `tracing()` context is open: sites whose count costs device
+    work (a reduction) test it before computing the count."""
+    return _rec is not None
+
+
+class _Span:
+    """A named span; see `span`."""
+    __slots__ = ("name", "attrs")
+
+    def __init__(self, name: str, attrs: Optional[Dict[str, Any]]):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        rec = _rec
+        if rec is not None:
+            rec._enter(self.name, self.attrs)
+        return self
+
+    def __exit__(self, *exc):
+        rec = _rec
+        if rec is not None:
+            rec._exit(self.name)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            rec = _rec
+            if rec is None:
+                return fn(*args, **kwargs)
+            rec._enter(name, None)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec._exit(name)
+        return spanned
+
+
+# one span object a name, for the spans without attributes
+_NAMED: Dict[str, _Span] = {}
+
+
+def span(name: str, **attrs) -> _Span:
+    """A span named `name`: `with span("shade.nee"): ...`, or as a
+    decorator, `@span("intersect.closest")` (a decorator's span takes no
+    attributes). Inside a `tracing()` context it records a SpanRecord and
+    enters `torch.profiler.record_function("yafaray::<name>")`; outside
+    one it records nothing and makes no call into torch."""
+    if attrs and _rec is not None:
+        return _Span(name, attrs)
+    s = _NAMED.get(name)
+    if s is None:
+        s = _NAMED[name] = _Span(name, None)
+    return s
+
+
+def count(name: str, n=1) -> None:
+    """Add `n` to the count `name` inside a `tracing()` context: a host
+    number, or a device tensor (a 0-d count), summed on its device and read
+    when the context exits, so that no pass waits to count."""
+    rec = _rec
+    if rec is None:
+        return
+    if isinstance(n, torch.Tensor):
+        rec._count_device(name, n)
+    else:
+        rec.counts[name] += int(n)
+
+
+class _Sync(_Span):
+    """A span that also counts itself; see `host_sync`."""
+    __slots__ = ()
+
+    def __enter__(self):
+        rec = _rec
+        if rec is not None:
+            rec.counts[self.name] += 1
+            rec._enter(self.name, None)
+        return self
+
+
+# one sync object a site
+_SYNCS: Dict[str, _Sync] = {}
+
+
+def host_sync(site: str) -> _Sync:
+    """The span and count `sync.<site>` around a statement that makes the
+    host wait for the device: a read of a device value (`host_read`), a
+    copy of a host value to the device (a pageable copy waits for the
+    stream), or an operation whose output size the host reads (`nonzero`).
+    Counted on any device; on the card each one drains the launch queue."""
+    s = _SYNCS.get(site)
+    if s is None:
+        s = _SYNCS[site] = _Sync("sync." + site, None)
+    return s
+
+
+def host_read(site: str, x: torch.Tensor):
+    """`x.tolist()` (a Python number for a 0-d tensor): the one way the
+    render and train paths read a device value on the host, under
+    `host_sync(site)`."""
+    with host_sync(site):
+        return x.tolist()
