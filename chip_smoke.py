@@ -343,6 +343,17 @@ Phases, each reporting on its own lines:
      mt_closest_kernel equal to MT.launches for that pass (10), its ms
      beside the CUDA-event time of the same launches.
 
+ 33. the block prepass kernel (tile_candidates_kernel in
+     csrc/tiles_traverse.cu) against tile_candidates_ref, lists equal with
+     torch.equal (cand, ent, count): the nine queries of one textured
+     terrain pass at 720x720 (captured as they reach tile_candidates; 9
+     kernel launches), each front to back and in cover order; the camera
+     query with a dead tile in a live chunk and a dead chunk; the forest's
+     camera query over its virtual blocks; 5,000 random boxes, more
+     candidates a tile than the shared sort's 4,096. Each timed (kernel
+     and plain version) beside its bounds: the pair tests at 67 TFLOP/s
+     and at 33.5 T instructions/s, the lists at 3.35 TB/s.
+
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
 kernels, and as the last line
@@ -5474,6 +5485,171 @@ def phase32_multi_device(cornell_ms, train_steps):
                                   event_ms=event_ms)
 
 
+# ---------------------------------------------------------------- phase 33
+
+# fp32 instructions of one ray-block slab test in the prepass kernel: 6
+# differences, 6 products, 10 min / max, 3 comparisons, the entry's max and
+# the running min (no multiply-add: each counts once at the FMA pipe's
+# instruction rate, half PEAK_FP32)
+PREPASS_INSTR = 27
+N_PREPASS_BIG = 5000     # random boxes: more blocks than the shared sort
+
+
+def _prepass_case(label, args, cover, reps=10):
+    """tile_candidates on the card (its kernel) against tile_candidates_ref
+    on one query's (bmin, bmax, o, d, t_min, t_max): cand, ent and count
+    equal (torch.equal); the kernel's ms beside its bounds and the plain
+    version's ms. Returns the numbers."""
+    import torch
+    from libyafaray_tpu_torch.accel import tiles as TL
+    before = TL.cand_launches
+    got = TL.tile_candidates(*args, any_hit=cover)
+    if TL.cand_launches != before + 1:
+        raise AssertionError(f"phase 33: {label}: the prepass kernel did "
+                             "not launch")
+    want, plain_ms = _once_ms(lambda: TL.tile_candidates_ref(*args,
+                                                             any_hit=cover))
+    for name, g, w in zip(("cand", "ent", "count"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"phase 33: {label}: {name} differs from tile_candidates_ref "
+                f"at {int((g != w).sum())} entries")
+    ms = _cuda_ms(lambda: TL.tile_candidates(*args, any_hit=cover), reps)
+    t, c_pad = got[0].shape
+    c = args[0].shape[0]
+    tile_live = (args[5].reshape(t, -1) >= args[4].reshape(t, -1)).any(1)
+    live = int(tile_live.sum())
+    # the pair tests these inputs need: every tile of a live chunk
+    g = TL._chunk_tiles(t, c)
+    chunk_live = torch.nn.functional.pad(tile_live, (0, -t % g)).reshape(
+        -1, g).any(1)
+    tested = sum(min(t, (k + 1) * g) - k * g
+                 for k in chunk_live.nonzero()[:, 0].tolist())
+    pairs = tested * TL.RAY_TILE * c
+    nbytes = t * c_pad * 8 + t * 4 + t * TL.RAY_TILE * 32 + c * 24
+    bound, by = _bound_ms(pairs * PREPASS_INSTR, nbytes)
+    instr_ms = pairs * PREPASS_INSTR / (PEAK_FP32 / 2) * 1e3
+    count = got[2]
+    out = dict(tiles=t, live_tiles=live, tested_tiles=tested, blocks=c,
+               candidates_per_live_tile=float(count.sum()) / max(live, 1),
+               most_candidates=int(count.max()), pair_tests=pairs, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               instruction_bound_ms=instr_ms,
+               lists_ms=(t * c_pad * 8) / PEAK_BYTES * 1e3)
+    print(f"phase 33: {label} ({'cover' if cover else 'front to back'}): "
+          f"{t} tiles ({live} live, {tested} in live chunks), {c} blocks, "
+          f"{out['candidates_per_live_tile']:.3f} candidates a live tile "
+          f"(most {out['most_candidates']}), lists equal; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}; {pairs:,} "
+          f"pair tests x {PREPASS_INSTR} at 67 TFLOP/s), {instr_ms:.4f} ms at "
+          f"33.5 T instructions/s, the lists {out['lists_ms']:.4f} ms at "
+          f"3.35 TB/s")
+    return out
+
+
+def _dead_chunk_query(args):
+    """The camera query with tile 3 dead in a live chunk (its rays starting
+    inside blocks, t_max just below t_min: they still make candidates) and
+    the 101st chunk of tiles dead throughout."""
+    from libyafaray_tpu_torch.accel import tiles as TL
+    bmin, bmax, o, d, t_min, t_max = (x.clone() for x in args)
+    t_min = t_min.expand(o.shape[0]).contiguous()
+    t_max = t_max.expand(o.shape[0]).contiguous()
+    r = slice(3 * TL.RAY_TILE, 4 * TL.RAY_TILE)
+    o[r] = 0.5 * (bmin[:TL.RAY_TILE] + bmax[:TL.RAY_TILE])
+    t_min[r] = 0.0
+    t_max[r] = -1e-3
+    g = TL._chunk_tiles(o.shape[0] // TL.RAY_TILE, bmin.shape[0])
+    t_max[100 * g * TL.RAY_TILE:101 * g * TL.RAY_TILE] = -1.0
+    return (bmin, bmax, o, d, t_min, t_max), g
+
+
+def _big_boxes(device, n_tiles=16, seed=33):
+    """N_PREPASS_BIG random boxes up to 3 wide in [-2, 2]^3 and rays from
+    inside the cloud: most tiles list more blocks than the shared sort
+    holds."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=gen)
+    ctr, ext = 4 * u(N_PREPASS_BIG, 3) - 2, 0.01 + 2.99 * u(N_PREPASS_BIG, 3)
+    n = n_tiles * 128
+    d = torch.randn(n, 3, generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.full((n,), 1e30)
+    t_max[::7] = -1.0
+    return tuple(x.to(device) for x in (
+        ctr - ext, ctr + ext, u(n, 3) - 0.5, d, torch.full((n,), 1e-4),
+        t_max))
+
+
+def phase33_prepass(textured, forest):
+    """The block prepass kernel against tile_candidates_ref. Returns the
+    kernels line's entry."""
+    import torch
+    from libyafaray_tpu_torch import make_integrator, render
+    from libyafaray_tpu_torch.accel import tiles as TL
+    cfg = make_integrator({"type": "pathtracing",
+                           "bounces": TERRAIN_BOUNCES})
+    launches = TL.cand_launches
+    with _kept_calls(TL, "tile_candidates", set(range(64))) as kept:
+        render(textured, cfg, spp=1)
+    launches = TL.cand_launches - launches
+    want = 3 * (TERRAIN_BOUNCES + 1)
+    if len(kept) != want or launches != want:
+        raise AssertionError(f"phase 33: a textured terrain pass made "
+                             f"{len(kept)} prepass calls and {launches} "
+                             f"kernel launches, want {want}")
+    per = {}
+    for i, (a, k, _) in enumerate(kept):
+        for cover in (False, True):
+            per[f"textured terrain {TERRAIN_RES}x{TERRAIN_RES} query {i}"
+                + (" cover" if cover else "")] = _prepass_case(
+                    f"textured terrain query {i}", a, cover)
+    dead, g = _dead_chunk_query(kept[0][0])
+    for cover in (False, True):
+        row = _prepass_case(f"camera query, tile 3 dead, chunk 100 of {g} "
+                            "tiles dead", dead, cover)
+        got = TL.tile_candidates(*dead, any_hit=cover)
+        if not (int(got[2][3]) > 0
+                and (got[2][100 * g:101 * g] == 0).all()):
+            raise AssertionError("phase 33: the dead tile must list its "
+                                 "blocks and the dead chunk none")
+        per["dead chunk" + (" cover" if cover else "")] = row
+    with _kept_calls(TL, "tile_candidates", {0}) as kept_f:
+        render(forest, cfg, spp=1)
+    big = _big_boxes(DEVICE)
+    for cover in (False, True):
+        per["forest camera query" + (" cover" if cover else "")] = \
+            _prepass_case("forest camera query (virtual blocks)",
+                          kept_f[0][0], cover)
+        row = _prepass_case(f"{N_PREPASS_BIG} random boxes", big, cover,
+                            reps=3)
+        if row["most_candidates"] <= 4096:
+            raise AssertionError("phase 33: the random boxes must pass the "
+                                 "shared sort's 4,096 entries")
+        per[f"{N_PREPASS_BIG} random boxes" + (" cover" if cover else "")] \
+            = row
+    torch.cuda.synchronize()
+    main = per[f"textured terrain {TERRAIN_RES}x{TERRAIN_RES} query 0"]
+    queries = [v for k, v in per.items()
+               if k.startswith("textured terrain") and "cover" not in k]
+    print(f"phase 33: one textured terrain pass's {len(queries)} queries: "
+          f"kernel {sum(q['ms'] for q in queries):.3f} ms in all, plain "
+          f"{sum(q['plain_ms'] for q in queries):.3f} ms, bound "
+          f"{sum(q['bound_ms'] for q in queries):.4f} ms")
+    return {"name": "tile_candidates", "route": "cuda",
+            "source": "libyafaray_tpu_torch/csrc/tiles_traverse.cu",
+            "replaces": "none: the JAX package builds the lists with XLA "
+                        "ops (libyafaray_tpu/accel/tiles.py tile_candidates)",
+            "launches": launches,
+            "max_abs_err": 0.0,
+            "timed_on": f"the textured terrain's {TERRAIN_RES}x{TERRAIN_RES} "
+                        "camera query",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "per_launch_by_path": per}
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -5595,6 +5771,7 @@ def main() -> int:
      prepass) = _timed("31", phase31_accelerators, textured, textured_img)
     shard_mt, shard_tl, shard_walk_err, shard = _timed(
         "32", phase32_multi_device, cornell_ms, train_steps)
+    prepass_kernel = _timed("33", phase33_prepass, textured, forest)
     lbvh_main = f"cornell {WIDTH}x{HEIGHT} {SPP} spp"
     lbvh_timed = (f"textured terrain {TERRAIN_RES}x{TERRAIN_RES}, one pass's "
                   "queries")
@@ -5764,6 +5941,7 @@ def main() -> int:
                               for label, n in lbvh_launches.items()},
          "per_launch_by_path": {f"{label}, phase 31": v
                                 for label, v in lbvh_per.items()}},
+        prepass_kernel,
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -39,6 +39,12 @@ package's resident kernel:
 `tile_walk` on CPU tensors runs the plain version `tile_walk_ref`; on a
 CUDA device it launches the kernel (built at first use by `csrc_build`) or
 raises. It never falls back from the kernel to the plain version.
+`tile_candidates` likewise: on a CUDA device its default branch (SUPER 1,
+CAND_K off, front to back or cover order) launches the prepass kernel of
+the same source, which makes every tile's list in one launch with no host
+read; other tensors run the plain version `tile_candidates_ref`. The SUPER
+and CAND_K branches, opt-in and run by no benchmark cell, keep their
+PyTorch code on every device.
 `tiles_traverse` / `tiles_traverse_ref` pad and pack the rays, build the
 candidate lists and walk them.
 """
@@ -75,10 +81,13 @@ CAND_K = int(os.environ.get("YAF_CAND_K", "0"))
 _REF_TILES = 128
 
 # number of kernel launches, counted by tile_walk where it launches, in
-# all and per specialisation (`arm`)
+# all and per specialisation (`arm`), and by tile_candidates where it
+# launches the prepass kernel
 launches = 0
 arm_launches = collections.Counter()
+cand_launches = 0
 _fn = None
+_cand_fn = None
 
 
 def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
@@ -184,6 +193,13 @@ def _tile_candidates_topk(bmin: Tensor, bmax: Tensor, ot: Tensor,
     return _sorted_lists(key, torch.isfinite(key))
 
 
+def _chunk_tiles(t: int, c: int) -> int:
+    """Tiles a chunk of the prepass: its [G, R, C] temporaries near
+    _CAND_BYTES, as in the JAX package. The chunk rule follows it on every
+    device: a tile gets no candidates only when its whole chunk is dead."""
+    return max(1, min(t, int(_CAND_BYTES / (RAY_TILE * c * 12))))
+
+
 @PF.span("accel.prepass")
 def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                     t_min: Tensor, t_max: Tensor, any_hit: bool = False):
@@ -195,8 +211,31 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     (cand i32[T, Cpad], ent f32[T, Cpad], count i32[T]): each tile's first
     count[t] entries are the blocks some of its rays enter, sorted by entry
     distance, or with `any_hit` by descending coverage, with `ent` minus
-    the coverage (stable either way, so ties keep block order); Cpad pads C
-    to a multiple of 128 with block 0 / inf.
+    the coverage (stable either way, so ties keep block order), then the
+    other blocks in block order with `ent` inf; Cpad pads C to a multiple
+    of 128 with block 0 / inf.
+
+    On a CUDA device the default branch launches the prepass kernel
+    (`csrc/tiles_traverse.cu`), whose lists equal `tile_candidates_ref`'s
+    entry for entry; everything else runs `tile_candidates_ref`."""
+    c = bmin.shape[0]
+    t = o.shape[0] // RAY_TILE
+    if PF.recording():
+        PF.count("prepass.tiles", t)
+        PF.count("prepass.live_tiles", (t_max.reshape(t, RAY_TILE)
+                                        >= t_min.reshape(t, RAY_TILE))
+                 .any(dim=1).sum())
+    if o.device.type == "cuda" and SUPER == 1 and not 0 < CAND_K < c:
+        return _counted(_candidates_kernel(bmin, bmax, o, d, t_min, t_max,
+                                           any_hit))
+    return _counted(tile_candidates_ref(bmin, bmax, o, d, t_min, t_max,
+                                        any_hit))
+
+
+def tile_candidates_ref(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
+                        t_min: Tensor, t_max: Tensor, any_hit: bool = False):
+    """Plain PyTorch version of `tile_candidates`, on any device: the same
+    arguments and lists.
 
     Tiles are processed in chunks whose [G, R, C] temporaries stay near
     64 MB, as in the JAX package. A chunk whose rays all have an empty
@@ -219,11 +258,8 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     it = inv.reshape(t, RAY_TILE, 3)
     t0 = t_min.reshape(t, RAY_TILE)
     t1 = t_max.reshape(t, RAY_TILE)
-    if PF.recording():
-        PF.count("prepass.tiles", t)
-        PF.count("prepass.live_tiles", (t1 >= t0).any(dim=1).sum())
     if SUPER == 1 and 0 < CAND_K < c:
-        return _counted(_tile_candidates_topk(bmin, bmax, ot, it, t0, t1))
+        return _tile_candidates_topk(bmin, bmax, ot, it, t0, t1)
     any_hit = any_hit and SUPER == 1
     if SUPER > 1:
         iv_overlap, iv_key = _tile_interval(bmin, bmax, ot, it, t0, t1)
@@ -233,7 +269,7 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
             (pad, 3), v, dtype=torch.float32, device=dev)]) if pad else x
         bmin = fill(bmin, torch.inf).reshape(n_sb, SUPER, 3).amin(dim=1)
         bmax = fill(bmax, -torch.inf).reshape(n_sb, SUPER, 3).amax(dim=1)
-    g = max(1, min(t, int(_CAND_BYTES / (RAY_TILE * bmin.shape[0] * 12))))
+    g = _chunk_tiles(t, bmin.shape[0])
     chunks = -(-t // g)
     tile_live = (t1 >= t0).any(dim=1)
     pad = chunks * g - t
@@ -265,7 +301,67 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
         # already holds each ray's t-range, and it ends when no live ray is
         # left unhit, so the blocks that most rays enter go first
         key = -cover
-    return _counted(_sorted_lists(key, overlap))
+    return _sorted_lists(key, overlap)
+
+
+def _cand_launcher():
+    """The prepass kernel's C entry point, built and loaded at first use."""
+    global _cand_fn
+    if _cand_fn is None:
+        lib = csrc_build.library("tiles_traverse")
+        fn = lib.tile_candidates_launch
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp] * 6 + [cl] * 6 + [ci] * 5 + [vp] * 5
+        fn.restype = ci
+        lib.tile_candidates_sort_cap.restype = ci
+        _cand_fn = (fn, lib.tile_candidates_sort_cap())
+    return _cand_fn
+
+
+def _candidates_kernel(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
+                       t_min: Tensor, t_max: Tensor, any_hit: bool):
+    """`tile_candidates`' default branch on the prepass kernel (one launch;
+    the rays and t-ranges by their strides)."""
+    global cand_launches
+    dev = o.device
+    c = bmin.shape[0]
+    n = o.shape[0]
+    t = n // RAY_TILE
+    c_pad = -(-c // 128) * 128
+    check = lambda *a: csrc_build.check_arg("tile_candidates", *a, dev)
+    check("bmin", bmin, torch.float32, (c, 3))
+    check("bmax", bmax, torch.float32, (c, 3))
+    for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)),
+                           ("t_min", t_min, (n,)), ("t_max", t_max, (n,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape \
+                or x.device != dev:
+            raise ValueError(f"tile_candidates: {name} must be "
+                             f"torch.float32 {shape} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if n % RAY_TILE:
+        raise ValueError(f"tile_candidates: {n} rays are not a multiple of "
+                         f"{RAY_TILE}")
+    launch, sort_cap = _cand_launcher()
+    cand = torch.empty((t, c_pad), dtype=torch.int32, device=dev)
+    ent = torch.empty((t, c_pad), dtype=torch.float32, device=dev)
+    count = torch.empty((t,), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((t, c), dtype=torch.int64, device=dev)
+               if c > sort_cap else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(bmin.data_ptr(), bmax.data_ptr(), o.data_ptr(),
+                 d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+                 *o.stride(), *d.stride(), t_min.stride(0), t_max.stride(0),
+                 t, c, c_pad, _chunk_tiles(t, c), int(bool(any_hit)),
+                 cand.data_ptr(), ent.data_ptr(), count.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_candidates kernel launch failed (CUDA "
+                           f"error {err})")
+    if t:
+        cand_launches += 1
+        PF.count("kernel.tile_candidates.launches", 1)
+        PF.count("kernel.tile_candidates.tiles", t)
+    return cand, ent, count
 
 
 def _counted(lists):

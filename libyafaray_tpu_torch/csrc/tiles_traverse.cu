@@ -1,4 +1,6 @@
-// Tile traversal of the block accelerator, written for Hopper (sm_90a).
+// Tile traversal of the block accelerator, written for Hopper (sm_90a):
+// the walk (tiles_traverse_kernel, below) and the prepass that gives it
+// its lists (tile_candidates_kernel, after it).
 //
 // Replaces both TPU kernels behind libyafaray_tpu/accel/tiles.py
 // tiles_traverse, with their static, motion-blur and instancing arms:
@@ -425,3 +427,409 @@ extern "C" int tiles_traverse_launch(
   return cover ? launch_cover<true>(a, motion, inst, num_tiles, st)
                : launch_cover<false>(a, motion, inst, num_tiles, st);
 }
+
+// ---------------------------------------------------------------------------
+// The block prepass: every tile's candidate list (tiles.tile_candidates on
+// a CUDA tensor, its default branch: one block a candidate, front to back or
+// in cover order).
+//
+// Replaces no Pallas kernel: the JAX package computes the lists with XLA ops
+// (libyafaray_tpu/accel/tiles.py tile_candidates), and the port's plain
+// version (tile_candidates_ref) does the same in chunks of tiles, about 30
+// elementwise launches a chunk over [g, 128, C] temporaries, one host read of
+// which chunks are live and a sort of the whole [T, C] key matrix. Here one
+// thread block of 128 threads makes one tile's list in one launch, and the
+// host reads nothing.
+//
+// What it computes, as the plain version does. For ray r of the tile and
+// block j, per axis ta = (bmin - o) * inv and tb = (bmax - o) * inv, with
+// inv = 1 / d (|d| < 1e-12 replaced by +-1e-12, the sign of d, +0 counting
+// as positive); tn = the max over the axes of min(ta, tb), tf = the min of
+// max(ta, tb), with the NaN propagation of torch.minimum / torch.maximum;
+// the ray enters the block when tn <= tf, tf >= t_min and tn <= t_max, at
+// max(tn, t_min). A block's entry is the least over the tile's rays that
+// enter it, and the block is a candidate when that entry is finite. The
+// list holds the candidates sorted by entry (cover: by minus the number of
+// rays that enter, `ent` then holding minus that count), ties in block
+// order, then the other blocks in block order with `ent` inf, then block 0 /
+// inf up to c_pad; count = the candidates. The chunk rule of the JAX
+// package is kept: a tile gets no candidates only when every tile of its
+// chunk of `chunk` tiles (computed by the wrapper as the plain version
+// does) holds no ray with t_max >= t_min; a dead tile of a live chunk is
+// tested like any other, and a dead ray whose slab interval straddles its
+// empty t-range still makes its blocks candidates.
+//
+// What bounds it on an H100. T * 128 * C pair tests (825M for a 720^2
+// camera query over the terrain's 1,591 blocks), each about 30 fp32
+// instructions with no multiply-add to fuse (6 subtractions, 6 products, 13
+// min / max, 3 comparisons, the entry's min): bound by the instructions it
+// issues, not by bytes (the lists are T * c_pad * 8 bytes, 54 MB a query).
+// The design:
+//   * the tile's rays (origin, inverse direction, t-range: 32 bytes) are
+//     staged once in shared memory, and every thread reads ray r as a
+//     broadcast; each thread owns blocks j = tid, tid + 128, ... and tests
+//     PK of them against each ray, their bounds and running entry minima in
+//     registers, so no reduction across threads is needed for a block;
+//   * the candidates of each page of 128 * PK blocks are compacted in block
+//     order by warp ballots and one shared-memory word a warp, as 64-bit
+//     entries (the key's order-preserving bits, then the block index): the
+//     pair (key, block) is unique, so any sort by it is the stable sort by
+//     key. The tail's position of block j is count + j - (candidates
+//     before j), found by a binary search of the compacted list;
+//   * the list is sorted in shared memory by a bitonic network over the next
+//     power of two above count (62 candidates a live tile on the terrain's
+//     camera query). The shared list holds up to SORT_CAP entries; above
+//     that number of blocks (the instanced scenes' virtual blocks can pass
+//     it) the list goes to a global scratch row, runs of SORT_CAP are sorted
+//     in shared memory, and each entry's final place is its rank in its own
+//     run plus the entries below it in the other runs (binary searches);
+//   * a tile of a dead chunk writes the identity list and stops, after
+//     reading at most its chunk's t-ranges.
+// Why the lists are the same bits as the plain version's: the arithmetic is
+// the same operations in the same order, built with --fmad=false (a product
+// then a difference never fuses) and without -ftz; 1 / d is __frcp_rn, the
+// correctly rounded reciprocal that torch's division gives; min.NaN /
+// max.NaN propagate NaN as torch.minimum / torch.maximum do, and the entry's
+// min and max see no NaN; the sort keys map -0 to +0, as the plain sort
+// compares them equal. (An entry of -0 may come back as +0.)
+
+namespace {
+
+constexpr int PT = RAY_TILE;    // threads a tile: one a ray when staging
+constexpr int PW = PT / 32;     // warps a tile
+constexpr int PK = 4;           // blocks a thread tests against each ray
+constexpr int SORT_CAP = 4096;  // entries a tile sorts in shared memory
+constexpr unsigned long long NO_ENTRY = ~0ull;
+
+struct CandArgs {
+  const float* bmin;  // [num_blocks, 3]
+  const float* bmax;
+  const float* o;     // ray r's origin component k at o[r * o_s0 + k * o_s1]
+  const float* d;
+  const float* t_min;  // ray r's at t_min[r * tmin_s]
+  const float* t_max;
+  long long o_s0, o_s1, d_s0, d_s1, tmin_s, tmax_s;
+  int num_tiles, num_blocks, c_pad, chunk;
+  int* cand;                     // [num_tiles, c_pad]
+  float* ent;                    // [num_tiles, c_pad]
+  int* count;                    // [num_tiles]
+  unsigned long long* scratch;   // [num_tiles, num_blocks] above SORT_CAP
+};
+
+struct __align__(16) PRay {
+  float ox, oy, oz, t0, ix, iy, iz, t1;
+};
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// 1 / d with |d| < 1e-12 replaced by +-1e-12
+__device__ __forceinline__ float safe_inv(float x) {
+  return __frcp_rn(fabsf(x) < 1e-12f ? (x < 0.0f ? -1e-12f : 1e-12f) : x);
+}
+
+// Bits of a key whose unsigned order is the float order (-0 taken as +0),
+// and back.
+__device__ __forceinline__ unsigned key_bits(float x) {
+  const unsigned u = __float_as_uint(x == 0.0f ? 0.0f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__host__ __device__ __forceinline__ int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return x <= 0 ? 0 : p;
+}
+
+// The entry minima (and with COVER the ray counts) of this thread's blocks
+// base + k * PT + tid, k < K, over the tile's rays.
+template <int K, bool COVER>
+__device__ __forceinline__ void test_blocks(const CandArgs& a,
+                                            const PRay* s_ray, int base,
+                                            float (&emin)[K], int (&cov)[K]) {
+  float lx[K], ly[K], lz[K], hx[K], hy[K], hz[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = min(base + k * PT + (int)threadIdx.x, a.num_blocks - 1);
+    lx[k] = a.bmin[3 * j];
+    ly[k] = a.bmin[3 * j + 1];
+    lz[k] = a.bmin[3 * j + 2];
+    hx[k] = a.bmax[3 * j];
+    hy[k] = a.bmax[3 * j + 1];
+    hz[k] = a.bmax[3 * j + 2];
+    emin[k] = INFINITY;
+    cov[k] = 0;
+  }
+  const float4* rays = reinterpret_cast<const float4*>(s_ray);
+#pragma unroll 2
+  for (int r = 0; r < PT; ++r) {
+    const float4 p = rays[2 * r];      // ox, oy, oz, t0
+    const float4 q = rays[2 * r + 1];  // ix, iy, iz, t1
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float ta = (lx[k] - p.x) * q.x, tb = (hx[k] - p.x) * q.x;
+      float tn = min_nan(ta, tb), tf = max_nan(ta, tb);
+      ta = (ly[k] - p.y) * q.y;
+      tb = (hy[k] - p.y) * q.y;
+      tn = max_nan(tn, min_nan(ta, tb));
+      tf = min_nan(tf, max_nan(ta, tb));
+      ta = (lz[k] - p.z) * q.z;
+      tb = (hz[k] - p.z) * q.z;
+      tn = max_nan(tn, min_nan(ta, tb));
+      tf = min_nan(tf, max_nan(ta, tb));
+      const bool ok = (tn <= tf) & (tf >= p.w) & (tn <= q.w);
+      if (ok) emin[k] = fminf(emin[k], fmaxf(tn, p.w));
+      if (COVER) cov[k] += ok ? 1 : 0;
+    }
+  }
+}
+
+// One page of K * PT blocks from `base`: test them and append the
+// candidates to list[n...] in block order; n grows by their number.
+template <int K, bool COVER>
+__device__ __forceinline__ void page(const CandArgs& a, const PRay* s_ray,
+                                     int (*wc)[PW], unsigned long long* list,
+                                     int base, int& n) {
+  float emin[K];
+  int cov[K];
+  test_blocks<K, COVER>(a, s_ray, base, emin, cov);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ball[K];
+  bool flag[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    flag[k] = base + k * PT + (int)threadIdx.x < a.num_blocks &&
+              fabsf(emin[k]) < INFINITY;  // finite (never NaN)
+    ball[k] = __ballot_sync(FULL, flag[k]);
+    if (lane == 0) wc[k][warp] = __popc(ball[k]);
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int total = 0, before = 0;
+#pragma unroll
+    for (int w = 0; w < PW; ++w) {
+      const int c = wc[k][w];
+      total += c;
+      before += w < warp ? c : 0;
+    }
+    if (flag[k]) {
+      const float key = COVER ? -(float)cov[k] : emin[k];
+      list[n + before + __popc(ball[k] & below)] =
+          ((unsigned long long)key_bits(key) << 32) |
+          (unsigned)(base + k * PT + (int)threadIdx.x);
+    }
+    n += total;
+  }
+}
+
+// Sort s[0, P) ascending (P a power of two); ends with a barrier.
+__device__ void bitonic_sort(unsigned long long* s, int P) {
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < P / 2; i += PT) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const unsigned long long x = s[lo], y = s[hi];
+        if ((x > y) == ((lo & size) == 0)) {
+          s[lo] = y;
+          s[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ __forceinline__ void put(int* cand_t, float* ent_t, int i,
+                                    unsigned long long v) {
+  cand_t[i] = (int)(unsigned)v;
+  ent_t[i] = key_value((unsigned)(v >> 32));
+}
+
+template <bool COVER, bool BIG>
+__global__ void __launch_bounds__(PT)
+    tile_candidates_kernel(const CandArgs a) {
+  extern __shared__ unsigned long long s_list[];  // pow2 >= C, or SORT_CAP
+  __shared__ PRay s_ray[PT];
+  __shared__ int s_wc[2][PK][PW];
+
+  const int tile = blockIdx.x, tid = threadIdx.x, nb = a.num_blocks;
+  int* cand_t = a.cand + (long long)tile * a.c_pad;
+  float* ent_t = a.ent + (long long)tile * a.c_pad;
+
+  // stage the tile's rays; one ray a thread
+  bool live;
+  {
+    const long long r = (long long)tile * PT + tid;
+    const float* o = a.o + r * a.o_s0;
+    const float* d = a.d + r * a.d_s0;
+    PRay p;
+    p.ox = o[0];
+    p.oy = o[a.o_s1];
+    p.oz = o[2 * a.o_s1];
+    p.ix = safe_inv(d[0]);
+    p.iy = safe_inv(d[a.d_s1]);
+    p.iz = safe_inv(d[2 * a.d_s1]);
+    p.t0 = a.t_min[r * a.tmin_s];
+    p.t1 = a.t_max[r * a.tmax_s];
+    s_ray[tid] = p;
+    live = p.t1 >= p.t0;
+  }
+  if (!__syncthreads_or(live)) {
+    // a dead tile: its chunk is live if any of its tiles is
+    const int c0 = tile / a.chunk * a.chunk;
+    const int c1 = min(a.num_tiles, c0 + a.chunk);
+    bool chunk_live = false;
+    for (int u = c0; u < c1 && !chunk_live; ++u) {
+      if (u == tile) continue;
+      const long long r = (long long)u * PT + tid;
+      chunk_live = __syncthreads_or(a.t_max[r * a.tmax_s] >=
+                                    a.t_min[r * a.tmin_s]);
+    }
+    if (!chunk_live) {
+      for (int j = tid; j < a.c_pad; j += PT) {
+        cand_t[j] = j < nb ? j : 0;
+        ent_t[j] = INFINITY;
+      }
+      if (tid == 0) a.count[tile] = 0;
+      return;
+    }
+  }
+
+  // the candidates, in block order
+  unsigned long long* list = BIG ? a.scratch + (long long)tile * nb : s_list;
+  int n = 0, buf = 0;
+  for (int base = 0; base < nb; base += PK * PT, buf ^= 1) {
+    switch (min(PK, (nb - base + PT - 1) / PT)) {
+      case 4: page<4, COVER>(a, s_ray, s_wc[buf], list, base, n); break;
+      case 3: page<3, COVER>(a, s_ray, s_wc[buf], list, base, n); break;
+      case 2: page<2, COVER>(a, s_ray, s_wc[buf], list, base, n); break;
+      default: page<1, COVER>(a, s_ray, s_wc[buf], list, base, n); break;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) a.count[tile] = n;
+
+  // the other blocks, in block order after the candidates: block j goes to
+  // n + j - (the candidates before j)
+  for (int j = tid; j < nb; j += PT) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((unsigned)list[mid] < (unsigned)j)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    if (lo < n && (unsigned)list[lo] == (unsigned)j) continue;
+    cand_t[n + j - lo] = j;
+    ent_t[n + j - lo] = INFINITY;
+  }
+  for (int i = nb + tid; i < a.c_pad; i += PT) {
+    cand_t[i] = 0;
+    ent_t[i] = INFINITY;
+  }
+  __syncthreads();  // the searches are done before the list is reordered
+
+  if (!BIG || n <= SORT_CAP) {
+    const int P = pow2_at_least(n);
+    for (int i = tid; i < P; i += PT)
+      s_list[i] = i < n ? (BIG ? list[i] : s_list[i]) : NO_ENTRY;
+    __syncthreads();
+    bitonic_sort(s_list, P);
+    for (int i = tid; i < n; i += PT) put(cand_t, ent_t, i, s_list[i]);
+    return;
+  }
+  // above the shared sort's capacity: sorted runs of SORT_CAP, then each
+  // entry's rank across the runs
+  const int runs = (n + SORT_CAP - 1) / SORT_CAP;
+  for (int r = 0; r < runs; ++r) {
+    const int r0 = r * SORT_CAP, len = min(SORT_CAP, n - r0);
+    for (int i = tid; i < SORT_CAP; i += PT)
+      s_list[i] = i < len ? list[r0 + i] : NO_ENTRY;
+    __syncthreads();
+    bitonic_sort(s_list, SORT_CAP);
+    for (int i = tid; i < len; i += PT) list[r0 + i] = s_list[i];
+    __syncthreads();
+  }
+  for (int i = tid; i < n; i += PT) {
+    const unsigned long long v = list[i];
+    const int own = i / SORT_CAP;
+    int rank = i - own * SORT_CAP;
+    for (int s = 0; s < runs; ++s) {
+      if (s == own) continue;
+      const int s0 = s * SORT_CAP;
+      int lo = s0, hi = min(n, s0 + SORT_CAP);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (list[mid] < v)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      rank += lo - s0;
+    }
+    put(cand_t, ent_t, rank, v);
+  }
+}
+
+template <bool COVER, bool BIG>
+int launch_candidates(const CandArgs& a, size_t smem, cudaStream_t st) {
+  tile_candidates_kernel<COVER, BIG><<<a.num_tiles, PT, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point of the prepass, loaded with ctypes. Launches on
+// `stream` without synchronising and returns cudaGetLastError() after the
+// launch (0 = ok). bmin, bmax: f32[num_blocks, 3], contiguous; ray r's
+// origin and direction components k at o[r * o_s0 + k * o_s1] and
+// d[r * d_s0 + k * d_s1], its t-range at t_min[r * tmin_s] and
+// t_max[r * tmax_s] (strides in elements), for num_tiles * 128 rays;
+// chunk: the tiles of the chunk rule; cover: 1 for cover order; outputs
+// cand i32[num_tiles, c_pad], ent f32[num_tiles, c_pad], count
+// i32[num_tiles]; scratch: u64[num_tiles, num_blocks] when num_blocks >
+// tile_candidates_sort_cap(), else unused (may be NULL).
+extern "C" int tile_candidates_launch(
+    const float* bmin, const float* bmax, const float* o, const float* d,
+    const float* t_min, const float* t_max, long long o_s0, long long o_s1,
+    long long d_s0, long long d_s1, long long tmin_s, long long tmax_s,
+    int num_tiles, int num_blocks, int c_pad, int chunk, int cover,
+    int* cand, float* ent, int* count, unsigned long long* scratch,
+    void* stream) {
+  if (num_tiles <= 0) return 0;
+  const bool big = num_blocks > SORT_CAP;
+  if (num_blocks <= 0 || c_pad < num_blocks || chunk <= 0 ||
+      (big && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const CandArgs a{bmin,   bmax,      o,          d,     t_min, t_max,
+                   o_s0,   o_s1,      d_s0,       d_s1,  tmin_s, tmax_s,
+                   num_tiles, num_blocks, c_pad, chunk, cand,  ent,
+                   count,  scratch};
+  const size_t smem = sizeof(unsigned long long) *
+                      (big ? SORT_CAP : pow2_at_least(num_blocks));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cover)
+    return big ? launch_candidates<true, true>(a, smem, st)
+               : launch_candidates<true, false>(a, smem, st);
+  return big ? launch_candidates<false, true>(a, smem, st)
+             : launch_candidates<false, false>(a, smem, st);
+}
+
+// The most blocks whose lists are sorted in shared memory alone.
+extern "C" int tile_candidates_sort_cap() { return SORT_CAP; }

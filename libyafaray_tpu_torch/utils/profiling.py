@@ -50,8 +50,10 @@ Counts: `sync.<site>` (one a synchronising statement), `lanes.total` and `lanes.
 candidate blocks of all tiles), `table_builds.<table>` (tables that a
 render or a train step builds for itself: `pack_lbvh`, `vol_atten`,
 `photon_maps`), `kernel.<kernel>.rays` and `kernel.<kernel>.any_hit_rays`
-at each launch, and, from the kernels' own launch counters (read, not
-counted again), `kernel.<kernel>.launches`.
+at each launch, `kernel.tile_candidates.launches` and
+`kernel.tile_candidates.tiles` (the prepass kernel's launches and tiles,
+counted where `tile_candidates` launches it), and, from the walks' own
+launch counters (read, not counted again), `kernel.<kernel>.launches`.
 """
 from __future__ import annotations
 

@@ -27,12 +27,14 @@ from libyafaray_tpu.accel import morton as JM
 from libyafaray_tpu.accel import tiles as JT
 from libyafaray_tpu.ops import intersect as JI
 from libyafaray_tpu_torch import lights as L
+from libyafaray_tpu_torch.cameras import shoot_rays
 from libyafaray_tpu_torch.accel import blocks as BL
 from libyafaray_tpu_torch.accel import morton as M
 from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.scene_types import Geometry
+from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
 from scenes import bigmesh_builder
 from test_pallas_intersect import _random_geom
 from test_torch_foundations import one_torch_thread  # noqa: F401
@@ -115,22 +117,116 @@ def test_build_blocks_matches_jax(request, scene):
                                       np.asarray(getattr(want, f)), err_msg=f)
 
 
-def test_tile_candidates_match(rng, random_acc):
-    """Tile 0 holds only dead rays. As in the JAX package, it still gets
-    candidates: the prepass skips only whole chunks of dead tiles, and a
-    dead ray whose slab interval straddles t_min passes the slab test."""
-    acc = random_acc
-    o, d, t_min, t_max, _ = _rays(rng, 1024)
+def _shadow_rays(rng, js, n=1024):
+    """Rays from points on and above the terrain toward the sun and in
+    random directions, some excluding a prim, 1/7 dead."""
+    o, d, excl = _scene_rays(rng, js, n)
+    o[: n // 2, 2] = rng.uniform(-0.3, 0.4, n // 2)
+    d[: n // 2] = -np.asarray(js.lights.direction)[0]
+    t_max = np.full(n, 1e30, np.float32)
+    t_max[::7] = -1.0
+    return o, d, np.zeros(n, np.float32), t_max, excl
+
+
+@pytest.fixture(scope="module")
+def random_acc_256(random_geom):
+    """The random triangles' block bounds in blocks of 256 (two blocks)."""
+    t = jax.jit(lambda g: JB._tables_for(g, b=256, face_ids=None))(
+        random_geom)
+    return t["bmin"], t["bmax"]
+
+
+@pytest.fixture(scope="module")
+def terrain_slice():
+    """The block bounds of the 203,522-face terrain from the port's tables
+    (1,591 blocks of 128: not a multiple of 128), and the 4,096 pixel-centre
+    camera rays of a 64x64 view of it in the block accelerator's sorted
+    order."""
+    b = port_bigmesh(320, textured=False)
+    b.cameras["cam"]["resx"] = b.cameras["cam"]["resy"] = 64
+    scene = b.compile("cam", device="cpu")
+    py, px = torch.meshgrid(torch.arange(64.0) + 0.5,
+                            torch.arange(64.0) + 0.5, indexing="ij")
+    o, d, _ = shoot_rays(scene.camera, px.reshape(-1), py.reshape(-1))
+    t_min = torch.zeros(4096)
+    t_max = torch.full((4096,), 1e30)
+    perm = torch.sort(BL.sort_key(scene.blocks, o, d, t_min, t_max),
+                      stable=True).indices
+    return tuple(x.numpy() for x in (scene.blocks.bmin, scene.blocks.bmax,
+                                     o[perm], d[perm], t_min, t_max))
+
+
+def _cand_case(request, rng, name):
+    """(bmin, bmax, o, d, t_min, t_max) of one prepass case, whole tiles."""
+    fix = request.getfixturevalue
+    if name in ("terrain_slice", "dead_chunk"):
+        bmin, bmax, o, d, t_min, t_max = (x.copy()
+                                          for x in fix("terrain_slice"))
+        if name == "dead_chunk":
+            # 32 tiles in chunks of 26: tile 3 dead inside a live chunk, its
+            # rays starting inside blocks with t_max just below t_min; the
+            # second chunk (tiles 26-31) dead throughout
+            r = slice(3 * 128, 4 * 128)
+            o[r] = 0.5 * (bmin[:128] + bmax[:128])
+            t_max[r] = -1e-3
+            t_max[26 * 128:] = -1.0
+        return bmin, bmax, o, d, t_min, t_max
+    if name == "terrain":
+        js, _ = fix("terrain")
+        return (js.blocks.bmin, js.blocks.bmax) + _shadow_rays(rng, js)[:4]
+    bmin, bmax = (fix("random_acc_256") if name == "block_256" else
+                  (fix("random_acc").bmin, fix("random_acc").bmax))
+    o, d, t_min, t_max, _ = _rays(rng, 768 if name == "tmax_short" else 1024)
+    if name == "tmax_short":
+        t_max[t_max > 0] = 0.8
     t_max[:128] = -1.0
-    cand, ent, count = jax.jit(JT.tile_candidates)(acc.bmin, acc.bmax, o, d,
-                                                   t_min, t_max)
-    c, e, n = TL.tile_candidates(T(acc.bmin), T(acc.bmax), T(o), T(d),
-                                 T(t_min), T(t_max))
-    assert c.dtype == n.dtype == torch.int32 and n.shape == (8,)
+    return bmin, bmax, o, d, t_min, t_max
+
+
+@pytest.mark.parametrize("order", ["front", "cover"])
+@pytest.mark.parametrize("case", ["random", "tmax_short", "block_256",
+                                  "terrain", "terrain_slice", "dead_chunk"])
+def test_tile_candidates_match(request, rng, case, order):
+    """The prepass's lists against the JAX package's, front to back (`ent`
+    the entry distance, within rtol 1e-6) and in cover order (`ent` minus
+    the coverage, equal). Random triangles in blocks of 128 and 256, a
+    short t_max, the 2,048-face terrain's shadow rays, and a slice of the
+    203,522-face terrain's camera rays (1,591 blocks). Tile 0 of the random
+    cases holds only dead rays and, as in the JAX package, still gets
+    candidates: the prepass skips only whole chunks of dead tiles, and a
+    dead ray whose slab interval straddles t_min passes the slab test. The
+    dead-chunk case has such a tile in a live chunk and a dead chunk
+    (every list the identity, count 0)."""
+    args = _cand_case(request, rng, case)
+    cover = order == "cover"
+    cand, ent, count = jax.jit(JT.tile_candidates,
+                               static_argnames=("any_hit",))(*args,
+                                                             any_hit=cover)
+    c, e, n = TL.tile_candidates(*(T(x) for x in args), any_hit=cover)
+    t = args[2].shape[0] // TL.RAY_TILE
+    assert c.dtype == n.dtype == torch.int32 and n.shape == (t,)
     np.testing.assert_array_equal(n.numpy(), np.asarray(count)[:, 0])
     np.testing.assert_array_equal(c.numpy(), np.asarray(cand))
-    np.testing.assert_allclose(e.numpy(), np.asarray(ent), rtol=1e-6)
-    assert (n > 0).all()
+    if cover:
+        np.testing.assert_array_equal(e.numpy(), np.asarray(ent))
+        # ent holds minus each block's coverage, in ascending order
+        k = np.arange(e.shape[1]) < n.numpy()[:, None]
+        ent_np = e.numpy()
+        assert (ent_np[k] <= -1).all() and (ent_np[~k] == np.inf).all()
+        assert (ent_np[:, 1:] >= ent_np[:, :-1]).all()
+    else:
+        np.testing.assert_allclose(e.numpy(), np.asarray(ent), rtol=1e-6)
+    if case in ("random", "tmax_short"):
+        assert (n > 0).all()
+    if case == "terrain_slice":
+        assert args[0].shape[0] == 1591 and (n > 0).sum() > t // 2
+    if case == "dead_chunk":
+        assert TL._chunk_tiles(t, 1591) == 26
+        assert n[3] > 0 and (n[26:] == 0).all()
+        c_pad = c.shape[1]
+        ident = torch.where(torch.arange(c_pad) < 1591, torch.arange(c_pad),
+                            0).to(torch.int32)
+        assert (c[26:] == ident).all() and torch.isinf(e[26:]).all()
 
 
 @pytest.mark.parametrize("case", ["closest", "shadow", "any_hit",

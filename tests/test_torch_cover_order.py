@@ -1,18 +1,18 @@
 """The cover-order any hit of the block accelerator (the JAX package's opt-in
 `YAF_COVER_ORDER=1`, TPU kernels b and c) against the JAX package: the
-prepass's coverage-sorted candidate lists, the plain walk's hits against the
-Pallas kernel in interpret mode, the switch, and a render in cover order
-against the default render.
+plain walk's hits against the Pallas kernel in interpret mode, the switch,
+and a render in cover order against the default render. The prepass's
+coverage-sorted lists are cases of
+`test_torch_blocks.py::test_tile_candidates_match`.
 
 JAX's `tiles_traverse` is jitted and reads YAF_COVER_ORDER when it is
 traced, so the JAX side here traces it afresh (`jax.jit` of its
 `__wrapped__`) with the variable set.
 
-Tolerances: candidate lists (cand, ent = minus the coverage, count) equal;
-any-hit results equal on hit or miss for every ray (which prim an any-hit
-query reports depends on how far the walk went); the render in cover order
-equal to the default render bit for bit (both walks find every hit a ray
-has, and shading reads only hit or miss of a shadow ray).
+Tolerances: any-hit results equal on hit or miss for every ray (which prim
+an any-hit query reports depends on how far the walk went); the render in
+cover order equal to the default render bit for bit (both walks find every
+hit a ray has, and shading reads only hit or miss of a shadow ray).
 """
 import jax
 import numpy as np
@@ -29,7 +29,7 @@ from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
 from scenes import bigmesh_builder
 from test_pallas_intersect import _random_geom
-from test_torch_blocks import _rays, _scene_rays
+from test_torch_blocks import _rays, _shadow_rays
 from test_torch_foundations import one_torch_thread  # noqa: F401
 
 
@@ -56,17 +56,6 @@ def terrain():
     return js, scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
 
 
-def _shadow_rays(rng, js, n=1024):
-    """Rays from points on and above the terrain toward the sun and in
-    random directions, some excluding a prim, 1/7 dead."""
-    o, d, excl = _scene_rays(rng, js, n)
-    o[: n // 2, 2] = rng.uniform(-0.3, 0.4, n // 2)
-    d[: n // 2] = -np.asarray(js.lights.direction)[0]
-    t_max = np.full(n, 1e30, np.float32)
-    t_max[::7] = -1.0
-    return o, d, np.zeros(n, np.float32), t_max, excl
-
-
 def _query(name, rng, random_acc, terrain):
     """(tab, bmin, bmax, o, d, t_min, t_max, exclude) of one case."""
     if name == "terrain":
@@ -84,26 +73,6 @@ def _query(name, rng, random_acc, terrain):
 
 
 CASES = ["random", "tmax_short", "block_256", "terrain"]
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_cover_candidates_match_jax(rng, random_acc, terrain, case):
-    tab, bmin, bmax, o, d, t_min, t_max, _ = _query(case, rng, random_acc,
-                                                    terrain)
-    n = o.shape[0] // TL.RAY_TILE * TL.RAY_TILE       # whole tiles
-    args = (bmin, bmax, o[:n], d[:n], t_min[:n], t_max[:n])
-    cand, ent, count = jax.jit(JT.tile_candidates,
-                               static_argnames=("any_hit",))(*args,
-                                                             any_hit=True)
-    c, e, cnt = TL.tile_candidates(*(T(x) for x in args), any_hit=True)
-    np.testing.assert_array_equal(cnt.numpy(), np.asarray(count)[:, 0])
-    np.testing.assert_array_equal(c.numpy(), np.asarray(cand))
-    np.testing.assert_array_equal(e.numpy(), np.asarray(ent))
-    # ent holds minus each block's coverage, in ascending order
-    k = np.arange(e.shape[1]) < cnt.numpy()[:, None]
-    ent_np = e.numpy()
-    assert (ent_np[k] <= -1).all() and (ent_np[~k] == np.inf).all()
-    assert (ent_np[:, 1:] >= ent_np[:, :-1]).all()
 
 
 def _jax_cover_traverse(monkeypatch, *args, **kw):
