@@ -423,7 +423,7 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
                     # scatter_col
                     r = sampler.rand4(pixel_id, sample_idx, depth, 61)
                     u_sc, u_s1, u_s2 = r[..., 0], r[..., 1], r[..., 2]
-                    sdist = take(mats.sss_dist, mm)
+                    sdist = take(mats.sss_dist, mm, "sss_dist")
                     sc_dist = -sdist * torch.log(torch.clamp_min(u_sc, 1e-12))
                     scat = (in_med & (sdist > 0.0) & hit.valid
                             & (sc_dist < hit.t))
@@ -436,12 +436,14 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
                                           szr * torch.sin(phi_s), cz], -1)
                     throughput = torch.where(
                         scat[..., None],
-                        throughput * take(mats.sss_scatter_col, mm),
+                        throughput * take(mats.sss_scatter_col, mm,
+                                         "sss_scatter_col"),
                         throughput)
                 if mats.has_beer:
                     # Beer-law transmittance of the interior, e^(-sigma_a t)
-                    beer_tr = torch.exp(-take(mats.absorption, mm)
-                                        * t_seg[..., None])
+                    beer_tr = torch.exp(
+                        -take(mats.absorption, mm, "absorption")
+                        * t_seg[..., None])
                     throughput = torch.where(in_med[..., None],
                                              throughput * beer_tr, throughput)
                 if scat is not None:
@@ -573,6 +575,11 @@ def integrate(scene: SceneData, cfg: IntegratorConfig,
                 r = sampler.rand4(pixel_id, sample_idx, depth, 2)
                 u1, u2, u3, u_rr = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
                 ms = B.sample_bsdf(scene, sp, wo, u1, u2, u3, wl=path_wl)
+                if PF.recording():
+                    # the live lanes sampled, and those whose lobe is delta
+                    PF.count("bsdf.sampled_lanes", alive.sum())
+                    PF.count("bsdf.delta_lanes",
+                             (alive & ms.valid & ms.is_delta).sum())
                 if depth == 0 and layers:
                     transmitted = (vec.dot(ms.wi, sp.ng) * vec.dot(wo, sp.ng)
                                    < 0.0)

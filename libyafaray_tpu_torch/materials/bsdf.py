@@ -110,9 +110,10 @@ def gather_mp(mats: MaterialTable, mat_id: Tensor) -> MP:
     return MP(present=present, has_fresnel=mats.has_fresnel,
               has_aniso=mats.has_aniso, has_oren=mats.has_oren,
               mat_type=mats.mat_type[idx], mat_flags=mats.mat_flags[idx],
-              sigma=take(mats.sigma, idx) if mats.has_oren else None,
-              alpha=take(mats.alpha, idx) if rough else None,
-              **{f: take(getattr(mats, f), idx) for f in _COLUMNS})
+              sigma=(take(mats.sigma, idx, "sigma") if mats.has_oren
+                     else None),
+              alpha=take(mats.alpha, idx, "alpha") if rough else None,
+              **{f: take(getattr(mats, f), idx, f) for f in _COLUMNS})
 
 
 def blend_factor(scene: SceneData, sp) -> Tensor:
@@ -121,7 +122,7 @@ def blend_factor(scene: SceneData, sp) -> Tensor:
     or the node it binds."""
     mats = scene.materials
     idx = sp.mat_id.long()
-    val = take(mats.blend_value, idx)
+    val = take(mats.blend_value, idx, "blend_value")
     if scene.nodes is not None and "node_blend" in scene.nodes.bound:
         from . import nodes as node_mod
         node_id = mats.node_blend[idx]
@@ -564,7 +565,8 @@ def emit(scene: SceneData, sp, wo: Tensor) -> Tensor:
     mat_id = sp.mat_id
     if scene.materials.has_mask:
         mat_id = _mask_id(scene, sp, mat_id)
-    emit_color = take(scene.materials.emit_color, mat_id.long())
+    emit_color = take(scene.materials.emit_color, mat_id.long(),
+                      "emit_color")
     front = vec.dot(wo, sp.ng) > 0.0
     return torch.where((front & sp.valid)[..., None], emit_color, 0.0)
 

@@ -13,11 +13,18 @@ one `bmm`, a group of chunks at a time, so that the one-hot never holds more
 than `_ONEHOT_ELEMS` elements.
 
 `gather_mp` (`materials/bsdf.py`) gathers every float material column
-through `take`.
+through `take`, and `textures/image._fetch` every texel. Each caller names
+its table (`label`: the column's name, or "texel_pool"), and under the
+program's `tracing()` the backward is the span `grad.take` with the table
+as its `table` attribute, and counts `grad.take.lanes.<table>` (the lanes
+whose gradients it reduces) and `grad.take.rows.<table>` (the table's
+rows). With tracing off it records nothing.
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils import profiling as PF
 
 Tensor = torch.Tensor
 
@@ -53,25 +60,30 @@ def onehot_grad(idx: Tensor, g: Tensor, rows: int) -> Tensor:
 
 class _Take(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, arr: Tensor, idx: Tensor) -> Tensor:
+    def forward(ctx, arr: Tensor, idx: Tensor, label: str) -> Tensor:
         ctx.save_for_backward(idx)
         ctx.rows = arr.shape[0]
+        ctx.label = label
         return arr[idx]
 
     @staticmethod
     def backward(ctx, g: Tensor):
         idx, = ctx.saved_tensors
-        return onehot_grad(idx, g, ctx.rows), None
+        with PF.span("grad.take", table=ctx.label):
+            PF.count("grad.take.lanes." + ctx.label, idx.shape[0])
+            PF.count("grad.take.rows." + ctx.label, ctx.rows)
+            return onehot_grad(idx, g, ctx.rows), None, None
 
 
-def take(arr: Tensor, idx: Tensor) -> Tensor:
+def take(arr: Tensor, idx: Tensor, label: str = "table") -> Tensor:
     """arr[idx] with the one-hot backward when eligible (an f32 table of at
     most MATMUL_GRAD_ROWS rows, a 1-D index); plain indexing otherwise,
     and whenever no gradient is recorded (the same values, without the
     autograd Function's host cost, which PERF.md measures on host-bound
-    forward passes)."""
+    forward passes). `label` names the table in the backward's span and
+    counts."""
     if (arr.requires_grad and torch.is_grad_enabled()
             and arr.dtype == torch.float32 and idx.dim() == 1
             and arr.shape[0] <= MATMUL_GRAD_ROWS):
-        return _Take.apply(arr, idx)
+        return _Take.apply(arr, idx, label)
     return arr[idx]

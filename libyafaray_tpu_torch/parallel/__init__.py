@@ -172,24 +172,50 @@ def render_sharded(scene: SceneData, cfg: IntegratorConfig, width: int,
     return film
 
 
+_TEXTURES = "textures."
+
+
+def _with_leaves(scene: SceneData, leaves: Dict[str, Tensor]) -> SceneData:
+    """`scene` with its MaterialTable columns and "textures.<field>"
+    TexturePool columns replaced by `leaves`."""
+    mats, texs = {}, {}
+    for k, v in leaves.items():
+        if k.startswith(_TEXTURES):
+            field, table, group = k[len(_TEXTURES):], scene.textures, texs
+        else:
+            field, table, group = k, scene.materials, mats
+        if table is None or field not in {
+                f.name for f in dataclasses.fields(table)}:
+            raise KeyError(f"make_train_step: no parameter {k!r}")
+        group[field] = v
+    return dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials, **mats),
+        textures=(dataclasses.replace(scene.textures, **texs) if texs
+                  else scene.textures))
+
+
 def make_train_step(cfg: IntegratorConfig, height: int, width: int,
                     mesh: Optional[Mesh] = None, lr: float = 0.05, *,
                     device="cuda"):
-    """An SGD step on material parameters.
+    """An SGD step on material and texture parameters.
 
     Returns step(scene, params, target, sample_idx) -> (params, loss), where
-    `params` maps MaterialTable field names to tensors (for example
-    {"diffuse_color": f32[M, 3]}) that override the scene's columns, the
-    loss is the image MSE of one sample pass at the pixel centres against
-    `target` (f32[height, width, 3]), and each parameter moves by
-    -lr * its gradient. Gradients stop at the intersection queries, as in
-    the JAX package.
+    `params` maps names to tensors that override the scene's columns: a
+    MaterialTable field name (for example {"diffuse_color": f32[M, 3]} or
+    {"ior": f32[M]}), or "textures.<field>" for a TexturePool field (for
+    example {"textures.texel_pool": f32[T, 4]}); any other name raises
+    KeyError. The loss is the image MSE of one sample pass at the pixel
+    centres against `target` (f32[height, width, 3]), and each parameter
+    moves by -lr * its gradient, and `step.grads` keeps the last step's
+    gradients by the same names. Gradients stop at the intersection
+    queries, as in the JAX package.
 
     Without a mesh the step runs every pixel on `device` (the CUDA card
     unless the caller names another). With a mesh it runs on the mesh's
     device: each rank renders its block of pixels, its loss is the block's
     mean, and the loss and the gradients are averaged across the mesh by
-    one all_reduce, so the new parameters are the same on every rank."""
+    one all_reduce, so the new parameters and `step.grads` are the same
+    on every rank."""
     if mesh is not None:
         device = mesh.device
         lo, hi = mesh.block(height * width)
@@ -206,8 +232,7 @@ def make_train_step(cfg: IntegratorConfig, height: int, width: int,
         # the leaves go in after the move, so that they stay the leaves
         leaves = {k: v.detach().to(device).requires_grad_(True)
                   for k, v in params.items()}
-        sc = dataclasses.replace(scene, materials=dataclasses.replace(
-            scene.materials, **leaves))
+        sc = _with_leaves(scene, leaves)
         with PF.span("train.forward"):
             rgb, _, _ = _pixel_shard_radiance(sc, cfg, px, py, pixel_id,
                                               sample_idx)
@@ -228,6 +253,8 @@ def make_train_step(cfg: IntegratorConfig, height: int, width: int,
                 grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
             new = {k: (p - lr * g).detach()
                    for (k, p), g in zip(leaves.items(), grads)}
+            step.grads = dict(zip(leaves, grads))
         return new, loss
 
+    step.grads = {}
     return step

@@ -52,7 +52,7 @@ def _fetch(pool: TexturePool, base: Tensor, w: Tensor, h: Tensor,
     yw, in_y = _wrap(yi, h, extend, my)
     inside = in_x & in_y
     flat = base + yw * w + xw
-    texel = take(pool.texel_pool, flat.long())
+    texel = take(pool.texel_pool, flat.long(), "texel_pool")
     if texel.dtype == torch.uint8:
         # compressed pool: dequantised (the caller applies the scale)
         texel = texel.to(torch.float32) * (1.0 / 255.0)

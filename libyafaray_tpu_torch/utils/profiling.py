@@ -38,6 +38,10 @@ Spans (name: where):
     when it packs);
   - `train.step` with `train.forward`, `train.loss`, `train.backward`,
     `train.update`: `parallel.make_train_step`;
+  - `grad.take` (`table`: the gathered table's name, a material column or
+    `texel_pool`): the one-hot backward of `ops.fast_grad.take`, opened on
+    autograd's thread while the step's thread waits inside
+    `train.backward`, so its record's parent is that span;
   - `scene.compile` with `compile.materials`, `compile.textures`,
     `compile.geometry`, `compile.lights`, `compile.accel`:
     `SceneBuilder.compile`;
@@ -47,7 +51,11 @@ Spans (name: where):
 Counts: `sync.<site>` (one a synchronising statement), `lanes.total` and `lanes.live`
 (lanes whose t-range is not empty, at each intersection query),
 `prepass.tiles`, `prepass.live_tiles` and `prepass.candidates` (the
-candidate blocks of all tiles), `table_builds.<table>` (tables that a
+candidate blocks of all tiles), `grad.take.lanes.<table>` and
+`grad.take.rows.<table>` (the lanes and the table rows of each
+`grad.take`), `bsdf.sampled_lanes` and `bsdf.delta_lanes` (the live lanes
+at each bounce's BSDF sample, and those whose sampled lobe is delta),
+`table_builds.<table>` (tables that a
 render or a train step builds for itself: `pack_lbvh`, `vol_atten`,
 `photon_maps`), `kernel.<kernel>.rays` and `kernel.<kernel>.any_hit_rays`
 at each launch, `kernel.tile_candidates.launches` and

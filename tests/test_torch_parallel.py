@@ -52,7 +52,7 @@ from libyafaray_tpu_torch.parallel import (_pixel_shard_radiance, make_mesh,
                                            make_train_step)
 from libyafaray_tpu_torch.parallel.distributed import render_node_film
 from libyafaray_tpu_torch.render import pixel_jitter
-from libyafaray_tpu_torch.scenes import cornell_builder
+from libyafaray_tpu_torch.scenes import caustic_grad_builder, cornell_builder
 from scenes import cornell_builder as jcornell_builder
 from test_torch_foundations import one_torch_thread  # noqa: F401
 from test_torch_render import _assert_mostly_close
@@ -76,7 +76,8 @@ _RANK = textwrap.dedent("""
         make_mesh, make_train_step, render_sharded, render_wavefront_sharded)
     from libyafaray_tpu_torch.parallel.distributed import (
         init_distributed, render_node_film)
-    from libyafaray_tpu_torch.scenes import cornell_builder
+    from libyafaray_tpu_torch.scenes import (caustic_grad_builder,
+                                             cornell_builder)
     out, coord = {out!r}, {coord!r}
     if coord:
         rank, world = init_distributed(coord, 2, int(sys.argv[1]),
@@ -115,6 +116,17 @@ _RANK = textwrap.dedent("""
             losses.append(loss)
             arrs[f"params{{i}}"] = params["diffuse_color"]
         arrs["losses"] = torch.stack(losses)
+        csc = caustic_grad_builder({res}, {res}).compile("cam", device="cpu")
+        cstep = make_train_step(make_integrator(
+            {{"type": "pathtracing", "bounces": 2}}), {res}, {res}, mesh,
+            lr=0.05)
+        cparams = {{"ior": csc.materials.ior,
+                    "textures.texel_pool": csc.textures.texel_pool}}
+        for i in range({steps}):
+            cparams, closs = cstep(csc, cparams, target, i)
+            arrs[f"caustic_loss{{i}}"] = closs
+            for k, v in cparams.items():
+                arrs[f"caustic_{{k}}{{i}}"] = v
         own = render(sc, pt1, spp=1, computer_node=rank, device="cpu")
         merged = F.psum_merge(own, mesh)
         for name, f in (("own", own), ("merged", merged)):
@@ -389,6 +401,32 @@ def test_train_step_two_ranks_against_one_device(ranks):
                                             rel=1e-5)
         np.testing.assert_allclose(arrs[f"params{i}"],
                                    params["diffuse_color"].numpy(), rtol=1e-5)
+
+
+def test_texel_leaf_train_step_two_ranks_against_one_device(ranks):
+    """The IOR and the texel pool of the caustic scene as leaves: the two
+    ranks' step gives the one-device step's parameters, up to the order of
+    the sums."""
+    sc = caustic_grad_builder(RES, RES).compile("cam", device="cpu")
+    step = make_train_step(make_integrator({"type": "pathtracing",
+                                            "bounces": 2}), RES, RES,
+                           lr=0.05, device="cpu")
+    params = {"ior": sc.materials.ior,
+              "textures.texel_pool": sc.textures.texel_pool}
+    target = torch.full((RES, RES, 3), 0.25)
+    for _, arrs in ranks:
+        p = dict(params)
+        for i in range(TRAIN_STEPS):
+            p, loss = step(sc, p, target, i)
+            assert float(loss) == pytest.approx(
+                float(arrs[f"caustic_loss{i}"]), rel=1e-5)
+            for k, v in p.items():
+                np.testing.assert_allclose(arrs[f"caustic_{k}{i}"],
+                                           v.numpy(), rtol=1e-5, atol=1e-7,
+                                           err_msg=k)
+        moved = arrs[f"caustic_textures.texel_pool{TRAIN_STEPS - 1}"] \
+            != params["textures.texel_pool"].numpy()
+        assert moved.any()
 
 
 # --------------------------------------------------------- the merges
