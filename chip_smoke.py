@@ -10,7 +10,7 @@ Phases, each reporting on its own lines:
      must equal the card's opt-in limit per block, and its output must be
      exactly 2.0; its launch timed beside a one-element PyTorch fill, the
      launch floor its one launch cannot go under;
-  2. build: compiles the four CUDA sources of the package (one nvcc each,
+  2. build: compiles the five CUDA sources of the package (one nvcc each,
      all started together) before phase 1 reports, timed;
   3. mt_closest against its plain version mt_closest_ref on the card, bit
      for bit (prim ids equal on every ray, max |diff| of t, u and v 0): the
@@ -83,9 +83,9 @@ Phases, each reporting on its own lines:
      chunk) and their ms; the ten queries of one chunk held bit for bit
      against mt_closest_ref and timed alone beside it and their bounds
      (the kernels line reports mt_closest per launch at this shape); the
-     one-hot backward of `take` against plain indexing's on one chunk's
-     gathers; the gradient finite and not zero, and the same chunk twice
-     gives the same gradient (rtol 1e-6);
+     backward of `take` (its kernel, take_grad) against plain indexing's
+     on one chunk's gathers; the gradient finite and not zero, and the
+     same chunk twice gives the same gradient (rtol 1e-6);
  12. gradients (diffuse_color, lights.color) through the kernel path
      against the plain path, within rtol 1e-5: the Cornell box at 256x256,
      2 spp, 4 bounces (mt_closest) and the terrain at 128x128, 1 spp, 2
@@ -353,6 +353,18 @@ Phases, each reporting on its own lines:
      candidates a tile than the shared sort's 4,096. Each timed (kernel
      and plain version) beside its bounds: the pair tests at 67 TFLOP/s
      and at 33.5 T instructions/s, the lists at 3.35 TB/s.
+ 34. take's backward reduction (csrc/take_grad.cu through
+     ops/fast_grad.take_grad): every take backward of one train step of
+     the Cornell box at 1920x1080 (diffuse_color) and of the caustic scene
+     at 512x512 (the IOR and the 1,366-row texel pool), captured as they
+     reach take_grad, one kernel reduction each, held against float64
+     sums (error over the row's sum |g| under 1e-5); the first texel-pool
+     take and the first diffuse_color take also the same bits twice,
+     onehot_grad's error beside the kernel's, and timed under the
+     profiler (device ms a call)
+     beside their bound (each lane's index and gradient read once, the
+     table written once, at 3.35 TB/s), onehot_grad's device ms and its
+     one-hot bmms alone (the library yardstick).
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -1747,20 +1759,20 @@ def phase11_fwd_bwd():
 
     # one chunk again, with mt_closest's launches and take's backwards
     # captured: their times beside the chunk's
-    real_grad, takes = FG.onehot_grad, []
+    real_grad, takes = FG.take_grad, []
 
     def grad_captured(idx, g, rows):
         takes.append((idx, g.detach().clone(), rows))
         return real_grad(idx, g, rows)
 
-    FG.onehot_grad = grad_captured
+    FG.take_grad = grad_captured
     try:
         with _mt_captured() as (mt_calls, mt_ev):
             e = (ev(), ev(), ev())
             _fwd_bwd(scene, cfg, leaves, chunks[1], 1, e)
             torch.cuda.synchronize()
     finally:
-        FG.onehot_grad = real_grad
+        FG.take_grad = real_grad
     mt_ms = sum(a.elapsed_time(z) for a, z in mt_ev)
     # the chunk's queries at their own shape: each held bit for bit against
     # mt_closest_ref, then timed alone beside the plain version and its bound
@@ -1787,7 +1799,7 @@ def phase11_fwd_bwd():
           f"{len(mt_ev)} launches per chunk, {mt_ms:.3f} ms of events in the "
           f"chunk, {alone_ms:.4f} ms timed alone (mt_closest_ref "
           f"{alone_plain:.4f} ms, bound {alone_bound:.4f} ms); take: "
-          f"{len(takes)} backwards in the chunk, one-hot products "
+          f"{len(takes)} backwards in the chunk, the kernel's reductions "
           f"{take_ms:.3f} ms against plain indexing's backward "
           f"(index_put_ with accumulate) {plain_ms:.3f} ms; max relative "
           f"error against the f64 sums: take {take_err:.3g}, plain "
@@ -5650,6 +5662,160 @@ def phase33_prepass(textured, forest):
             "library_ms": None, "per_launch_by_path": per}
 
 
+# ---------------------------------------------------------------- phase 34
+
+def _train_takes(scene, names, res, bounces, seed):
+    """The (idx, g, rows) of every take backward of one make_train_step
+    step on `names` at res x res (the benchmark's train and grad cells'
+    step), captured as they reach take_grad, and the kernel's launches
+    counted meanwhile."""
+    import torch
+    from libyafaray_tpu_torch import make_integrator, make_train_step
+    from libyafaray_tpu_torch.ops import fast_grad as FG
+    every = {"diffuse_color": lambda: scene.materials.diffuse_color,
+             "ior": lambda: scene.materials.ior,
+             "textures.texel_pool": lambda: scene.textures.texel_pool}
+    params = {k: every[k]().clone() for k in names}
+    step = make_train_step(make_integrator({"type": "pathtracing",
+                                            "bounces": bounces}),
+                           res[1], res[0], lr=0.05, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    target = 0.5 * torch.rand((res[1], res[0], 3), generator=gen,
+                              device=DEVICE)
+    kept, real = [], FG.take_grad
+
+    def keep(idx, g, rows):
+        kept.append((idx.clone(), g.clone(), rows))
+        return real(idx, g, rows)
+
+    before = FG.launches
+    FG.take_grad = keep
+    try:
+        step(scene, params, target, 0)
+        torch.cuda.synchronize()
+    finally:
+        FG.take_grad = real
+    if FG.launches - before != len(kept) or not kept:
+        raise AssertionError(f"phase 34: {len(kept)} takes, "
+                             f"{FG.launches - before} kernel reductions")
+    return kept
+
+
+def _take_case(label, idx, g, rows, reps=20):
+    """take_grad on the card against the float64 sums and onehot_grad, the
+    same bits twice; its device ms a call (the profiler's busy time over
+    `reps` calls) and launches a call beside the bound (each lane's index
+    and gradient read once, the table written once, at 3.35 TB/s), the
+    plain version's device ms, and the library yardstick: the one-hot
+    `bmm`s of onehot_grad alone on a one-hot built beforehand."""
+    import torch
+    from libyafaray_tpu_torch.ops import fast_grad as FG
+    n = idx.shape[0]
+    g2 = g.reshape(n, -1).float()
+    cols = g2.shape[1]
+    got = FG.take_grad(idx, g, rows)
+    if not torch.equal(got, FG.take_grad(idx, g, rows)):
+        raise AssertionError(f"phase 34: {label}: two calls differ")
+    exact = torch.zeros((rows, cols), dtype=torch.float64, device=DEVICE
+                        ).index_add_(0, idx, g2.double())
+    mag = torch.zeros_like(exact).index_add_(0, idx, g2.double().abs())
+    plain = FG.onehot_grad(idx, g, rows)
+    scaled = lambda x: float(((x.reshape(rows, -1).double() - exact).abs()
+                              / mag.clamp_min(1e-30)).max())
+    err, plain_err = scaled(got), scaled(plain)
+    launches, busy, _ = _profiled(
+        lambda: [FG.take_grad(idx, g, rows) for _ in range(reps)])
+    _, plain_busy, _ = _profiled(lambda: FG.onehot_grad(idx, g, rows))
+    # the library call: the bmms of onehot_grad on its one-hot, built here
+    chunk = FG._GRAD_CHUNK
+    npad = -(-n // chunk) * chunk
+    ip = torch.cat([idx, idx.new_full((npad - n,), rows)]).reshape(-1, chunk)
+    gp = torch.cat([g2, g2.new_zeros((npad - n, cols))]).reshape(
+        ip.shape[0], chunk, cols)
+    onehot = (ip[:, None, :] == torch.arange(rows, device=DEVICE)[None, :, None]
+              ).float()
+    group = max(1, FG._ONEHOT_ELEMS // (chunk * rows))
+    bmms = lambda: [torch.bmm(onehot[c:c + group], gp[c:c + group])
+                    for c in range(0, ip.shape[0], group)]
+    _, library_busy, _ = _profiled(bmms)
+    del onehot
+    bound_ms, bound_by = _bound_ms(n * cols, n * (8 + 4 * cols)
+                                   + rows * 4 * cols)
+    ms = busy / reps
+    warps, blocks, cw, split = FG.take_grad_layout(rows, cols, n,
+                                                   FG._sm_count(idx.device))
+    print(f"phase 34: {label}: {n} lanes x {cols} onto {rows} rows: kernel "
+          f"{ms:.4f} ms a call ({launches / reps:g} launches; {warps} warps x "
+          f"{blocks} blocks, {cw} columns a block, split {split}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); "
+          f"onehot_grad {plain_busy:.4f} ms, its bmms alone "
+          f"{library_busy:.4f} ms; error over the row's sum |g|: kernel "
+          f"{err:.3g}, onehot_grad {plain_err:.3g}; the same bits twice")
+    if err > 1e-5 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"phase 34: {label}: the kernel misses the sums")
+    return dict(lanes=n, cols=cols, rows=rows, ms=ms,
+                launches_a_call=launches / reps, plain_ms=plain_busy,
+                library_ms=library_busy, bound_ms=bound_ms,
+                bound_by=bound_by, max_err=err, plain_max_err=plain_err)
+
+
+def phase34_take_grad():
+    """take_grad (csrc/take_grad.cu) on every take backward of one train
+    step of the Cornell box at 1920x1080 (diffuse_color, 4 bounces) and of
+    the caustic scene at 512x512 (ior and the texel pool, 5 bounces),
+    captured as they reach take_grad; the first texel-pool and the first
+    diffuse_color take timed and held as `_take_case` says, every other
+    one held against the float64 sums. Returns the kernels line's entry."""
+    import torch
+    from libyafaray_tpu_torch.ops import fast_grad as FG
+    from libyafaray_tpu_torch.scenes import caustic_grad_builder
+    _check_fp32_precision()
+    cornell = _cornell_builder(WIDTH, HEIGHT).compile("cam")
+    caustic = caustic_grad_builder(CAUSTIC_RES, CAUSTIC_RES).compile("cam")
+    FG.launches = 0
+    takes = {"cornell": _train_takes(cornell, ["diffuse_color"],
+                                     (WIDTH, HEIGHT), BOUNCES, 21),
+             "caustic": _train_takes(caustic, ["ior", "textures.texel_pool"],
+                                     (CAUSTIC_RES, CAUSTIC_RES),
+                                     CAUSTIC_BOUNCES, 24)}
+    launches = FG.launches
+    worst = 0.0
+    for scene, kept in takes.items():
+        for idx, g, rows in kept:
+            g2 = g.reshape(idx.shape[0], -1).double()
+            exact = torch.zeros((rows, g2.shape[1]), dtype=torch.float64,
+                                device=DEVICE).index_add_(0, idx, g2)
+            mag = torch.zeros_like(exact).index_add_(0, idx, g2.abs())
+            got = FG.take_grad(idx, g, rows).reshape(rows, -1).double()
+            worst = max(worst, float(((got - exact).abs()
+                                      / mag.clamp_min(1e-30)).max()))
+        print(f"phase 34: {scene} train step: {len(kept)} take backwards "
+              f"({sorted({k[2] for k in kept})} rows, "
+              f"{sorted({k[0].shape[0] for k in kept})} lanes)")
+    if worst > 1e-5:
+        raise AssertionError(f"phase 34: a take misses its sums ({worst:.3g})")
+    texel = next(k for k in takes["caustic"] if k[2] > 100)
+    diffuse = next(k for k in takes["cornell"] if k[1].dim() == 2)
+    per = {f"caustic {CAUSTIC_RES}x{CAUSTIC_RES} texel pool":
+               _take_case("caustic texel pool", *texel),
+           f"cornell {WIDTH}x{HEIGHT} diffuse_color":
+               _take_case("cornell diffuse_color", *diffuse)}
+    print(f"phase 34: {launches} kernel reductions in the two steps; every "
+          f"take within {worst:.3g} of its row's sum |g| of the float64 sums")
+    main = per[f"caustic {CAUSTIC_RES}x{CAUSTIC_RES} texel pool"]
+    return {"name": "take_grad", "route": "cuda",
+            "source": "libyafaray_tpu_torch/csrc/take_grad.cu",
+            "replaces": "none: the JAX package leaves take's one-hot "
+                        "backward to XLA's dot_general "
+                        "(libyafaray_tpu/ops/fast_grad.py)",
+            "launches": launches, "max_abs_err": worst,
+            "timed_on": "the caustic train step's first texel-pool take, "
+                        "device ms a call under the profiler",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "per_launch_by_path": per}
+
+
 def _probe():
     """Phase 1's probe of shared memory (kernel d); returns its numbers."""
     import torch
@@ -5698,7 +5864,8 @@ def main() -> int:
                                              forest_builder)
 
     # phase 2's build runs first: phase 1's probe launches a kernel
-    names = ("mt_intersect", "tiles_traverse", "lbvh_traverse", "probe_smem")
+    names = ("mt_intersect", "tiles_traverse", "lbvh_traverse", "probe_smem",
+             "take_grad")
     build_s = csrc_build.build(*names)
 
     # ---- phase 1: environment and the shared-memory probe
@@ -5712,7 +5879,7 @@ def main() -> int:
     print(f"phase 1: {sysinfo_string()}")
     probe = _probe()
 
-    # ---- phase 2: the four sources, one nvcc each, all started together
+    # ---- phase 2: the five sources, one nvcc each, all started together
     print(f"phase 2: built {', '.join(n + '.cu' for n in names)} in "
           f"{build_s:.2f} s ({' '.join(csrc_build.NVCC_FLAGS)})")
     t0 = time.perf_counter()
@@ -5772,6 +5939,7 @@ def main() -> int:
     shard_mt, shard_tl, shard_walk_err, shard = _timed(
         "32", phase32_multi_device, cornell_ms, train_steps)
     prepass_kernel = _timed("33", phase33_prepass, textured, forest)
+    take_kernel = _timed("34", phase34_take_grad)
     lbvh_main = f"cornell {WIDTH}x{HEIGHT} {SPP} spp"
     lbvh_timed = (f"textured terrain {TERRAIN_RES}x{TERRAIN_RES}, one pass's "
                   "queries")
@@ -5942,6 +6110,7 @@ def main() -> int:
          "per_launch_by_path": {f"{label}, phase 31": v
                                 for label, v in lbvh_per.items()}},
         prepass_kernel,
+        take_kernel,
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",

@@ -1,4 +1,5 @@
-"""Gathers from small f32 tables whose backward is a one-hot product.
+"""Gathers from small f32 tables whose backward is a reduction onto the
+table's rows.
 
 Counterpart of `libyafaray_tpu/ops/fast_grad.py`. The gradient of
 `arr[idx]` with respect to the table is the reduction
@@ -6,11 +7,14 @@ Counterpart of `libyafaray_tpu/ops/fast_grad.py`. The gradient of
     grad[t, c] = sum_n (idx_n == t) * g[n, c]
 
 which plain indexing computes with an accumulating scatter, in an order of
-its own. Here it is a product of a one-hot matrix and the incoming
-gradient, in f32, over chunks of 16,384 lanes, as the JAX package computes
-it: pure sums of the lanes that picked each row. The chunks are batched into
-one `bmm`, a group of chunks at a time, so that the one-hot never holds more
-than `_ONEHOT_ELEMS` elements.
+its own. Here it is a pure f32 sum of the lanes that picked each row, in a
+fixed order, by `take_grad`: on a CUDA device the hand-written kernel
+`csrc/take_grad.cu` (each lane read once, no one-hot, no float atomics; its
+launch shape from `take_grad_layout`), on the CPU its plain version
+`onehot_grad`, the JAX package's one-hot product: a one-hot matrix times
+the incoming gradient, in f32, over chunks of 16,384 lanes batched into one
+`bmm` a group of chunks at a time, so that the one-hot never holds more
+than `_ONEHOT_ELEMS` elements. A CUDA tensor never falls back to it.
 
 `gather_mp` (`materials/bsdf.py`) gathers every float material column
 through `take`, and `textures/image._fetch` every texel. Each caller names
@@ -18,12 +22,18 @@ its table (`label`: the column's name, or "texel_pool"), and under the
 program's `tracing()` the backward is the span `grad.take` with the table
 as its `table` attribute, and counts `grad.take.lanes.<table>` (the lanes
 whose gradients it reduces) and `grad.take.rows.<table>` (the table's
-rows). With tracing off it records nothing.
+rows); where `take_grad` launches the kernel it counts
+`kernel.take_grad.launches` (one a reduction, of one or two kernels) and
+`kernel.take_grad.lanes`, beside its plain counter `launches`. With
+tracing off it records nothing.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import csrc_build
 from ..utils import profiling as PF
 
 Tensor = torch.Tensor
@@ -33,6 +43,22 @@ Tensor = torch.Tensor
 MATMUL_GRAD_ROWS = 4096
 _GRAD_CHUNK = 16384
 _ONEHOT_ELEMS = 1 << 26       # 256 MiB of f32 one-hot per bmm at most
+
+# the kernel's launch shape (`take_grad_layout`), for an H100
+SMEM_BLOCK = 232_448     # shared memory a block may take (227 KB)
+SMEM_SM = 233_472        # shared memory of an SM for its blocks (228 KB)
+SMEM_RESERVED = 1024     # the runtime's own shared memory a block
+KERNEL_COLS = 4          # most columns one block reduces (csrc: COLS)
+MAX_WARPS = 16           # warps a block, each with its own table copy
+SM_WARPS = 32            # warps an SM holds at the kernel's 52 registers
+LANES_PER_WARP = 128     # least lanes a warp reduces, to pay for its copy
+H100_SMS = 132
+
+# number of reductions launched, counted by take_grad where it launches
+launches = 0
+
+_fn = None
+_sms: dict = {}
 
 
 def onehot_grad(idx: Tensor, g: Tensor, rows: int) -> Tensor:
@@ -58,6 +84,89 @@ def onehot_grad(idx: Tensor, g: Tensor, rows: int) -> Tensor:
     return acc.reshape((rows,) + g.shape[1:])
 
 
+def take_grad_layout(rows: int, cols: int, lanes: int, sms: int = H100_SMS):
+    """The kernel's launch shape for `lanes` lanes onto f32[rows, cols]:
+    (warps a block, blocks, columns a block, threads an element in the
+    second kernel). A block's warps each hold a copy of `rows` x (columns a
+    block) floats, together at most SMEM_BLOCK bytes, and at most
+    MAX_WARPS; blocks come from the lane count (LANES_PER_WARP a warp at
+    least), at most one wave of `sms` streaming multiprocessors, as many
+    blocks an SM as its warps (SM_WARPS) and shared memory hold: a warp's
+    rounds are bound by their latency, so the most warps win (a sweep on
+    an H100: 39.6 us a 262,144-lane texel-pool take at 8 warps x 35
+    blocks, 19.5 at 10 x 132). Raises ValueError when one copy alone
+    exceeds SMEM_BLOCK."""
+    cw = max(1, min(cols, KERNEL_COLS))
+    table = 4 * rows * cw
+    if table > SMEM_BLOCK:
+        raise ValueError(f"take_grad: a table of {rows} rows and {cw} "
+                         f"columns ({table} bytes) exceeds a block's "
+                         f"{SMEM_BLOCK} bytes of shared memory")
+    warps = max(1, min(MAX_WARPS, SMEM_BLOCK // max(table, 1)))
+    per_sm = max(1, min(SM_WARPS // warps,
+                        SMEM_SM // (warps * table + SMEM_RESERVED)))
+    by_lanes = -(-lanes // (warps * LANES_PER_WARP))
+    blocks = max(1, min(by_lanes, sms * per_sm))
+    split = 1
+    while split < 32 and 8 * split <= blocks:
+        split *= 2
+    return warps, blocks, cw, split
+
+
+def _launcher():
+    """The kernel's C entry point, built and loaded at first use."""
+    global _fn
+    if _fn is None:
+        fn = csrc_build.library("take_grad").take_grad_launch
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, cl, cl, cl, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+        fn.restype = ci
+        _fn = fn
+    return _fn
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+def take_grad(idx: Tensor, g: Tensor, rows: int) -> Tensor:
+    """sum_n (idx_n == t) * g[n] for t < rows, in f32: f32[rows, *g's
+    trailing shape]. idx i64[N] (1-D; lanes outside [0, rows) add
+    nothing), g [N, ...], on one device. On the CPU the plain version
+    `onehot_grad`; on a CUDA device the kernel `csrc/take_grad.cu` (one or
+    two launches, no padding and no one-hot), or it raises."""
+    global launches
+    dev = g.device
+    if dev.type == "cpu":
+        return onehot_grad(idx, g, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"take_grad: no kernel for device {dev}")
+    n = idx.shape[0]
+    g2 = g.reshape(n, -1).to(torch.float32)
+    idx = idx.to(torch.int64).contiguous()
+    cols = g2.shape[1]
+    csrc_build.check_arg("take_grad", "idx", idx, torch.int64, (n,), dev)
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    warps, blocks, cw, split = take_grad_layout(rows, cols, n, _sm_count(dev))
+    part = (torch.empty((blocks, rows, cols), dtype=torch.float32, device=dev)
+            if blocks > 1 else None)
+    err = _launcher()(
+        idx.data_ptr(), g2.data_ptr(), n, g2.stride(0), g2.stride(1), rows,
+        cols, warps, blocks, cw, split,
+        part.data_ptr() if part is not None else None, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"take_grad kernel launch failed (CUDA error {err})")
+    launches += 1
+    PF.count("kernel.take_grad.launches", 1)
+    PF.count("kernel.take_grad.lanes", n)
+    return out.reshape((rows,) + g.shape[1:])
+
+
 class _Take(torch.autograd.Function):
     @staticmethod
     def forward(ctx, arr: Tensor, idx: Tensor, label: str) -> Tensor:
@@ -72,12 +181,12 @@ class _Take(torch.autograd.Function):
         with PF.span("grad.take", table=ctx.label):
             PF.count("grad.take.lanes." + ctx.label, idx.shape[0])
             PF.count("grad.take.rows." + ctx.label, ctx.rows)
-            return onehot_grad(idx, g, ctx.rows), None, None
+            return take_grad(idx, g, ctx.rows), None, None
 
 
 def take(arr: Tensor, idx: Tensor, label: str = "table") -> Tensor:
-    """arr[idx] with the one-hot backward when eligible (an f32 table of at
-    most MATMUL_GRAD_ROWS rows, a 1-D index); plain indexing otherwise,
+    """arr[idx] with the backward `take_grad` when eligible (an f32 table
+    of at most MATMUL_GRAD_ROWS rows, a 1-D index); plain indexing otherwise,
     and whenever no gradient is recorded (the same values, without the
     autograd Function's host cost, which PERF.md measures on host-bound
     forward passes). `label` names the table in the backward's span and

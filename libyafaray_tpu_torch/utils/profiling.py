@@ -39,7 +39,7 @@ Spans (name: where):
   - `train.step` with `train.forward`, `train.loss`, `train.backward`,
     `train.update`: `parallel.make_train_step`;
   - `grad.take` (`table`: the gathered table's name, a material column or
-    `texel_pool`): the one-hot backward of `ops.fast_grad.take`, opened on
+    `texel_pool`): the backward of `ops.fast_grad.take`, opened on
     autograd's thread while the step's thread waits inside
     `train.backward`, so its record's parent is that span;
   - `scene.compile` with `compile.materials`, `compile.textures`,
@@ -60,7 +60,10 @@ render or a train step builds for itself: `pack_lbvh`, `vol_atten`,
 `photon_maps`), `kernel.<kernel>.rays` and `kernel.<kernel>.any_hit_rays`
 at each launch, `kernel.tile_candidates.launches` and
 `kernel.tile_candidates.tiles` (the prepass kernel's launches and tiles,
-counted where `tile_candidates` launches it), and, from the walks' own
+counted where `tile_candidates` launches it), `kernel.take_grad.launches`
+and `kernel.take_grad.lanes` (`take`'s backward kernel: its reductions,
+one or two kernels each, and their lanes, counted where
+`fast_grad.take_grad` launches it), and, from the walks' own
 launch counters (read, not counted again), `kernel.<kernel>.launches`.
 """
 from __future__ import annotations

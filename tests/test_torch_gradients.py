@@ -217,6 +217,44 @@ def test_take_keeps_plain_indexing_outside_its_range(rng):
     assert float(f32.grad.sum()) == 3000.0
 
 
+@pytest.mark.parametrize("cols", [1, 3, 4])
+def test_take_grad_layout_fits_a_block(cols):
+    """The kernel's launch shape for every table up to MATMUL_GRAD_ROWS
+    rows: its warps' table copies within a block's 227 KB of shared memory,
+    one wave of the H100's 132 SMs (each holding 32 warps and 228 KB),
+    a block for every 128 lanes of a warp at most, and the second kernel's
+    split a power of two up to a warp."""
+    for rows in range(1, FG.MATMUL_GRAD_ROWS + 1):
+        for lanes in (0, 37, 262_144, 2_073_600):
+            warps, blocks, cw, split = FG.take_grad_layout(rows, cols, lanes)
+            copies = warps * rows * cw * 4
+            assert cw == min(cols, 4) and 1 <= warps <= 16
+            assert copies <= 232_448
+            per_sm = min(32 // warps, 233_472 // (copies + 1024))
+            assert 1 <= blocks <= 132 * per_sm
+            assert blocks == 1 or (blocks - 1) * warps * 128 < lanes
+            assert split in (1, 2, 4, 8, 16, 32)
+
+
+def test_take_grad_on_the_cpu_is_onehot_grad(rng, monkeypatch):
+    """A CPU tensor takes the plain version, onehot_grad, and never the
+    kernel; take's backward reduces through it."""
+    def refuse():
+        raise AssertionError("the kernel's library was asked for")
+    monkeypatch.setattr(FG, "_launcher", refuse)
+    idx = T(rng.integers(0, 7, 300)).long()
+    g = T(rng.random((300, 3)).astype(np.float32))
+    before = FG.launches
+    assert torch.equal(FG.take_grad(idx, g, 7), FG.onehot_grad(idx, g, 7))
+    calls, real = [], FG.onehot_grad
+    monkeypatch.setattr(FG, "onehot_grad",
+                        lambda *a: calls.append(a) or real(*a))
+    leaf = torch.zeros((7, 3), requires_grad=True)
+    FG.take(leaf, idx).backward(g)
+    assert len(calls) == 1 and FG.launches == before
+    assert torch.equal(leaf.grad, real(idx, g, 7))
+
+
 def test_gather_mp_gathers_through_take(scenes):
     ts = scenes["slab"][1]
     leaf = ts.materials.diffuse_color.clone().requires_grad_(True)
