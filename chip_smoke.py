@@ -313,10 +313,7 @@ Phases, each reporting on its own lines:
      image, each query of a pass timed beside its bound, and at 128x128
      every query bit for bit against mt_closest_ref. Instanced spheres and
      curves (baked) at 512x512 on brute force and on blocks, kernel path
-     against plain path bit for bit. SUPER=4 and CAND_K=256 on the
-     textured terrain's camera
-     and first bounce queries: t bit for bit and hit or miss equal to the
-     default prepass's walk, candidates a tile and ms beside the default's.
+     against plain path bit for bit.
  32. multi-device rendering and observability (parallel/, on
      torch.distributed; the card host has one GPU): (a) on a one-rank NCCL
      mesh in this process, render_sharded of the Cornell box at 1920x1080,
@@ -340,8 +337,8 @@ Phases, each reporting on its own lines:
      render(..., stats=RenderStats()) of the Cornell box at 1080p, 4 spp
      (its summary: 4 passes, 8,294,400 camera rays), then one pass traced
      (utils.profiling.trace) and device_op_summary: its count of
-     mt_closest_kernel equal to MT.launches for that pass (10), its ms
-     beside the CUDA-event time of the same launches.
+     mt_closest_kernel equal to mt_closest's launch count for that pass
+     (10), its ms beside the CUDA-event time of the same launches.
 
  33. the block prepass kernel (tile_candidates_kernel in
      csrc/tiles_traverse.cu) against tile_candidates_ref, lists equal with
@@ -360,11 +357,13 @@ Phases, each reporting on its own lines:
      reach take_grad, one kernel reduction each, held against float64
      sums (error over the row's sum |g| under 1e-5); the first texel-pool
      take and the first diffuse_color take also the same bits twice,
-     onehot_grad's error beside the kernel's, and timed under the
-     profiler (device ms a call)
-     beside their bound (each lane's index and gradient read once, the
+     onehot_grad's error beside the kernel's, and timed between CUDA
+     events with the calls queued behind a sleeping kernel (device ms a
+     call) beside their bound (each lane's index and gradient read once, the
      table written once, at 3.35 TB/s), onehot_grad's device ms and its
-     one-hot bmms alone (the library yardstick).
+     one-hot bmms alone (the library yardstick), and their kernels a call
+     as the C entry reports them, held to the layout's (two where it
+     splits the lanes over blocks).
 
 Each phase prints its seconds. Phases 11-14 first check that the fp32
 matmul precision is "highest" (no TF32). Then one JSON line listing the
@@ -425,6 +424,34 @@ FLOPS_PER_TRANSFORM = 33  # an instance's ray transform, once per candidate
 def _cmd(*args: str) -> str:
     return subprocess.run(list(args), capture_output=True, text=True,
                           check=True).stdout.strip()
+
+
+_ARM = "kernel.tile_walk.launches."     # tile_walk's launches by arm
+
+
+def _launches(kernel: str) -> int:
+    """Launches of `kernel` in csrc_build's counter."""
+    from libyafaray_tpu_torch.csrc_build import launch_counts
+    return launch_counts[f"kernel.{kernel}.launches"]
+
+
+def _zero_launches(*kernels: str) -> None:
+    from libyafaray_tpu_torch.csrc_build import launch_counts
+    for kernel in kernels:
+        launch_counts[f"kernel.{kernel}.launches"] = 0
+
+
+def _arm_launches() -> dict:
+    """tile_walk's launches by arm ("static", "instanced+motion1", ...)."""
+    from libyafaray_tpu_torch.csrc_build import launch_counts
+    return {k[len(_ARM):]: n for k, n in launch_counts.items()
+            if k.startswith(_ARM)}
+
+
+def _clear_arm_launches() -> None:
+    from libyafaray_tpu_torch.csrc_build import launch_counts
+    for k in [k for k in launch_counts if k.startswith(_ARM)]:
+        del launch_counts[k]
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -1163,7 +1190,6 @@ def phase4_cornell():
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     from libyafaray_tpu_torch.scenes import cornell_builder
     width, height, spp, bounces = WIDTH, HEIGHT, SPP, BOUNCES
     n = width * height
@@ -1174,12 +1200,12 @@ def phase4_cornell():
     cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
     render(scene, cfg, spp=1, device=DEVICE)        # warm-up pass
     torch.cuda.synchronize()
-    MT.launches = TL.launches = 0
+    _zero_launches("mt_closest", "tile_walk")
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=spp, device=DEVICE)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, tile_launches = MT.launches, TL.launches
+    launches, tile_launches = _launches("mt_closest"), _launches("tile_walk")
     want = spp * (bounces + 1) * 2
     if launches < want or tile_launches:
         raise AssertionError(f"mt_closest launched {launches} times, want at "
@@ -1252,13 +1278,13 @@ def _paths_agree(phase, img_k, img_p):
 def _plain(module, name, ref):
     """Inside the context module.name is its plain version `ref`: the swap
     of phases 5, 7, 9, 12 and 13. The kernel must not launch meanwhile."""
-    real, before = getattr(module, name), module.launches
+    real, before = getattr(module, name), _launches(name)
     setattr(module, name, ref)
     try:
         yield
     finally:
         setattr(module, name, real)
-    if module.launches != before:
+    if _launches(name) != before:
         raise AssertionError("the plain path launched the kernel")
 
 
@@ -1295,21 +1321,20 @@ def _slice_render(phase, scene, spp, bounces):
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import blocks as BL
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
     from libyafaray_tpu_torch.accel import tiles as TL
     res = scene.camera.resx
     cfg = make_integrator({"type": "pathtracing", "bounces": bounces})
     render(scene, cfg, spp=1)                       # warm-up pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MT.launches = TL.launches = 0
-    TL.arm_launches.clear()
+    _zero_launches("mt_closest", "tile_walk")
+    _clear_arm_launches()
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=spp)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, arms, mt_launches = TL.launches, dict(TL.arm_launches), \
-        MT.launches
+    launches, arms = _launches("tile_walk"), _arm_launches()
+    mt_launches = _launches("mt_closest")
     peak = torch.cuda.max_memory_allocated()
     img = F.resolve(film).cpu().numpy()
     if img.shape != (scene.camera.resy, res, 4) or not np.isfinite(img).all():
@@ -1464,8 +1489,6 @@ def phase10_golden():
     import torch
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     from libyafaray_tpu_torch.io import load_hdr
     from libyafaray_tpu_torch.scenes import instances_builder
     ref = load_hdr(GOLDEN)[..., :3]
@@ -1480,16 +1503,17 @@ def phase10_golden():
         scene = b.compile("cam")
         if (scene.geom.inst_mat is not None) != (mode == "true"):
             raise AssertionError(f"mode {mode}: wrong instancing")
-        MT.launches = TL.launches = 0
-        TL.arm_launches.clear()
+        _zero_launches("mt_closest", "tile_walk")
+        _clear_arm_launches()
         film = render(scene, make_integrator({"type": "directlighting"}),
                       GOLDEN_RES, GOLDEN_RES, spp=GOLDEN_SPP)
         torch.cuda.synchronize()
-        counts = dict(mt_closest=MT.launches, **TL.arm_launches)
-        if mode == "true" and (MT.launches or set(TL.arm_launches)
+        counts = dict(mt_closest=_launches("mt_closest"), **_arm_launches())
+        if mode == "true" and (_launches("mt_closest") or set(_arm_launches())
                                != {"instanced"}):
             raise AssertionError(f"true instances ran {counts}")
-        if mode == "baked" and (TL.launches or not MT.launches):
+        if mode == "baked" and (_launches("tile_walk")
+                                or not _launches("mt_closest")):
             raise AssertionError(f"baked instances ran {counts}")
         films[mode] = F.resolve(film).cpu().numpy()
         img = films[mode][..., :3] * np.pi
@@ -1696,7 +1720,6 @@ def phase11_fwd_bwd():
     import numpy as np
     import torch
     from libyafaray_tpu_torch import make_integrator
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
     from libyafaray_tpu_torch.ops import fast_grad as FG
     from libyafaray_tpu_torch.scenes import cornell_builder
     _check_fp32_precision()
@@ -1716,7 +1739,7 @@ def phase11_fwd_bwd():
     ev = lambda: torch.cuda.Event(enable_timing=True)
     spans = []
     total = torch.zeros_like(leaves[0])
-    MT.launches = 0
+    _zero_launches("mt_closest")
     t0 = time.perf_counter()
     for s in range(spp):
         for ch in chunks:
@@ -1726,7 +1749,7 @@ def phase11_fwd_bwd():
             spans.append(e)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = MT.launches
+    launches = _launches("mt_closest")
     peak = torch.cuda.max_memory_allocated()
     fwd_ms = sum(a.elapsed_time(m) for a, m, _ in spans)
     bwd_ms = sum(m.elapsed_time(z) for _, m, z in spans)
@@ -1861,10 +1884,10 @@ def phase12_grad_paths(terrain):
         TERRAIN_CAMERA, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
     cfg = make_integrator({"type": "pathtracing",
                            "bounces": TERRAIN_BOUNCES})
-    TL.launches = 0
+    _zero_launches("tile_walk")
     got = _image_grads(small, cfg, names, 1)
     torch.cuda.synchronize()
-    launches = TL.launches
+    launches = _launches("tile_walk")
     if launches != (TERRAIN_BOUNCES + 1) * 3:
         raise AssertionError(f"the terrain launched tile_walk {launches} "
                              "times")
@@ -1894,12 +1917,12 @@ def phase13_glossy():
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
     render(scene, cfg, spp=1)                       # warm-up pass
     torch.cuda.synchronize()
-    MT.launches = 0
+    _zero_launches("mt_closest")
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=SPP)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = MT.launches
+    launches = _launches("mt_closest")
     img = F.resolve(film).cpu().numpy()
     if not np.isfinite(img).all() or launches != SPP * (BOUNCES + 1) * 2:
         raise AssertionError(f"glossy render: finite {np.isfinite(img).all()}"
@@ -2105,7 +2128,7 @@ def _capture_any(scene, cover):
             kept.append((a, k))
         return real(*a, **k)
 
-    TL.arm_launches.clear()
+    _clear_arm_launches()
     TL.tile_walk = keep_call
     try:
         with _cover_order(cover):
@@ -2114,7 +2137,7 @@ def _capture_any(scene, cover):
                    spp=1)
     finally:
         TL.tile_walk = real
-    return kept, dict(TL.arm_launches)
+    return kept, _arm_launches()
 
 
 def _cover_case(label, acc, cover_q, front_q):
@@ -2178,7 +2201,6 @@ def phase17_cover(textured, forest, textured_img):
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
     from libyafaray_tpu_torch.accel import blocks as BL
-    from libyafaray_tpu_torch.accel import tiles as TL
     from libyafaray_tpu_torch.scenes import bigmesh_grid
     arms = []
     for name, scene, arm in (("textured terrain", textured, "static+cover"),
@@ -2244,13 +2266,13 @@ def phase17_cover(textured, forest, textured_img):
     for on in (False, True):
         with _cover_order(on):
             torch.cuda.synchronize()
-            TL.arm_launches.clear()
+            _clear_arm_launches()
             t0 = time.perf_counter()
             film = render(textured, cfg, spp=TERRAIN_SPP)
             torch.cuda.synchronize()
             ms[on] = (time.perf_counter() - t0) * 1e3 / TERRAIN_SPP
             images[on] = F.resolve(film).cpu().numpy()
-            launched = dict(TL.arm_launches)
+            launched = _arm_launches()
     print(f"phase 17: textured terrain {TERRAIN_RES}x{TERRAIN_RES} "
           f"{TERRAIN_SPP} spp: front to back {ms[False]:.2f} ms/pass, cover "
           f"order {ms[True]:.2f} ms/pass ({launched}); the two images equal: "
@@ -2285,13 +2307,13 @@ def phase18_texel_grads(textured):
                            "bounces": TERRAIN_BOUNCES})
     small = dataclasses.replace(textured, camera=make_camera(ParamMap(dict(
         TERRAIN_CAMERA, resx=TERRAIN_SMALL, resy=TERRAIN_SMALL))))
-    TL.launches = 0
+    _zero_launches("tile_walk")
     got, = _image_grads(small, cfg, names, 1)
     again, = _image_grads(small, cfg, names, 1)
     torch.cuda.synchronize()
-    if TL.launches != 2 * (TERRAIN_BOUNCES + 1) * 3:
-        raise AssertionError(f"phase 18: {TL.launches} tile_walk launches "
-                             f"at {TERRAIN_SMALL}x{TERRAIN_SMALL}")
+    if _launches("tile_walk") != 2 * (TERRAIN_BOUNCES + 1) * 3:
+        raise AssertionError(f"phase 18: {_launches('tile_walk')} tile_walk "
+                             f"launches at {TERRAIN_SMALL}x{TERRAIN_SMALL}")
     with _plain(TL, "tile_walk", TL.tile_walk_ref):
         want, = _image_grads(small, cfg, names, 1)
     for label, a, b in (("kernel path against plain path", got, want),
@@ -2313,10 +2335,10 @@ def phase18_texel_grads(textured):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    TL.launches = 0
+    _zero_launches("tile_walk")
     g, = _fwd_bwd(sc, cfg, leaves, pixels, 1, ev)
     torch.cuda.synchronize()
-    launches = TL.launches
+    launches = _launches("tile_walk")
     peak = torch.cuda.max_memory_allocated()
     if launches != (TERRAIN_BOUNCES + 1) * 3:
         raise AssertionError(f"phase 18: {launches} tile_walk launches at "
@@ -2361,7 +2383,7 @@ def phase19_caustic():
     torch.cuda.reset_peak_memory_stats()
     ev = lambda: torch.cuda.Event(enable_timing=True)
     spans, totals = [], [torch.zeros_like(x) for x in leaves]
-    MT.launches = 0
+    _zero_launches("mt_closest")
     t0 = time.perf_counter()
     for s in range(1, CAUSTIC_SAMPLES + 1):
         e = (ev(), ev(), ev())
@@ -2370,7 +2392,7 @@ def phase19_caustic():
         spans.append(e)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = MT.launches
+    launches = _launches("mt_closest")
     peak = torch.cuda.max_memory_allocated()
     fwd_ms = sum(a.elapsed_time(m) for a, m, _ in spans) / CAUSTIC_SAMPLES
     bwd_ms = sum(m.elapsed_time(z) for _, m, z in spans) / CAUSTIC_SAMPLES
@@ -2475,12 +2497,12 @@ def phase20_volume():
     render(scene, cfg, spp=1)                        # warm-up pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MT.launches = 0
+    _zero_launches("mt_closest")
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=VOLUME_SPP)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = MT.launches
+    launches = _launches("mt_closest")
     peak = torch.cuda.max_memory_allocated()
     if launches != VOLUME_SPP * per_pass:
         raise AssertionError(f"phase 20: {launches} mt_closest launches, "
@@ -2588,17 +2610,15 @@ def _full_render(phase, label, scene, cfg, spp):
     import torch
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import render
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     cam = scene.camera
     render(scene, cfg, spp=1)                       # warm-up pass
     torch.cuda.synchronize()
-    MT.launches = TL.launches = 0
+    _zero_launches("mt_closest", "tile_walk")
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=spp)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    mt, tl = MT.launches, TL.launches
+    mt, tl = _launches("mt_closest"), _launches("tile_walk")
     img = F.resolve(film).cpu().numpy()
     if img.shape != (cam.resy, cam.resx, 4) or not np.isfinite(img).all():
         raise AssertionError(f"phase {phase}: {label}: bad image, shape "
@@ -3056,7 +3076,7 @@ def phase24_materials():
     _fwd_bwd(sc, cfg, leaves, chunks[0], 0)             # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MT.launches = 0
+    _zero_launches("mt_closest")
     total = [torch.zeros_like(x) for x in leaves]
     t0 = time.perf_counter()
     for s in range(MATS_GRAD_SPP):
@@ -3065,7 +3085,7 @@ def phase24_materials():
                 t += g
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    grad_launches = MT.launches
+    grad_launches = _launches("mt_closest")
     grads = [t.cpu().numpy() for t in total]
     print(f"phase 24: forward + backward {WIDTH}x{HEIGHT} {MATS_GRAD_SPP} "
           f"spp in {len(chunks)} chunks of {CHUNK_ROWS} rows wrt "
@@ -3605,8 +3625,6 @@ def _aov_render(accel, aa_params=AOV_AA):
     import numpy as np
     import torch
     from libyafaray_tpu_torch import make_integrator, render
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     R = _render_module()
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
     scene = _cornell(accel, WIDTH, HEIGHT)
@@ -3616,14 +3634,14 @@ def _aov_render(accel, aa_params=AOV_AA):
     torch.cuda.reset_peak_memory_stats()
     label = (f"AOV render ({accel}, dark detection "
              f"{aa_params['dark_detection_type']})")
-    MT.launches = TL.launches = 0
+    _zero_launches("mt_closest", "tile_walk")
     with _passes_logged() as (log, _):
         t0 = time.perf_counter()
         film = render(scene, cfg, aa=R.AAParams(**aa_params),
                       layer_names=AOV_LAYERS, **AOV_FILTER)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    mt, tl = MT.launches, TL.launches
+    mt, tl = _launches("mt_closest"), _launches("tile_walk")
     peak = torch.cuda.max_memory_allocated()
     passes = [e for e in log if e["kind"] != "mask"]
     samples = len(passes)
@@ -3807,7 +3825,6 @@ def _ao_debug_resume():
     import torch
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator, render
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
     scene = _cornell("brute", WIDTH, HEIGHT)
     launches = {}
     dl = {"type": "directlighting", "bounces": BOUNCES}
@@ -3819,16 +3836,16 @@ def _ao_debug_resume():
         names = ("combined", "ao") if cfg.use_ao else ("combined",)
         render(scene, cfg, spp=1, layer_names=names)      # warm-up
         torch.cuda.synchronize()
-        MT.launches = 0
+        _zero_launches("mt_closest")
         t0 = time.perf_counter()
         film = render(scene, cfg, spp=2, layer_names=names)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / 2
-        launches[label] = MT.launches
+        launches[label] = _launches("mt_closest")
         imgs[label] = {k: F.resolve(film, k).cpu().numpy() for k in names}
         print(f"phase 28: {label} {WIDTH}x{HEIGHT} 2 spp: {ms:.2f} ms a "
-              f"pass, mt_closest {MT.launches} launches; image mean "
-              f"{float(imgs[label]['combined'][..., :3].mean()):.6f}")
+              f"pass, mt_closest {_launches('mt_closest')} launches; image "
+              f"mean {float(imgs[label]['combined'][..., :3].mean()):.6f}")
     extra = launches["directlighting with AO"] - launches["directlighting"]
     ao = imgs["directlighting with AO"]["ao"]
     print(f"phase 28: ambient occlusion: {extra} more launches over 2 "
@@ -3851,18 +3868,19 @@ def _ao_debug_resume():
                                             for i in range(AO_SAMPLES)])
 
     cfg = make_integrator({"type": "debug"})
-    MT.launches = 0
+    _zero_launches("mt_closest")
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=1)
     torch.cuda.synchronize()
-    launches["debug"] = MT.launches
+    launches["debug"] = _launches("mt_closest")
     img = F.resolve(film).cpu().numpy()
     print(f"phase 28: debug integrator {WIDTH}x{HEIGHT} one pass: "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms, mt_closest "
-          f"{MT.launches} launches, alpha mean {float(img[..., 3].mean()):.4f}"
+          f"{_launches('mt_closest')} launches, alpha mean "
+          f"{float(img[..., 3].mean()):.4f}"
           f", rgb {float(img[..., :3].min()):.4f}-"
           f"{float(img[..., :3].max()):.4f}")
-    if MT.launches != 1 or not (0 <= img.min() and img.max() <= 1
+    if _launches("mt_closest") != 1 or not (0 <= img.min() and img.max() <= 1
                                 and img[..., 3].mean() > 0.9):
         raise AssertionError("phase 28: the debug pass")
 
@@ -3871,12 +3889,12 @@ def _ao_debug_resume():
               **AOV_FILTER)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "cornell.film.npz")
-        MT.launches = 0
+        _zero_launches("mt_closest")
         render(scene, cfg, spp=2, film_path=path, film_load_save_mode="save",
                **kw)
         resumed = render(scene, cfg, spp=2, film_path=path,
                          film_load_save_mode="load", **kw)
-        launches["resume"] = MT.launches
+        launches["resume"] = _launches("mt_closest")
         straight = render(scene, cfg, spp=4, **kw)
         equal = all(torch.equal(resumed.layers[k], straight.layers[k])
                     for k in straight.layers) and torch.equal(
@@ -4025,18 +4043,16 @@ def _timed_run(label, fn, passes):
     peak device memory taken. Prints and returns (fn's result, mt_closest
     launches, tile kernel launches, counts by kind)."""
     import torch
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    MT.launches = TL.launches = 0
+    _zero_launches("mt_closest", "tile_walk")
     with _queries_by_kind() as (counts, _):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    mt, tl = MT.launches, TL.launches
+    mt, tl = _launches("mt_closest"), _launches("tile_walk")
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     print(f"phase 29: {label}: {seconds * 1e3 / passes:.2f} ms a pass "
           f"({passes} passes); launches a pass by kind: "
@@ -4256,15 +4272,13 @@ def _capi_counted(label, fn):
     after, timed on the host clock (synchronised). Returns (fn's result,
     mt_closest launches, tile kernel launches)."""
     import torch
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     torch.cuda.synchronize()
-    MT.launches = TL.launches = 0
+    _zero_launches("mt_closest", "tile_walk")
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    mt, tl = MT.launches, TL.launches
+    mt, tl = _launches("mt_closest"), _launches("tile_walk")
     print(f"phase 30: {label}: {seconds:.2f} s, mt_closest {mt}, tile kernel "
           f"{tl} launches")
     return out, mt, tl
@@ -4459,10 +4473,10 @@ def _capi_paths():
                         "force", kept, "30")
     b = _cornell_builder(PATHS_RES, PATHS_RES, "blocks")
     keep = set(range(CAPI_PATHS_SPP * (BOUNCES + 1) * 2))
-    TL.launches = 0
+    _zero_launches("tile_walk")
     with _kept_calls(TL, "tile_walk", keep) as walks:
         img_k = run(b)
-    launched = TL.launches
+    launched = _launches("tile_walk")
     with _plain(TL, "tile_walk", TL.tile_walk_ref):
         img_p = run(b)
     _bit_for_bit("30", "render_for_capi on blocks", img_k, img_p)
@@ -4496,7 +4510,6 @@ def phase30_entry_points(terrain_img):
 
 ACCEL_SMALL = 128        # phase 31: every query held against its plain version
 ACCEL_INST_RES = 512     # instanced spheres and curves
-PREPASS = (("SUPER", 4), ("CAND_K", 256))   # the opt-in prepass branches
 FLOPS_PER_BOX = 25       # one slab test: 6 sub, 6 mul, 6 min / max, 4
                          # across the axes and 3 compares
 FLOPS_PER_SPHERE = 25    # one ray-sphere test
@@ -4606,19 +4619,17 @@ def _counted(label, scene, cfg, spp, warm=True):
     import torch
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import render
-    from libyafaray_tpu_torch.accel import lbvh as LB
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
-    from libyafaray_tpu_torch.accel import tiles as TL
     if warm:
         render(scene, cfg, spp=1)
     torch.cuda.synchronize()
-    LB.launches = MT.launches = TL.launches = 0
+    _zero_launches("lbvh_traverse", "mt_closest", "tile_walk")
     t0 = time.perf_counter()
     film = render(scene, cfg, spp=spp)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(lbvh_traverse=LB.launches, mt_closest=MT.launches,
-                  tiles_traverse=TL.launches)
+    counts = dict(lbvh_traverse=_launches("lbvh_traverse"),
+                  mt_closest=_launches("mt_closest"),
+                  tiles_traverse=_launches("tile_walk"))
     img = F.resolve(film).cpu().numpy()
     if not np.isfinite(img).all():
         raise AssertionError(f"phase 31: {label}: the image is not finite")
@@ -4669,10 +4680,10 @@ def _lbvh_paths(label, scene, cfg, spp):
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import render
     from libyafaray_tpu_torch.accel import lbvh as LB
-    LB.launches = 0
+    _zero_launches("lbvh_traverse")
     with _all_calls(LB, "lbvh_traverse") as kept:
         img_k = F.resolve(render(scene, cfg, spp=spp)).cpu().numpy()
-    launches = LB.launches
+    launches = _launches("lbvh_traverse")
     if launches != len(kept) or not launches:
         raise AssertionError(f"phase 31: {label}: {launches} launches, "
                              f"{len(kept)} queries captured")
@@ -4903,64 +4914,12 @@ def _terrain(accel):
     return scene
 
 
-def _prepass_branches(textured, cfg):
-    """SUPER and CAND_K on the textured terrain's camera and first bounce
-    queries (blocks): candidates a tile, prepass and query ms against the
-    default, hit records equal (t bit for bit; a prim id may differ only
-    on an exact tie of t, where the walk meets the blocks in another
-    order). Returns {branch: {query: numbers}}."""
-    import torch
-    from libyafaray_tpu_torch import render
-    from libyafaray_tpu_torch.accel import tiles as TL
-    with _kept_calls(TL, "tiles_traverse", {0, 3}) as kept:
-        render(textured, cfg, spp=1)
-    out = {}
-    for (a, k, _), query in zip(kept, ("camera", "first bounce")):
-        prep = (a[1], a[2]) + tuple(a[3:8])
-        rows = {}
-        base = None
-        for name, value in (("default", None),) + PREPASS:
-            saved = (TL.SUPER, TL.CAND_K)
-            if name != "default":
-                setattr(TL, name, value)
-            try:
-                res = TL.tiles_traverse(*a, **k)
-                count = TL.prepare(*prep, time=k.get("time"))[3]
-                prep_ms = _cuda_ms(lambda: TL.prepare(
-                    *prep, time=k.get("time")), 3)
-                ms = _cuda_ms(lambda: TL.tiles_traverse(*a, **k), 3)
-            finally:
-                TL.SUPER, TL.CAND_K = saved
-            torch.cuda.synchronize()
-            cand = float(count.float().mean())
-            ties = 0
-            if base is None:
-                base = res
-            else:
-                if not (torch.equal(res[0], base[0])
-                        and torch.equal(res[1] >= 0, base[1] >= 0)):
-                    raise AssertionError(f"phase 31: {name}={value}: the "
-                                         f"{query} query's hits differ")
-                ties = int((res[1] != base[1]).sum())
-            rows[name] = dict(candidates_per_tile=cand, prepass_ms=prep_ms,
-                              query_ms=ms, prim_ties=ties)
-            print(f"phase 31: textured terrain {query} query "
-                  f"({a[3].shape[0]} rays), {name}"
-                  f"{'' if value is None else '=' + str(value)}: {cand:.1f} "
-                  f"candidates a tile, prepass {prep_ms:.3f} ms, query "
-                  f"{ms:.3f} ms (prepass, walk, sort), t bit for bit, "
-                  f"{ties} prim ids differing on tied t")
-        out[query] = rows
-    return out
-
-
-def phase31_accelerators(textured, textured_img):
+def phase31_accelerators(textured_img):
     """The accelerators complete, at full width: the LBVH, brute force on
-    the 203,522-face terrain, instanced spheres and curves, and the SUPER /
-    CAND_K prepass branches. Returns (lbvh_traverse launches by path, its
-    per-launch numbers by path, mt_closest launches by path, kernel a's
-    per-launch numbers on the terrain, tiles_traverse launches by path,
-    the prepass branches' numbers)."""
+    the 203,522-face terrain, and instanced spheres and curves. Returns
+    (lbvh_traverse launches by path, its per-launch numbers by path,
+    mt_closest launches by path, kernel a's per-launch numbers on the
+    terrain, tiles_traverse launches by path)."""
     from libyafaray_tpu_torch import film as F
     from libyafaray_tpu_torch import make_integrator
     from libyafaray_tpu_torch.accel import lbvh as LB
@@ -5067,10 +5026,10 @@ def phase31_accelerators(textured, textured_img):
                   bound_ms=sum(x[1] for x in mt_rows) / n,
                   bound_by=mt_rows[0][2])
     small_t = _small(terrain, TERRAIN_CAMERA)
-    MT.launches = 0
+    _zero_launches("mt_closest")
     with _all_calls(MT, "mt_closest") as kept:
         _render_module().render(small_t, cfg_t, spp=1)
-    if MT.launches != len(kept):
+    if _launches("mt_closest") != len(kept):
         raise AssertionError("phase 31: a kernel-a query escaped the check")
     mt_small = _hold_queries("31", kept, [
         f"brute-force terrain {ACCEL_SMALL}x{ACCEL_SMALL} query {i}"
@@ -5105,10 +5064,8 @@ def phase31_accelerators(textured, textured_img):
               f"{sph.round(4).tolist()}, radii "
               f"{g.sph_radius.cpu().numpy().round(5).tolist()}, visibility "
               f"{g.sph_vis.tolist()}")
-
-    prepass = _prepass_branches(textured, cfg_t)
     return launches, per, mt_launches, dict(mt_big, **{
-        "max_abs_err_128": mt_small["max_abs_err"]}), tl_launches, prepass
+        "max_abs_err_128": mt_small["max_abs_err"]}), tl_launches
 
 
 # ---------------------------------------------------------------- phase 32
@@ -5147,7 +5104,6 @@ def _sharded_outputs(mesh, out, label, kept=None):
     the launches of each."""
     import torch
     from libyafaray_tpu_torch import make_integrator
-    from libyafaray_tpu_torch.accel import mt_intersect as MT
     from libyafaray_tpu_torch.accel import tiles as TL
     from libyafaray_tpu_torch.parallel import (make_train_step,
                                                render_wavefront_sharded)
@@ -5156,13 +5112,13 @@ def _sharded_outputs(mesh, out, label, kept=None):
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
     cfg_t = make_integrator({"type": "pathtracing",
                              "bounces": TERRAIN_BOUNCES})
-    MT.launches = TL.launches = 0
+    _zero_launches("mt_closest", "tile_walk")
     rgb, alpha = render_wavefront_sharded(cornell, cfg, SHARD_SMALL,
                                           SHARD_SMALL, 0, mesh)
     torch.cuda.synchronize()
     out["cornell_rgb"], out["cornell_alpha"] = rgb.cpu(), alpha.cpu()
-    out["cornell_launches"] = MT.launches
-    MT.launches = TL.launches = 0
+    out["cornell_launches"] = _launches("mt_closest")
+    _zero_launches("mt_closest", "tile_walk")
     walks = (_kept_calls(TL, "tile_walk", range(1 << 40)) if kept is not None
              else contextlib.nullcontext([]))
     with walks as calls:
@@ -5172,7 +5128,7 @@ def _sharded_outputs(mesh, out, label, kept=None):
     if kept is not None:
         kept.extend(calls)
     out["terrain_rgb"], out["terrain_alpha"] = rgb.cpu(), alpha.cpu()
-    out["terrain_launches"] = TL.launches
+    out["terrain_launches"] = _launches("tile_walk")
     step = make_train_step(make_integrator({"type": "pathtracing",
                                             "bounces": 1}),
                            SMALL, SMALL, mesh)
@@ -5261,12 +5217,12 @@ def _sharded_main(mesh, cornell_ms):
 
     Mesh.all_gather = timed
     try:
-        MT.launches = 0
+        _zero_launches("mt_closest")
         t0 = time.perf_counter()
         film = render_sharded(scene, cfg, WIDTH, HEIGHT, SPP, mesh)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = MT.launches
+        launches = _launches("mt_closest")
     finally:
         Mesh.all_gather = real
     coll_ms = sum(a.elapsed_time(z) for a, z in events) / SPP
@@ -5443,9 +5399,9 @@ def phase32_multi_device(cornell_ms, train_steps):
     scene = _cornell("brute", WIDTH, HEIGHT)
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
     stats = PF.RenderStats()
-    MT.launches = 0
+    _zero_launches("mt_closest")
     render(scene, cfg, spp=STATS_SPP, stats=stats)
-    stats_launches = MT.launches
+    stats_launches = _launches("mt_closest")
     mt[f"cornell render with stats {WIDTH}x{HEIGHT} {STATS_SPP} spp"] = \
         stats_launches
     summary = stats.summary()
@@ -5469,10 +5425,10 @@ def phase32_multi_device(cornell_ms, train_steps):
     with tempfile.TemporaryDirectory() as log_dir:
         MT.mt_closest = timed
         try:
-            MT.launches = 0
+            _zero_launches("mt_closest")
             with PF.trace(log_dir):
                 render(scene, cfg, spp=1, start_sample=STATS_SPP)
-            traced = MT.launches
+            traced = _launches("mt_closest")
         finally:
             MT.mt_closest = real
         top = PF.device_op_summary(log_dir, top=1 << 20)
@@ -5486,11 +5442,11 @@ def phase32_multi_device(cornell_ms, train_steps):
           f"heaviest: " + "; ".join(f"{n[:60]} {ms:.3f} ms x{c}"
                                     for n, ms, c in top[:4]), flush=True)
     print(f"phase 32: (e) mt_closest_kernel in the profiler's summary: "
-          f"{count} launches, {prof_ms:.4f} ms; MT.launches {traced}; the "
+          f"{count} launches, {prof_ms:.4f} ms; counted {traced}; the "
           f"same launches between CUDA events {event_ms:.4f} ms", flush=True)
     if count != traced or traced != (BOUNCES + 1) * 2:
         raise AssertionError(f"phase 32: (e) the profiler counts {count} "
-                             f"mt_closest_kernel launches, MT.launches "
+                             f"mt_closest_kernel launches, the counter "
                              f"{traced}, want {(BOUNCES + 1) * 2}")
     return mt, tl, walk_err, dict(ms_per_pass=a_ms, collective_ms=coll_ms,
                                   stats_rays=rays, profiled_ms=prof_ms,
@@ -5514,9 +5470,9 @@ def _prepass_case(label, args, cover, reps=10):
     version's ms. Returns the numbers."""
     import torch
     from libyafaray_tpu_torch.accel import tiles as TL
-    before = TL.cand_launches
+    before = _launches("tile_candidates")
     got = TL.tile_candidates(*args, any_hit=cover)
-    if TL.cand_launches != before + 1:
+    if _launches("tile_candidates") != before + 1:
         raise AssertionError(f"phase 33: {label}: the prepass kernel did "
                              "not launch")
     want, plain_ms = _once_ms(lambda: TL.tile_candidates_ref(*args,
@@ -5602,10 +5558,10 @@ def phase33_prepass(textured, forest):
     from libyafaray_tpu_torch.accel import tiles as TL
     cfg = make_integrator({"type": "pathtracing",
                            "bounces": TERRAIN_BOUNCES})
-    launches = TL.cand_launches
+    launches = _launches("tile_candidates")
     with _kept_calls(TL, "tile_candidates", set(range(64))) as kept:
         render(textured, cfg, spp=1)
-    launches = TL.cand_launches - launches
+    launches = _launches("tile_candidates") - launches
     want = 3 * (TERRAIN_BOUNCES + 1)
     if len(kept) != want or launches != want:
         raise AssertionError(f"phase 33: a textured terrain pass made "
@@ -5688,27 +5644,54 @@ def _train_takes(scene, names, res, bounces, seed):
         kept.append((idx.clone(), g.clone(), rows))
         return real(idx, g, rows)
 
-    before = FG.launches
+    before = _launches("take_grad")
     FG.take_grad = keep
     try:
         step(scene, params, target, 0)
         torch.cuda.synchronize()
     finally:
         FG.take_grad = real
-    if FG.launches - before != len(kept) or not kept:
+    if _launches("take_grad") - before != len(kept) or not kept:
         raise AssertionError(f"phase 34: {len(kept)} takes, "
-                             f"{FG.launches - before} kernel reductions")
+                             f"{_launches('take_grad') - before} kernel "
+                             "reductions")
     return kept
+
+
+QUEUE_SLEEP = 500_000_000   # cycles of the sleeping kernel of _queued_ms
+
+
+def _queued_ms(fn, reps: int) -> float:
+    """Device ms a call of fn(): `reps` calls queued behind a sleeping
+    kernel, so that CUDA events time the device's work back to back and
+    not the host's dispatch. (The profiler, late in this script's run,
+    loses the device events of windows this short.)"""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        raise AssertionError("the calls were not all queued before the "
+                             "sleeping kernel ended")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _take_case(label, idx, g, rows, reps=20):
     """take_grad on the card against the float64 sums and onehot_grad, the
-    same bits twice; its device ms a call (the profiler's busy time over
-    `reps` calls) and launches a call beside the bound (each lane's index
-    and gradient read once, the table written once, at 3.35 TB/s), the
-    plain version's device ms, and the library yardstick: the one-hot
-    `bmm`s of onehot_grad alone on a one-hot built beforehand."""
+    same bits twice; its device ms a call (`_queued_ms` over `reps` calls)
+    and kernels a call (counted, held to the layout's) beside the bound (each lane's index and gradient
+    read once, the table written once, at 3.35 TB/s), the plain version's
+    device ms, and the library yardstick: the one-hot `bmm`s of
+    onehot_grad alone on a one-hot built beforehand."""
     import torch
+    from libyafaray_tpu_torch.csrc_build import launch_counts
     from libyafaray_tpu_torch.ops import fast_grad as FG
     n = idx.shape[0]
     g2 = g.reshape(n, -1).float()
@@ -5723,9 +5706,8 @@ def _take_case(label, idx, g, rows, reps=20):
     scaled = lambda x: float(((x.reshape(rows, -1).double() - exact).abs()
                               / mag.clamp_min(1e-30)).max())
     err, plain_err = scaled(got), scaled(plain)
-    launches, busy, _ = _profiled(
-        lambda: [FG.take_grad(idx, g, rows) for _ in range(reps)])
-    _, plain_busy, _ = _profiled(lambda: FG.onehot_grad(idx, g, rows))
+    ms = _queued_ms(lambda: FG.take_grad(idx, g, rows), reps)
+    plain_ms = _queued_ms(lambda: FG.onehot_grad(idx, g, rows), 1)
     # the library call: the bmms of onehot_grad on its one-hot, built here
     chunk = FG._GRAD_CHUNK
     npad = -(-n // chunk) * chunk
@@ -5737,25 +5719,32 @@ def _take_case(label, idx, g, rows, reps=20):
     group = max(1, FG._ONEHOT_ELEMS // (chunk * rows))
     bmms = lambda: [torch.bmm(onehot[c:c + group], gp[c:c + group])
                     for c in range(0, ip.shape[0], group)]
-    _, library_busy, _ = _profiled(bmms)
+    library_ms = _queued_ms(bmms, 1)
     del onehot
     bound_ms, bound_by = _bound_ms(n * cols, n * (8 + 4 * cols)
                                    + rows * 4 * cols)
-    ms = busy / reps
     warps, blocks, cw, split = FG.take_grad_layout(rows, cols, n,
                                                    FG._sm_count(idx.device))
+    # the kernels a call, as the C entry reports them: the reduce, then
+    # the combine where the layout splits the lanes over blocks
+    before = launch_counts["kernel.take_grad.kernels"]
+    FG.take_grad(idx, g, rows)
+    kernels = launch_counts["kernel.take_grad.kernels"] - before
+    if kernels != (2 if blocks > 1 else 1):
+        raise AssertionError(f"phase 34: {label}: {kernels} kernels a call "
+                             f"at {blocks} blocks")
     print(f"phase 34: {label}: {n} lanes x {cols} onto {rows} rows: kernel "
-          f"{ms:.4f} ms a call ({launches / reps:g} launches; {warps} warps x "
+          f"{ms:.4f} ms a call ({kernels} kernels, counted; {warps} warps x "
           f"{blocks} blocks, {cw} columns a block, split {split}), bound "
           f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); "
-          f"onehot_grad {plain_busy:.4f} ms, its bmms alone "
-          f"{library_busy:.4f} ms; error over the row's sum |g|: kernel "
+          f"onehot_grad {plain_ms:.4f} ms, its bmms alone "
+          f"{library_ms:.4f} ms; error over the row's sum |g|: kernel "
           f"{err:.3g}, onehot_grad {plain_err:.3g}; the same bits twice")
     if err > 1e-5 or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"phase 34: {label}: the kernel misses the sums")
     return dict(lanes=n, cols=cols, rows=rows, ms=ms,
-                launches_a_call=launches / reps, plain_ms=plain_busy,
-                library_ms=library_busy, bound_ms=bound_ms,
+                launches_a_call=kernels, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_err=err, plain_max_err=plain_err)
 
 
@@ -5772,13 +5761,13 @@ def phase34_take_grad():
     _check_fp32_precision()
     cornell = _cornell_builder(WIDTH, HEIGHT).compile("cam")
     caustic = caustic_grad_builder(CAUSTIC_RES, CAUSTIC_RES).compile("cam")
-    FG.launches = 0
+    _zero_launches("take_grad")
     takes = {"cornell": _train_takes(cornell, ["diffuse_color"],
                                      (WIDTH, HEIGHT), BOUNCES, 21),
              "caustic": _train_takes(caustic, ["ior", "textures.texel_pool"],
                                      (CAUSTIC_RES, CAUSTIC_RES),
                                      CAUSTIC_BOUNCES, 24)}
-    launches = FG.launches
+    launches = _launches("take_grad")
     worst = 0.0
     for scene, kept in takes.items():
         for idx, g, rows in kept:
@@ -5810,7 +5799,8 @@ def phase34_take_grad():
                         "(libyafaray_tpu/ops/fast_grad.py)",
             "launches": launches, "max_abs_err": worst,
             "timed_on": "the caustic train step's first texel-pool take, "
-                        "device ms a call under the profiler",
+                        "device ms a call between CUDA events, the "
+                        "calls queued behind a sleeping kernel",
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "per_launch_by_path": per}
@@ -5858,7 +5848,6 @@ def main() -> int:
                          "this script runs only on a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from libyafaray_tpu_torch import csrc_build
-    from libyafaray_tpu_torch.accel import probe_smem as PR
     from libyafaray_tpu_torch.accel import tiles as TL
     from libyafaray_tpu_torch.scenes import (bigmesh_builder, cornell_builder,
                                              forest_builder)
@@ -5934,8 +5923,8 @@ def main() -> int:
                              if "caustic" in label else "1920x1080")
     capi_mt, capi_tl, capi_per_a, capi_per_b = _timed(
         "30", phase30_entry_points, terrain_img)
-    (lbvh_launches, lbvh_per, accel_mt, mt_terrain, accel_tl,
-     prepass) = _timed("31", phase31_accelerators, textured, textured_img)
+    (lbvh_launches, lbvh_per, accel_mt, mt_terrain,
+     accel_tl) = _timed("31", phase31_accelerators, textured_img)
     shard_mt, shard_tl, shard_walk_err, shard = _timed(
         "32", phase32_multi_device, cornell_ms, train_steps)
     prepass_kernel = _timed("33", phase33_prepass, textured, forest)
@@ -6087,8 +6076,7 @@ def main() -> int:
              "cornell 128x128 on blocks, the photon walks of 100,000 "
              "photons, phase 29": int_walk,
              "cornell 128x128 on blocks through render_for_capi, every "
-             "query of a render, phase 30": capi_per_b},
-         "prepass_branches_on_the_textured_terrain, phase 31": prepass},
+             "query of a render, phase 30": capi_per_b}},
         {"name": "lbvh_traverse", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/lbvh_traverse.cu",
          "replaces": "none: the JAX package walks the LBVH outside Pallas "
@@ -6114,7 +6102,7 @@ def main() -> int:
         {"name": "probe_smem", "route": "cuda",
          "source": "libyafaray_tpu_torch/csrc/probe_smem.cu",
          "replaces": "tools/probe_traversal.py:27",
-         "launches": 0, "probe_launches": PR.launches, **probe,
+         "launches": 0, "probe_launches": _launches("probe_smem"), **probe,
          "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,8 @@ query's launch, so that timing loops run the kernel without the wrapper.
 """
 from __future__ import annotations
 
-import ctypes
 import math
+from ctypes import c_int as CI, c_void_p as VP
 from dataclasses import dataclass
 from typing import Optional
 
@@ -48,10 +48,8 @@ from .spheres import intersect_sphere
 Tensor = torch.Tensor
 
 MAX_STACK = 48   # stack slots per ray, as the JAX package's walk
-
-# number of kernel launches, counted by lbvh_traverse where it launches
-launches = 0
-_fn = None
+# lbvh_packed_launch's arguments, the stream last
+C_ARGS = (VP,) * 3 + (CI,) * 5 + (VP,) * 6 + (CI,) + (VP,) * 5
 
 
 # ---------------------------------------------------------------------------
@@ -528,18 +526,6 @@ def packed(bvh: BVH, geom: Geometry) -> PackedLBVH:
 # The kernel's wrapper
 # ---------------------------------------------------------------------------
 
-def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
-    global _fn
-    if _fn is None:
-        fn = csrc_build.library("lbvh_traverse").lbvh_packed_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 6 + [ci] + [vp] * 5
-        fn.restype = ci
-        _fn = fn
-    return _fn
-
-
 def _check_query(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
                  t_min: Tensor, t_max: Tensor, exclude: Tensor,
                  time: Optional[Tensor], motion: int) -> None:
@@ -567,9 +553,7 @@ def prepare(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
     once; timing loops call it alone, without the wrapper's host work."""
     motion = _motion(geom, time)
     _check_query(bvh, geom, o, d, t_min, t_max, exclude, time, motion)
-    dev = o.device
-    if dev.type != "cuda":
-        raise ValueError(f"lbvh_traverse: no kernel for device {dev}")
+    dev = csrc_build.card("lbvh_traverse", o.device)
     rec = packed(bvh, geom)
     if rec.nodes.device != dev:
         raise ValueError(f"lbvh_traverse: the tree is on {rec.nodes.device},"
@@ -585,15 +569,11 @@ def prepare(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor, t_min: Tensor,
             int(bool(any_hit)), motion, o.data_ptr(), d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), exclude.data_ptr(),
             time.data_ptr() if motion else None, n,
-            *(x.data_ptr() for x in out),
-            torch.cuda.current_stream(dev).cuda_stream)
-    fn = _launcher()
+            *(x.data_ptr() for x in out))
+    fn = csrc_build.entry("lbvh_traverse", "lbvh_packed_launch", C_ARGS)
 
     def launch():
-        err = fn(*args)
-        if err != 0:
-            raise RuntimeError(f"lbvh_traverse kernel launch failed (CUDA "
-                               f"error {err})")
+        csrc_build.launch("lbvh_traverse", fn, dev, *args)
         return out
     return launch
 
@@ -615,12 +595,10 @@ def lbvh_traverse(bvh: BVH, geom: Geometry, o: Tensor, d: Tensor,
     an any-hit query only hit or miss is asked for, and both versions
     report the same first hit. On the card the tree and geometry are
     packed once (`packed`) and kept for later queries."""
-    global launches
     dev = o.device
-    if dev.type != "cpu":
+    if csrc_build.on_card("lbvh_traverse", dev):
         out = prepare(bvh, geom, o, d, t_min, t_max, exclude, time, shadow,
                       any_hit)()
-        launches += 1
         PF.count("kernel.lbvh_traverse.rays", o.shape[0])
         if any_hit:
             PF.count("kernel.lbvh_traverse.any_hit_rays", o.shape[0])

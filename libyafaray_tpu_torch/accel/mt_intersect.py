@@ -17,7 +17,7 @@ with ctypes) or raises. It never falls back from the kernel to the plain version
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int as CI, c_void_p as VP
 from typing import Optional
 
 import torch
@@ -31,11 +31,8 @@ TRI_CHUNK = 128     # table rows are padded to multiples of this above 128
 EPS_DET = 1e-10
 # ray-triangle pairs per step of the plain version (bounds its memory)
 _REF_PAIRS = 1 << 22
-
-# number of kernel launches, counted by mt_closest where it launches
-launches = 0
-
-_fn = None
+# mt_closest_launch's arguments, the stream last
+C_ARGS = (VP,) * 3 + (CI,) * 3 + (VP,) * 6 + (CI,) + (VP,) * 5
 
 
 def table_rows(f: int) -> int:
@@ -139,19 +136,6 @@ def mt_closest_ref(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
     return out_t, out_p, out_u, out_v
 
 
-def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
-    global _fn
-    if _fn is None:
-        fn = csrc_build.library("mt_intersect").mt_closest_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci,
-                       vp, vp, vp, vp, vp]
-        fn.restype = ci
-        _fn = fn
-    return _fn
-
-
 @PF.span("accel.walk")
 def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
                t_max: Tensor, exclude: Tensor, time: Optional[Tensor] = None,
@@ -164,7 +148,6 @@ def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
     and tris_t2 (quadratic b-spline motion blur). All contiguous, on one
     device. Returns (t f32[N] (t_max on a miss), prim i32[N] (-1 on a
     miss), u f32[N], v f32[N])."""
-    global launches
     dev = o.device
     n, c = o.shape[0], tris.shape[0]
     motion = _motion(time, tris_t1, tris_t2)
@@ -184,27 +167,22 @@ def mt_closest(tris: Tensor, o: Tensor, d: Tensor, t_min: Tensor,
         check("tris_t1", tris_t1, torch.float32, (c, 16))
         if motion == 2:
             check("tris_t2", tris_t2, torch.float32, (c, 16))
-    if dev.type == "cpu":
+    if not csrc_build.on_card("mt_closest", dev):
         return mt_closest_ref(tris, o, d, t_min, t_max, exclude, time,
                               tris_t1, tris_t2, shadow)
-    if dev.type != "cuda":
-        raise ValueError(f"mt_closest: no kernel for device {dev}")
-    launch = _launcher()
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_p = torch.empty((n,), dtype=torch.int32, device=dev)
     out_u = torch.empty((n,), dtype=torch.float32, device=dev)
     out_v = torch.empty((n,), dtype=torch.float32, device=dev)
     ptr = lambda x: x.data_ptr() if x is not None else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(
+    csrc_build.launch(
+        "mt_closest", csrc_build.entry("mt_intersect", "mt_closest_launch",
+                                       C_ARGS), dev,
         ptr(tris), ptr(tris_t1) if motion else None,
         ptr(tris_t2) if motion == 2 else None, c, int(bool(shadow)), motion,
         ptr(o), ptr(d), ptr(t_min), ptr(t_max), ptr(exclude),
         ptr(time) if motion else None, n, ptr(out_t), ptr(out_p), ptr(out_u),
-        ptr(out_v), stream)
-    if err != 0:
-        raise RuntimeError(f"mt_closest kernel launch failed (CUDA error {err})")
-    launches += 1
+        ptr(out_v))
     # a shadow query's callers read hit or miss alone
     PF.count("kernel.mt_closest.rays", n)
     if shadow:

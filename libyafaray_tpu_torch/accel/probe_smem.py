@@ -20,30 +20,15 @@ from .. import csrc_build
 
 LO_KIB, HI_KIB = 8, 1024    # search range: 8 KiB holds both 4 KiB ends
 
-# number of kernel launches, counted by `launch` where it launches
-launches = 0
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = csrc_build.library("probe_smem")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.probe_smem_launch.argtypes = [vp, ci, vp]
-        lib.probe_smem_launch.restype = ci
-        lib.probe_smem_optin_limit.argtypes = [ci, ctypes.POINTER(ci)]
-        lib.probe_smem_optin_limit.restype = ci
-        _lib = lib
-    return _lib
-
 
 def optin_limit(device) -> int:
     """cudaDevAttrMaxSharedMemoryPerBlockOptin of a CUDA device, bytes."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     value = ctypes.c_int(0)
-    err = _library().probe_smem_optin_limit(index, ctypes.byref(value))
+    query = csrc_build.entry("probe_smem", "probe_smem_optin_limit",
+                             (ctypes.c_int, ctypes.POINTER(ctypes.c_int)))
+    err = query(index, ctypes.byref(value))
     if err != 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed (CUDA error {err})")
     return value.value
@@ -59,24 +44,21 @@ def probe_smem_ref(device="cpu"):
 
 def launch(nbytes: int, device="cuda"):
     """One launch with nbytes of dynamic shared memory: (CUDA error code,
-    out); out holds the kernel's result when the code is 0."""
-    global launches
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"probe_smem: no kernel for device {dev}")
+    out); out holds the kernel's result when the code is 0, and only such
+    a launch is counted."""
+    dev = csrc_build.card("probe_smem", device)
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
-    err = _library().probe_smem_launch(
-        out.data_ptr(), int(nbytes), torch.cuda.current_stream(dev).cuda_stream)
-    if err == 0:
-        launches += 1
-    return err, out
+    fn = csrc_build.entry("probe_smem", "probe_smem_launch",
+                          (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
+    return csrc_build.launch("probe_smem", fn, dev, out.data_ptr(),
+                             int(nbytes), check=False), out
 
 
 def probe_smem(device="cuda"):
     """Largest dynamic shared memory (bytes, a whole number of KiB) that a
     launch accepts, and that launch's output f32[8, 128]."""
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if not csrc_build.on_card("probe_smem", dev):
         return probe_smem_ref(dev)
     err, best = launch(LO_KIB * 1024, dev)
     if err != 0:

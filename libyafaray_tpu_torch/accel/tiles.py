@@ -10,14 +10,6 @@ Möller-Trumbore over the block's (16, B) slab, SUB triangles at a time, and
 stops once the next candidate's entry bound is beyond every ray's best hit
 (closest hit) or beyond every unhit ray's t_max (any hit).
 
-Two opt-in prepass branches of the JAX package read the same environment
-variables at import: `SUPER` (`YAF_SUPER`, default 1) runs the exact
-per-ray slab test on superblocks of SUPER blocks and refines it by each
-tile's interval slab test per block; `CAND_K` (`YAF_CAND_K`, default 0 =
-off) runs the interval test over every block and the exact test only on
-each tile's CAND_K nearest. Both give the JAX package's lists, block for
-block and key for key, and the walk over them is the same kernel.
-
 An any-hit query can walk in cover order instead (`cover_order`, the JAX
 package's opt-in `YAF_COVER_ORDER=1`): the prepass sorts each tile's blocks
 by descending ray coverage (how many of the tile's rays enter the block)
@@ -39,20 +31,17 @@ package's resident kernel:
 `tile_walk` on CPU tensors runs the plain version `tile_walk_ref`; on a
 CUDA device it launches the kernel (built at first use by `csrc_build`) or
 raises. It never falls back from the kernel to the plain version.
-`tile_candidates` likewise: on a CUDA device its default branch (SUPER 1,
-CAND_K off, front to back or cover order) launches the prepass kernel of
-the same source, which makes every tile's list in one launch with no host
-read; other tensors run the plain version `tile_candidates_ref`. The SUPER
-and CAND_K branches, opt-in and run by no benchmark cell, keep their
-PyTorch code on every device.
+`tile_candidates` likewise: on a CUDA device it launches the prepass kernel
+of the same source, which makes every tile's list in one launch with no
+host read (front to back or cover order); on the CPU it runs the plain
+version `tile_candidates_ref`.
 `tiles_traverse` / `tiles_traverse_ref` pad and pack the rays, build the
 candidate lists and walk them.
 """
 from __future__ import annotations
 
-import collections
-import ctypes
 import os
+from ctypes import c_int as CI, c_longlong as CL, c_void_p as VP
 from typing import Optional
 
 import torch
@@ -72,22 +61,11 @@ EPS_DET = 1e-10
 UNROLL = 6
 # temporaries of the candidate prepass, per chunk of tiles (bytes)
 _CAND_BYTES = 64e6
-# blocks per superblock of the exact prepass (1: per block, the default)
-SUPER = int(os.environ.get("YAF_SUPER", "1"))
-# blocks per tile given the exact test after the interval test (0: every
-# block, the default)
-CAND_K = int(os.environ.get("YAF_CAND_K", "0"))
 # tiles per step of the plain walk: [tiles, RAY_TILE, SUB] temporaries
 _REF_TILES = 128
-
-# number of kernel launches, counted by tile_walk where it launches, in
-# all and per specialisation (`arm`), and by tile_candidates where it
-# launches the prepass kernel
-launches = 0
-arm_launches = collections.Counter()
-cand_launches = 0
-_fn = None
-_cand_fn = None
+# the C entries' arguments, the stream last
+WALK_C_ARGS = (VP,) * 11 + (CI,) * 10 + (VP,) * 5
+CAND_C_ARGS = (VP,) * 6 + (CL,) * 6 + (CI,) * 5 + (VP,) * 5
 
 
 def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
@@ -117,31 +95,6 @@ def _chunk_entry(bmin: Tensor, bmax: Tensor, oc: Tensor, ic: Tensor,
     return ent
 
 
-def _tile_interval(bmin: Tensor, bmax: Tensor, ot: Tensor, it: Tensor,
-                   t0: Tensor, t1: Tensor):
-    """The interval slab test of each tile (its rays' origin and inverse
-    direction boxes, [T, R, 3]) against every block: (overlap bool[T, C],
-    key f32[T, C], a lower bound of the tile's entry distance)."""
-    tmin_lo, tmax_hi = t0.amin(dim=1), t1.amax(dim=1)
-    olo, ohi = ot.amin(dim=1), ot.amax(dim=1)
-    ilo, ihi = it.amin(dim=1)[:, None], it.amax(dim=1)[:, None]
-
-    def ival_mul(p_lo, p_hi):
-        # the interval product [p_lo, p_hi] x [ilo, ihi]
-        a, b = p_lo * ilo, p_lo * ihi
-        c, d = p_hi * ilo, p_hi * ihi
-        return (torch.minimum(torch.minimum(a, b), torch.minimum(c, d)),
-                torch.maximum(torch.maximum(a, b), torch.maximum(c, d)))
-
-    a_lo, a_hi = ival_mul(bmin[None] - ohi[:, None], bmin[None] - olo[:, None])
-    b_lo, b_hi = ival_mul(bmax[None] - ohi[:, None], bmax[None] - olo[:, None])
-    near = torch.minimum(a_lo, b_lo).amax(dim=-1)      # [T, C]
-    far = torch.maximum(a_hi, b_hi).amin(dim=-1)
-    overlap = ((near <= far) & (far >= tmin_lo[:, None])
-               & (near <= tmax_hi[:, None]))
-    return overlap, torch.maximum(near, tmin_lo[:, None])
-
-
 def _sorted_lists(key: Tensor, overlap: Tensor):
     """Each tile's blocks sorted by key (stable: ties keep block order),
     padded to a multiple of 128 with block 0 / inf: (cand, ent, count)."""
@@ -160,39 +113,6 @@ def _sorted_lists(key: Tensor, overlap: Tensor):
     return cand.contiguous(), ent.contiguous(), count
 
 
-def _tile_candidates_topk(bmin: Tensor, bmax: Tensor, ot: Tensor,
-                          it: Tensor, t0: Tensor, t1: Tensor):
-    """CAND_K's two stages: the interval test over every block, then the
-    exact per-ray test on each tile's CAND_K nearest blocks by the interval
-    key (a stable sort: the JAX package's order), whose exact keys replace
-    the interval keys (an exact miss drops the block)."""
-    t = ot.shape[0]
-    k = CAND_K
-    overlap, key = _tile_interval(bmin, bmax, ot, it, t0, t1)
-    key = torch.where(overlap, key, torch.inf)
-    sel = torch.sort(key, dim=1, stable=True).indices[:, :k]   # [T, K]
-    bm_k, bx_k = bmin[sel], bmax[sel]                          # [T, K, 3]
-    g = max(1, min(t, int(_CAND_BYTES / (RAY_TILE * k * 12))))
-    exact = torch.empty((t, k), dtype=torch.float32, device=key.device)
-    for s0 in range(0, t, g):
-        s = slice(s0, min(t, s0 + g))
-        tn = tf = None
-        for a in range(3):
-            o_a = ot[s, :, None, a]
-            i_a = it[s, :, None, a]
-            ta = (bm_k[s, None, :, a] - o_a) * i_a          # [G, R, K]
-            tb = (bx_k[s, None, :, a] - o_a) * i_a
-            lo, hi = torch.minimum(ta, tb), torch.maximum(ta, tb)
-            tn = lo if tn is None else torch.maximum(tn, lo)
-            tf = hi if tf is None else torch.minimum(tf, hi)
-        t0s = t0[s, :, None]
-        ok = (tn <= tf) & (tf >= t0s) & (tn <= t1[s, :, None])
-        exact[s] = torch.where(ok, torch.maximum(tn, t0s),
-                               torch.inf).amin(dim=1)
-    key = key.scatter(1, sel, exact)
-    return _sorted_lists(key, torch.isfinite(key))
-
-
 def _chunk_tiles(t: int, c: int) -> int:
     """Tiles a chunk of the prepass: its [G, R, C] temporaries near
     _CAND_BYTES, as in the JAX package. The chunk rule follows it on every
@@ -204,8 +124,7 @@ def _chunk_tiles(t: int, c: int) -> int:
 def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                     t_min: Tensor, t_max: Tensor, any_hit: bool = False):
     """Per-tile candidate block lists (the JAX package's branch of one block
-    per candidate; front-to-back order, or with `any_hit` cover order; the
-    SUPER and CAND_K branches when those are set).
+    per candidate; front-to-back order, or with `any_hit` cover order).
 
     Rays must be sorted and padded to a RAY_TILE multiple. Returns
     (cand i32[T, Cpad], ent f32[T, Cpad], count i32[T]): each tile's first
@@ -215,21 +134,21 @@ def tile_candidates(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     other blocks in block order with `ent` inf; Cpad pads C to a multiple
     of 128 with block 0 / inf.
 
-    On a CUDA device the default branch launches the prepass kernel
+    On a CUDA device it launches the prepass kernel
     (`csrc/tiles_traverse.cu`), whose lists equal `tile_candidates_ref`'s
-    entry for entry; everything else runs `tile_candidates_ref`."""
-    c = bmin.shape[0]
+    entry for entry; on the CPU it runs `tile_candidates_ref`."""
     t = o.shape[0] // RAY_TILE
     if PF.recording():
         PF.count("prepass.tiles", t)
         PF.count("prepass.live_tiles", (t_max.reshape(t, RAY_TILE)
                                         >= t_min.reshape(t, RAY_TILE))
                  .any(dim=1).sum())
-    if o.device.type == "cuda" and SUPER == 1 and not 0 < CAND_K < c:
-        return _counted(_candidates_kernel(bmin, bmax, o, d, t_min, t_max,
-                                           any_hit))
-    return _counted(tile_candidates_ref(bmin, bmax, o, d, t_min, t_max,
-                                        any_hit))
+    on_card = csrc_build.on_card("tile_candidates", o.device)
+    lists = (_candidates_kernel if on_card else tile_candidates_ref)(
+        bmin, bmax, o, d, t_min, t_max, any_hit)
+    if PF.recording():
+        PF.count("prepass.candidates", lists[2].sum())
+    return lists
 
 
 def tile_candidates_ref(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
@@ -240,15 +159,7 @@ def tile_candidates_ref(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     Tiles are processed in chunks whose [G, R, C] temporaries stay near
     64 MB, as in the JAX package. A chunk whose rays all have an empty
     t-range gets no candidates; one host sync per call reads which chunks
-    are live.
-
-    With SUPER > 1 the exact test runs on superblocks (the blocks' AABBs
-    united SUPER at a time) and a block survives where its superblock is
-    entered and its own interval test passes, keyed by the larger of the
-    two bounds; cover order is off there, as in the JAX package. With
-    0 < CAND_K < C (and SUPER 1) the lists come from
-    `_tile_candidates_topk`."""
-    c = bmin.shape[0]
+    are live."""
     n = o.shape[0]
     t = n // RAY_TILE
     dev = o.device
@@ -258,17 +169,6 @@ def tile_candidates_ref(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     it = inv.reshape(t, RAY_TILE, 3)
     t0 = t_min.reshape(t, RAY_TILE)
     t1 = t_max.reshape(t, RAY_TILE)
-    if SUPER == 1 and 0 < CAND_K < c:
-        return _tile_candidates_topk(bmin, bmax, ot, it, t0, t1)
-    any_hit = any_hit and SUPER == 1
-    if SUPER > 1:
-        iv_overlap, iv_key = _tile_interval(bmin, bmax, ot, it, t0, t1)
-        n_sb = -(-c // SUPER)
-        pad = n_sb * SUPER - c
-        fill = lambda x, v: torch.cat([x, torch.full(
-            (pad, 3), v, dtype=torch.float32, device=dev)]) if pad else x
-        bmin = fill(bmin, torch.inf).reshape(n_sb, SUPER, 3).amin(dim=1)
-        bmax = fill(bmax, -torch.inf).reshape(n_sb, SUPER, 3).amax(dim=1)
     g = _chunk_tiles(t, bmin.shape[0])
     chunks = -(-t // g)
     tile_live = (t1 >= t0).any(dim=1)
@@ -289,13 +189,7 @@ def tile_candidates_ref(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                 key[s], cover[s] = out
             else:
                 key[s] = out
-    if SUPER > 1:
-        # each block: its superblock's exact entry refines its interval key
-        sb = key[:, torch.arange(c, device=dev) // SUPER]
-        overlap = iv_overlap & torch.isfinite(sb)
-        key = torch.maximum(iv_key, sb)
-    else:
-        overlap = torch.isfinite(key)
+    overlap = torch.isfinite(key)
     if any_hit:
         # an any-hit walk needs no front-to-back order: candidate membership
         # already holds each ray's t-range, and it ends when no live ray is
@@ -304,25 +198,10 @@ def tile_candidates_ref(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     return _sorted_lists(key, overlap)
 
 
-def _cand_launcher():
-    """The prepass kernel's C entry point, built and loaded at first use."""
-    global _cand_fn
-    if _cand_fn is None:
-        lib = csrc_build.library("tiles_traverse")
-        fn = lib.tile_candidates_launch
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 6 + [cl] * 6 + [ci] * 5 + [vp] * 5
-        fn.restype = ci
-        lib.tile_candidates_sort_cap.restype = ci
-        _cand_fn = (fn, lib.tile_candidates_sort_cap())
-    return _cand_fn
-
-
 def _candidates_kernel(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
                        t_min: Tensor, t_max: Tensor, any_hit: bool):
-    """`tile_candidates`' default branch on the prepass kernel (one launch;
-    the rays and t-ranges by their strides)."""
-    global cand_launches
+    """`tile_candidates` on the prepass kernel (one launch; the rays and
+    t-ranges by their strides)."""
     dev = o.device
     c = bmin.shape[0]
     n = o.shape[0]
@@ -341,35 +220,24 @@ def _candidates_kernel(bmin: Tensor, bmax: Tensor, o: Tensor, d: Tensor,
     if n % RAY_TILE:
         raise ValueError(f"tile_candidates: {n} rays are not a multiple of "
                          f"{RAY_TILE}")
-    launch, sort_cap = _cand_launcher()
     cand = torch.empty((t, c_pad), dtype=torch.int32, device=dev)
     ent = torch.empty((t, c_pad), dtype=torch.float32, device=dev)
     count = torch.empty((t,), dtype=torch.int32, device=dev)
-    scratch = (torch.empty((t, c), dtype=torch.int64, device=dev)
-               if c > sort_cap else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(bmin.data_ptr(), bmax.data_ptr(), o.data_ptr(),
-                 d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-                 *o.stride(), *d.stride(), t_min.stride(0), t_max.stride(0),
-                 t, c, c_pad, _chunk_tiles(t, c), int(bool(any_hit)),
-                 cand.data_ptr(), ent.data_ptr(), count.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_candidates kernel launch failed (CUDA "
-                           f"error {err})")
-    if t:
-        cand_launches += 1
-        PF.count("kernel.tile_candidates.launches", 1)
+    if t:     # the entry launches nothing for no tiles
+        sort_cap = csrc_build.entry("tiles_traverse",
+                                    "tile_candidates_sort_cap")()
+        scratch = (torch.empty((t, c), dtype=torch.int64, device=dev)
+                   if c > sort_cap else None)
+        csrc_build.launch(
+            "tile_candidates", csrc_build.entry(
+                "tiles_traverse", "tile_candidates_launch", CAND_C_ARGS),
+            dev, bmin.data_ptr(), bmax.data_ptr(), o.data_ptr(), d.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), *o.stride(), *d.stride(),
+            t_min.stride(0), t_max.stride(0), t, c, c_pad, _chunk_tiles(t, c),
+            int(bool(any_hit)), cand.data_ptr(), ent.data_ptr(),
+            count.data_ptr(), None if scratch is None else scratch.data_ptr())
         PF.count("kernel.tile_candidates.tiles", t)
     return cand, ent, count
-
-
-def _counted(lists):
-    """`lists` (cand, ent, count), with tracing on their candidates
-    counted."""
-    if PF.recording():
-        PF.count("prepass.candidates", lists[2].sum())
-    return lists
 
 
 def _mt_update(tr: Tensor, cols, carry, vis_col: int,
@@ -546,20 +414,6 @@ def tile_walk_ref(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
             best_v.reshape(-1))
 
 
-def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
-    global _fn
-    if _fn is None:
-        fn = csrc_build.library("tiles_traverse").tiles_traverse_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                       ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                       vp, vp, vp, vp, vp]
-        fn.restype = ci
-        _fn = fn
-    return _fn
-
-
 def arm(motion: int, instanced: bool, cover: bool = False) -> str:
     """Name of a specialisation of the kernel: "static", "motion1"
     (linear), "motion2" (quadratic), "instanced", "instanced+motion1"...,
@@ -569,14 +423,11 @@ def arm(motion: int, instanced: bool, cover: bool = False) -> str:
     return "+".join((parts or ["static"]) + (["cover"] if cover else []))
 
 
-def cover_order_on(any_hit: bool, num_blocks: int = 0) -> bool:
-    """Whether an any-hit query over `num_blocks` blocks walks in cover
-    order: as in the JAX package, when the environment sets
-    YAF_COVER_ORDER=1 (read at each call), SUPER is 1 and CAND_K is off
-    for that many blocks."""
-    return (bool(any_hit) and SUPER == 1
-            and not 0 < CAND_K < num_blocks
-            and os.environ.get("YAF_COVER_ORDER", "0") == "1")
+def cover_order_on(any_hit: bool) -> bool:
+    """Whether an any-hit query walks in cover order: as in the JAX
+    package, when the environment sets YAF_COVER_ORDER=1 (read at each
+    call)."""
+    return bool(any_hit) and os.environ.get("YAF_COVER_ORDER", "0") == "1"
 
 
 @PF.span("accel.walk")
@@ -604,7 +455,6 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     ray's nearest hit; for any hit only hit/miss is defined: the kernel
     stops testing a warp's rays once each has a hit, so the t, id, u, v it
     reports may come from an earlier triangle than `tile_walk_ref`'s."""
-    global launches
     dev = rays.device
     t, c_pad = cand.shape
     npad = t * RAY_TILE
@@ -639,29 +489,23 @@ def tile_walk(rays: Tensor, cand: Tensor, ent: Tensor, count: Tensor,
     kw = dict(shadow=shadow, any_hit=any_hit, cover_order=cover_order,
               tab_t1=tab_t1, tab_t2=tab_t2, blk_base=blk_base,
               blk_minv=blk_minv, id_delta=id_delta, inv_rows=inv_rows)
-    if dev.type == "cpu":
+    if not csrc_build.on_card("tile_walk", dev):
         return tile_walk_ref(rays, cand, ent, count, tab, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"tile_walk: no kernel for device {dev}")
-    launch = _launcher()
     motion = 0 if tab_t1 is None else (2 if tab_t2 is not None else 1)
     out = [torch.empty((npad,), dtype=torch.float32, device=dev)
            for _ in range(4)]
     ptr = lambda x: None if x is None else x.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(rays.data_ptr(), cand.data_ptr(), ent.data_ptr(),
-                 count.data_ptr(), tab.data_ptr(), ptr(tab_t1), ptr(tab_t2),
-                 *(ptr(x) for x in inst), t, c_pad, tab.shape[2],
-                 10 if shadow else 9, int(bool(any_hit)),
-                 int(bool(cover_order)), motion,
-                 blk_base.shape[0] if instanced else tab.shape[0],
-                 tab.shape[0], inv_rows.shape[0] if instanced else 0,
-                 *(x.data_ptr() for x in out), stream)
-    if err != 0:
-        raise RuntimeError(f"tiles_traverse kernel launch failed (CUDA error "
-                           f"{err})")
-    launches += 1
-    arm_launches[arm(motion, instanced, cover_order)] += 1
+    csrc_build.launch(
+        "tile_walk", csrc_build.entry("tiles_traverse",
+                                      "tiles_traverse_launch", WALK_C_ARGS),
+        dev, rays.data_ptr(), cand.data_ptr(), ent.data_ptr(),
+        count.data_ptr(), tab.data_ptr(), ptr(tab_t1), ptr(tab_t2),
+        *(ptr(x) for x in inst), t, c_pad,
+        tab.shape[2], 10 if shadow else 9, int(bool(any_hit)),
+        int(bool(cover_order)), motion,
+        blk_base.shape[0] if instanced else tab.shape[0], tab.shape[0],
+        inv_rows.shape[0] if instanced else 0, *(x.data_ptr() for x in out),
+        arm=arm(motion, instanced, cover_order))
     PF.count("kernel.tile_walk.rays", npad)
     if any_hit:
         PF.count("kernel.tile_walk.any_hit_rays", npad)
@@ -705,7 +549,7 @@ def _traverse(walk, tab, bmin, bmax, o, d, t_min, t_max, exclude, shadow,
     if tab_t1 is None or time is None:     # no motion: the keyframes idle
         tab_t1 = tab_t2 = time = None
     n = o.shape[0]
-    cover = cover_order_on(any_hit, bmin.shape[0])
+    cover = cover_order_on(any_hit)
     rays, cand, ent, count = prepare(bmin, bmax, o, d, t_min, t_max, exclude,
                                      time, cover)
     bt, bid, bu, bv = walk(rays, cand, ent, count, tab, shadow=shadow,

@@ -192,11 +192,14 @@ int launch_reduce(const long long* idx, const float* g, long long n,
 // The layout: `warps` a block, `blocks` blocks, `cw` (1-4) columns a block;
 // part: f32[blocks, rows, cols] when blocks > 1 (else unused, may be NULL);
 // `split` threads an element in the second kernel (a power of two, <= 32).
+// *kernels (host memory) receives the number of kernels launched: 0 for an
+// empty table, else 1, and 2 with the combine.
 extern "C" int take_grad_launch(const long long* idx, const float* g,
                                 long long n, long long lane_s, long long col_s,
                                 int rows, int cols, int warps, int blocks,
                                 int cw, int split, float* part, float* out,
-                                void* stream) {
+                                int* kernels, void* stream) {
+  *kernels = 0;
   if (rows <= 0 || cols <= 0) return 0;
   if (n < 0 || warps < 1 || warps > 32 || blocks < 1 || cw < 1 || cw > COLS ||
       split < 1 || split > WARP || (split & (split - 1)) != 0 ||
@@ -209,11 +212,15 @@ extern "C" int take_grad_launch(const long long* idx, const float* g,
                           : launch_reduce<4>;
   const int err = reduce(idx, g, n, lane_s, col_s, rows, cols, warps, blocks,
                          blocks > 1 ? part : out, st);
-  if (err != 0 || blocks == 1) return err;
+  if (err != 0) return err;
+  *kernels = 1;
+  if (blocks == 1) return 0;
   const long long elems = (long long)rows * cols;
   const unsigned grid =
       (unsigned)((elems * split + COMBINE_THREADS - 1) / COMBINE_THREADS);
   take_grad_combine<<<grid, COMBINE_THREADS, 0, st>>>(part, blocks,
                                                       (int)elems, split, out);
-  return (int)cudaGetLastError();
+  const int last = (int)cudaGetLastError();
+  if (last == 0) *kernels = 2;
+  return last;
 }

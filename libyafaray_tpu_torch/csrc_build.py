@@ -1,21 +1,35 @@
-"""Build the port's CUDA sources (`csrc/<name>.cu`) with nvcc and load them.
+"""Build the port's CUDA sources (`csrc/<name>.cu`) with nvcc and load them;
+the one boundary between the kernels' wrappers and their C entry points.
 
 Each source is compiled on its own into a shared library with a plain C
 interface, cached in the package's `_build/` directory under a hash of the
 source and the flags, and loaded with ctypes. `build(*names)` starts one
 nvcc per missing library, all at once, and waits for every one of them;
-`library(name)` returns the loaded library, building it at first use;
-`check_arg` validates a tensor before its pointer goes to a kernel.
+`library(name)` returns the loaded library, building it at first use.
 Nothing is built when the module is imported.
+
+Every wrapper crosses the boundary the same way: `on_card` applies the
+device rule (a CPU tensor runs the plain version, a CUDA tensor the kernel,
+any other device raises); `check_arg` validates a tensor before its pointer
+goes to a kernel; `entry` gives an exported C function with its argument
+types; `launch` calls it on the device's current stream (a device other
+than CUDA raises, as `card` says), raises on a nonzero CUDA error code and
+counts the launch in `launch_counts` under `kernel.<kernel>.launches` (and
+`kernel.<kernel>.launches.<arm>` for a specialisation), the names the
+program's tracing records.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from typing import Optional
+
+import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -24,6 +38,10 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _libs: dict = {}
+_entries: dict = {}
+
+# the kernels' launches in this process, by recording name
+launch_counts: collections.Counter = collections.Counter()
 
 
 def nvcc() -> str:
@@ -90,3 +108,52 @@ def check_arg(fn: str, name: str, x, dtype, shape, device) -> None:
                          f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def card(fn: str, device) -> torch.device:
+    """`device` as a torch.device when it is a CUDA device, the one where
+    `fn` has its kernel; any other device raises ValueError."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    return dev
+
+
+def on_card(fn: str, device) -> bool:
+    """The device rule of every kernel wrapper `fn`: False on a CPU device
+    (it runs the plain version), True on a CUDA device (it launches the
+    kernel); any other device raises ValueError."""
+    if torch.device(device).type == "cpu":
+        return False
+    card(fn, device)
+    return True
+
+
+def entry(source: str, name: str, argtypes=()):
+    """The C function `name` exported by csrc/<source>.cu, with these
+    argument types and an int result; loaded (and built) at first use and
+    kept."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(library(source), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def launch(kernel: str, fn, device, *args, arm: Optional[str] = None,
+           check: bool = True) -> int:
+    """Call the C entry `fn` with `args` and the current CUDA stream of
+    `device` (its last argument), and count the launch once it returns 0.
+    A device other than CUDA raises ValueError; a nonzero CUDA error code
+    raises RuntimeError, or with check=False is returned, uncounted."""
+    stream = torch.cuda.current_stream(card(kernel, device))
+    err = fn(*args, stream.cuda_stream)
+    if err == 0:
+        launch_counts[f"kernel.{kernel}.launches"] += 1
+        if arm is not None:
+            launch_counts[f"kernel.{kernel}.launches.{arm}"] += 1
+    elif check:
+        raise RuntimeError(f"{kernel} kernel launch failed (CUDA error {err})")
+    return err

@@ -23,13 +23,14 @@ program's `tracing()` the backward is the span `grad.take` with the table
 as its `table` attribute, and counts `grad.take.lanes.<table>` (the lanes
 whose gradients it reduces) and `grad.take.rows.<table>` (the table's
 rows); where `take_grad` launches the kernel it counts
-`kernel.take_grad.launches` (one a reduction, of one or two kernels) and
-`kernel.take_grad.lanes`, beside its plain counter `launches`. With
-tracing off it records nothing.
+`kernel.take_grad.lanes`, and `csrc_build`'s counter holds
+`kernel.take_grad.launches` (one a reduction) and
+`kernel.take_grad.kernels` (the kernels the entry reports it launched: one,
+or two with the combine). With tracing off it records nothing.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import byref, c_int as CI, c_longlong as CL, c_void_p as VP
 
 import torch
 
@@ -38,8 +39,10 @@ from ..utils import profiling as PF
 
 Tensor = torch.Tensor
 
-# tables up to this many rows get the one-hot backward; larger ones keep
-# plain indexing (the one-hot costs N * rows)
+# tables up to this many rows get the backward `take_grad` (the JAX
+# package's cut for its one-hot, which costs N * rows); larger ones keep
+# plain indexing. On the card the kernel's own limit is take_grad_layout's
+# shared-memory test, which every table up to this many rows passes
 MATMUL_GRAD_ROWS = 4096
 _GRAD_CHUNK = 16384
 _ONEHOT_ELEMS = 1 << 26       # 256 MiB of f32 one-hot per bmm at most
@@ -53,11 +56,9 @@ MAX_WARPS = 16           # warps a block, each with its own table copy
 SM_WARPS = 32            # warps an SM holds at the kernel's 52 registers
 LANES_PER_WARP = 128     # least lanes a warp reduces, to pay for its copy
 H100_SMS = 132
+# take_grad_launch's arguments, the stream last
+C_ARGS = (VP, VP) + (CL,) * 3 + (CI,) * 6 + (VP,) * 4
 
-# number of reductions launched, counted by take_grad where it launches
-launches = 0
-
-_fn = None
 _sms: dict = {}
 
 
@@ -113,18 +114,6 @@ def take_grad_layout(rows: int, cols: int, lanes: int, sms: int = H100_SMS):
     return warps, blocks, cw, split
 
 
-def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
-    global _fn
-    if _fn is None:
-        fn = csrc_build.library("take_grad").take_grad_launch
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, cl, cl, cl, ci, ci, ci, ci, ci, ci, vp, vp, vp]
-        fn.restype = ci
-        _fn = fn
-    return _fn
-
-
 def _sm_count(dev: torch.device) -> int:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if index not in _sms:
@@ -139,12 +128,9 @@ def take_grad(idx: Tensor, g: Tensor, rows: int) -> Tensor:
     nothing), g [N, ...], on one device. On the CPU the plain version
     `onehot_grad`; on a CUDA device the kernel `csrc/take_grad.cu` (one or
     two launches, no padding and no one-hot), or it raises."""
-    global launches
-    dev = g.device
-    if dev.type == "cpu":
+    if not csrc_build.on_card("take_grad", g.device):
         return onehot_grad(idx, g, rows)
-    if dev.type != "cuda":
-        raise ValueError(f"take_grad: no kernel for device {dev}")
+    dev = g.device
     n = idx.shape[0]
     g2 = g.reshape(n, -1).to(torch.float32)
     idx = idx.to(torch.int64).contiguous()
@@ -154,15 +140,15 @@ def take_grad(idx: Tensor, g: Tensor, rows: int) -> Tensor:
     warps, blocks, cw, split = take_grad_layout(rows, cols, n, _sm_count(dev))
     part = (torch.empty((blocks, rows, cols), dtype=torch.float32, device=dev)
             if blocks > 1 else None)
-    err = _launcher()(
+    kernels = CI(0)
+    csrc_build.launch(
+        "take_grad", csrc_build.entry("take_grad", "take_grad_launch",
+                                      C_ARGS), dev,
         idx.data_ptr(), g2.data_ptr(), n, g2.stride(0), g2.stride(1), rows,
         cols, warps, blocks, cw, split,
         part.data_ptr() if part is not None else None, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"take_grad kernel launch failed (CUDA error {err})")
-    launches += 1
-    PF.count("kernel.take_grad.launches", 1)
+        byref(kernels))
+    csrc_build.launch_counts["kernel.take_grad.kernels"] += kernels.value
     PF.count("kernel.take_grad.lanes", n)
     return out.reshape((rows,) + g.shape[1:])
 

@@ -58,13 +58,15 @@ at each bounce's BSDF sample, and those whose sampled lobe is delta),
 `table_builds.<table>` (tables that a
 render or a train step builds for itself: `pack_lbvh`, `vol_atten`,
 `photon_maps`), `kernel.<kernel>.rays` and `kernel.<kernel>.any_hit_rays`
-at each launch, `kernel.tile_candidates.launches` and
-`kernel.tile_candidates.tiles` (the prepass kernel's launches and tiles,
-counted where `tile_candidates` launches it), `kernel.take_grad.launches`
-and `kernel.take_grad.lanes` (`take`'s backward kernel: its reductions,
-one or two kernels each, and their lanes, counted where
-`fast_grad.take_grad` launches it), and, from the walks' own
-launch counters (read, not counted again), `kernel.<kernel>.launches`.
+at each walk's launch, `kernel.tile_candidates.tiles` (the prepass
+kernel's tiles) and `kernel.take_grad.lanes` (the lanes of `take`'s
+backward kernel), counted where the wrappers launch them, and, from the
+one launch counter `csrc_build.launch_counts` (read at the recording's
+end, not counted again), `kernel.<kernel>.launches` of every kernel
+(`mt_closest`, `tile_walk`, `tile_candidates`, `lbvh_traverse`, and
+`take_grad`: one a reduction), `kernel.tile_walk.launches.<arm>` of each
+of the walk's specialisations and `kernel.take_grad.kernels` (the kernels
+of those reductions: one each, or two with the combine).
 """
 from __future__ import annotations
 
@@ -80,6 +82,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from .. import csrc_build
 
 # the chrome-trace categories of work on the device: kernels, copies and
 # fills (every other category is the host's: operators, Python frames,
@@ -296,20 +300,9 @@ class Recording:
             for k, v in zip(names, vals.tolist()):
                 self.counts[k] += int(v)
         self._device_counts = {}
-        for k, v in _launch_counts().items():
+        for k, v in csrc_build.launch_counts.items():
             if v - launches_before.get(k, 0):
                 self.counts[k] += v - launches_before.get(k, 0)
-
-
-def _launch_counts() -> Dict[str, int]:
-    """The kernels' own launch counters, under the registry's names."""
-    from ..accel import lbvh, mt_intersect, tiles
-    out = {"kernel.mt_closest.launches": mt_intersect.launches,
-           "kernel.tile_walk.launches": tiles.launches,
-           "kernel.lbvh_traverse.launches": lbvh.launches}
-    for arm_name, n in tiles.arm_launches.items():
-        out[f"kernel.tile_walk.launches.{arm_name}"] = n
-    return out
 
 
 @contextlib.contextmanager
@@ -321,7 +314,7 @@ def tracing():
     if _rec is not None:
         raise RuntimeError("tracing() is already on")
     rec = Recording()
-    before = _launch_counts()
+    before = dict(csrc_build.launch_counts)
     _rec = rec
     try:
         yield rec

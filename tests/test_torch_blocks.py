@@ -32,6 +32,7 @@ from libyafaray_tpu_torch.accel import blocks as BL
 from libyafaray_tpu_torch.accel import morton as M
 from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.scene_types import Geometry
 from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
@@ -295,17 +296,17 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version(rng, random_acc):
     acc = random_acc
     args = [T(x) for x in (acc.tab, acc.bmin, acc.bmax)
             + _rays(rng, 300)]
-    before = TL.launches
+    before = launch_counts["kernel.tile_walk.launches"]
     got = TL.tiles_traverse(*args, shadow=True)
     want = TL.tiles_traverse_ref(*args, shadow=True)
-    assert TL.launches == before
+    assert launch_counts["kernel.tile_walk.launches"] == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     # the motion arm on CPU tensors also runs the plain version
     time = torch.rand(300, generator=torch.Generator().manual_seed(0))
     got = TL.tiles_traverse(*args, tab_t1=args[0], time=time)
     want = TL.tiles_traverse_ref(*args, tab_t1=args[0], time=time)
-    assert TL.launches == before
+    assert launch_counts["kernel.tile_walk.launches"] == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     # the instancing tables go together

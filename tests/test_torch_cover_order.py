@@ -25,6 +25,7 @@ from libyafaray_tpu_torch import film as F
 from libyafaray_tpu_torch import make_integrator, render
 from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.scenes import bigmesh_builder as port_bigmesh
 from scenes import bigmesh_builder
@@ -165,12 +166,12 @@ def test_scene_any_hit_in_cover_order(rng, monkeypatch, terrain):
     _, _, _, o, d, t_min, t_max, excl = _query("terrain", rng, None, terrain)
     args = (ts, T(o), T(d), 0.0, T(t_max))
     want = I.any_hit(*args, exclude_prim=T(excl))
-    before = dict(TL.arm_launches)
+    before = dict(launch_counts)
     monkeypatch.setenv("YAF_COVER_ORDER", "1")
     got = I.any_hit(*args, exclude_prim=T(excl))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert 0.05 < got.numpy().mean() < 0.95
-    assert dict(TL.arm_launches) == before   # CPU tensors launch nothing
+    assert dict(launch_counts) == before   # CPU tensors launch nothing
 
 
 def test_textured_terrain_renders_the_same_in_cover_order(monkeypatch):

@@ -1,6 +1,8 @@
 """The port's foundations against the JAX package: the counter-based sampler
-bit for bit, the vector helpers to 1e-6, the ParamMap, and a package that
-imports and builds a scene without JAX.
+bit for bit, the vector helpers to 1e-6, the ParamMap, a package that
+imports and builds a scene without JAX, and the one boundary between the
+kernels' wrappers and their C entry points (`csrc_build`: the device rule,
+the launch call and its counter).
 
 Inputs are made with numpy from a seed and fed to both packages.
 """
@@ -17,6 +19,7 @@ import torch
 from libyafaray_tpu import params as JP
 from libyafaray_tpu import sampler as JS
 from libyafaray_tpu.math import vec as JV
+from libyafaray_tpu_torch import csrc_build
 from libyafaray_tpu_torch import params as TP
 from libyafaray_tpu_torch import sampler as TS
 from libyafaray_tpu_torch.math import vec as TV
@@ -247,3 +250,58 @@ def test_no_module_of_the_port_names_jax():
                         mod = words[1].split(".")[0]
                         assert mod not in ("jax", "flax", "libyafaray_tpu"), \
                             f"{name}: {line.strip()}"
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", "meta"])
+def test_the_device_rule_picks_the_plain_version_or_the_kernel(device):
+    """A CPU device runs the plain version (`on_card` False), a CUDA device
+    the kernel (True; a device, no card needed); any other device raises
+    with today's text. `card`, for a kernel with no plain version, takes a
+    CUDA device alone."""
+    dev = torch.device(device)
+    if device == "meta":
+        with pytest.raises(ValueError, match="^wrap: no kernel for device "
+                                             "meta$"):
+            csrc_build.on_card("wrap", dev)
+    else:
+        assert csrc_build.on_card("wrap", dev) is (device == "cuda")
+    if device == "cuda":
+        assert csrc_build.card("wrap", device) == dev
+    else:
+        with pytest.raises(ValueError, match=f"^wrap: no kernel for device "
+                                             f"{device}$"):
+            csrc_build.card("wrap", dev)
+
+
+class _Stream:
+    cuda_stream = 7
+
+
+def test_a_launch_counts_what_ran_and_raises_on_an_error(monkeypatch):
+    """The launch call passes the stream last, counts a launch (and its
+    arm) only when the entry returns 0, raises with the kernel's name on
+    another code, and with check=False returns the code uncounted; on a
+    device other than CUDA it raises before calling the entry. A fake
+    entry stands in for the kernel."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
+    monkeypatch.setattr(csrc_build, "launch_counts",
+                        csrc_build.launch_counts.copy())
+    calls, codes = [], [0, 0, 2, 3]
+
+    def fake(*args):
+        calls.append(args)
+        return codes.pop(0)
+
+    name = "kernel.fake.launches"
+    assert csrc_build.launch("fake", fake, "cuda", 1, None) == 0
+    assert csrc_build.launch("fake", fake, "cuda", 2, arm="static") == 0
+    assert calls == [(1, None, 7), (2, 7)]
+    with pytest.raises(RuntimeError, match=r"^fake kernel launch failed "
+                                           r"\(CUDA error 2\)$"):
+        csrc_build.launch("fake", fake, "cuda", 3, arm="static")
+    assert csrc_build.launch("fake", fake, "cuda", 4, check=False) == 3
+    with pytest.raises(ValueError, match="^fake: no kernel for device cpu$"):
+        csrc_build.launch("fake", fake, "cpu", 5)
+    assert len(calls) == 4 and not codes
+    assert csrc_build.launch_counts[name] == 2
+    assert csrc_build.launch_counts[name + ".static"] == 1

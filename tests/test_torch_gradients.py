@@ -42,7 +42,8 @@ from libyafaray_tpu.ops import surface as JS
 from libyafaray_tpu.render import render as jrender
 from libyafaray_tpu.scene_types import MAT_GLOSSY
 from libyafaray_tpu_torch import film as F
-from libyafaray_tpu_torch import make_integrator, make_train_step, render
+from libyafaray_tpu_torch import csrc_build, make_integrator, make_train_step
+from libyafaray_tpu_torch import render
 from libyafaray_tpu_torch.convert import scene_from_numpy
 from libyafaray_tpu_torch.integrators.mc import integrate
 from libyafaray_tpu_torch.materials import bsdf as B
@@ -239,19 +240,20 @@ def test_take_grad_layout_fits_a_block(cols):
 def test_take_grad_on_the_cpu_is_onehot_grad(rng, monkeypatch):
     """A CPU tensor takes the plain version, onehot_grad, and never the
     kernel; take's backward reduces through it."""
-    def refuse():
+    def refuse(*_):
         raise AssertionError("the kernel's library was asked for")
-    monkeypatch.setattr(FG, "_launcher", refuse)
+    monkeypatch.setattr(csrc_build, "entry", refuse)
     idx = T(rng.integers(0, 7, 300)).long()
     g = T(rng.random((300, 3)).astype(np.float32))
-    before = FG.launches
+    before = csrc_build.launch_counts["kernel.take_grad.launches"]
     assert torch.equal(FG.take_grad(idx, g, 7), FG.onehot_grad(idx, g, 7))
     calls, real = [], FG.onehot_grad
     monkeypatch.setattr(FG, "onehot_grad",
                         lambda *a: calls.append(a) or real(*a))
     leaf = torch.zeros((7, 3), requires_grad=True)
     FG.take(leaf, idx).backward(g)
-    assert len(calls) == 1 and FG.launches == before
+    assert len(calls) == 1
+    assert csrc_build.launch_counts["kernel.take_grad.launches"] == before
     assert torch.equal(leaf.grad, real(idx, g, 7))
 
 

@@ -42,6 +42,7 @@ from libyafaray_tpu_torch import scene_types as ST
 from libyafaray_tpu_torch import scenes as PS
 from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.ops import surface as S
 from test_torch_foundations import one_torch_thread  # noqa: F401
@@ -320,10 +321,10 @@ def test_forest_render_matches_jax(monkeypatch):
     cfg = {"type": "pathtracing", "bounces": 2}
     want = np.asarray(JF.resolve(jrender(js, jmake_integrator(cfg), RES, RES,
                                          spp=1)))
-    before = dict(TL.arm_launches)
+    before = dict(launch_counts)
     img = F.resolve(render(ts, make_integrator(cfg), spp=1,
                            device="cpu")).numpy()
-    assert dict(TL.arm_launches) == before  # CPU tensors never launch
+    assert dict(launch_counts) == before  # CPU tensors never launch
     _assert_images_close(img, want)
     assert 0.1 < img[..., 3].mean() < 0.9
 

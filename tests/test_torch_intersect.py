@@ -21,6 +21,7 @@ from libyafaray_tpu.ops import intersect as JI
 from libyafaray_tpu_torch.accel import mt_intersect as MT
 from libyafaray_tpu_torch.accel import spheres as SP
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.ops import intersect as TI
 from scenes import cornell_builder
 from test_torch_foundations import one_torch_thread  # noqa: F401
@@ -162,10 +163,10 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version(rng):
     v0, v1, v2, vis = _tris(rng, 64)
     tab = MT.pack_tris(T(v0), T(v1), T(v2), T(vis))
     args = [T(a) for a in _rays(rng, 500)]
-    before = MT.launches
+    before = launch_counts["kernel.mt_closest.launches"]
     got = MT.mt_closest(tab, *args, shadow=True)
     want = MT.mt_closest_ref(tab, *args, shadow=True)
-    assert MT.launches == before == 0
+    assert launch_counts["kernel.mt_closest.launches"] == before == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

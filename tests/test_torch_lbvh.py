@@ -2,16 +2,15 @@
 slice completed them: the LBVH (`scene_accelerator: "bvh"`: the Karras
 build, the refit, the per-ray stack walk with its 48 slots, the static and
 motion arms, a render), the brute-force path above 16,384 faces, instances
-of spheres and curves, the prepass's SUPER and CAND_K branches, and the
-block query against the JAX package's `_query_chunk` route.
+of spheres and curves, and the block query against the JAX package's
+`_query_chunk` route.
 
 The JAX walk is a jitted vmap of a while loop (`_traverse_batch`), compiled
 once per module for each variant used here: closest, any and motion (and
 once more for each of the two small fault scenes).
 
 Tolerances, and why:
-  * the LBVH's node tables and `prim_order`, the SUPER / CAND_K candidate
-    lists (blocks, entry keys, order, counts) and the compiled sphere
+  * the LBVH's node tables and `prim_order` and the compiled sphere
     tables: equal (the same integer and min / max steps, no rounding
     between them);
   * walks: prim ids equal on at least 99.9% of rays, t within rtol 1e-5
@@ -41,7 +40,6 @@ import torch
 from libyafaray_tpu import SceneBuilder as JSceneBuilder
 from libyafaray_tpu import film as JF
 from libyafaray_tpu import make_integrator as jmake_integrator
-from libyafaray_tpu.accel import blocks as JB
 from libyafaray_tpu.accel import lbvh as LB_J
 from libyafaray_tpu.accel import tiles as JT
 from libyafaray_tpu.ops import intersect as JI
@@ -52,13 +50,11 @@ from libyafaray_tpu_torch import film as F
 from libyafaray_tpu_torch import scenes as PS
 from libyafaray_tpu_torch.accel import lbvh as LB
 from libyafaray_tpu_torch.accel import mt_intersect as MT
-from libyafaray_tpu_torch.accel import tiles as TL
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.ops import intersect as I
 from libyafaray_tpu_torch.scene_types import BVH
 from scenes import cornell_builder
-from test_pallas_intersect import _random_geom
-from test_torch_blocks import _rays as _block_rays
 from test_torch_foundations import one_torch_thread  # noqa: F401
 from test_torch_motion import _cloud
 from test_torch_motion import _rays as _cloud_rays
@@ -445,9 +441,10 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version(rng, pairs,
     ref = LB.lbvh_traverse_ref
     monkeypatch.setattr(LB, "lbvh_traverse_ref",
                         lambda *a, **k: calls.append(1) or ref(*a, **k))
-    before = LB.launches
+    before = launch_counts["kernel.lbvh_traverse.launches"]
     got = LB.lbvh_traverse(ts.bvh, ts.geom, *args)
-    assert calls == [1] and LB.launches == before
+    assert calls == [1]
+    assert launch_counts["kernel.lbvh_traverse.launches"] == before
     for a, b in zip(got, ref(ts.bvh, ts.geom, *args)):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="no kernel"):
@@ -572,40 +569,6 @@ def test_instanced_tables_match_jax(instanced, kind):
     assert (g.face_vis[base:] == 3).all()
 
 
-@pytest.fixture(scope="module")
-def blocks24():
-    """The JAX package's block tables of 3,000 random triangles (24 blocks
-    of 128) and rays in tiles of 128 (the first tile dead)."""
-    acc = jax.jit(JB.build_blocks)(_random_geom(np.random.default_rng(5),
-                                                3000))
-    o, d, t_min, t_max, _ = _block_rays(np.random.default_rng(6), 2048)
-    t_max[:128] = -1.0
-    return acc, (o, d, t_min, t_max)
-
-
-@pytest.mark.parametrize("branch", [("SUPER", 4), ("CAND_K", 8)],
-                         ids=["super4", "cand_k8"])
-def test_prepass_branches_match_jax(blocks24, monkeypatch, branch):
-    """SUPER (the exact test on superblocks of 4, refined by each block's
-    interval test) and CAND_K (the exact test on each tile's 8 nearest of
-    24 blocks by the interval key): the same lists as the JAX prepass with
-    the same module constant. Either turns the cover order off, as in JAX."""
-    acc, rays = blocks24
-    name, value = branch
-    monkeypatch.setattr(JT, name, value)
-    monkeypatch.setattr(TL, name, value)
-    cand, ent, count = jax.jit(JT.tile_candidates)(acc.bmin, acc.bmax, *rays)
-    c, e, n = TL.tile_candidates(T(acc.bmin), T(acc.bmax),
-                                 *(T(x) for x in rays))
-    np.testing.assert_array_equal(n.numpy(), np.asarray(count)[:, 0])
-    np.testing.assert_array_equal(c.numpy(), np.asarray(cand))
-    np.testing.assert_array_equal(e.numpy(), np.asarray(ent))
-    monkeypatch.setenv("YAF_COVER_ORDER", "1")
-    assert not TL.cover_order_on(True, 24)
-    monkeypatch.setattr(TL, name, 1 if name == "SUPER" else 0)
-    assert TL.cover_order_on(True, 24)
-
-
 @pytest.mark.parametrize("scene", ["static", "motion"])
 def test_block_query_matches_query_chunk(rng, monkeypatch, scene):
     """The port's block query (the ray sort, the prepass and the tile walk's
@@ -648,10 +611,10 @@ def test_bvh_render_matches_jax(pairs):
     cfg = {"type": "pathtracing", "bounces": 2}
     want = np.asarray(JF.resolve(jrender(js, jmake_integrator(cfg), RES, RES,
                                          spp=1)))
-    before = LB.launches
+    before = launch_counts["kernel.lbvh_traverse.launches"]
     img = F.resolve(render(ts, make_integrator(cfg), spp=1,
                            device="cpu")).numpy()
-    assert LB.launches == before
+    assert launch_counts["kernel.lbvh_traverse.launches"] == before
     assert img.shape == want.shape == (RES, RES, 4)
     assert np.isfinite(img).all()
     close = np.isclose(img, want, rtol=1e-4, atol=1e-4).reshape(-1, 4)

@@ -17,6 +17,7 @@ import torch
 
 from libyafaray_tpu_torch import make_integrator, render
 from libyafaray_tpu_torch.accel import tiles as TL
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.scenes import bigmesh_builder
 
 pytestmark = pytest.mark.card
@@ -68,9 +69,9 @@ def _boxes_and_rays(cuda, c, tiles, size, seed):
 
 def _equal(args, cover):
     """The kernel's lists (one launch) equal the plain version's."""
-    before = TL.cand_launches
+    before = launch_counts["kernel.tile_candidates.launches"]
     got = TL.tile_candidates(*args, any_hit=cover)
-    assert TL.cand_launches == before + 1
+    assert launch_counts["kernel.tile_candidates.launches"] == before + 1
     want = TL.tile_candidates_ref(*args, any_hit=cover)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -33,6 +33,7 @@ from libyafaray_tpu_torch import make_integrator, render
 from libyafaray_tpu_torch.accel import mt_intersect as MT
 from libyafaray_tpu_torch.cameras import shoot_rays
 from libyafaray_tpu_torch.convert import scene_from_numpy
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.integrators.mc import integrate
 from libyafaray_tpu_torch.materials import bsdf as B
 from libyafaray_tpu_torch.ops import intersect as I
@@ -235,9 +236,10 @@ def test_render_matches_jax(cornell, jax_image):
     """16x16, 2 spp, 3 bounces through both packages' render()."""
     _, ts = cornell
     cfg = make_integrator({"type": "pathtracing", "bounces": BOUNCES})
-    before = MT.launches
+    before = launch_counts["kernel.mt_closest.launches"]
     img = F.resolve(render(ts, cfg, RES, RES, spp=SPP, device="cpu")).numpy()
-    assert MT.launches == before      # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernel
+    assert launch_counts["kernel.mt_closest.launches"] == before
     assert img.shape == jax_image.shape == (RES, RES, 4)
     assert np.isfinite(img).all()
     _assert_mostly_close(img.reshape(-1, 4), jax_image.reshape(-1, 4))
@@ -281,10 +283,11 @@ def test_terrain_render_matches_jax():
     cfg = {"type": "pathtracing", "bounces": 2}
     want = np.asarray(JF.resolve(jrender(js, jmake_integrator(cfg), res, res,
                                          spp=1)))
-    before = TL.launches
+    before = launch_counts["kernel.tile_walk.launches"]
     img = F.resolve(render(ts, make_integrator(cfg), spp=1,
                            device="cpu")).numpy()
-    assert TL.launches == before      # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernel
+    assert launch_counts["kernel.tile_walk.launches"] == before
     assert img.shape == want.shape == (res, res, 4)
     assert np.isfinite(img).all()
     _assert_mostly_close(img.reshape(-1, 4), want.reshape(-1, 4))

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from libyafaray_tpu_torch import make_integrator, make_train_step
+from libyafaray_tpu_torch.csrc_build import launch_counts
 from libyafaray_tpu_torch.ops import fast_grad as FG
 from libyafaray_tpu_torch.scenes import caustic_grad_builder
 from libyafaray_tpu_torch.utils import profiling as PF
@@ -96,16 +97,23 @@ def _inputs(rows, cols, lanes, spread, seed, dev):
 def test_kernel_holds_the_float64_sums(cuda, rows, spread):
     """Every column count and lane count of the grid: normal gradients
     within the bound, integer ones exact, the same bits twice, one
-    reduction a call (the wrapper's launch counter)."""
+    reduction a call (the wrapper's launch counter), of the kernels the
+    layout asks for (two when it splits the lanes over blocks), as the C
+    entry reports them."""
     for cols in COLS:
         for lanes in LANES:
             what = f"{rows} rows, {cols} columns, {lanes} lanes, {spread}"
             idx, normal, whole = _inputs(rows, cols, lanes, spread,
                                          rows * 7919 + cols * 31 + lanes, cuda)
-            before = FG.launches
+            before = launch_counts["kernel.take_grad.launches"]
+            kernels = launch_counts["kernel.take_grad.kernels"]
             got = FG.take_grad(idx, normal, rows)
             again = FG.take_grad(idx, normal, rows)
-            assert FG.launches == before + 2
+            assert launch_counts["kernel.take_grad.launches"] == before + 2
+            blocks = FG.take_grad_layout(rows, cols, lanes,
+                                         FG._sm_count(cuda))[1]
+            assert (launch_counts["kernel.take_grad.kernels"] - kernels
+                    == 2 * (2 if blocks > 1 else 1)), what
             assert got.shape == (rows,) + normal.shape[1:]
             assert got.dtype == torch.float32
             assert torch.equal(got, again), f"{what}: two calls differ"

@@ -2,15 +2,17 @@
 `count`, `host_sync`, `host_read`): nesting and parents, nothing recorded
 and no profiler range entered with tracing off, the spans in a chrome
 trace with the same nesting, device counts read once when `tracing()`
-exits, host syncs counted by site, the layers' spans and counts of a tiny
-render and train step, and the LBVH packed once per `render()` call.
-CPU only, tiny scenes."""
+exits, host syncs counted by site, the kernels' launches read from the
+one counter, the layers' spans and counts of a tiny render and train step,
+and the LBVH packed once per `render()` call. CPU only, tiny scenes."""
+import ast
 import json
 
 import pytest
 import torch
 
-from libyafaray_tpu_torch import make_integrator, make_train_step, render
+from libyafaray_tpu_torch import csrc_build, make_integrator, make_train_step
+from libyafaray_tpu_torch import render
 from libyafaray_tpu_torch.accel import lbvh as LB
 from libyafaray_tpu_torch.scenes import bigmesh_builder, cornell_builder
 from libyafaray_tpu_torch.utils import profiling as PF
@@ -135,6 +137,33 @@ def test_device_counts_are_read_once_when_tracing_exits(monkeypatch):
         assert "dev.a" not in rec.counts and rec.counts["host"] == 6
     assert reads == [(2,)]
     assert rec.counts["dev.a"] == 6 and rec.counts["dev.b"] == 3
+
+
+def test_launches_reach_the_recording_from_the_one_counter(monkeypatch):
+    """A launch counted in csrc_build's counter inside `tracing()` reaches
+    the recording under its own name, arms too; one outside it does not;
+    and `utils/profiling` imports no module of `accel/` or `ops/`."""
+    monkeypatch.setattr(csrc_build, "launch_counts",
+                        csrc_build.launch_counts.copy())
+    counts = csrc_build.launch_counts
+    counts["kernel.fake.launches"] += 5
+    with PF.tracing() as rec:
+        counts["kernel.fake.launches"] += 2
+        counts["kernel.fake.launches.static"] += 1
+    counts["kernel.fake.launches"] += 1
+    assert rec.counts["kernel.fake.launches"] == 2
+    assert rec.counts["kernel.fake.launches.static"] == 1
+    with open(PF.__file__) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] + [a.name for a in node.names]
+        elif isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        else:
+            continue
+        for mod in mods:
+            assert not {"accel", "ops"} & set(mod.split(".")), mod
 
 
 def test_host_syncs_are_counted_by_site():

@@ -76,8 +76,9 @@ def main() -> int:
                   f"{threads} threads a block, {blocks} resident blocks "
                   f"per SM")
         csrc_build._libs["mt_intersect"] = ctypes.CDLL(paths[name][0])
-        MT._fn = None
-        fns[name] = MT._launcher()
+        csrc_build._entries.pop("mt_closest_launch", None)
+        fns[name] = csrc_build.entry("mt_intersect", "mt_closest_launch",
+                                     MT.C_ARGS)
     names = [s[0] for s in specs]
 
     cornell_hd, cubes_hd = C.hd_scenes()
@@ -89,7 +90,7 @@ def main() -> int:
     for label, a, k in checks:
         want = MT.mt_closest_ref(*a, **k)
         for name in names:
-            MT._fn = fns[name]
+            csrc_build._entries["mt_closest_launch"] = fns[name]
             C._compare(f"{name} {label}", MT.mt_closest(*a, **k), want, 0.0,
                        phase="-", exact=True)
     del checks
@@ -99,7 +100,7 @@ def main() -> int:
         live, rows, bound_ms, by = C.mt_bound(a, k)
         ms = {n: [] for n in names}
         for name in names + names[::-1]:
-            MT._fn = fns[name]
+            csrc_build._entries["mt_closest_launch"] = fns[name]
             ms[name].append(C._cuda_ms(lambda: MT.mt_closest(*a, **k), REPS))
         cells = " | ".join(
             f"{sum(ms[n]) / 2:.4f} ({100 * bound_ms * 2 / sum(ms[n]):.1f}%)"
@@ -109,7 +110,7 @@ def main() -> int:
     cfg = make_integrator({"type": "pathtracing", "bounces": C.BOUNCES})
     passes = {n: [] for n in names}
     for name in names + names[::-1]:
-        MT._fn = fns[name]
+        csrc_build._entries["mt_closest_launch"] = fns[name]
         render(cornell_hd, cfg, spp=1)          # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -120,7 +121,7 @@ def main() -> int:
           f"{PASSES} passes): " + ", ".join(
               f"{n} {' / '.join(f'{x:.2f}' for x in passes[n])}"
               for n in names))
-    MT._fn = None
+    csrc_build._entries.pop("mt_closest_launch", None)
     csrc_build._libs.pop("mt_intersect", None)
     return 0
 

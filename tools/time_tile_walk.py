@@ -181,8 +181,9 @@ def main() -> int:
                   f"{threads} threads a block, {blocks} resident blocks "
                   f"per SM")
         csrc_build._libs["tiles_traverse"] = ctypes.CDLL(paths[name][0])
-        TL._fn = None
-        fns[name] = TL._launcher()
+        csrc_build._entries.pop("tiles_traverse_launch", None)
+        fns[name] = csrc_build.entry("tiles_traverse",
+                                     "tiles_traverse_launch", TL.WALK_C_ARGS)
     names = [s[0] for s in specs]
 
     queries = _queries()
@@ -194,7 +195,7 @@ def main() -> int:
             continue
         want = TL.tile_walk_ref(*prep, **kw)
         for name in names:
-            TL._fn = fns[name]
+            csrc_build._entries["tiles_traverse_launch"] = fns[name]
             got = TL.tile_walk(*prep, **kw)
             torch.cuda.synchronize()
             if kw.get("any_hit"):
@@ -208,19 +209,19 @@ def main() -> int:
     header = " | ".join(f"{n} ms (share)" for n in names)
     print(f"query | pair tests | bound ms | {header}")
     for label, prep, kw in queries:
-        TL._fn = fns[names[0]]
+        csrc_build._entries["tiles_traverse_launch"] = fns[names[0]]
         got = TL.tile_walk(*prep, **kw)
         pairs, bound_ms, _ = C._walk_bound(prep, got, kw)
         ms = {n: [] for n in names}
         for name in names + names[::-1]:
-            TL._fn = fns[name]
+            csrc_build._entries["tiles_traverse_launch"] = fns[name]
             ms[name].append(C._cuda_ms(lambda: TL.tile_walk(*prep, **kw),
                                        REPS))
         cells = " | ".join(
             f"{sum(ms[n]) / 2:.4f} ({100 * bound_ms * 2 / sum(ms[n]):.1f}%)"
             for n in names)
         print(f"{label} | {pairs} | {bound_ms:.4f} | {cells}")
-    TL._fn = None
+    csrc_build._entries.pop("tiles_traverse_launch", None)
     csrc_build._libs.pop("tiles_traverse", None)
     return 0
 
